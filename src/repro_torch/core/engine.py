@@ -1,0 +1,494 @@
+"""PipeServe-Engine on PyTorch — disaggregated prefill/decode execution
+(paper §3.4, Alg 1 & 3); a port of the dense path of ``repro.core.engine``.
+
+One :class:`StreamPair` = a prefill lane + a decode lane sharing one device;
+the decode lane runs continuous batching over ``max_batch`` slots with
+SpecuStream-governed speculative flows.  The shape discipline of the JAX
+engine carries over, because it is what will let CUDA graphs capture a fixed
+set of shapes:
+
+* **Bucketed prefill** — prompts are right-padded to power-of-two length
+  buckets and queued admissions fuse into one prefill call per tick.
+* **Depth-bucketed verify** — the draft is padded to the smallest
+  ``verify_buckets`` member >= the depth; ``verify_tokens`` masks the pad.
+* **Preallocated device state** — the batched decode cache is allocated once
+  and updated in place (where JAX donated it); ``pending`` next-tokens live
+  on the device; ``admit`` and ``decode_iteration`` each make ONE bulk
+  device->host copy.
+
+Chunked prefill, paged KV, the model draft and StreamTrace recording raise
+``NotImplementedError`` naming their ROADMAP item.  The engine is
+single-controller and deterministic given the request trace.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.api.registry import resolve_draft, resolve_router, resolve_spec_policy
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.metrics import PerformanceMonitor, RequestRecord
+from repro_torch.core.scheduler import StreamScheduler
+from repro_torch.core.specustream import VERIFY_BUCKETS, SlotSignals, pad_to_bucket
+from repro_torch.models import build_model
+from repro_torch.obs.spans import request_phases
+from repro_torch.serving.cost_model import H100_SXM, HardwareProfile, PrefillDelayEstimator
+from repro_torch.serving.draft import DraftContext
+from repro_torch.serving.kv_cache import KVCacheManager
+from repro_torch.serving.request import Request, RequestState
+from repro_torch.serving.sampling import sample
+from repro_torch.serving.speculative import verify_tokens
+
+
+def resolve_device(device=None):
+    """``None`` means the card.  Without CUDA that raises: the CPU is chosen
+    explicitly (``device="cpu"``), never fallen back to."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available on this machine; pass "
+                           "device='cpu' to run the port on the CPU")
+    return dev
+
+
+def _terminal_record(req, now, kv_evicted=False,
+                     cancelled=False):
+    """Terminal RequestRecord (finish or cancel) with SLO and phase fields."""
+    depths = req.spec_depths
+    queued, prefill, decode, stall = request_phases(req)
+    return RequestRecord(
+        request_id=req.request_id, t_start=req.arrival_time, t_end=now,
+        prompt_len=req.prompt_len, generated=len(req.output_tokens),
+        token_times=list(req.token_times), worker_id=req.worker_id,
+        kv_evicted=kv_evicted, kv_requeued=req.kv_requeued,
+        slo_ttft=req.slo_ttft, slo_tpot=req.slo_tpot, cancelled=cancelled,
+        mean_depth=sum(depths) / len(depths) if depths else 0.0,
+        phase_queued=queued, phase_prefill=prefill, phase_decode=decode,
+        phase_stall=stall,
+    )
+
+
+def _pow2_buckets(lo, hi):
+    """Power-of-two shape buckets from ``lo`` up to (and including) ``hi``."""
+    out, b = [], max(lo, 1)
+    while b < hi:
+        out.append(b)
+        b *= 2
+    return (*out, hi)
+
+
+def _bucket(n, buckets):
+    """Smallest bucket >= n (n itself when oversize: correctness first)."""
+    return next((b for b in buckets if b >= n), n)
+
+
+class ModelLane:
+    """A model, its per-slot batched decode cache and the step helpers.
+
+    The cache is preallocated and every step updates it in place; callers
+    treat ``self.cache`` as the only live handle.  ``calls`` counts model
+    invocations, so a run can show how many kernel launches to expect.
+    """
+
+    def __init__(self, cfg, params, max_batch, max_len, device):
+        self.model = build_model(cfg, device)
+        self.params = params
+        self.max_batch, self.max_len = max_batch, max_len
+        self.cache = self.model.init_cache(max_batch, max_len)
+        self.calls = {"prefill": 0, "decode": 0}
+
+    def prefill(self, batch):
+        self.calls["prefill"] += 1
+        return self.model.prefill(self.params, batch, self.max_len)
+
+    def insert_rows(self, slot_ids, small_cache):
+        """Copy prefill row r into decode slot ``slot_ids[r]`` (the KV
+        transfer).  Ids >= max_batch mark padded admission rows: dropped."""
+        rows = np.nonzero(slot_ids < self.max_batch)[0]
+        dev = self.cache["len"].device
+        src = torch.from_numpy(rows).to(dev)
+        dst = torch.from_numpy(slot_ids[rows].astype(np.int64)).to(dev)
+        for name, dim in (("k", 1), ("v", 1), ("kv_pos", 1), ("len", 0)):
+            self.cache[name].index_copy_(dim, dst, small_cache[name].index_select(dim, src))
+
+    def decode(self, tokens):
+        self.calls["decode"] += 1
+        return self.model.decode_step(self.params, self.cache, tokens)
+
+    def commit(self, n_new, accept_idx):
+        """Roll back the last ``n_new`` ingested tokens to ``accept_idx``."""
+        self.model.commit_cache(self.cache, self.cache["len"] - n_new, accept_idx)
+
+    def reset_cache(self):
+        self.cache = self.model.init_cache(self.max_batch, self.max_len)
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """The fields and defaults of ``repro.core.engine.EngineConfig``."""
+
+    max_batch: int = 8
+    max_len: int = 512
+    temperature: float = 0.0
+    kv_blocks: int = 4096
+    kv_block_size: int = 16
+    draft: str = "ngram"
+    max_ngram: int = 4
+    adaptive: bool = True
+    fixed_depth: int = 5
+    spec_config: Any = None
+    router: str = "flowguard"
+    router_config: Any = None
+    spec_policy: Optional[str] = None
+    prefill_buckets: bool = True
+    prefill_bucket_min: int = 16
+    admit_batch: int = 4
+    verify_buckets: Optional[Tuple[int, ...]] = VERIFY_BUCKETS
+    prefill_chunk: Optional[int] = None   # not ported yet (ROADMAP M6)
+    prefill_preempt: bool = True
+    per_row_depth: bool = True
+    slo_routing: bool = True
+    paged_kv: bool = False                # not ported yet (ROADMAP M7)
+    max_context: Optional[int] = None
+    kv_evict_policy: str = "requeue"
+    trace: str = "off"                    # recording not ported yet (ROADMAP)
+    trace_capacity: int = 4096
+    trace_dir: Optional[str] = None
+
+    def resolved_spec_policy(self):
+        if self.spec_policy is not None:
+            return self.spec_policy
+        return "specustream" if self.adaptive else "fixed"
+
+
+class StreamPair:
+    """One disaggregated prefill+decode lane pair (paper Alg 3)."""
+
+    def __init__(self, worker_id, cfg, params, econf,
+                 monitor, device):
+        self.worker_id, self.econf, self.monitor, self.device = worker_id, econf, monitor, device
+        self.lane = ModelLane(cfg, params, econf.max_batch, econf.max_len, device)
+        self.kv = KVCacheManager(econf.kv_blocks, econf.kv_block_size)
+        self.spec = resolve_spec_policy(econf.resolved_spec_policy(), config=econf.spec_config,
+                                        fixed_depth=econf.fixed_depth)
+        self.draft = resolve_draft(econf.draft, DraftContext(cfg=cfg, econf=econf))
+        self._bucketed = econf.prefill_buckets
+        self._len_buckets = _pow2_buckets(econf.prefill_bucket_min, econf.max_len)
+        self._admit_buckets = _pow2_buckets(1, max(econf.admit_batch, 1))
+        B = econf.max_batch
+        self.slot_req: List[Optional[Request]] = [None] * B
+        # device-resident pending next-token per slot (sampled, not ingested)
+        self.pending = torch.zeros(B, dtype=torch.int32, device=device)
+        self.histories: List[List[int]] = [[] for _ in range(B)]
+        self.acceptance = 0.7  # optimistic prior
+        self.gen = torch.Generator(device=device).manual_seed(worker_id)
+        self.healthy = True
+
+    def free_slots(self):
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def active_slots(self):
+        return [i for i, r in enumerate(self.slot_req) if r is not None]
+
+    @property
+    def load(self):
+        return len(self.active_slots()) / self.econf.max_batch
+
+    def admit_cap(self):
+        """How many admissions may fuse into one prefill call."""
+        return max(self.econf.admit_batch, 1) if self._bucketed else 1
+
+    def _to_dev(self, a):
+        return torch.from_numpy(a).to(self.device)
+
+    def reserve_kv(self, req):
+        """Reserve KV blocks for prompt + max_new ahead of the prefill."""
+        alloc = self.kv.allocate_sequence(req.request_id, list(req.prompt),
+                                          extra_tokens=req.params.max_new_tokens)
+        if alloc is None:
+            return False  # pool exhausted: stays queued
+        req.cache_hit_tokens = alloc.shared_blocks * self.kv.block_size
+        return True
+
+    def admit(self, reqs, now):
+        """Prefill a batch of KV-reserved requests in ONE bucketed call and
+        move their KV into free decode slots (one bulk device->host copy)."""
+        slots = self.free_slots()[: len(reqs)]
+        if len(slots) != len(reqs):
+            raise RuntimeError("admit() requires a free slot per request")
+        longest = max(len(r.prompt) for r in reqs)
+        if self._bucketed:
+            S, Bb = _bucket(longest, self._len_buckets), _bucket(len(reqs), self._admit_buckets)
+        else:  # exact shapes, one admission per call
+            S, Bb = longest, 1
+        tokens = np.zeros((Bb, S), np.int32)
+        lengths = np.ones((Bb,), np.int32)  # pad rows: 1 garbage token
+        slot_ids = np.full((Bb,), self.econf.max_batch, np.int32)  # >= max_batch: dropped
+        slot_ids[: len(reqs)] = slots
+        for i, req in enumerate(reqs):
+            req.state, req.t_prefill_start = RequestState.PREFILLING, now
+            tokens[i, : len(req.prompt)] = req.prompt
+            lengths[i] = len(req.prompt)
+        batch = {"tokens": self._to_dev(tokens), "lengths": self._to_dev(lengths)}
+        last_logits, small_cache = self.lane.prefill(batch)
+        for req in reqs:
+            req.state = RequestState.TRANSFERRING
+        self.lane.insert_rows(slot_ids, small_cache)
+        self.draft.on_admit(self, batch, slot_ids)
+        first = sample(self.gen, last_logits[: len(reqs)], self.econf.temperature)
+        self.pending[self._to_dev(np.asarray(slots, np.int64))] = first.to(torch.int32)
+        for slot, req, tok in zip(slots, reqs, first.tolist(), strict=True):  # ONE copy
+            req.state = RequestState.DECODING
+            req.t_prefill_end = req.t_first_token = now
+            req.output_tokens.append(tok)
+            req.token_times.append(now)
+            self.slot_req[slot] = req
+            self.histories[slot] = [*req.prompt, tok]
+            self.spec.reset_slot(slot)  # fresh request, fresh EMA
+
+    def decode_iteration(self, now):
+        """One continuous-batching decode step (speculative when enabled).
+        Returns the number of tokens emitted across the batch."""
+        active = self.active_slots()
+        if not active:
+            return 0
+        B = self.econf.max_batch
+        throughput = self.monitor.workers[self.worker_id].recent_throughput
+        self.spec.adapt(self.acceptance, self.load, throughput)  # advances the flow state
+        vb = self.econf.verify_buckets
+        # per-row depths: each slot picks from its own acceptance and TPOT
+        # headroom; the rows share the verify bucket >= the deepest row
+        signals = [None if r is None else SlotSignals(slo_tpot=r.slo_tpot, tpot=r.measured_tpot())
+                   for r in self.slot_req]
+        rows = np.asarray(self.spec.select_depths(signals, self.load, throughput), np.int64)
+        rows = np.minimum(rows, min(self.draft.max_depth, vb[-1]))
+        k = int(rows.max())
+        active_mask = np.zeros((B,), bool)
+        active_mask[active] = True
+        active_dev = self._to_dev(active_mask)
+
+        if k == 0:  # plain autoregressive step (its commit would be a no-op)
+            logits = self.lane.decode(self.pending[:, None])
+            nxt = sample(self.gen, logits[:, 0], self.econf.temperature).to(torch.int32)
+            self.pending = torch.where(active_dev, nxt, self.pending)
+            nxt_h = nxt.tolist()  # the ONE decode round-trip
+            return sum(self._emit(s, [nxt_h[s]], now) for s in active)
+
+        # draft proposal at the real depth k, padded to a shape bucket
+        k_pad = pad_to_bucket(k, vb)
+        draft_np, draft_q = self.draft.propose(self, k)
+        draft_np = np.pad(draft_np, ((0, 0), (0, k_pad - k)), mode="edge").astype(np.int32)
+        draft_q = np.pad(draft_q, ((0, 0), (0, k_pad - k)), constant_values=1.0)
+        depth = self._to_dev(rows.astype(np.int32))  # heterogeneous, one shape
+        for s in active:
+            self.slot_req[s].spec_depths.append(int(rows[s]))
+        # target verify step over T = k_pad + 1 tokens
+        draft_toks = self._to_dev(draft_np)
+        logits = self.lane.decode(torch.cat([self.pending[:, None], draft_toks], 1))
+        res = verify_tokens(self.gen, draft_toks, self._to_dev(draft_q.astype(np.float32)),
+                            logits, active=active_dev, temperature=self.econf.temperature,
+                            depth=depth)
+        self.lane.commit(k_pad + 1, res.accept_idx)
+        self.draft.on_commit(self, res.accept_idx, k)
+        self.pending = torch.where(active_dev, res.next_token.to(torch.int32), self.pending)
+        # the ONE decode round-trip: everything host bookkeeping needs at once
+        n_acc, nxt = torch.stack([res.n_accepted, res.next_token]).tolist()
+        # each slot's fraction of ITS OWN depth feeds the per-slot EMA; the
+        # pair-level EMA keeps the mean
+        fracs = [n_acc[s] / max(int(rows[s]), 1) for s in active]
+        for s, frac in zip(active, fracs, strict=True):
+            if rows[s] > 0:
+                self.spec.observe_slot(s, frac)
+        self.acceptance = 0.8 * self.acceptance + 0.2 * sum(fracs) / len(fracs)
+        return sum(self._emit(s, [*draft_np[s, : n_acc[s]].tolist(), nxt[s]], now)
+                   for s in active)
+
+    def _emit(self, slot, tokens, now):
+        """Host bookkeeping for one slot's freshly decoded tokens (the device
+        values were already fetched in one bulk copy upstream)."""
+        req = self.slot_req[slot]
+        granted = self.kv.extend_up_to(req.request_id, len(tokens))
+        count = 0
+        for t in tokens[:granted]:
+            if req.is_done():
+                break
+            req.output_tokens.append(t)
+            req.token_times.append(now)
+            self.histories[slot].append(t)
+            count += 1
+        # block pool ran dry mid-decode: truncate and finish gracefully
+        evicted = granted < len(tokens) and not req.is_done()
+        if req.is_done() or evicted:
+            self._finish(slot, now, kv_evicted=evicted)
+        return count
+
+    def _finish(self, slot, now, kv_evicted=False):
+        req = self.slot_req[slot]
+        req.state, req.t_end = RequestState.FINISHED, now
+        self.kv.free_sequence(req.request_id)
+        self.monitor.complete_request(_terminal_record(req, now, kv_evicted=kv_evicted))
+        self.clear_slot(slot)
+
+    def clear_slot(self, slot):
+        self.slot_req[slot] = None
+        self.histories[slot] = []
+        self.spec.reset_slot(slot)
+
+    def warmup(self, max_prompt_len=None):
+        """Run every steady-state shape once (prefill buckets, verify depths,
+        the plain step) ahead of traffic, then reset the lane.  Returns the
+        number of distinct shapes exercised."""
+        if self.active_slots():
+            raise RuntimeError("warmup() resets the decode cache; call it before serving")
+        econf, dev = self.econf, self.device
+        B = econf.max_batch
+        gen = torch.Generator(device=dev).manual_seed(0)  # must not perturb self.gen
+        n = 0
+        if self._bucketed:
+            hi = _bucket(min(max_prompt_len or econf.max_len, econf.max_len), self._len_buckets)
+            for S in (b for b in self._len_buckets if b <= hi):
+                for Bb in self._admit_buckets:
+                    logits, small = self.lane.prefill(
+                        {"tokens": torch.zeros((Bb, S), dtype=torch.int32, device=dev),
+                         "lengths": torch.full((Bb,), S, dtype=torch.int32, device=dev)})
+                    self.lane.insert_rows(np.full((Bb,), B, np.int32), small)  # all dropped
+                    sample(gen, logits, econf.temperature)
+                    n += 1
+        zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+        for d in econf.verify_buckets or ():
+            logits = self.lane.decode(torch.zeros((B, d + 1), dtype=torch.int32, device=dev))
+            verify_tokens(gen, torch.zeros((B, d), dtype=torch.int32, device=dev),
+                          torch.ones((B, d), device=dev), logits, active=zeros.bool(),
+                          temperature=econf.temperature, depth=zeros + d)
+            self.lane.commit(d + 1, zeros)
+            n += 1
+        sample(gen, self.lane.decode(zeros[:, None])[:, 0], econf.temperature)
+        self.lane.reset_cache()
+        self.pending = zeros
+        return n + 1
+
+    def publish_metrics(self, queue_depth):
+        self.monitor.update_worker(
+            self.worker_id, cache_hit_rate=self.kv.hit_rate,
+            memory_utilization=self.kv.memory_utilization, queue_depth=queue_depth,
+            active_load=self.load, acceptance_rate=self.acceptance)
+
+
+class PipeServeEngine:
+    """The StreamServe system on the PyTorch execution path (paper Alg 1).
+
+    ``device=None`` runs on the card and raises where there is none;
+    ``hardware`` is the profile SLO routing prices queued prefill with.
+    """
+
+    def __init__(self, cfg, params, n_pairs=2,
+                 econf=None, router=None, device=None,
+                 hardware=H100_SXM):
+        self.device = resolve_device(device)
+        self.econf = econf = econf or EngineConfig()
+        for bad, what in ((econf.paged_kv, "paged_kv (ROADMAP M7, with kernel K3)"),
+                          (econf.prefill_chunk, "prefill_chunk (ROADMAP M6)"),
+                          (econf.trace != "off", "StreamTrace recording (ROADMAP)"),
+                          (not (econf.per_row_depth and econf.verify_buckets),
+                           "single-depth verify (per_row_depth=False or no verify_buckets;"
+                           " ROADMAP)")):
+            if bad:
+                raise NotImplementedError(f"{what} is not ported yet")
+        if router is None or isinstance(router, str):
+            router = resolve_router(router or econf.router, config=econf.router_config)
+        self._now = 0.0
+        self.monitor = PerformanceMonitor(n_pairs, clock=lambda: self._now)
+        self.pairs = [StreamPair(i, cfg, params, econf, self.monitor, self.device)
+                      for i in range(n_pairs)]
+        # SLO routing prices queued prefill work in engine ticks via the cost
+        # model, so TTFT slack is comparable with slo_ttft deadlines
+        estimator = PrefillDelayEstimator(cfg, hw=hardware, max_batch=econf.max_batch,
+                                          mean_context=max(econf.max_len // 2, 1))
+        self.scheduler = StreamScheduler(
+            n_pairs, router, self.monitor, slo_routing=econf.slo_routing,
+            delay_estimator=estimator.ticks if econf.slo_routing else None)
+
+    def submit(self, req):
+        return self.scheduler.submit(req, self._now)
+
+    def cancel(self, request_id):
+        """Cancel a request that is queued or mid-decode.  Returns True if it
+        was found and cancelled, False if unknown or already done."""
+        req = self.scheduler.cancel(request_id)
+        for pair in self.pairs:
+            for slot, occupant in enumerate(pair.slot_req):
+                if req is None and occupant is not None and occupant.request_id == request_id:
+                    req = occupant
+                    pair.kv.free_sequence(request_id)
+                    pair.clear_slot(slot)
+        if req is None:
+            return False
+        req.state, req.t_end = RequestState.CANCELLED, self._now
+        self.monitor.complete_request(_terminal_record(req, self._now, cancelled=True))
+        return True
+
+    def fail_worker(self, worker_id):
+        """Simulate a node failure: drop the pair and re-route its queued and
+        in-flight work (in-flight restarts from scratch)."""
+        pair = self.pairs[worker_id]
+        pair.healthy = False
+        rerouted = self.scheduler.mark_unhealthy(worker_id, self._now)
+        for slot in pair.active_slots():
+            req = pair.slot_req[slot]
+            pair.kv.free_sequence(req.request_id)
+            pair.clear_slot(slot)
+            req.output_tokens.clear()
+            req.token_times.clear()
+            req.spec_depths.clear()
+            req.state = RequestState.QUEUED
+            # FAILED with a terminal record when this was the last worker
+            rerouted += self.scheduler.resubmit_or_fail(req, self._now)
+        return rerouted
+
+    def step(self):
+        """One engine tick: admit + decode on every healthy pair."""
+        self._now += 1.0  # logical time: one tick per step
+        emitted = 0
+        for pair in (p for p in self.pairs if p.healthy):
+            wid = pair.worker_id
+            # stall-free admission: fill free slots from the queue, fusing up
+            # to admit_cap() reserved requests into one bucketed prefill call
+            while True:
+                batch: List[Request] = []
+                blocked = False
+                while len(batch) < min(len(pair.free_slots()), pair.admit_cap()):
+                    req = self.scheduler.next_for_prefill(wid, self._now)
+                    if req is None:
+                        break
+                    if not pair.reserve_kv(req):
+                        self.scheduler.prefill_queues[wid].appendleft(req)
+                        blocked = True
+                        break
+                    batch.append(req)
+                if batch:
+                    pair.admit(batch, self._now)
+                if blocked or not batch:
+                    break
+            n = pair.decode_iteration(self._now)
+            emitted += n
+            self.monitor.record_tokens(wid, n, self._now)
+            pair.publish_metrics(self.scheduler.queue_depth(wid))
+        return emitted
+
+    def drained(self):
+        """True when nothing is queued or decoding."""
+        return self.scheduler.pending_total() == 0 and all(
+            not p.active_slots() for p in self.pairs if p.healthy)
+
+    def run_until_done(self, max_steps=10_000):
+        for _ in range(max_steps):
+            if self.drained():
+                return
+            self.step()
+        raise RuntimeError("engine did not drain within max_steps")
+
+    def warmup(self, max_prompt_len=None):
+        """Run every shape bucket on every healthy pair ahead of traffic."""
+        return sum(pair.warmup(max_prompt_len) for pair in self.pairs if pair.healthy)

@@ -1,0 +1,99 @@
+"""Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exports one plain C function and is compiled on its
+own into ``build/kernels/<name>-<hash>.so`` at the repository root the first
+time a kernel is needed; the hash covers the source and the flags, so an
+edited source is rebuilt.  ``build_all`` starts one nvcc per source at once.
+Nothing here runs at import time: this module imports on machines without
+the CUDA toolkit, and only a call that launches a kernel needs nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+KERNELS = ("decode_attention", "flash_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc():
+    """Path of nvcc: $CUDA_HOME/bin, /usr/local/cuda/bin, then $PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                           "the CUDA toolkit is installed")
+    return found
+
+
+def library_path(name):
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_all(names=KERNELS):
+    """Compile every named source that is not built yet, all nvcc processes
+    running at once.  Returns each compiled kernel's compiler log (ptxas
+    register and shared-memory report); raises if any compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: library_path(n) for n in names if not library_path(n).exists()}
+    procs = {}
+    for name, lib in todo.items():
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def check_inputs(kernel, q, floats, ints=()):
+    """Refuse what a kernel cannot take: every tensor contiguous on q's CUDA
+    device, the float tensors all float32 or all bfloat16, the int tensors
+    int32.  Returns the kernel's dtype code (0 = float32, 1 = bfloat16)."""
+    for t in (q, *floats, *ints):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{kernel}: every tensor must be on q's CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: every tensor must be contiguous")
+    codes = {"torch.float32": 0, "torch.bfloat16": 1}
+    if str(q.dtype) not in codes or any(t.dtype != q.dtype for t in floats):
+        raise TypeError(f"{kernel}: q, k and v must all be float32 or all bfloat16")
+    if any(str(t.dtype) != "torch.int32" for t in ints):
+        raise TypeError(f"{kernel}: lengths and positions must be int32")
+    return codes[str(q.dtype)]
+
+
+def load(name, argtypes):
+    """The C entry point ``name`` from ``csrc/<name>.cu``, built if needed,
+    with its argument types declared (pointers and the stream as c_void_p)."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return getattr(lib, name)

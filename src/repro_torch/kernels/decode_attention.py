@@ -1,0 +1,57 @@
+"""Decode attention: the CUDA kernel's wrapper and its plain version.
+
+The kernel (``csrc/decode_attention.cu``) replaces the TPU kernel
+``repro.kernels.decode_attention.decode_attention_pallas``: flash-decode of
+T new tokens (1 for decode, depth+1 for verify) against a dense or ring KV
+cache with positional masking from ``kv_positions``.  Its source note gives
+the bound (bytes: the K/V cache read) and the design.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                                         ctypes.c_void_p]
+
+# The plain version: what the kernel computes, in PyTorch.
+decode_attention_plain = ref.decode_attention
+
+
+def decode_attention_cuda(q, k_cache, v_cache, cache_len, *, kv_positions=None,
+                          window=None,
+                          scale=None):
+    """Launch the kernel on the current stream; returns (B, T, H, D) in q's dtype.
+
+    q (B, T, H, D); k/v_cache (B, S, K, D) of q's dtype; cache_len (B,) int32
+    (the T new tokens included); kv_positions (B, S) int32, or None for a
+    dense cache whose slot i holds position i while i < cache_len.
+    """
+    B, T, H, D = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    if kv_positions is None:
+        pos = torch.arange(S, dtype=torch.int32, device=q.device)[None]
+        kv_positions = torch.where(pos < cache_len[:, None], pos, -1).to(torch.int32)
+    dtype = build.check_inputs("decode_attention", q, (k_cache, v_cache),
+                               (cache_len, kv_positions))
+    if (k_cache.shape != v_cache.shape or k_cache.shape[::3] != (B, D) or H % K
+            or D not in (32, 64, 128) or cache_len.shape != (B,)
+            or kv_positions.shape != (B, S)):
+        raise ValueError(f"decode_attention: unsupported shapes q{tuple(q.shape)} "
+                         f"kv{tuple(k_cache.shape)} (head_dim must be 32, 64 or 128)")
+    out = torch.empty_like(q)
+    err = build.load("decode_attention", _ARGTYPES)(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
+        kv_positions.data_ptr(), out.data_ptr(), B, T, H, K, D, S,
+        -1 if window is None else window, D ** -0.5 if scale is None else scale, dtype,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
+    decode_attention_cuda.launches += 1
+    return out
+
+
+decode_attention_cuda.launches = 0

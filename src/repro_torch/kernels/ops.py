@@ -1,0 +1,36 @@
+"""Public kernel API with device dispatch.
+
+A tensor on the CPU goes to the plain PyTorch version; a tensor on a CUDA
+device goes to the hand-written kernel, and the call raises if the kernel
+cannot take it.  There is no fallback and no switch.
+"""
+from __future__ import annotations
+
+
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+
+
+def flash_attention(q, k, v, *, causal=True, window=None,
+                    q_offset=0, scale=None):
+    """Prefill attention; see ``ref.flash_attention`` for shapes."""
+    if q.device.type == "cpu":
+        return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                        q_offset=q_offset, scale=scale)
+    return fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, kv_positions=None,
+                     window=None, scale=None,
+                     causal=True):
+    """Decode-step attention of T new tokens against a KV cache."""
+    if q.device.type == "cpu":
+        return da.decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                         kv_positions=kv_positions, window=window,
+                                         scale=scale, causal=causal)
+    if not causal:
+        raise NotImplementedError("cross attention has no CUDA kernel yet "
+                                  "(ROADMAP M9, enc-dec)")
+    return da.decode_attention_cuda(q, k_cache, v_cache, cache_len,
+                                    kv_positions=kv_positions, window=window, scale=scale)

@@ -1,0 +1,81 @@
+"""Plain PyTorch attention (a port of ``repro.kernels.ref``'s attention).
+
+These run every attention call on the CPU and are what the CUDA kernels are
+held against on the card.  Conventions: q (B, Sq, H, D); k, v (B, Sk, K, D)
+with H = K * G; all attention math accumulates in float32 whatever the input
+dtype, and masked scores are ``NEG_INF`` (never -inf, so a fully masked row
+stays finite: it averages the values, exactly as the TPU kernels do).
+"""
+from __future__ import annotations
+
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _attend(q, k, v, mask, scale):
+    """Masked GQA softmax attention; ``mask`` broadcasts to (B, 1, 1, Sq, Sk)."""
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.reshape(B, Sq, K, H // K, D).float() * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _mask(q_pos, k_pos, causal, window):
+    """Visibility of key positions (..., 1, Sk) to query positions (..., Sq, 1)."""
+    mask = torch.ones_like(q_pos >= k_pos)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def attention_naive(q, k, v, *, causal=True, window=None,
+                    q_offset=0, scale=None):
+    """O(Sq*Sk) dense attention.  ``q_offset`` is the absolute position of
+    q[0] (a query block at the end of a longer KV)."""
+    q_pos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    return _attend(q, k, v, _mask(q_pos, k_pos, causal, window), scale)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None,
+                    q_offset=0, q_chunk=1024,
+                    scale=None):
+    """``attention_naive`` over query chunks of ``q_chunk`` rows, so the score
+    memory on the CPU stays (q_chunk, Sk) per head."""
+    return torch.cat([
+        attention_naive(q[:, i:i + q_chunk], k, v, causal=causal, window=window,
+                        q_offset=q_offset + i, scale=scale)
+        for i in range(0, q.shape[1], q_chunk)], dim=1)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, kv_positions=None,
+                     window=None, scale=None,
+                     causal=True):
+    """Attention of T new tokens against a (padded / ring-buffer) KV cache.
+
+    q (B, T, H, D); k/v_cache (B, S, K, D); cache_len (B,) int32 is the valid
+    length with the T new tokens already written, so query t sits at
+    position ``cache_len - T + t``.  ``kv_positions`` (B, S) holds the
+    absolute position written into each slot (-1 = empty); without it slot i
+    holds position i.  ``causal=False`` (cross attention) lets every query
+    see every valid slot.
+    """
+    T, S = q.shape[1], k_cache.shape[1]
+    dev = q.device
+    q_pos = cache_len.long()[:, None, None] - T + torch.arange(T, device=dev)[None, :, None]
+    if kv_positions is None:
+        kv_pos = torch.arange(S, device=dev)[None, None, :]
+        valid = kv_pos < cache_len.long()[:, None, None]
+    else:
+        kv_pos = kv_positions.long()[:, None, :]
+        valid = kv_pos >= 0
+    mask = valid & _mask(q_pos, kv_pos, causal, window)        # (B, T, S)
+    return _attend(q, k_cache, v_cache, mask[:, None, None], scale)

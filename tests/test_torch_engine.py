@@ -1,0 +1,167 @@
+"""The port's serving stack against the JAX engine, and its entry points.
+
+Parity runs in float32 (``dataclasses.replace(cfg, dtype="float32")``),
+where greedy tokens can be held identical: the same weights (through the
+weight bridge), the same canned trace and 2 stream pairs must give the same
+tokens, the same ``worker_id`` for every request and equal RequestRecords.
+Routing prices prefill with the reference's TPU profile so both estimators
+see the same numbers.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.api.config as jax_api
+import repro.core.engine as jax_engine
+from repro.configs import reduced_config as jax_reduced
+from repro.distributed.sharding import unzip_params
+from repro.models import build_model as jax_build
+from repro.serving.cost_model import TPU_V5E
+from repro.serving.speculative import verify_tokens as jax_verify
+from repro_torch.api import ServeConfig, StreamServe
+from repro_torch.configs import reduced_config
+from repro_torch.core.engine import EngineConfig, PipeServeEngine
+from repro_torch.params import from_jax_tree
+from repro_torch.serving.cost_model import HardwareProfile
+from repro_torch.serving.request import Request, RequestState, SamplingParams
+from repro_torch.serving.speculative import verify_tokens
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes need one intra-op thread; the suite's other workers get
+    the rest of the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def fp32_model():
+    jcfg = dataclasses.replace(jax_reduced("qwen3-1.7b"), n_layers=2, dtype="float32")
+    tcfg = dataclasses.replace(reduced_config("qwen3-1.7b"), n_layers=2, dtype="float32")
+    jparams, _ = unzip_params(jax_build(jcfg).init(jax.random.PRNGKey(0)))
+    return jcfg, jparams, tcfg, from_jax_tree(jax.tree.map(np.asarray, jparams), tcfg)
+
+
+def _serve(engine, reqs, max_steps=600):
+    """Submit each request once the engine clock reaches its arrival time
+    (all at once for traces without one), then drain."""
+    queue = list(reqs)
+    for _ in range(max_steps):
+        while queue and (queue[0].arrival_time if queue[0].arrival_time is not None
+                         else 0.0) <= engine._now:
+            engine.submit(queue.pop(0))
+        if not queue and engine.drained():
+            return
+        engine.step()
+    raise AssertionError("engine did not drain")
+
+
+@pytest.mark.parametrize("trace", ["bursty", "uniform", "mixed_slo"])
+def test_engine_matches_jax_engine(fp32_model, trace_factory, trace):
+    jcfg, jparams, tcfg, tparams = fp32_model
+    kw = {"max_batch": 2, "max_len": 96}
+    jreqs = trace_factory(trace, n=6)
+    treqs = [Request(prompt=list(r.prompt), request_id=r.request_id,
+                     params=SamplingParams(max_new_tokens=r.params.max_new_tokens),
+                     arrival_time=r.arrival_time, slo_ttft=r.slo_ttft, slo_tpot=r.slo_tpot)
+             for r in jreqs]
+    jeng = jax_engine.PipeServeEngine(jcfg, jparams, n_pairs=2,
+                                      econf=jax_engine.EngineConfig(**kw))
+    _serve(jeng, jreqs)
+    teng = PipeServeEngine(tcfg, tparams, n_pairs=2, econf=EngineConfig(**kw), device="cpu",
+                           hardware=HardwareProfile(**dataclasses.asdict(TPU_V5E)))
+    _serve(teng, treqs)
+    assert [r.output_tokens for r in treqs] == [r.output_tokens for r in jreqs]
+    assert [r.worker_id for r in treqs] == [r.worker_id for r in jreqs]
+    assert {r.worker_id for r in treqs} == {0, 1}
+    assert len(teng.monitor.completed) == len(treqs)
+    assert [dataclasses.asdict(r) for r in teng.monitor.completed] == \
+        [dataclasses.asdict(r) for r in jeng.monitor.completed]
+
+
+def test_verify_tokens_matches_jax_greedy_per_row_depth():
+    rng = np.random.default_rng(7)
+    B, k, V = 5, 4, 64
+    logits = rng.normal(size=(B, k + 1, V)).astype(np.float32)
+    draft = rng.integers(0, V, (B, k)).astype(np.int32)
+    draft[:3, :3] = logits[:3, :3].argmax(-1)  # prefixes the target accepts
+    args = (draft, np.ones((B, k), np.float32), logits)
+    kw = {"active": np.array([True] * 4 + [False]), "depth": np.array([4, 2, 1, 3, 0], np.int32)}
+    want = jax_verify(jax.random.PRNGKey(0), *map(jnp.asarray, args),
+                      **{n: jnp.asarray(a) for n, a in kw.items()})
+    got = verify_tokens(torch.Generator().manual_seed(0), *map(torch.from_numpy, args),
+                        **{n: torch.from_numpy(a) for n, a in kw.items()})
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got.n_accepted.tolist()[:4] == [3, 2, 1, 0]
+
+
+def test_serve_config_has_the_reference_fields_and_defaults():
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(ServeConfig) == fields(jax_api.ServeConfig)
+    assert fields(EngineConfig) == fields(jax_engine.EngineConfig)
+
+
+def test_streamserve_submit_stream_cancel_on_cpu():
+    serve = StreamServe(ServeConfig.reduced_smoke(), device="cpu")
+    rng = np.random.default_rng(0)
+    handles = [serve.submit(rng.integers(0, serve.arch.vocab_size, 10).tolist())
+               for _ in range(3)]
+    serve.step()
+    assert handles[2].state is RequestState.DECODING
+    assert handles[2].cancel() and handles[2].cancelled and not handles[2].cancel()
+    streamed = list(handles[0].stream())
+    assert len(streamed) == serve.config.max_new_tokens
+    assert handles[0].state is RequestState.FINISHED
+    assert handles[1].result() and handles[1].state is RequestState.FINISHED
+    assert serve.pending == 0 and serve.summary()["cancelled"] == 1
+    slo = handles[0].slo()
+    assert slo["n_tokens"] == len(streamed) and slo["ttft"] is not None
+    with pytest.raises(ValueError):
+        serve.submit([])
+
+
+def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, fp32_model):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamServe(ServeConfig.reduced_smoke())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PipeServeEngine(*fp32_model[2:], n_pairs=1)
+
+
+@pytest.mark.parametrize("field, value, item", [
+    ("paged_kv", True, "M7"), ("prefill_chunk", 16, "M6"), ("draft", "model", "M8"),
+    ("trace", "on", "ROADMAP"), ("per_row_depth", False, "single-depth")])
+def test_later_slices_refuse_by_name(fp32_model, field, value, item):
+    with pytest.raises(NotImplementedError, match=item):
+        PipeServeEngine(*fp32_model[2:], n_pairs=1, device="cpu",
+                        econf=EngineConfig(max_batch=2, max_len=96, **{field: value}))
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    """Every module of the port, and chip_smoke.py, import in a fresh process
+    without loading jax or any module of the ``repro`` package."""
+    code = ("import importlib, pkgutil, sys, repro_torch, chip_smoke\n"
+            "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "sys.exit(f'loaded {bad}' if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": f"{REPO / 'src'}:{REPO}"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
