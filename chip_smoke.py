@@ -7,15 +7,21 @@ Phases, each fatal on failure:
      CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
      all at once);
   2. hold each kernel against its plain PyTorch version at the serving
-     shapes (bf16, plus fp32, stale-slot poisoning and a fully masked row),
-     and time kernel, plain version and ``scaled_dot_product_attention``;
+     shapes (bf16, plus fp32, stale-slot poisoning, fully masked rows, and
+     for the paged kernel shuffled pages, ragged -1 tails and a window), and
+     time kernel, plain version and the library yardstick
+     (``scaled_dot_product_attention``; for the paged kernel a gather plus
+     SDPA, two calls);
   3. check the full-width model on the card against the same weights on the
-     CPU (2 layers, float32);
+     CPU (2 layers, float32), dense and paged;
   4. serve qwen3-1.7b at full width (28 layers, d_model 2048) with 2 stream
      pairs through ``StreamServe``, counting kernel launches;
   5. time a burst of 8 requests, then profile the same burst (device busy
      share of the wall, device time by kernel);
-  6. print the kernel table as one JSON line, then the result line.
+  6. serve the same model with paged KV (max_context 1024): shared-prefix
+     requests that hit the radix index, prompts beyond max_len; profile a
+     paged burst; then a burst that outgrows a small pool and truncates;
+  7. print the kernel table as one JSON line, then the result line.
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -34,6 +40,7 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}                 # tests/test_kernels.p
 REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:113",
     "flash_attention": "src/repro/kernels/flash_attention.py:131",
+    "decode_attention_paged": "src/repro/kernels/decode_attention.py:257",
 }
 
 
@@ -244,6 +251,142 @@ def kernel_phase(report: dict) -> dict:
     return out
 
 
+def paged_case(g, B, T, dt, lens, H=16, K=8, D=128, ps=16, P=64, n_pages=4096,
+               perm=None, pools=None):
+    """Paged inputs as the serving path makes them: row b holds lens[b]
+    positions (the T new tokens included) on shuffled, non-contiguous pages
+    with a ragged -1 tail (a length of 0 leaves the whole row unset); the
+    slots past a row's length on its last page are poisoned."""
+    import torch
+
+    dev, dtype = "cuda", getattr(torch, dt)
+    q = torch.randn(B, T, H, D, generator=g, device=dev).to(dtype)
+    if pools is None:
+        pools = tuple(torch.randn(n_pages, ps, K, D, generator=g, device=dev).to(dtype)
+                      for _ in range(2))
+    if perm is None:
+        perm = torch.randperm(n_pages, generator=g, device=dev).tolist()
+    bt = torch.full((B, P), -1, dtype=torch.int32)
+    used = 0
+    for b, L in enumerate(lens):
+        n = -(-L // ps)
+        bt[b, :n] = torch.tensor(perm[used:used + n], dtype=torch.int32)
+        used += n
+        if L % ps:
+            for pool, val in zip(pools, (60.0, -60.0), strict=True):
+                pool[int(bt[b, n - 1]), L % ps:] = val
+    clen = torch.tensor([max(L, T) for L in lens], dtype=torch.int32, device=dev)
+    return q, *pools, clen, bt.to(dev)
+
+
+def paged_cost(q, kp, bt, clen, window=None):
+    """(bytes, ops) the function needs for these inputs: q, out, cache_len and
+    the tables once, plus K and V of every position some query row can see,
+    and 4*D operations per (query head, visible position) pair."""
+    import numpy as np
+
+    B, T, H, D = q.shape
+    ps, K = kp.shape[1:3]
+    esz = q.element_size()
+    bt, clen = bt.cpu().numpy(), clen.cpu().numpy().astype(np.int64)
+    S = bt.shape[1] * ps
+    cum = np.zeros((B, S + 1), np.int64)
+    cum[:, 1:] = np.cumsum(np.repeat(bt >= 0, ps, axis=1), axis=1)
+    q_pos = clen[:, None] - T + np.arange(T)[None]
+    hi = np.clip(q_pos + 1, 0, S)
+    lo = np.zeros_like(hi) if window is None else np.clip(q_pos - window + 1, 0, S)
+    rows = np.arange(B)[:, None]
+    ops = int((cum[rows, hi] - cum[rows, lo]).sum()) * H * 4 * D
+    seen = cum[np.arange(B), hi.max(1)] - cum[np.arange(B), lo.min(1)]
+    nbytes = 2 * q.numel() * esz + clen.size * 4 + bt.size * 4 + int(seen.sum()) * 2 * K * D * esz
+    return nbytes, ops
+
+
+def gather_sdpa(q, kp, vp, clen, bt):
+    """The library yardstick for paged attention, two calls: gather the rows'
+    pages into a dense view, then scaled_dot_product_attention with the
+    positional mask (made before timing).  No single PyTorch call computes
+    attention over a paged pool."""
+    import torch
+
+    B, T = q.shape[:2]
+    n_pages, ps, K, D = kp.shape
+    S = bt.shape[1] * ps
+    idx = bt.long().clamp(0, n_pages - 1)
+    qh = q.transpose(1, 2).contiguous()
+    pos = torch.arange(S, device=q.device)
+    q_pos = clen[:, None].long() - T + torch.arange(T, device=q.device)[None]
+    mask = (bt.repeat_interleave(ps, 1)[:, None, :] >= 0) & (pos[None, None] <= q_pos[:, :, None])
+    mask = mask[:, None]
+
+    def run():
+        k, v = (x[idx].reshape(B, S, K, D).transpose(1, 2) for x in (kp, vp))
+        return sdpa(qh, k, v, attn_mask=mask)
+    return run
+
+
+def paged_kernel_phase(report: dict) -> dict:
+    """K3 against its plain version, then checked and timed at the paged serve's largest
+    decode shape (B=8, T=9 over 1024 positions a row) and largest admission
+    shape (B=8, T=1024 over 1024)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_paged_cuda as k3
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    err, lines = 0.0, []
+    # every row ends mid-page but one (1024); the last row is all -1
+    for T, dt, window in [(1, "bfloat16", None), (2, "bfloat16", None), (3, "bfloat16", None),
+                          (5, "bfloat16", None), (9, "bfloat16", None), (16, "bfloat16", None),
+                          (128, "bfloat16", None), (512, "bfloat16", None),
+                          (5, "float32", None), (128, "float32", None), (16, "bfloat16", 100)]:
+        lens = [T + 37, 1024, T + 300, 700, T + 5, 513, T + 130, 0]
+        q, kp, vp, clen, bt = paged_case(g, 8, T, dt, lens)
+        got = k3(q, kp, vp, clen, bt, window=window)
+        e = check(f"paged T={T} {dt} window={window}", got,
+                  ref.decode_attention_paged(q, kp, vp, clen, bt, window=window), dt)
+        if dt == "bfloat16":
+            err = max(err, e)
+        lines.append(f"decode_attention_paged B=8 T={T} {dt} window={window}: max_abs_err={e:.3g}")
+    for line in lines:
+        print(line)
+
+    out = {}
+    pools = tuple(torch.randn(4096, 16, 8, 128, generator=g, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+    perm = torch.randperm(4096, generator=g, device="cuda").tolist()
+    for key, T, iters in (("decode", 9, (200, 20, 50)), ("admission", 1024, (20, 3, 10))):
+        # 8 disjoint page sets of 8 x 64 pages: every call reads 33.6 MB of
+        # the pool that the last call did not, past the 50 MB L2
+        sets = [paged_case(g, 8, T, "bfloat16", [1024] * 8, perm=perm[i * 512:(i + 1) * 512],
+                           pools=pools) for i in range(8)]
+        nbytes, ops = paged_cost(sets[0][0], sets[0][1], sets[0][4], sets[0][3])
+        # the timed shape is the path's own (admission runs K3 at T=1024): check it too
+        e = check(f"paged {key} T={T} bfloat16", k3(*sets[0]),
+                  ref.decode_attention_paged(*sets[0]), "bfloat16")
+        err = max(err, e)
+        lines.append(f"decode_attention_paged B=8 T={T} bfloat16 ({key} timing set): "
+                     f"max_abs_err={e:.3g}")
+        print(lines[-1])
+        lib = [gather_sdpa(*s) for s in sets]
+        out[key] = {
+            "shape": f"B=8 T={T} positions=1024 ps=16 H=16 K=8 D=128 bf16",
+            "ms": timed(lambda i: k3(*sets[i % 8]), iters[0]),
+            "plain_ms": timed(lambda i: ref.decode_attention_paged(*sets[i % 8]), iters[1]),
+            "library_ms": timed(lambda i: lib[i % 8](), iters[2]),
+            "bound": bound_ms(nbytes, ops, "bfloat16"),
+        }
+        r = out[key]
+        print(f"decode_attention_paged {key} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, gather+sdpa {r['library_ms']:.4f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    for r in out.values():  # the largest error over every check, timing sets included
+        r["max_abs_err"] = err
+    report["paged_kernel_checks"] = lines
+    return out
+
+
 # -------------------------------------------------------------------- model
 
 def model_phase(report: dict) -> None:
@@ -282,7 +425,20 @@ def model_phase(report: dict) -> None:
         if accept is not None:
             gpu.commit_cache(cg, cg["len"] - T, accept.cuda())
             cpu.commit_cache(cc, cc["len"] - T, accept)
-    print(f"model check (2 full-width layers, fp32, card vs CPU): max_abs_err={max(errs):.3g}")
+    # paged: a bucketed suffix admission into shuffled pages, then a verify
+    caches = [m.init_paged_cache(2, 32, 16, 128) for m in (gpu, cpu)]
+    bt = torch.randperm(32, generator=gen)[:16].reshape(2, 8).to(torch.int32)
+    lens, n_new = torch.tensor([0, 0], dtype=torch.int32), torch.tensor([64, 37], dtype=torch.int32)
+    for c in caches:
+        c["bt"].copy_(bt)
+    errs.append(max_err(
+        gpu.chunk_prefill(params, caches[0], tokens.cuda(), lens.cuda(), n_new.cuda()).cpu(),
+        cpu.chunk_prefill(cpu_params, caches[1], tokens, lens, n_new)))
+    step = torch.randint(0, cfg.vocab_size, (2, 5), generator=gen, dtype=torch.int32)
+    errs.append(max_err(gpu.decode_step(params, caches[0], step.cuda()).cpu(),
+                        cpu.decode_step(cpu_params, caches[1], step)))
+    print(f"model check (2 full-width layers, fp32, card vs CPU, dense and paged): "
+          f"max_abs_err={max(errs):.3g}")
     if max(errs) > 1e-3:
         fail(f"model check: logits differ by {max(errs):.3g} > 1e-3")
     report["model_check_max_abs_err"] = max(errs)
@@ -290,79 +446,67 @@ def model_phase(report: dict) -> None:
 
 # -------------------------------------------------------------------- serve
 
-def serve_phase(report: dict) -> dict:
-    import numpy as np
+def instrument(serve):
+    """Count non-finite logits on the device (no sync) and zero the lanes'
+    call counts.  Returns the counter."""
     import torch
 
-    from repro_torch.api import ServeConfig, StreamServe
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
 
-    cfg = ServeConfig(reduced=False, n_pairs=2, max_batch=8, max_len=512, max_new_tokens=32)
-    t0 = time.perf_counter()
-    serve = StreamServe(cfg, device="cuda")
-    torch.cuda.synchronize()
-    arch = serve.arch
-    print(f"serve: {arch.name} L={arch.n_layers} d_model={arch.d_model} vocab={arch.vocab_size} "
-          f"{arch.dtype}, {cfg.n_pairs} pairs x {cfg.max_batch} slots, max_len {cfg.max_len}; "
-          f"init {time.perf_counter() - t0:.2f} s")
-    bad = torch.zeros((), dtype=torch.int64, device="cuda")  # non-finite logits seen
+    def watch(f):
+        def call(*args):
+            out = f(*args)
+            bad.add_((~torch.isfinite(out[0] if isinstance(out, tuple) else out)).sum())
+            return out
+        return call
+
     for pair in serve.engine.pairs:
         lane = pair.lane
-
-        def decode(tokens, _f=lane.decode):
-            logits = _f(tokens)
-            bad.add_((~torch.isfinite(logits)).sum())
-            return logits
-
-        def prefill(batch, _f=lane.prefill):
-            logits, cache = _f(batch)
-            bad.add_((~torch.isfinite(logits)).sum())
-            return logits, cache
-
-        lane.decode, lane.prefill = decode, prefill
+        lane.decode, lane.prefill, lane.paged_admit = (
+            watch(lane.decode), watch(lane.prefill), watch(lane.paged_admit))
         lane.calls = {"prefill": 0, "decode": 0}
-    rng = np.random.default_rng(0)
-    lens = [16, 400, 24, 300, 40, 200, 64, 130, 350, 33, 100, 250]
-    decode_attention_cuda.launches = 0
-    flash_attention_cuda.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    return bad
+
+
+def drive(serve, waves: dict):
+    """Submit ``waves[n]`` (lists of prompts) after n engine steps and step
+    until drained.  Returns (handles, submit wall per request, wall at the
+    end of each tick, steps, wall seconds)."""
+    import torch
+
     t_start = time.perf_counter()
-    handles, submitted, tick_wall = [], {}, {0.0: t_start}
-    for n in lens[:8]:
-        handles.append(serve.submit(rng.integers(0, arch.vocab_size, n).tolist()))
-        submitted[handles[-1].request_id] = time.perf_counter()
-    steps = 0
-    while serve.pending:
+    handles, submitted, tick_wall, steps = [], {}, {0.0: t_start}, 0
+    while True:
+        for prompt in waves.get(steps, ()):
+            handles.append(serve.submit(prompt))
+            submitted[handles[-1].request_id] = time.perf_counter()
+        if steps >= max(waves) and not serve.pending:
+            break
         serve.step()
         steps += 1
         tick_wall[serve.engine._now] = time.perf_counter()
-        if steps == 3:  # a second wave joins mid-decode
-            for n in lens[8:]:
-                handles.append(serve.submit(rng.integers(0, arch.vocab_size, n).tolist()))
-                submitted[handles[-1].request_id] = time.perf_counter()
         if steps > 2000:
             fail("serve: the engine did not drain")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t_start
-    launches = {"decode_attention": decode_attention_cuda.launches,
-                "flash_attention": flash_attention_cuda.launches}
-    calls = {k: sum(p.lane.calls[k] for p in serve.engine.pairs) for k in ("prefill", "decode")}
+    return handles, submitted, tick_wall, steps, time.perf_counter() - t_start
+
+
+def serve_stats(tag, serve, bad, run, launches: dict) -> dict:
+    """Hold every request to max_new_tokens in-vocabulary tokens and finite
+    logits; return (and print) requests, tokens/s, TTFT and TPOT."""
+    import torch
+
+    handles, submitted, tick_wall, steps, wall = run
+    arch, cfg = serve.arch, serve.config
     for h in handles:
         toks = h.request.output_tokens
         if h.state.value != "finished" or len(toks) != cfg.max_new_tokens:
-            fail(f"serve: {h.request_id} ended {h.state.value} with {len(toks)} tokens")
+            fail(f"{tag}: {h.request_id} ended {h.state.value} with {len(toks)} tokens")
         if not all(0 <= t < arch.vocab_size for t in toks):
-            fail(f"serve: {h.request_id} emitted a token outside the vocabulary")
+            fail(f"{tag}: {h.request_id} emitted a token outside the vocabulary")
     if int(bad):
-        fail(f"serve: {int(bad)} non-finite logits")
-    L = arch.n_layers
-    if launches["flash_attention"] != L * calls["prefill"] or calls["prefill"] == 0:
-        fail(f"serve: flash launches {launches['flash_attention']} != {L} x "
-             f"{calls['prefill']} prefill calls")
-    if launches["decode_attention"] != L * calls["decode"] or calls["decode"] == 0:
-        fail(f"serve: decode launches {launches['decode_attention']} != {L} x "
-             f"{calls['decode']} decode calls")
+        fail(f"{tag}: {int(bad)} non-finite logits")
+    calls = {k: sum(p.lane.calls[k] for p in serve.engine.pairs) for k in ("prefill", "decode")}
     recs = serve.monitor.completed
     ttft_s = [tick_wall[r.token_times[0]] - submitted[r.request_id] for r in recs]
     tpot_s = [(tick_wall[r.token_times[-1]] - tick_wall[r.token_times[0]])
@@ -370,7 +514,7 @@ def serve_phase(report: dict) -> dict:
     s = serve.summary()
     generated = sum(r.generated for r in recs)
     result = {
-        "requests": len(recs), "prompt_lens": lens, "engine_steps": steps,
+        "requests": len(recs), "engine_steps": steps,
         "prefill_calls": calls["prefill"], "decode_calls": calls["decode"],
         "launches": launches, "wall_s": wall, "generated_tokens": generated,
         "tokens_per_s": generated / wall,
@@ -381,24 +525,162 @@ def serve_phase(report: dict) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "acceptance": [p.acceptance for p in serve.engine.pairs],
     }
-    print(f"serve: {len(recs)} requests, {generated} tokens in {wall:.3f} s wall "
+    print(f"{tag}: {len(recs)} requests, {generated} tokens in {wall:.3f} s wall "
           f"({generated / wall:.1f} tokens/s), {steps} engine steps "
           f"({wall / steps * 1e3:.1f} ms/step); prefill calls {calls['prefill']}, "
           f"decode calls {calls['decode']}; launches {launches}")
-    print(f"serve: TTFT mean {result['ttft_ticks_mean']:.2f} ticks = "
+    print(f"{tag}: TTFT mean {result['ttft_ticks_mean']:.2f} ticks = "
           f"{result['ttft_s_mean']:.3f} s, TPOT mean {result['tpot_ticks_mean']:.3f} ticks = "
           f"{result['tpot_s_mean'] * 1e3:.2f} ms; peak memory {result['peak_mem_gb']:.2f} GB")
+    return result
+
+
+def kernel_counters():
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    return {"decode_attention": da.decode_attention_cuda,
+            "flash_attention": fa.flash_attention_cuda,
+            "decode_attention_paged": da.decode_attention_paged_cuda}
+
+
+def zero_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def serve_phase(report: dict):
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ServeConfig, StreamServe
+
+    cfg = ServeConfig(reduced=False, n_pairs=2, max_batch=8, max_len=512, max_new_tokens=32)
+    t0 = time.perf_counter()
+    serve = StreamServe(cfg, device="cuda")
+    torch.cuda.synchronize()
+    arch = serve.arch
+    print(f"serve: {arch.name} L={arch.n_layers} d_model={arch.d_model} vocab={arch.vocab_size} "
+          f"{arch.dtype}, {cfg.n_pairs} pairs x {cfg.max_batch} slots, max_len {cfg.max_len}; "
+          f"init {time.perf_counter() - t0:.2f} s")
+    bad = instrument(serve)
+    rng = np.random.default_rng(0)
+    lens = [16, 400, 24, 300, 40, 200, 64, 130, 350, 33, 100, 250]
+    prompts = [rng.integers(0, arch.vocab_size, n).tolist() for n in lens]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    run = drive(serve, {0: prompts[:8], 3: prompts[8:]})  # a second wave joins mid-decode
+    launches = read_counts()
+    result = serve_stats("serve", serve, bad, run, launches)
+    L, calls = arch.n_layers, result
+    if launches["flash_attention"] != L * calls["prefill_calls"] or not calls["prefill_calls"]:
+        fail(f"serve: flash launches {launches['flash_attention']} != {L} x "
+             f"{calls['prefill_calls']} prefill calls")
+    if launches["decode_attention"] != L * calls["decode_calls"] or not calls["decode_calls"]:
+        fail(f"serve: decode launches {launches['decode_attention']} != {L} x "
+             f"{calls['decode_calls']} decode calls")
+    result["prompt_lens"] = lens
     report["serve"] = result
     return launches, serve
 
 
-def profile_phase(serve, report: dict) -> None:
+def paged_serve_phase(params, report: dict):
+    """The paged path at full width: 16 requests of 32 new tokens on 2 pairs
+    (max_len 512, max_context 1024, 4096 pages of 16 a pair).  8 share a
+    256-token prefix and arrive once the first of them was admitted, so the
+    rest hit the radix index; 4 prompts of 600-900 tokens exceed max_len; 4
+    are short and unique.  Every admission and decode step runs K3."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ServeConfig, StreamServe
+
+    cfg = ServeConfig(reduced=False, n_pairs=2, max_batch=8, max_len=512, max_new_tokens=32,
+                      paged_kv=True, kv_block_size=16, max_context=1024)
+    serve = StreamServe(cfg, params=params, device="cuda")
+    arch = serve.arch
+    bad = instrument(serve)
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, arch.vocab_size, 256).tolist()
+    shared = [prefix + rng.integers(0, arch.vocab_size, int(n)).tolist()
+              for n in rng.integers(16, 97, 8)]
+    long = [rng.integers(0, arch.vocab_size, int(n)).tolist() for n in (600, 700, 800, 900)]
+    short = [rng.integers(0, arch.vocab_size, int(n)).tolist() for n in (12, 30, 50, 90)]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    run = drive(serve, {0: [shared[0], *long, *short], 1: shared[1:]})
+    launches = read_counts()
+    result = serve_stats("paged serve", serve, bad, run, launches)
+    handles = run[0]
+    hits = [h.request.cache_hit_tokens for h in handles]
+    routing = Counter(h.request.worker_id for h in handles if list(h.request.prompt[:256]) == prefix)
+    k3_calls = result["prefill_calls"] + result["decode_calls"]
+    print(f"paged serve: cache_hit_tokens {sum(hits)} (per request {hits}); shared-prefix "
+          f"requests per pair {dict(sorted(routing.items()))}; K3 launches "
+          f"{launches['decode_attention_paged']} = {arch.n_layers} x {k3_calls} calls")
+    if sum(hits) <= 0:
+        fail("paged serve: no request hit the radix index")
+    if launches["decode_attention_paged"] != arch.n_layers * k3_calls or not k3_calls:
+        fail(f"paged serve: K3 launches {launches['decode_attention_paged']} != "
+             f"{arch.n_layers} x {k3_calls} admission and decode calls")
+    if not any(len(h.request.prompt) > cfg.max_len for h in handles):
+        fail("paged serve: no prompt beyond max_len was served")
+    result.update(cache_hit_tokens=hits, shared_prefix_routing=dict(routing),
+                  prompt_lens=[len(h.request.prompt) for h in handles])
+    report["paged_serve"] = result
+    return launches, serve
+
+
+def pressure_phase(params, report: dict) -> None:
+    """A burst of 8 requests (200-token prompts, 64 new tokens) on one pair
+    whose pool of 120 pages they outgrow: with kv_evict_policy='truncate'
+    every request finishes and at least one is truncated (kv_evicted)."""
+    import numpy as np
+
+    from repro_torch.api import ServeConfig, StreamServe
+
+    cfg = ServeConfig(reduced=False, n_pairs=1, max_batch=8, max_len=512, max_new_tokens=64,
+                      paged_kv=True, kv_block_size=16, kv_blocks=120,
+                      kv_evict_policy="truncate")
+    serve = StreamServe(cfg, params=params, device="cuda")
+    rng = np.random.default_rng(6)
+    t0 = time.perf_counter()
+    handles = [serve.submit(rng.integers(0, serve.arch.vocab_size, 200).tolist())
+               for _ in range(8)]
+    serve.run_until_done(max_steps=2000)
+    recs = serve.monitor.completed
+    evicted = sum(r.kv_evicted for r in recs)
+    generated = [r.generated for r in recs]
+    print(f"pool pressure: {len(recs)} of {len(handles)} requests finished in "
+          f"{time.perf_counter() - t0:.2f} s, {evicted} truncated (kv_evicted), generated "
+          f"{generated}, pool used at the end {serve.engine.pairs[0].kv.used}")
+    if len(recs) != len(handles) or any(h.state.value != "finished" for h in handles):
+        fail("pool pressure: not every request finished")
+    if not evicted:
+        fail("pool pressure: no request was truncated")
+    report["pressure"] = {"requests": len(recs), "kv_evicted": evicted, "generated": generated}
+
+
+PAGED_BURST = (256 + 40, 256 + 70, 640, 16, 256 + 20, 900, 48, 256 + 90)
+
+
+def profile_phase(serve, report: dict, key="profile", lens=(16, 400, 24, 300, 40, 200, 64, 130),
+                  seed=1) -> None:
     """Where the time goes.  The same burst of 8 requests runs twice through
     the same server (after the launch counts were read): once plain, timed
     on the host clock, and once under torch.profiler recording CUDA activity
     only.  Device busy time is the sum of kernel and copy durations on the
     one stream; the busy share is that over the plain burst's wall time
-    (greedy decoding does the same device work both times)."""
+    (greedy decoding does the same device work both times).  A paged burst
+    has 4 prompts that share a 256-token prefix, 2 beyond max_len and 2
+    short; its profiled repeat draws new tokens of the same lengths, since
+    the same prompts would hit the first burst's resident pages."""
     from collections import Counter
 
     import numpy as np
@@ -406,39 +688,44 @@ def profile_phase(serve, report: dict) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def burst():
-        rng = np.random.default_rng(1)
-        for n in (16, 400, 24, 300, 40, 200, 64, 130):
-            serve.submit(rng.integers(0, serve.arch.vocab_size, n).tolist())
+    paged, vocab = serve.config.paged_kv, serve.arch.vocab_size
+
+    def burst(s):
+        rng = np.random.default_rng(s)
+        prefix = rng.integers(0, vocab, 256).tolist() if paged else []
+        for n in lens:
+            head = prefix if 256 < n < 512 else []
+            serve.submit(head + rng.integers(0, vocab, n - len(head)).tolist())
         t0 = time.perf_counter()
         serve.run_until_done()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    wall = burst()
+    wall = burst(seed)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall_profiled = burst()
+        wall_profiled = burst(seed + paged)  # a paged repeat would hit the first's pages
     by_name: Counter = Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
-    groups = (("decode_kernel", "decode_attention"), ("flash_kernel", "flash_attention"),
+    groups = (("paged_decode_kernel", "decode_attention_paged"),
+              ("decode_kernel", "decode_attention"), ("flash_kernel", "flash_attention"),
               ("gemm", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
               ("cutlass", "matmul"), ("memcpy", "copies"), ("memset", "copies"))
     by_group: Counter = Counter()
     for name, ms in by_name.items():
-        by_group[next((g for key, g in groups if key in name.lower()), "other")] += ms
+        by_group[next((g for k, g in groups if k in name.lower()), "other")] += ms
     busy = sum(by_group.values())
-    report["profile"] = {
+    report[key] = {
         "burst_wall_ms": wall * 1e3, "burst_wall_profiled_ms": wall_profiled * 1e3,
         "device_busy_ms": busy, "busy_share": busy / (wall * 1e3),
         "device_ms_by_group": dict(by_group.most_common()),
         "top_kernels_ms": dict(by_name.most_common(12))}
     if not busy:
-        fail("profile: the profiler recorded no device events")
-    print(f"profile: burst of 8 requests {wall * 1e3:.1f} ms wall ({wall_profiled * 1e3:.1f} ms "
+        fail(f"{key}: the profiler recorded no device events")
+    print(f"{key}: burst of 8 requests {wall * 1e3:.1f} ms wall ({wall_profiled * 1e3:.1f} ms "
           f"profiled), device busy {busy:.1f} ms = {busy / (wall * 1e3):.1%} of the wall")
-    print("profile: device time " + ", ".join(
+    print(f"{key}: device time " + ", ".join(
         f"{g} {ms / busy:.1%}" for g, ms in by_group.most_common()))
     for name, ms in by_name.most_common(6):
         print(f"  {ms:9.2f} ms  {name[:110]}")
@@ -476,19 +763,33 @@ def main() -> None:
                 print(f"  {name}: {ln.split('ptxas info    :')[-1].strip()}")
 
     timing = kernel_phase(report)
+    paged_timing = paged_kernel_phase(report)
     model_phase(report)
     launches, serve = serve_phase(report)
     profile_phase(serve, report)
-    kernels = []
-    for name, r in timing.items():
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"], "shape": r["shape"],
-        })
+    params = serve.engine.pairs[0].lane.params  # the same weights serve paged
+    del serve
+    torch.cuda.empty_cache()
+    paged_launches, serve = paged_serve_phase(params, report)
+    profile_phase(serve, report, "paged_profile", PAGED_BURST, seed=2)
+    del serve
+    torch.cuda.empty_cache()
+    pressure_phase(params, report)
+
+    def entry(name, r, n):
+        return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": REPLACES[name], "launches": n, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                "bound_by": r["bound"][1], "library_ms": r["library_ms"], "shape": r["shape"]}
+
+    # launches: K1 and K2 from the dense serve, K3 from the paged serve; K3's
+    # times at its decode shape, its admission shape beside them
+    kernels = [entry(name, r, launches[name]) for name, r in timing.items()]
+    kernels.append(entry("decode_attention_paged", paged_timing["decode"],
+                         paged_launches["decode_attention_paged"]))
+    kernels[-1]["admission"] = {k: v for k, v in entry(
+        "decode_attention_paged", paged_timing["admission"], 0).items()
+        if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -8,10 +8,10 @@
 
 Policy fields (``router``, ``draft``, ``spec_policy``) are registry names
 (:mod:`repro_torch.api.registry`).  Fields of features the port does not
-have yet (chunked prefill, paged KV, the gateway, StreamTrace) keep the
-reference's defaults and are not validated here: the engine refuses a
-non-default chunk, paging or trace setting by name.  YAML round trips and
-the paper presets are not ported yet.
+have yet (chunked prefill, the gateway, StreamTrace) keep the reference's
+defaults and are not validated here: the engine refuses a non-default chunk
+or trace setting by name.  The paged fields are checked by the engine's
+paged gate.  YAML round trips and the paper presets are not ported yet.
 """
 from __future__ import annotations
 
@@ -52,10 +52,10 @@ class ServeConfig:
     verify_buckets: Optional[Tuple[int, ...]] = VERIFY_BUCKETS
     prefill_chunk: Optional[int] = None  # chunked prefill (not ported yet)
     prefill_preempt: bool = True
-    # ---- paged KV (not ported yet) -------------------------------------------
-    paged_kv: bool = False
-    max_context: Optional[int] = None
-    kv_evict_policy: str = "requeue"
+    # ---- paged KV + radix prefix reuse ---------------------------------------
+    paged_kv: bool = False           # global page pool + per-row block tables
+    max_context: Optional[int] = None  # per-sequence ceiling when paged; None = max_len
+    kv_evict_policy: str = "requeue"  # pool dry mid-decode: "requeue" or "truncate"
     # ---- SLO control plane ------------------------------------------------
     per_row_depth: bool = True       # per-slot speculation depths
     slo_routing: bool = True         # TTFT-slack routing + EDF + shed guard

@@ -146,9 +146,13 @@ class StreamServe:
         if params is None:
             params = SamplingParams(temperature=self.config.temperature,
                                     max_new_tokens=self.config.max_new_tokens)
-        if len(prompt) + params.max_new_tokens > self.config.max_len:
-            raise ValueError(f"prompt ({len(prompt)}) + max_new_tokens "
-                             f"({params.max_new_tokens}) exceeds max_len ({self.config.max_len})")
+        # paged mode: pages, not per-slot rows, bound the context
+        cfg = self.config
+        ceiling = cfg.max_context if cfg.paged_kv and cfg.max_context else cfg.max_len
+        if len(prompt) + params.max_new_tokens > ceiling:
+            what = "max_context" if ceiling != cfg.max_len else "max_len"
+            raise ValueError(f"prompt ({len(prompt)}) + max_new_tokens ({params.max_new_tokens}) "
+                             f"exceeds {what} ({ceiling})")
         req = Request(prompt=prompt, params=params, slo_ttft=slo_ttft, slo_tpot=slo_tpot)
         self.engine.submit(req)
         return RequestHandle(self, req)

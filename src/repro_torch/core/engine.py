@@ -16,8 +16,12 @@ set of shapes:
   on the device; ``admit`` and ``decode_iteration`` each make ONE bulk
   device->host copy.
 
-Chunked prefill, paged KV, the model draft and StreamTrace recording raise
-``NotImplementedError`` naming their ROADMAP item.  The engine is
+With ``paged_kv`` the decode lane keeps a global page pool with per-row
+block tables instead: admission prefills only each prompt's suffix past its
+resident radix prefix, straight into pages, sequences grow page by page up
+to ``max_context``, and pool pressure evicts and requeues a victim (or
+truncates).  Chunked prefill, the model draft and StreamTrace recording
+raise ``NotImplementedError`` naming their ROADMAP item.  The engine is
 single-controller and deterministic given the request trace.
 """
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 from repro_torch.api.registry import resolve_draft, resolve_router, resolve_spec_policy
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.metrics import PerformanceMonitor, RequestRecord
-from repro_torch.core.scheduler import StreamScheduler
+from repro_torch.core.scheduler import StreamScheduler, edf_deadline
 from repro_torch.core.specustream import VERIFY_BUCKETS, SlotSignals, pad_to_bucket
 from repro_torch.models import build_model
 from repro_torch.obs.spans import request_phases
@@ -85,19 +89,31 @@ def _bucket(n, buckets):
 
 
 class ModelLane:
-    """A model, its per-slot batched decode cache and the step helpers.
+    """A model, its batched decode cache (per-slot dense, or a page pool with
+    ``paged=(n_pages, page_size, max_context)``) and the step helpers.
 
     The cache is preallocated and every step updates it in place; callers
     treat ``self.cache`` as the only live handle.  ``calls`` counts model
-    invocations, so a run can show how many kernel launches to expect.
+    invocations (paged admissions as "prefill"), so a run can show how many
+    kernel launches to expect.
     """
 
-    def __init__(self, cfg, params, max_batch, max_len, device):
+    def __init__(self, cfg, params, max_batch, max_len, device, paged=None):
         self.model = build_model(cfg, device)
         self.params = params
-        self.max_batch, self.max_len = max_batch, max_len
-        self.cache = self.model.init_cache(max_batch, max_len)
+        self.max_batch, self.max_len, self.paged = max_batch, max_len, paged
+        self.reset_cache()
         self.calls = {"prefill": 0, "decode": 0}
+
+    def paged_admit(self, tokens, lens, n_new):
+        """Prefill row b's ``n_new[b]`` suffix tokens at cursor ``lens[b]``
+        straight into its pages (the block tables are already installed):
+        admission is the KV transfer.  Returns each row's logits (B, V) at
+        its last suffix token."""
+        self.calls["prefill"] += 1
+        last = (n_new.long() - 1).clamp(0, tokens.shape[1] - 1)
+        return self.model.chunk_prefill(self.params, self.cache, tokens, lens, n_new,
+                                        last)[:, 0]
 
     def prefill(self, batch):
         self.calls["prefill"] += 1
@@ -122,7 +138,8 @@ class ModelLane:
         self.model.commit_cache(self.cache, self.cache["len"] - n_new, accept_idx)
 
     def reset_cache(self):
-        self.cache = self.model.init_cache(self.max_batch, self.max_len)
+        self.cache = (self.model.init_paged_cache(self.max_batch, *self.paged) if self.paged
+                      else self.model.init_cache(self.max_batch, self.max_len))
 
 
 @dataclasses.dataclass
@@ -150,9 +167,9 @@ class EngineConfig:
     prefill_preempt: bool = True
     per_row_depth: bool = True
     slo_routing: bool = True
-    paged_kv: bool = False                # not ported yet (ROADMAP M7)
-    max_context: Optional[int] = None
-    kv_evict_policy: str = "requeue"
+    paged_kv: bool = False                # global page pool + radix prefix reuse
+    max_context: Optional[int] = None     # per-sequence ceiling when paged; None = max_len
+    kv_evict_policy: str = "requeue"      # pool dry mid-decode: "requeue" or "truncate"
     trace: str = "off"                    # recording not ported yet (ROADMAP)
     trace_capacity: int = 4096
     trace_dir: Optional[str] = None
@@ -169,13 +186,30 @@ class StreamPair:
     def __init__(self, worker_id, cfg, params, econf,
                  monitor, device):
         self.worker_id, self.econf, self.monitor, self.device = worker_id, econf, monitor, device
-        self.lane = ModelLane(cfg, params, econf.max_batch, econf.max_len, device)
-        self.kv = KVCacheManager(econf.kv_blocks, econf.kv_block_size)
+        self._paged = paged = econf.paged_kv
+        ps = econf.kv_block_size
+        # page headroom every row keeps ahead of its committed length: the
+        # deepest verify writes bucket+1 tokens before the host can extend a
+        # table, and writes past a row's table are dropped
+        self._kv_margin = econf.verify_buckets[-1] + 1
+        self._max_context = (econf.max_context or econf.max_len) if paged else econf.max_len
+        self._pages_max = -(-self._max_context // ps)
+        self.lane = ModelLane(cfg, params, econf.max_batch, econf.max_len, device,
+                              (econf.kv_blocks, ps, self._max_context) if paged else None)
+        self.kv = KVCacheManager(econf.kv_blocks, ps, serve_prefixes=paged,
+                                 max_seq_blocks=self._pages_max if paged else None)
+        # host mirror of the device block tables: admission and extension
+        # edit it, _sync_bt() pushes it once per tick when dirty
+        self._bt_host = np.full((econf.max_batch, self._pages_max), -1, np.int32)
+        self._bt_dirty = False
+        # eviction -> requeue callback (wired by PipeServeEngine to the
+        # scheduler's resubmit_or_fail); None truncates instead
+        self.requeue = None
         self.spec = resolve_spec_policy(econf.resolved_spec_policy(), config=econf.spec_config,
                                         fixed_depth=econf.fixed_depth)
         self.draft = resolve_draft(econf.draft, DraftContext(cfg=cfg, econf=econf))
         self._bucketed = econf.prefill_buckets
-        self._len_buckets = _pow2_buckets(econf.prefill_bucket_min, econf.max_len)
+        self._len_buckets = _pow2_buckets(econf.prefill_bucket_min, self._max_context)
         self._admit_buckets = _pow2_buckets(1, max(econf.admit_batch, 1))
         B = econf.max_batch
         self.slot_req: List[Optional[Request]] = [None] * B
@@ -204,13 +238,36 @@ class StreamPair:
         return torch.from_numpy(a).to(self.device)
 
     def reserve_kv(self, req):
-        """Reserve KV blocks for prompt + max_new ahead of the prefill."""
-        alloc = self.kv.allocate_sequence(req.request_id, list(req.prompt),
-                                          extra_tokens=req.params.max_new_tokens)
+        """Reserve KV blocks ahead of the prefill: prompt + max_new on the
+        dense path; prompt + page margin when paged (the sequence then grows
+        page by page), sharing the resident prefix (the reference opts out
+        only for chunked ingest, which is not ported)."""
+        extra = self._kv_margin if self._paged else req.params.max_new_tokens
+        alloc = self.kv.allocate_sequence(req.request_id, list(req.prompt), extra_tokens=extra)
         if alloc is None:
             return False  # pool exhausted: stays queued
         req.cache_hit_tokens = alloc.shared_blocks * self.kv.block_size
         return True
+
+    def prompt_fits(self, req):
+        """Whether a request can EVER be admitted here: a paged prompt over
+        the context ceiling would requeue forever, so it fails instead."""
+        return not self._paged or \
+            len(req.prompt) + self._kv_margin <= self._pages_max * self.econf.kv_block_size
+
+    def _refresh_bt_row(self, slot, request_id):
+        """Mirror a sequence's block ids into the host block table."""
+        bids = self.kv.seqs[request_id].block_ids
+        self._bt_host[slot, len(bids):] = -1
+        self._bt_host[slot, :len(bids)] = bids
+        self._bt_dirty = True
+
+    def _sync_bt(self):
+        """Push the host block tables to the device cache, in place (one
+        copy per tick, only when a row changed)."""
+        if self._bt_dirty:
+            self.lane.cache["bt"].copy_(torch.from_numpy(self._bt_host))
+            self._bt_dirty = False
 
     def admit(self, reqs, now):
         """Prefill a batch of KV-reserved requests in ONE bucketed call and
@@ -218,26 +275,12 @@ class StreamPair:
         slots = self.free_slots()[: len(reqs)]
         if len(slots) != len(reqs):
             raise RuntimeError("admit() requires a free slot per request")
-        longest = max(len(r.prompt) for r in reqs)
-        if self._bucketed:
-            S, Bb = _bucket(longest, self._len_buckets), _bucket(len(reqs), self._admit_buckets)
-        else:  # exact shapes, one admission per call
-            S, Bb = longest, 1
-        tokens = np.zeros((Bb, S), np.int32)
-        lengths = np.ones((Bb,), np.int32)  # pad rows: 1 garbage token
-        slot_ids = np.full((Bb,), self.econf.max_batch, np.int32)  # >= max_batch: dropped
-        slot_ids[: len(reqs)] = slots
-        for i, req in enumerate(reqs):
-            req.state, req.t_prefill_start = RequestState.PREFILLING, now
-            tokens[i, : len(req.prompt)] = req.prompt
-            lengths[i] = len(req.prompt)
-        batch = {"tokens": self._to_dev(tokens), "lengths": self._to_dev(lengths)}
-        last_logits, small_cache = self.lane.prefill(batch)
         for req in reqs:
-            req.state = RequestState.TRANSFERRING
-        self.lane.insert_rows(slot_ids, small_cache)
-        self.draft.on_admit(self, batch, slot_ids)
-        first = sample(self.gen, last_logits[: len(reqs)], self.econf.temperature)
+            req.state, req.t_prefill_start = RequestState.PREFILLING, now
+        if self._paged:
+            first = self._admit_paged(reqs, slots)
+        else:
+            first = self._admit_dense(reqs, slots)
         self.pending[self._to_dev(np.asarray(slots, np.int64))] = first.to(torch.int32)
         for slot, req, tok in zip(slots, reqs, first.tolist(), strict=True):  # ONE copy
             req.state = RequestState.DECODING
@@ -248,18 +291,67 @@ class StreamPair:
             self.histories[slot] = [*req.prompt, tok]
             self.spec.reset_slot(slot)  # fresh request, fresh EMA
 
+    def _admit_dense(self, reqs, slots):
+        longest = max(len(r.prompt) for r in reqs)
+        if self._bucketed:
+            S, Bb = _bucket(longest, self._len_buckets), _bucket(len(reqs), self._admit_buckets)
+        else:  # exact shapes, one admission per call
+            S, Bb = longest, 1
+        tokens = np.zeros((Bb, S), np.int32)
+        lengths = np.ones((Bb,), np.int32)  # pad rows: 1 garbage token
+        slot_ids = np.full((Bb,), self.econf.max_batch, np.int32)  # >= max_batch: dropped
+        slot_ids[: len(reqs)] = slots
+        for i, req in enumerate(reqs):
+            tokens[i, : len(req.prompt)] = req.prompt
+            lengths[i] = len(req.prompt)
+        batch = {"tokens": self._to_dev(tokens), "lengths": self._to_dev(lengths)}
+        last_logits, small_cache = self.lane.prefill(batch)
+        for req in reqs:
+            req.state = RequestState.TRANSFERRING
+        self.lane.insert_rows(slot_ids, small_cache)
+        self.draft.on_admit(self, batch, slot_ids)
+        return sample(self.gen, last_logits[: len(reqs)], self.econf.temperature)
+
+    def _admit_paged(self, reqs, slots):
+        """ONE bucketed suffix prefill over the whole decode batch, straight
+        into pages: each row starts at its resident-prefix cursor and only
+        the suffix is computed; occupied rows ride along at their committed
+        cursor with ``n_new = 0`` (their padding is shadowed by position)."""
+        B = self.econf.max_batch
+        S = _bucket(max(len(r.prompt) - r.cache_hit_tokens for r in reqs), self._len_buckets)
+        tokens = np.zeros((B, S), np.int32)
+        lens = np.zeros((B,), np.int32)
+        n_new = np.zeros((B,), np.int32)
+        for b, occupant in enumerate(self.slot_req):
+            if occupant is not None:
+                lens[b] = len(occupant.prompt) + len(occupant.output_tokens) - 1
+        for req, slot in zip(reqs, slots, strict=True):
+            suffix = req.prompt[req.cache_hit_tokens:]
+            tokens[slot, : len(suffix)] = suffix
+            lens[slot], n_new[slot] = req.cache_hit_tokens, len(suffix)
+            self._refresh_bt_row(slot, req.request_id)
+            req.state = RequestState.TRANSFERRING
+        self._sync_bt()
+        last = self.lane.paged_admit(self._to_dev(tokens), self._to_dev(lens),
+                                     self._to_dev(n_new))
+        first = sample(self.gen, last, self.econf.temperature)  # every row, as the reference
+        return first[self._to_dev(np.asarray(slots, np.int64))]
+
     def decode_iteration(self, now):
         """One continuous-batching decode step (speculative when enabled).
         Returns the number of tokens emitted across the batch."""
         active = self.active_slots()
         if not active:
             return 0
+        if self._paged:
+            self._sync_bt()  # page-table edits land before any device step
         B = self.econf.max_batch
         throughput = self.monitor.workers[self.worker_id].recent_throughput
         self.spec.adapt(self.acceptance, self.load, throughput)  # advances the flow state
         vb = self.econf.verify_buckets
         # per-row depths: each slot picks from its own acceptance and TPOT
-        # headroom; the rows share the verify bucket >= the deepest row
+        # headroom; the rows share the verify bucket >= the deepest row (also
+        # the paged clamp: depth <= page margin - 1)
         signals = [None if r is None else SlotSignals(slo_tpot=r.slo_tpot, tpot=r.measured_tpot())
                    for r in self.slot_req]
         rows = np.asarray(self.spec.select_depths(signals, self.load, throughput), np.int64)
@@ -309,7 +401,19 @@ class StreamPair:
         """Host bookkeeping for one slot's freshly decoded tokens (the device
         values were already fetched in one bulk copy upstream)."""
         req = self.slot_req[slot]
-        granted = self.kv.extend_up_to(req.request_id, len(tokens))
+        if req is None:
+            return 0  # evicted this very tick by an earlier slot's grant
+        if self._paged:
+            # the committed stream trails the emitted one by one token (the
+            # newest is pending, not ingested): the grant covers [previous
+            # pending token, *accepted draft tokens]
+            committed = [req.output_tokens[-1], *tokens[:-1]]
+            granted = self.kv.extend_up_to(req.request_id, len(tokens), tokens=committed)
+            while granted < len(tokens) and self._requeue_victim(slot, now):
+                granted += self.kv.extend_up_to(req.request_id, len(tokens) - granted,
+                                                tokens=committed[granted:])
+        else:
+            granted = self.kv.extend_up_to(req.request_id, len(tokens))
         count = 0
         for t in tokens[:granted]:
             if req.is_done():
@@ -322,7 +426,41 @@ class StreamPair:
         evicted = granted < len(tokens) and not req.is_done()
         if req.is_done() or evicted:
             self._finish(slot, now, kv_evicted=evicted)
+        elif self._paged:
+            # restore the page margin for the next step; at the context
+            # ceiling, or with the pool dry and nobody to evict, truncate
+            status = "oom"
+            while status == "oom":
+                status, _ = self.kv.ensure_margin(req.request_id, self._kv_margin)
+                if status == "oom" and not self._requeue_victim(slot, now):
+                    break
+            if status != "ok":
+                self._finish(slot, now, kv_evicted=True)
+            else:
+                self._refresh_bt_row(slot, req.request_id)
         return count
+
+    def _requeue_victim(self, protect, now):
+        """Evict the lowest-priority active slot other than ``protect`` —
+        latest EDF deadline first (best-effort sorts last), ties to the
+        highest slot — and resubmit its request from scratch.  False when
+        eviction is off or unwired, or nobody else is left (self-eviction
+        would only regrow into the same dry pool)."""
+        cands = [s for s in self.active_slots() if s != protect]
+        if self.econf.kv_evict_policy != "requeue" or self.requeue is None or not cands:
+            return False
+        slot = max(cands, key=lambda s: (edf_deadline(self.slot_req[s]), s))
+        req = self.slot_req[slot]
+        self.kv.free_sequence(req.request_id)
+        self.clear_slot(slot)
+        req.output_tokens.clear()
+        req.token_times.clear()
+        req.spec_depths.clear()
+        req.prefill_active_ticks = 0
+        req.kv_requeued += 1
+        req.state = RequestState.QUEUED
+        self.requeue(req, now)
+        return True
 
     def _finish(self, slot, now, kv_evicted=False):
         req = self.slot_req[slot]
@@ -332,23 +470,38 @@ class StreamPair:
         self.clear_slot(slot)
 
     def clear_slot(self, slot):
+        """Release a slot's host bookkeeping (and its block-table row)."""
         self.slot_req[slot] = None
         self.histories[slot] = []
         self.spec.reset_slot(slot)
+        if self._paged:
+            self._bt_host[slot] = -1
+            self._bt_dirty = True
 
     def warmup(self, max_prompt_len=None):
-        """Run every steady-state shape once (prefill buckets, verify depths,
-        the plain step) ahead of traffic, then reset the lane.  Returns the
-        number of distinct shapes exercised."""
+        """Run every steady-state shape once (prefill or paged-admission
+        buckets, verify depths, the plain step) ahead of traffic, then reset
+        the lane.  Returns the number of distinct shapes exercised, counted
+        as the reference counts its programs."""
         if self.active_slots():
             raise RuntimeError("warmup() resets the decode cache; call it before serving")
         econf, dev = self.econf, self.device
         B = econf.max_batch
         gen = torch.Generator(device=dev).manual_seed(0)  # must not perturb self.gen
         n = 0
-        if self._bucketed:
-            hi = _bucket(min(max_prompt_len or econf.max_len, econf.max_len), self._len_buckets)
-            for S in (b for b in self._len_buckets if b <= hi):
+        cap = min(max_prompt_len or self._max_context, self._max_context)
+        if self._paged:
+            # all-(-1) tables: every page write goes to the spare page
+            self._bt_dirty = True
+            self._sync_bt()
+            zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+            for S in (b for b in self._len_buckets if b <= _bucket(cap, self._len_buckets)):
+                tokens = torch.zeros((B, S), dtype=torch.int32, device=dev)
+                sample(gen, self.lane.paged_admit(tokens, zeros, zeros), econf.temperature)
+                n += 1
+            n += 1  # the reference's block-table install program
+        elif self._bucketed:
+            for S in (b for b in self._len_buckets if b <= _bucket(cap, self._len_buckets)):
                 for Bb in self._admit_buckets:
                     logits, small = self.lane.prefill(
                         {"tokens": torch.zeros((Bb, S), dtype=torch.int32, device=dev),
@@ -388,14 +541,23 @@ class PipeServeEngine:
                  hardware=H100_SXM):
         self.device = resolve_device(device)
         self.econf = econf = econf or EngineConfig()
-        for bad, what in ((econf.paged_kv, "paged_kv (ROADMAP M7, with kernel K3)"),
-                          (econf.prefill_chunk, "prefill_chunk (ROADMAP M6)"),
+        for bad, what in ((econf.prefill_chunk, "prefill_chunk (ROADMAP M6)"),
                           (econf.trace != "off", "StreamTrace recording (ROADMAP)"),
                           (not (econf.per_row_depth and econf.verify_buckets),
                            "single-depth verify (per_row_depth=False or no verify_buckets;"
                            " ROADMAP)")):
             if bad:
                 raise NotImplementedError(f"{what} is not ported yet")
+        if econf.paged_kv:  # the reference's paged gating (write-once pages: no window)
+            for bad, what in (
+                    (cfg.sliding_window is not None, "a model without a sliding window"),
+                    (econf.max_len % econf.kv_block_size, "kv_block_size to divide max_len"),
+                    ((econf.max_context or econf.max_len) < econf.max_len,
+                     "max_context >= max_len"),
+                    (econf.kv_evict_policy not in ("requeue", "truncate"),
+                     "kv_evict_policy 'requeue' or 'truncate'")):
+                if bad:
+                    raise ValueError(f"paged_kv requires {what}")
         if router is None or isinstance(router, str):
             router = resolve_router(router or econf.router, config=econf.router_config)
         self._now = 0.0
@@ -404,11 +566,23 @@ class PipeServeEngine:
                       for i in range(n_pairs)]
         # SLO routing prices queued prefill work in engine ticks via the cost
         # model, so TTFT slack is comparable with slo_ttft deadlines
-        estimator = PrefillDelayEstimator(cfg, hw=hardware, max_batch=econf.max_batch,
-                                          mean_context=max(econf.max_len // 2, 1))
+        self._estimator = estimator = PrefillDelayEstimator(
+            cfg, hw=hardware, max_batch=econf.max_batch, mean_context=max(econf.max_len // 2, 1))
         self.scheduler = StreamScheduler(
             n_pairs, router, self.monitor, slo_routing=econf.slo_routing,
             delay_estimator=estimator.ticks if econf.slo_routing else None)
+        if econf.paged_kv:
+            # prefix-hit routing probes every pair's radix index per
+            # submission; page pressure evicts through the scheduler
+            self.scheduler.prefix_probe = self._prefix_score
+            for pair in self.pairs:
+                pair.requeue = self.scheduler.resubmit_or_fail
+
+    def _prefix_score(self, worker_id, req):
+        """The prefill a pair's resident prefix would save this request, as
+        the cost model's fraction in [0, 1]: FlowGuard's prefix-hit term."""
+        hit = self.pairs[worker_id].kv.match_prefix(list(req.prompt))
+        return self._estimator.saved_frac(len(req.prompt), hit) if hit else 0.0
 
     def submit(self, req):
         return self.scheduler.submit(req, self._now)
@@ -462,6 +636,9 @@ class PipeServeEngine:
                     req = self.scheduler.next_for_prefill(wid, self._now)
                     if req is None:
                         break
+                    if not pair.prompt_fits(req):
+                        self.scheduler.fail_request(req, self._now, "exceeds_max_context")
+                        continue
                     if not pair.reserve_kv(req):
                         self.scheduler.prefill_queues[wid].appendleft(req)
                         blocked = True

@@ -1,6 +1,6 @@
 """FlowGuard — multi-signal metric-aware routing (paper §3.3, Alg 2); a copy
-of ``repro.core.flowguard`` (its round-robin ablation router and the paged
-prefix-hit term are not ported yet).
+of ``repro.core.flowguard`` (its round-robin ablation router is not ported
+yet).
 
   Eq 1:  S_w = α1·C_w + α2·(1−M_w) + α3·(1−Q_w) + α4·(1−L_w)
   Eq 2:  Overload(w) = ω_w > τ
@@ -29,7 +29,9 @@ class FlowGuardConfig:
     # additive TTFT-slack weight for SLO-carrying requests (zero for
     # best-effort traffic, so Eq 1 is unchanged when no SLOs are in play)
     slo_weight: float = 0.5
-    prefix_weight: float = 0.3    # the paged prefix-hit term (ROADMAP M7)
+    # weight of the additive prefix-hit term (paged KV): the saved-prefill
+    # fraction of a worker's resident radix prefix, 0 where none matches
+    prefix_weight: float = 0.3
 
     def __post_init__(self):
         s = self.alpha_cache + self.alpha_memory + self.alpha_queue + self.alpha_load
@@ -42,7 +44,7 @@ class FlowGuardConfig:
 class FlowGuard:
     """Scorer + overload detector over a metrics snapshot.  ``last_breakdown``
     keeps the last ``select()``'s per-worker weighted terms (cache, memory,
-    queue, load, slo)."""
+    queue, load, slo, prefix)."""
 
     def __init__(self, config=None):
         self.config = config or FlowGuardConfig()
@@ -71,13 +73,16 @@ class FlowGuard:
         slack = slo - elapsed - max(queue_delay, 0.0)
         return self.config.slo_weight * min(max(slack / slo, -1.0), 1.0)
 
-    def select(self, metrics, now, healthy=None, request=None, queue_delays=None):
+    def select(self, metrics, now, healthy=None, request=None, queue_delays=None,
+               prefix_scores=None):
         """Pick the target stream pair (Alg 2).  Returns (worker_id, scores).
 
         Stale or overloaded candidates are skipped; when none is left, the
         least-loaded queue wins (Eq 4), preferring workers with fresh
         metrics.  With ``queue_delays`` SLO-carrying requests also steer
-        toward the worker with the most TTFT slack.
+        toward the worker with the most TTFT slack, and ``prefix_scores``
+        (worker -> saved-prefill fraction) pulls a request toward the worker
+        holding its prefix by up to ``prefix_weight``.
         """
         candidates = list(metrics.keys() if healthy is None else healthy)
         if not candidates:
@@ -92,8 +97,12 @@ class FlowGuard:
             slo_term = 0.0
             if queue_delays is not None:
                 slo_term = self.slo_slack_term(request, queue_delays.get(i, 0.0), now)
-            scores[i] = sum(terms) + slo_term
-            self.last_breakdown[i] = (*terms, slo_term)
+            prefix_term = 0.0
+            if prefix_scores is not None:
+                prefix_term = self.config.prefix_weight * min(max(prefix_scores.get(i, 0.0),
+                                                                  0.0), 1.0)
+            scores[i] = sum(terms) + slo_term + prefix_term
+            self.last_breakdown[i] = (*terms, slo_term, prefix_term)
         if not scores:
             fresh = [i for i in candidates
                      if not metrics[i].is_stale(now, self.config.staleness_s)]

@@ -1,6 +1,6 @@
 """StreamScheduler — request orchestration (paper Alg 1); a copy of
 ``repro.core.scheduler`` without its StreamTrace events (recording is not
-ported yet) and without the chunked-prefill and prefix-probe hooks.
+ported yet) and without the chunked-prefill hooks.
 
 Receives requests, consults the router for placement, enqueues to the
 selected stream pair's prefill queue, and tracks lifecycle transitions.
@@ -29,10 +29,11 @@ from repro_torch.serving.request import Request, RequestState
 
 class Router(Protocol):
     """A placement policy.  With ``slo_routing`` the scheduler passes the
-    request and per-worker queue delays, so a router must accept them."""
+    request and per-worker queue delays, and with paged KV the per-worker
+    ``prefix_scores``, so a router must accept them."""
 
     def select(self, metrics, now, healthy=None, request=None,
-               queue_delays=None): ...
+               queue_delays=None, prefix_scores=None): ...
 
 
 def edf_deadline(req):
@@ -57,6 +58,9 @@ class StreamScheduler:
         self.slo_routing = slo_routing
         self.delay_estimator = delay_estimator
         self.shed: List[Request] = []
+        # paged-KV hook (wired by the engine): a pair's saved-prefill
+        # fraction for a request, from its radix index
+        self.prefix_probe = None
 
     def queue_delay(self, worker_id):
         """Estimated ticks of prefill service ahead of a new arrival."""
@@ -70,12 +74,12 @@ class StreamScheduler:
         # touch the staleness timestamp, or a silent worker looks fresh
         for i in healthy:
             self.monitor.update_worker(i, queue_depth=self.queue_depth(i), touch=False)
+        extra = {}
+        if self.prefix_probe is not None:
+            extra["prefix_scores"] = {i: self.prefix_probe(i, req) for i in healthy}
         if self.slo_routing:
-            delays = {i: self.queue_delay(i) for i in healthy}
-            worker, _ = self.router.select(self.monitor.snapshot(), now, healthy,
-                                           request=req, queue_delays=delays)
-        else:
-            worker, _ = self.router.select(self.monitor.snapshot(), now, healthy)
+            extra.update(request=req, queue_delays={i: self.queue_delay(i) for i in healthy})
+        worker, _ = self.router.select(self.monitor.snapshot(), now, healthy, **extra)
         req.worker_id = worker
         req.state = RequestState.QUEUED
         if req.arrival_time is None:  # an explicit t=0 arrival is legitimate

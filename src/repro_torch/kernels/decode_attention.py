@@ -1,10 +1,13 @@
-"""Decode attention: the CUDA kernel's wrapper and its plain version.
+"""Decode attention: the CUDA kernels' wrappers and their plain versions.
 
-The kernel (``csrc/decode_attention.cu``) replaces the TPU kernel
+``csrc/decode_attention.cu`` replaces the TPU kernel
 ``repro.kernels.decode_attention.decode_attention_pallas``: flash-decode of
 T new tokens (1 for decode, depth+1 for verify) against a dense or ring KV
-cache with positional masking from ``kv_positions``.  Its source note gives
-the bound (bytes: the K/V cache read) and the design.
+cache with positional masking from ``kv_positions``.
+``csrc/decode_attention_paged.cu`` replaces ``decode_attention_paged_pallas``:
+the same over a global page pool through per-row block tables, at decode
+sizes and at paged admission's T up to max_context.  Each source note gives
+the bound and the design.
 """
 from __future__ import annotations
 
@@ -16,9 +19,12 @@ from repro_torch.kernels import build, ref
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
                                                          ctypes.c_void_p]
+_PAGED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
+                                                               ctypes.c_void_p]
 
-# The plain version: what the kernel computes, in PyTorch.
+# The plain versions: what the kernels compute, in PyTorch.
 decode_attention_plain = ref.decode_attention
+decode_attention_paged_plain = ref.decode_attention_paged
 
 
 def decode_attention_cuda(q, k_cache, v_cache, cache_len, *, kv_positions=None,
@@ -55,3 +61,35 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len, *, kv_positions=None,
 
 
 decode_attention_cuda.launches = 0
+
+
+def decode_attention_paged_cuda(q, k_pages, v_pages, cache_len, block_tables, *,
+                                window=None, scale=None):
+    """Launch the paged kernel on the current stream; returns (B, T, H, D).
+
+    q (B, T, H, D); k/v_pages (n_pages, ps, K, D) of q's dtype; cache_len (B,)
+    int32 (the T new tokens included); block_tables (B, P) int32, -1 = unset.
+    """
+    B, T, H, D = q.shape
+    n_pages, ps, K = k_pages.shape[:3]
+    P = block_tables.shape[1]
+    dtype = build.check_inputs("decode_attention_paged", q, (k_pages, v_pages),
+                               (cache_len, block_tables))
+    if (k_pages.shape != v_pages.shape or k_pages.shape[3] != D or H % K
+            or D not in (32, 64, 128) or cache_len.shape != (B,)
+            or block_tables.shape[0] != B):
+        raise ValueError(f"decode_attention_paged: unsupported shapes q{tuple(q.shape)} "
+                         f"pages{tuple(k_pages.shape)} (head_dim must be 32, 64 or 128)")
+    out = torch.empty_like(q)
+    err = build.load("decode_attention_paged", _PAGED_ARGTYPES)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), cache_len.data_ptr(),
+        block_tables.data_ptr(), out.data_ptr(), B, T, H, K, D, n_pages, ps, P,
+        -1 if window is None else window, D ** -0.5 if scale is None else scale, dtype,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"decode_attention_paged kernel launch failed: CUDA error {err}")
+    decode_attention_paged_cuda.launches += 1
+    return out
+
+
+decode_attention_paged_cuda.launches = 0

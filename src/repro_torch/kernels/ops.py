@@ -34,3 +34,11 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, kv_positions=None,
                                   "(ROADMAP M9, enc-dec)")
     return da.decode_attention_cuda(q, k_cache, v_cache, cache_len,
                                     kv_positions=kv_positions, window=window, scale=scale)
+
+
+def decode_attention_paged(q, k_pages, v_pages, cache_len, block_tables, *, window=None,
+                           scale=None):
+    """Decode-step attention over a global page pool via per-row block tables."""
+    fn = da.decode_attention_paged_plain if q.device.type == "cpu" \
+        else da.decode_attention_paged_cuda
+    return fn(q, k_pages, v_pages, cache_len, block_tables, window=window, scale=scale)

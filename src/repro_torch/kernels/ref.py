@@ -79,3 +79,25 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, kv_positions=None,
         valid = kv_pos >= 0
     mask = valid & _mask(q_pos, kv_pos, causal, window)        # (B, T, S)
     return _attend(q, k_cache, v_cache, mask[:, None, None], scale)
+
+
+def decode_attention_paged(q, k_pages, v_pages, cache_len, block_tables, *,
+                           window=None, scale=None):
+    """``decode_attention`` over a global page pool through per-row block tables.
+
+    k/v_pages (n_pages, ps, K, D); block_tables (B, P) page ids, -1 = unset.
+    Each row's pages are gathered into a dense (B, P*ps) view (-1 clamps to
+    page 0); slot s of table index i holds position i*ps + s (positions are
+    written once, never wrapped), and an unset entry masks its whole page.
+    """
+    n_pages, ps, K, D = k_pages.shape
+    B, P = block_tables.shape
+    dev = q.device
+    idx = (block_tables.long().clamp(0, n_pages - 1)[:, :, None] * ps
+           + torch.arange(ps, device=dev)).reshape(B, P * ps)
+    k = k_pages.reshape(n_pages * ps, K, D)[idx]
+    v = v_pages.reshape(n_pages * ps, K, D)[idx]
+    kv_pos = torch.where(block_tables.repeat_interleave(ps, dim=1) >= 0,
+                         torch.arange(P * ps, dtype=torch.int32, device=dev), -1)
+    return decode_attention(q, k, v, cache_len, kv_positions=kv_pos, window=window,
+                            scale=scale)

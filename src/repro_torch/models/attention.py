@@ -1,11 +1,16 @@
-"""GQA attention with RoPE, qk-norm and a dense ring-buffer KV cache
-(a port of the dense path of ``repro.models.attention``; QKV bias and the
-reference's tensor-parallel head padding come with ROADMAP M9).
+"""GQA attention with RoPE, qk-norm and a dense ring-buffer or paged KV
+cache (a port of ``repro.models.attention``; QKV bias and the reference's
+tensor-parallel head padding come with ROADMAP M9).
 
-Cache layout per attention layer: ``k``/``v`` (B, cap, K, D) and ``kv_pos``
+Dense cache per attention layer: ``k``/``v`` (B, cap, K, D) and ``kv_pos``
 (B, cap) int32, the absolute position written into each slot (-1 = empty).
 Slots are addressed ``pos % cap``.  Speculative rollback leaves stale slots
 behind; the positional mask makes them unreachable until overwritten.
+
+Paged cache per attention layer: a global pool ``k``/``v`` (n_pages + 1, ps,
+K, D) shared by every row through (B, P) block tables.  The last page is a
+spare that absorbs the writes JAX drops (``mode="drop"``), so the scatter
+needs no host sync; attention sees only the first n_pages.
 """
 from __future__ import annotations
 
@@ -112,18 +117,45 @@ def prefill_fill_cache(k_new, v_new, lengths, cap, dtype):
     return ck, cv, torch.where(valid, pos_win, -1).to(torch.int32)
 
 
+def write_pages(pool_k, pool_v, k_new, v_new, block_tables, start_pos):
+    """Scatter T new entries per row into the page pool, IN PLACE.
+
+    pool_k/v (n_pages + 1, ps, K, D), the last page the spare; k/v_new (B, T,
+    K, D); block_tables (B, P), -1 = unset; start_pos (B,).  Position p of
+    row b lands in slot p % ps of page block_tables[b, p // ps].  A write
+    whose entry is unset or past the table goes to the spare page (JAX's
+    dropped write), so idle rows and bucket padding never touch live pages.
+    """
+    n_pages, ps, K, D = pool_k.shape
+    n_pages -= 1
+    T, P = k_new.shape[1], block_tables.shape[1]
+    pos = start_pos[:, None].long() + torch.arange(T, device=k_new.device)
+    pidx = pos // ps
+    page = torch.gather(block_tables.long(), 1, pidx.clamp(0, P - 1))
+    page = torch.where((pidx < P) & (page >= 0) & (page < n_pages), page, n_pages)
+    flat = (page * ps + pos % ps).reshape(-1)
+    pool_k.view(-1, K, D)[flat] = k_new.reshape(-1, K, D).to(pool_k.dtype)
+    pool_v.view(-1, K, D)[flat] = v_new.reshape(-1, K, D).to(pool_v.dtype)
+
+
 def attention_decode(p, cfg, x, cache,
-                     cache_len):
+                     cache_len, block_tables=None):
     """Decode T >= 1 new tokens; the layer's cache views are updated in place.
 
-    ``cache`` = {"k", "v", "kv_pos"} of this layer; ``cache_len`` (B,) is the
-    committed length BEFORE these tokens, so query i sits at cache_len + i.
+    ``cache`` = {"k", "v", "kv_pos"} of this layer, or its page pool {"k",
+    "v"} with ``block_tables``; ``cache_len`` (B,) is the committed length
+    BEFORE these tokens, so query i sits at cache_len + i.
     """
     T = x.shape[1]
     pos = cache_len[:, None].long() + torch.arange(T, device=x.device)[None, :]
     q = rope(_project_q(p, cfg, x), pos, cfg.rope_theta)
     k, v = _project_kv(p, cfg, x)
     k = rope(k, pos, cfg.rope_theta)
+    if block_tables is not None:
+        write_pages(cache["k"], cache["v"], k, v, block_tables, cache_len)
+        out = ops.decode_attention_paged(q, cache["k"][:-1], cache["v"][:-1], cache_len + T,
+                                         block_tables, window=cfg.sliding_window)
+        return _project_out(p, out)
     write_cache(cache["k"], cache["v"], cache["kv_pos"], k, v, cache_len)
     out = ops.decode_attention(q, cache["k"], cache["v"], cache_len + T,
                                kv_positions=cache["kv_pos"], window=cfg.sliding_window)

@@ -2,9 +2,11 @@
 (a port of the serving half of ``repro.models.model``).
 
 Parameters are a dict: ``{"embedding": {"table"[, "head"]}, "layers": [per-
-layer dict, ...], "final_norm"}``.  A decode cache is ``{"k", "v": (L, B,
-cap, K, D), "kv_pos": (L, B, cap) int32, "len": (B,) int32}``, preallocated
-once and updated in place where the JAX package donated it.
+layer dict, ...], "final_norm"}``.  A dense decode cache is ``{"k", "v": (L,
+B, cap, K, D), "kv_pos": (L, B, cap) int32, "len": (B,) int32}``; a paged one
+is ``{"k", "v": (L, n_pages + 1, ps, K, D), "len", "bt": (B, P) int32}`` (see
+``models.attention``).  Both are preallocated once and updated in place
+where the JAX package donated them.
 """
 from __future__ import annotations
 
@@ -47,6 +49,19 @@ class Model:
             "len": torch.zeros(batch, dtype=torch.int32, device=dev),
         }
 
+    def init_paged_cache(self, batch, n_pages, page_size, max_context):
+        """Paged decode cache: zeroed per-layer page pools (plus the spare
+        page) and block tables of -1 sized for ``max_context`` tokens."""
+        cfg, dev = self.cfg, self.device
+        shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "k": torch.zeros(shape, dtype=self.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=self.dtype, device=dev),
+            "len": torch.zeros(batch, dtype=torch.int32, device=dev),
+            "bt": torch.full((batch, -(-max_context // page_size)), -1, dtype=torch.int32,
+                             device=dev),
+        }
+
     def _logits(self, params, x):
         cfg = self.cfg
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -84,15 +99,28 @@ class Model:
         last = x[torch.arange(B, device=x.device), idx][:, None]
         return self._logits(params, last)[:, 0], cache
 
-    def decode_step(self, params, cache, tokens):
+    def decode_step(self, params, cache, tokens, last=None):
         """tokens (B, T), T = 1 (plain) or depth+1 (verify).  Returns logits
-        (B, T, V) fp32; the cache is written in place and ``len`` grows by T."""
+        (B, T, V) fp32, or (B, 1, V) at the positions ``last`` (B,) when given;
+        the cache is written in place and ``len`` grows by T."""
         x = embed_tokens(params["embedding"], tokens)
         for i, layer in enumerate(params["layers"]):
-            view = {"k": cache["k"][i], "v": cache["v"][i], "kv_pos": cache["kv_pos"][i]}
-            x = tfm.block_decode(layer, self.cfg, x, view, cache["len"])
+            view = {name: cache[name][i] for name in ("k", "v", "kv_pos") if name in cache}
+            x = tfm.block_decode(layer, self.cfg, x, view, cache["len"], cache.get("bt"))
         cache["len"] += tokens.shape[1]
+        if last is not None:
+            x = x[torch.arange(x.shape[0], device=x.device), last][:, None]
         return self._logits(params, x)
+
+    def chunk_prefill(self, params, cache, tokens, lens, n_new, last=None):
+        """Ingest ``n_new[b]`` of row b's tokens at cursor ``lens[b]``: one
+        decode step, then a rewind to ``lens + n_new`` (the padding written
+        past it stays shadowed by the positional mask).  Paged admission is
+        this step over the whole decode batch; rows with ``n_new = 0`` idle."""
+        cache["len"].copy_(lens)
+        logits = self.decode_step(params, cache, tokens, last)
+        self.commit_cache(cache, lens, n_new - 1)
+        return logits
 
     @staticmethod
     def commit_cache(cache, old_len, accept_idx):

@@ -54,8 +54,8 @@ def block_prefill(layer, cfg, x, positions):
 
 
 def block_decode(layer, cfg, x, cache,
-                 cache_len):
+                 cache_len, block_tables=None):
     """One layer of a T-token decode step; its cache views update in place."""
-    out = attn.attention_decode(layer["attn"], cfg,
-                                rms_norm(x, layer["norm1"], cfg.norm_eps), cache, cache_len)
+    out = attn.attention_decode(layer["attn"], cfg, rms_norm(x, layer["norm1"], cfg.norm_eps),
+                                cache, cache_len, block_tables)
     return _apply_ffn(layer, cfg, x + out)

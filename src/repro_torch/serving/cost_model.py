@@ -106,3 +106,17 @@ class PrefillDelayEstimator:
         t = max((t + self.cost.kv_transfer_time(plen)) / self.tick_s, 1.0)
         req._prefill_ticks = t
         return t
+
+    def saved_frac(self, prompt_len, hit_tokens):
+        """Prefill work a resident prefix of ``hit_tokens`` saves, as a
+        fraction of the whole prompt's prefill in [0, 1]: FlowGuard's prefix
+        term.  Where prefill is memory-bound the roofline delta is ~0 but the
+        hit still skips work, so the token fraction stands in."""
+        hit = min(max(hit_tokens, 0), prompt_len)
+        if prompt_len <= 0 or hit == 0:
+            return 0.0
+        t_full = self.cost.prefill_time(prompt_len)
+        saved = max(t_full - self.cost.prefill_time(prompt_len, cached_tokens=hit), 0.0)
+        full = t_full / self.tick_s
+        frac = saved / self.tick_s / full if full > 0.0 else 0.0
+        return min(max(frac if frac > 0.0 else hit / prompt_len, 0.0), 1.0)

@@ -138,19 +138,22 @@ def test_streamserve_submit_stream_cancel_on_cpu():
 
 def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, fp32_model):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        StreamServe(ServeConfig.reduced_smoke())
+    for config in (ServeConfig.reduced_smoke(), ServeConfig.reduced_smoke(paged_kv=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            StreamServe(config)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PipeServeEngine(*fp32_model[2:], n_pairs=1)
 
 
-@pytest.mark.parametrize("field, value, item", [
-    ("paged_kv", True, "M7"), ("prefill_chunk", 16, "M6"), ("draft", "model", "M8"),
-    ("trace", "on", "ROADMAP"), ("per_row_depth", False, "single-depth")])
-def test_later_slices_refuse_by_name(fp32_model, field, value, item):
+@pytest.mark.parametrize("overrides, item", [
+    ({"prefill_chunk": 16, "paged_kv": True}, "M6"), ({"prefill_chunk": 16}, "M6"),
+    ({"draft": "model"}, "M8"), ({"trace": "on"}, "ROADMAP"),
+    ({"per_row_depth": False}, "single-depth")])
+def test_later_slices_refuse_by_name(fp32_model, overrides, item):
+    """Paged KV serves; chunked prefill, alone or paged, still refuses."""
     with pytest.raises(NotImplementedError, match=item):
         PipeServeEngine(*fp32_model[2:], n_pairs=1, device="cpu",
-                        econf=EngineConfig(max_batch=2, max_len=96, **{field: value}))
+                        econf=EngineConfig(max_batch=2, max_len=96, **overrides))
 
 
 def test_port_imports_neither_jax_nor_the_reference():
