@@ -21,7 +21,13 @@ Phases, each fatal on failure:
   6. serve the same model with paged KV (max_context 1024): shared-prefix
      requests that hit the radix index, prompts beyond max_len; profile a
      paged burst; then a burst that outgrows a small pool and truncates;
-  7. print the kernel table as one JSON line, then the result line.
+  7. hold the SSD-scan kernel against its plain version (bf16 and fp32, 1
+     and 2 groups, ragged tails, an initial state, the serve shape) and time
+     it; check 2 full-width mamba2-2.7b layers on the card against the CPU;
+     serve mamba2-2.7b at full width (64 layers, d_model 2560), counting
+     SSD-scan launches, and profile a burst, splitting device time between
+     prefill and decode;
+  8. print the kernel table as one JSON line, then the result line.
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -37,10 +43,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                                 # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}         # dense, per type
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}                 # tests/test_kernels.py:19
+SSD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}             # tests/test_kernels.py:180-181
 REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:113",
     "flash_attention": "src/repro/kernels/flash_attention.py:131",
     "decode_attention_paged": "src/repro/kernels/decode_attention.py:257",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:122",
 }
 
 
@@ -74,15 +82,15 @@ def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
-def check(name: str, got, want, dt: str) -> float:
+def check(name: str, got, want, dt: str, tols: dict = TOL) -> float:
     import torch
 
     if not torch.isfinite(got).all():
         fail(f"{name}: non-finite kernel output")
     err = max_err(got, want)
-    diff, ref = (got.float() - want.float()).abs(), want.float().abs()
-    if not bool((diff <= TOL[dt] + TOL[dt] * ref).all()):  # atol = rtol = TOL
-        fail(f"{name}: kernel and plain version differ (max abs {err:.3g}, tol {TOL[dt]})")
+    diff, ref, tol = (got.float() - want.float()).abs(), want.float().abs(), tols[dt]
+    if not bool((diff <= tol + tol * ref).all()):  # atol = rtol = tol
+        fail(f"{name}: kernel and plain version differ (max abs {err:.3g}, tol {tol})")
     return err
 
 
@@ -403,11 +411,7 @@ def model_phase(report: dict) -> None:
     cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=2, dtype="float32")
     gpu = build_model(cfg, "cuda")
     params = gpu.init(1)
-    cpu_params = {"embedding": {k: v.cpu() for k, v in params["embedding"].items()},
-                  "final_norm": params["final_norm"].cpu(),
-                  "layers": [{k: ({kk: vv.cpu() for kk, vv in v.items()}
-                                  if isinstance(v, dict) else v.cpu())
-                              for k, v in layer.items()} for layer in params["layers"]]}
+    cpu_params = to_cpu(params)
     cpu = build_model(cfg, "cpu")
     gen = torch.Generator().manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, dtype=torch.int32)
@@ -539,9 +543,12 @@ def kernel_counters():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
 
+    from repro_torch.kernels import ssd_scan as ssd
+
     return {"decode_attention": da.decode_attention_cuda,
             "flash_attention": fa.flash_attention_cuda,
-            "decode_attention_paged": da.decode_attention_paged_cuda}
+            "decode_attention_paged": da.decode_attention_paged_cuda,
+            "ssd_scan": ssd.ssd_scan_cuda}
 
 
 def zero_counts() -> None:
@@ -671,7 +678,7 @@ PAGED_BURST = (256 + 40, 256 + 70, 640, 16, 256 + 20, 900, 48, 256 + 90)
 
 
 def profile_phase(serve, report: dict, key="profile", lens=(16, 400, 24, 300, 40, 200, 64, 130),
-                  seed=1) -> None:
+                  seed=1, split=False) -> None:
     """Where the time goes.  The same burst of 8 requests runs twice through
     the same server (after the launch counts were read): once plain, timed
     on the host clock, and once under torch.profiler recording CUDA activity
@@ -680,7 +687,10 @@ def profile_phase(serve, report: dict, key="profile", lens=(16, 400, 24, 300, 40
     (greedy decoding does the same device work both times).  A paged burst
     has 4 prompts that share a 256-token prefix, 2 beyond max_len and 2
     short; its profiled repeat draws new tokens of the same lengths, since
-    the same prompts would hit the first burst's resident pages."""
+    the same prompts would hit the first burst's resident pages.  With
+    ``split`` the burst's prefill calls are then profiled alone (same prompt
+    lengths, new tokens; admission's insert and sampling left out): their
+    device time against the burst's is prefill's share, the rest decode's."""
     from collections import Counter
 
     import numpy as np
@@ -708,7 +718,15 @@ def profile_phase(serve, report: dict, key="profile", lens=(16, 400, 24, 300, 40
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us() / 1e3
-    groups = (("paged_decode_kernel", "decode_attention_paged"),
+    if split:
+        rng = np.random.default_rng(seed + 1)
+        prompts = [torch.tensor(rng.integers(0, vocab, (1, n)), dtype=torch.int32, device="cuda")
+                   for n in lens]
+        with profile(activities=[ProfilerActivity.CUDA]) as alone:
+            for tokens in prompts:
+                serve.engine.pairs[0].lane.prefill({"tokens": tokens})
+            torch.cuda.synchronize()
+    groups = (("ssd_kernel", "ssd_scan"), ("paged_decode_kernel", "decode_attention_paged"),
               ("decode_kernel", "decode_attention"), ("flash_kernel", "flash_attention"),
               ("gemm", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
               ("cutlass", "matmul"), ("memcpy", "copies"), ("memset", "copies"))
@@ -721,6 +739,10 @@ def profile_phase(serve, report: dict, key="profile", lens=(16, 400, 24, 300, 40
         "device_busy_ms": busy, "busy_share": busy / (wall * 1e3),
         "device_ms_by_group": dict(by_group.most_common()),
         "top_kernels_ms": dict(by_name.most_common(12))}
+    if split:
+        prefill_ms = sum(e.time_range.elapsed_us() for e in alone.events()
+                         if e.device_type == DeviceType.CUDA) / 1e3
+        report[key]["device_ms_by_phase"] = {"prefill": prefill_ms, "decode": busy - prefill_ms}
     if not busy:
         fail(f"{key}: the profiler recorded no device events")
     print(f"{key}: burst of 8 requests {wall * 1e3:.1f} ms wall ({wall_profiled * 1e3:.1f} ms "
@@ -729,6 +751,193 @@ def profile_phase(serve, report: dict, key="profile", lens=(16, 400, 24, 300, 40
         f"{g} {ms / busy:.1%}" for g, ms in by_group.most_common()))
     for name, ms in by_name.most_common(6):
         print(f"  {ms:9.2f} ms  {name[:110]}")
+    if split:
+        print(f"{key}: device time of the burst's {len(lens)} prefill calls alone "
+              f"{prefill_ms:.1f} ms = {prefill_ms / busy:.1%} of the burst's; decode and the "
+              f"rest {busy - prefill_ms:.1f} ms = {1 - prefill_ms / busy:.1%}")
+
+
+# --------------------------------------------------------------- SSM (mamba2)
+
+SSD_CHECKS = [  # B, S, H, P, G, N, dtype, initial state
+    (1, 400, 80, 64, 1, 128, "bfloat16", False),  # the serve shape
+    (1, 400, 80, 64, 1, 128, "float32", False),
+    (2, 300, 16, 64, 2, 128, "bfloat16", True),   # 2 groups, ragged tail, initial state
+    (2, 300, 16, 64, 2, 128, "float32", True),
+    (1, 5, 80, 64, 1, 128, "bfloat16", False),    # shorter than 8
+    (2, 130, 8, 32, 2, 64, "float32", True),
+    (1, 48, 16, 32, 4, 16, "float32", True),      # 4 groups of 4 heads
+    (1, 1000, 80, 64, 1, 128, "bfloat16", False),  # 16 chunks, decay far below e^-100
+]
+
+
+def ssd_case(g, B, S, H, P, G, N, dt, init=False):
+    """SSD-scan inputs as the model makes them: x, B and C are strided views
+    of one conv output (B, S, H*P + 2*G*N) in the model dtype; dt is the
+    softplus of a projection plus the init's dt_bias (dt ~0.001-0.1) and A =
+    -exp(A_log) of the init (-1 to -16), both fp32; an fp32 initial state
+    when asked."""
+    import torch
+
+    dev, d_in = "cuda", H * P
+    xbc = (torch.randn(B, S, d_in + 2 * G * N, generator=g, device=dev) * 0.5).to(
+        getattr(torch, dt))
+    bias = torch.log(torch.expm1(torch.linspace(1e-3, 0.1, H, device=dev)))
+    dtv = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device=dev) * 0.5 + bias)
+    s0 = torch.randn(B, H, P, N, generator=g, device=dev) * 0.2 if init else None
+    return (xbc[..., :d_in].reshape(B, S, H, P), dtv, -torch.linspace(1.0, 16.0, H, device=dev),
+            xbc[..., d_in:d_in + G * N].reshape(B, S, G, N),
+            xbc[..., d_in + G * N:].reshape(B, S, G, N), s0)
+
+
+def ssd_cost(x, Bm, s0, chunk=64):
+    """(bytes, ops) of one scan: x, dt, A, B, C (and the initial state) read
+    once, y and the final state written once; the operations of the chunked
+    dual form at the kernel's 64-row chunks (C.B per group, the causal
+    intra-chunk product, the inter-chunk term and the state update)."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    esz = x.element_size()
+    nbytes = 2 * x.numel() * esz + 2 * Bm.numel() * esz + B * S * H * 4 + H * 4 \
+        + (2 if s0 is not None else 1) * B * H * P * N * 4
+    ops = 0
+    for c0 in range(0, S, chunk):
+        c = min(chunk, S - c0)
+        ops += 2 * c * c * N * G + c * (c + 1) * P * H + 4 * c * P * N * H
+    return nbytes, B * ops
+
+
+def ssd_kernel_phase(report: dict) -> dict:
+    """K4 against its plain version on SSD_CHECKS (y and final state), then
+    checked and timed at the serve shape on views rotated past the L2."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    err, lines = 0.0, []
+    for B, S, H, P, G, N, dt, init in SSD_CHECKS:
+        x, dtv, A, Bm, C, s0 = ssd_case(g, B, S, H, P, G, N, dt, init)
+        y, sf = ssd_scan_cuda(x, dtv, A, Bm, C, initial_state=s0)
+        wy, ws = ref.ssd_scan(x, dtv, A, Bm, C, chunk=256, initial_state=s0)
+        tag = f"ssd_scan B={B} S={S} H={H} P={P} G={G} N={N} {dt} init={init}"
+        e = max(check(tag, y, wy, dt, SSD_TOL), check(tag + " state", sf, ws, dt, SSD_TOL))
+        if dt == "bfloat16":
+            err = max(err, e)
+        lines.append(f"{tag}: max_abs_err={e:.3g}")
+        print(lines[-1])
+    make = lambda: ssd_case(g, 1, 400, 80, 64, 1, 128, "bfloat16")  # noqa: E731
+    sets = copies(make, 400 * (80 * 64 * 2 + 256 * 2 + 80 * 4))
+    nbytes, ops = ssd_cost(sets[0][0], sets[0][3], None)
+    wy, ws = ref.ssd_scan(*sets[0][:5], chunk=256)
+    y, sf = ssd_scan_cuda(*sets[0][:5])
+    e = max(check("ssd_scan timing set", y, wy, "bfloat16", SSD_TOL),
+            check("ssd_scan timing set state", sf, ws, "bfloat16", SSD_TOL))
+    err = max(err, e)
+    out = {"shape": "B=1 S=400 H=80 P=64 G=1 N=128 bf16 (strided views)",
+           "ms": timed(lambda i: ssd_scan_cuda(*sets[i % len(sets)][:5]), 200),
+           "plain_ms": timed(lambda i: ref.ssd_scan(*sets[i % len(sets)][:5], chunk=256), 20),
+           "library_ms": None, "bound": bound_ms(nbytes, ops, "bfloat16"), "max_abs_err": err}
+    print(f"ssd_scan [{out['shape']}]: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+          f"no single PyTorch call, bound {out['bound'][0]:.4f} ms ({out['bound'][1]})")
+    report["ssd_kernel_checks"] = lines
+    return out
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def mamba_model_phase(report: dict) -> None:
+    """mamba2-2.7b's first 2 layers at full width on the card (K4) against the
+    same weights on the CPU (plain versions), float32: an exact-shape prefill
+    of 2 rows of 300 tokens, a 5-token verify, a per-row commit and a plain
+    step; logits and the committed SSM state."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), n_layers=2, dtype="float32")
+    gpu, cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
+    params = gpu.init(1)
+    cpu_params = to_cpu(params)
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 300), generator=gen, dtype=torch.int32)
+    lg, cg = gpu.prefill(params, {"tokens": tokens.cuda()}, 512)
+    lc, cc = cpu.prefill(cpu_params, {"tokens": tokens}, 512)
+    errs = [max_err(lg.cpu(), lc)]
+    for T, accept in ((5, torch.tensor([1, 4], dtype=torch.int32)), (1, None)):
+        step = torch.randint(0, cfg.vocab_size, (2, T), generator=gen, dtype=torch.int32)
+        errs.append(max_err(gpu.decode_step(params, cg, step.cuda()).cpu(),
+                            cpu.decode_step(cpu_params, cc, step)))
+        if accept is not None:
+            gpu.commit_cache(cg, cg["len"] - T, accept.cuda())
+            cpu.commit_cache(cc, cc["len"] - T, accept)
+            errs.append(max_err(cg["state"].cpu(), cc["state"]))
+    print(f"mamba2 model check (2 full-width layers, fp32, card vs CPU): "
+          f"max_abs_err={max(errs):.3g}")
+    if max(errs) > 1e-3:
+        fail(f"mamba2 model check: logits or state differ by {max(errs):.3g} > 1e-3")
+    report["mamba_model_check_max_abs_err"] = max(errs)
+
+
+def mamba_serve_phase(report: dict):
+    """mamba2-2.7b at full width on 2 pairs: the dense serve's 12 prompts of
+    16-400 tokens, 32 new tokens each.  Every admission is its own exact-shape
+    prefill call, which runs K4 once per layer."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ServeConfig, StreamServe
+
+    cfg = ServeConfig(arch="mamba2-2.7b", reduced=False, n_pairs=2, max_batch=8, max_len=512,
+                      max_new_tokens=32)
+    t0 = time.perf_counter()
+    serve = StreamServe(cfg, device="cuda")
+    torch.cuda.synchronize()
+    arch = serve.arch
+    print(f"mamba2 serve: {arch.name} L={arch.n_layers} d_model={arch.d_model} vocab="
+          f"{arch.vocab_size} {arch.dtype}, {cfg.n_pairs} pairs x {cfg.max_batch} slots; "
+          f"init {time.perf_counter() - t0:.2f} s")
+    bad = instrument(serve)
+    rng = np.random.default_rng(7)
+    lens = [16, 400, 24, 300, 40, 200, 64, 130, 350, 33, 100, 250]
+    prompts = [rng.integers(0, arch.vocab_size, n).tolist() for n in lens]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    run = drive(serve, {0: prompts[:8], 3: prompts[8:]})
+    launches = read_counts()
+    result = serve_stats("mamba2 serve", serve, bad, run, launches)
+    L, n_pre = arch.n_layers, result["prefill_calls"]
+    print(f"mamba2 serve: K4 launches {launches['ssd_scan']} = {L} x {n_pre} prefill calls")
+    if n_pre != len(prompts) or launches["ssd_scan"] != L * n_pre:
+        fail(f"mamba2 serve: {launches['ssd_scan']} K4 launches, {n_pre} prefill calls: "
+             f"expected one call per request and {L} launches per call")
+    if not result["decode_calls"] or any(n for k, n in launches.items() if k != "ssd_scan"):
+        fail(f"mamba2 serve: unexpected launches {launches} or no decode call")
+    result["prompt_lens"] = lens
+    report["mamba_serve"] = result
+    return launches, serve
+
+
+def release() -> None:
+    """Free a finished phase's device memory before the next one measures its
+    peak: the instrumented lane methods form reference cycles (closures over
+    bound methods stored on the lane), which only the collector breaks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -769,12 +978,20 @@ def main() -> None:
     profile_phase(serve, report)
     params = serve.engine.pairs[0].lane.params  # the same weights serve paged
     del serve
-    torch.cuda.empty_cache()
+    release()
     paged_launches, serve = paged_serve_phase(params, report)
     profile_phase(serve, report, "paged_profile", PAGED_BURST, seed=2)
     del serve
-    torch.cuda.empty_cache()
+    release()
     pressure_phase(params, report)
+    del params
+    release()
+    ssd_timing = ssd_kernel_phase(report)
+    mamba_model_phase(report)
+    mamba_launches, serve = mamba_serve_phase(report)
+    profile_phase(serve, report, "mamba_profile", seed=3, split=True)
+    del serve
+    release()
 
     def entry(name, r, n):
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -782,14 +999,16 @@ def main() -> None:
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                 "bound_by": r["bound"][1], "library_ms": r["library_ms"], "shape": r["shape"]}
 
-    # launches: K1 and K2 from the dense serve, K3 from the paged serve; K3's
-    # times at its decode shape, its admission shape beside them
+    # launches: K1 and K2 from the dense serve, K3 from the paged serve, K4
+    # from the mamba2 serve; K3's times at its decode shape, its admission
+    # shape beside them
     kernels = [entry(name, r, launches[name]) for name, r in timing.items()]
     kernels.append(entry("decode_attention_paged", paged_timing["decode"],
                          paged_launches["decode_attention_paged"]))
     kernels[-1]["admission"] = {k: v for k, v in entry(
         "decode_attention_paged", paged_timing["admission"], 0).items()
         if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}
+    kernels.append(entry("ssd_scan", ssd_timing, mamba_launches["ssd_scan"]))
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,15 +1,33 @@
-"""Architecture configuration (the dense part of ``repro.configs.base``).
+"""Architecture configuration (the dense and SSM parts of ``repro.configs.base``).
 
 Every architecture is an :class:`ArchConfig`: pure frozen data with the same
-fields and defaults as the reference.  The port serves only dense
-attention+MLP decoders so far; the ``moe``, ``ssm`` and ``frontend`` fields
-stay so that a config naming them is refused by name (``models.transformer.
+fields and defaults as the reference.  The port serves dense attention+MLP
+decoders and Mamba2 (SSD) stacks; the ``moe`` and ``frontend`` fields stay
+so that a config naming them is refused by name (``models.transformer.
 check_supported``) rather than misread.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD — state space duality) configuration."""
+
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    d_conv: int = 4
+    chunk_size: int = 256
+    n_groups: int = 1
+
+    def d_inner(self, d_model):
+        return self.expand * d_model
+
+    def n_heads(self, d_model):
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,7 +48,7 @@ class ArchConfig:
     attn_period: int = 0
     mlp_type: str = "swiglu"  # swiglu | gelu
     moe: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     frontend: Optional[Any] = None
     n_encoder_layers: int = 0
     dtype: str = "bfloat16"
@@ -61,10 +79,16 @@ class ArchConfig:
         return ("attn",) * self.n_layers
 
     def n_active_params(self):
-        """Parameters per token of a dense decoder (embedding, attention,
-        MLP and norms), as ``repro``'s count gives for one."""
+        """Parameters per token (embedding, attention or SSM mixer, MLP and
+        norms), as ``repro``'s ``_count_params`` gives for a model without MoE."""
         d, hd = self.d_model, self.head_dim
         attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+        ssm = 0
+        if self.ssm is not None:
+            s = self.ssm
+            d_in, nh, gn = s.d_inner(d), s.n_heads(d), 2 * s.n_groups * s.d_state
+            ssm = d * (2 * d_in + gn + nh) + s.d_conv * (d_in + gn) + d_in * d + 3 * nh
         mlp = (3 if self.mlp_type == "swiglu" else 2) * d * self.d_ff
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return embed + self.n_layers * (attn + mlp + 2 * d)
+        mixers = sum(attn if kind == "attn" else ssm for kind in self.layer_kinds())
+        return embed + mixers + self.n_layers * (mlp + 2 * d)

@@ -1,5 +1,6 @@
 """PipeServe-Engine on PyTorch — disaggregated prefill/decode execution
-(paper §3.4, Alg 1 & 3); a port of the dense path of ``repro.core.engine``.
+(paper §3.4, Alg 1 & 3); a port of the dense, paged and SSM paths of
+``repro.core.engine``.
 
 One :class:`StreamPair` = a prefill lane + a decode lane sharing one device;
 the decode lane runs continuous batching over ``max_batch`` slots with
@@ -20,7 +21,9 @@ With ``paged_kv`` the decode lane keeps a global page pool with per-row
 block tables instead: admission prefills only each prompt's suffix past its
 resident radix prefix, straight into pages, sequences grow page by page up
 to ``max_context``, and pool pressure evicts and requeues a victim (or
-truncates).  Chunked prefill, the model draft and StreamTrace recording
+truncates).  A stack with SSM layers (Mamba2) admits one request per
+prefill call at its exact prompt length, since the SSM state would absorb
+padding, and is refused paged KV.  Chunked prefill, the model draft and StreamTrace recording
 raise ``NotImplementedError`` naming their ROADMAP item.  The engine is
 single-controller and deterministic given the request trace.
 """
@@ -74,6 +77,12 @@ def _terminal_record(req, now, kv_evicted=False,
     )
 
 
+def attention_only(cfg):
+    """Whether right-padding and cursor offsets are invisible to the stack:
+    true for causal attention, false once an SSM layer carries state."""
+    return all(kind == "attn" for kind in cfg.layer_kinds())
+
+
 def _pow2_buckets(lo, hi):
     """Power-of-two shape buckets from ``lo`` up to (and including) ``hi``."""
     out, b = [], max(lo, 1)
@@ -91,6 +100,8 @@ def _bucket(n, buckets):
 class ModelLane:
     """A model, its batched decode cache (per-slot dense, or a page pool with
     ``paged=(n_pages, page_size, max_context)``) and the step helpers.
+    ``steps`` is the longest decode step (the deepest verify bucket + 1),
+    for which SSM layers keep per-token states.
 
     The cache is preallocated and every step updates it in place; callers
     treat ``self.cache`` as the only live handle.  ``calls`` counts model
@@ -98,10 +109,10 @@ class ModelLane:
     kernel launches to expect.
     """
 
-    def __init__(self, cfg, params, max_batch, max_len, device, paged=None):
+    def __init__(self, cfg, params, max_batch, max_len, device, paged=None, steps=0):
         self.model = build_model(cfg, device)
         self.params = params
-        self.max_batch, self.max_len, self.paged = max_batch, max_len, paged
+        self.max_batch, self.max_len, self.paged, self.steps = max_batch, max_len, paged, steps
         self.reset_cache()
         self.calls = {"prefill": 0, "decode": 0}
 
@@ -120,14 +131,16 @@ class ModelLane:
         return self.model.prefill(self.params, batch, self.max_len)
 
     def insert_rows(self, slot_ids, small_cache):
-        """Copy prefill row r into decode slot ``slot_ids[r]`` (the KV
-        transfer).  Ids >= max_batch mark padded admission rows: dropped."""
+        """Copy prefill row r into decode slot ``slot_ids[r]`` (the KV and
+        SSM-state transfer): every per-slot tensor the prefill cache has.
+        Ids >= max_batch mark padded admission rows: dropped."""
         rows = np.nonzero(slot_ids < self.max_batch)[0]
         dev = self.cache["len"].device
         src = torch.from_numpy(rows).to(dev)
         dst = torch.from_numpy(slot_ids[rows].astype(np.int64)).to(dev)
-        for name, dim in (("k", 1), ("v", 1), ("kv_pos", 1), ("len", 0)):
-            self.cache[name].index_copy_(dim, dst, small_cache[name].index_select(dim, src))
+        for name, t in small_cache.items():
+            dim = 0 if name == "len" else 1  # the rest are stacked over layers
+            self.cache[name].index_copy_(dim, dst, t.index_select(dim, src))
 
     def decode(self, tokens):
         self.calls["decode"] += 1
@@ -139,7 +152,7 @@ class ModelLane:
 
     def reset_cache(self):
         self.cache = (self.model.init_paged_cache(self.max_batch, *self.paged) if self.paged
-                      else self.model.init_cache(self.max_batch, self.max_len))
+                      else self.model.init_cache(self.max_batch, self.max_len, self.steps))
 
 
 @dataclasses.dataclass
@@ -195,7 +208,8 @@ class StreamPair:
         self._max_context = (econf.max_context or econf.max_len) if paged else econf.max_len
         self._pages_max = -(-self._max_context // ps)
         self.lane = ModelLane(cfg, params, econf.max_batch, econf.max_len, device,
-                              (econf.kv_blocks, ps, self._max_context) if paged else None)
+                              (econf.kv_blocks, ps, self._max_context) if paged else None,
+                              steps=self._kv_margin)
         self.kv = KVCacheManager(econf.kv_blocks, ps, serve_prefixes=paged,
                                  max_seq_blocks=self._pages_max if paged else None)
         # host mirror of the device block tables: admission and extension
@@ -208,7 +222,9 @@ class StreamPair:
         self.spec = resolve_spec_policy(econf.resolved_spec_policy(), config=econf.spec_config,
                                         fixed_depth=econf.fixed_depth)
         self.draft = resolve_draft(econf.draft, DraftContext(cfg=cfg, econf=econf))
-        self._bucketed = econf.prefill_buckets
+        # length bucketing needs padding to be invisible, which holds for
+        # causal attention but not for SSM state (the reference's arch_ok)
+        self._bucketed = econf.prefill_buckets and attention_only(cfg)
         self._len_buckets = _pow2_buckets(econf.prefill_bucket_min, self._max_context)
         self._admit_buckets = _pow2_buckets(1, max(econf.admit_batch, 1))
         B = econf.max_batch
@@ -304,7 +320,9 @@ class StreamPair:
         for i, req in enumerate(reqs):
             tokens[i, : len(req.prompt)] = req.prompt
             lengths[i] = len(req.prompt)
-        batch = {"tokens": self._to_dev(tokens), "lengths": self._to_dev(lengths)}
+        batch = {"tokens": self._to_dev(tokens)}
+        if self._bucketed:
+            batch["lengths"] = self._to_dev(lengths)
         last_logits, small_cache = self.lane.prefill(batch)
         for req in reqs:
             req.state = RequestState.TRANSFERRING
@@ -480,7 +498,8 @@ class StreamPair:
 
     def warmup(self, max_prompt_len=None):
         """Run every steady-state shape once (prefill or paged-admission
-        buckets, verify depths, the plain step) ahead of traffic, then reset
+        buckets, none on the exact-shape path of an SSM stack; verify depths;
+        the plain step) ahead of traffic, then reset
         the lane.  Returns the number of distinct shapes exercised, counted
         as the reference counts its programs."""
         if self.active_slots():
@@ -550,6 +569,8 @@ class PipeServeEngine:
                 raise NotImplementedError(f"{what} is not ported yet")
         if econf.paged_kv:  # the reference's paged gating (write-once pages: no window)
             for bad, what in (
+                    (not attention_only(cfg), "an attention-only stack (SSM state is "
+                                              "not positional, so it cannot live in pages)"),
                     (cfg.sliding_window is not None, "a model without a sliding window"),
                     (econf.max_len % econf.kv_block_size, "kv_block_size to divide max_len"),
                     ((econf.max_context or econf.max_len) < econf.max_len,

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssd
 
 
 def flash_attention(q, k, v, *, causal=True, window=None,
@@ -42,3 +44,15 @@ def decode_attention_paged(q, k_pages, v_pages, cache_len, block_tables, *, wind
     fn = da.decode_attention_paged_plain if q.device.type == "cpu" \
         else da.decode_attention_paged_cuda
     return fn(q, k_pages, v_pages, cache_len, block_tables, window=window, scale=scale)
+
+
+def ssd_scan(x, dt, A, Bm, C, *, chunk=256, initial_state=None):
+    """Mamba2 SSD scan; see ``ref.ssd_scan``.  Returns (y, final state)."""
+    if x.device.type == "cpu":
+        return ssd.ssd_scan_plain(x, dt, A, Bm, C, chunk=chunk, initial_state=initial_state)
+    return ssd.ssd_scan_cuda(x, dt, A, Bm, C, initial_state=initial_state)
+
+
+# One token of the SSD recurrence: a few small torch ops on either device
+# (the reference has no Pallas kernel for it either).
+ssd_decode_step = ref.ssd_decode_step

@@ -1,7 +1,7 @@
-"""Plain PyTorch attention (a port of ``repro.kernels.ref``'s attention).
+"""Plain PyTorch kernels (a port of ``repro.kernels.ref``'s attention and SSD).
 
-These run every attention call on the CPU and are what the CUDA kernels are
-held against on the card.  Conventions: q (B, Sq, H, D); k, v (B, Sk, K, D)
+These run every attention and SSD-scan call on the CPU and are what the CUDA
+kernels are held against on the card.  Conventions: q (B, Sq, H, D); k, v (B, Sk, K, D)
 with H = K * G; all attention math accumulates in float32 whatever the input
 dtype, and masked scores are ``NEG_INF`` (never -inf, so a fully masked row
 stays finite: it averages the values, exactly as the TPU kernels do).
@@ -101,3 +101,69 @@ def decode_attention_paged(q, k_pages, v_pages, cache_len, block_tables, *,
                          torch.arange(P * ps, dtype=torch.int32, device=dev), -1)
     return decode_attention(q, k, v, cache_len, kv_positions=kv_pos, window=window,
                             scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality) — chunked scan and the decode recurrence
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan(x, dt, A, Bm, C, *, chunk=256, initial_state=None):
+    """Chunked SSD forward (Mamba-2, arXiv:2405.21060 §6), all in float32.
+
+    x (B, S, H, P); dt (B, S, H), already softplus'ed; A (H,) negative;
+    Bm, C (B, S, G, N); initial_state (B, H, P, N) or None (zeros).
+    Returns y (B, S, H, P) in x's dtype and the final state (B, H, P, N) fp32.
+    The last chunk is padded with dt = 0 rows, which leave the state as is.
+    """
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    rep = H // G
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    nc = (S + pad) // chunk
+
+    def split(t):  # (B, S, ...) -> (B, nc, chunk, ...) fp32, zero-padded
+        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(Bsz, nc, chunk, *t.shape[2:])
+
+    xf, dtf, Bf, Cf = split(x), split(dt), split(Bm), split(C)
+    dA_cs = torch.cumsum(dtf * A.float(), dim=2)                      # (B,nc,c,H)
+    # intra-chunk: decay exp(cs_i - cs_j) for j <= i, computed directly
+    seg = dA_cs.transpose(2, 3)[..., :, None] - dA_cs.transpose(2, 3)[..., None, :]
+    causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(causal, seg, NEG_INF))                  # (B,nc,H,c,c)
+    CB = torch.einsum("bucgn,busgn->bugcs", Cf, Bf).repeat_interleave(rep, dim=2)
+    M = CB * L * dtf.transpose(2, 3)[:, :, :, None, :]               # weight dt_j
+    y = torch.einsum("buhcs,bushp->buchp", M, xf)
+    # each chunk's own state contribution, then the recurrence over chunks
+    decay_to_end = torch.exp(dA_cs[:, :, -1:] - dA_cs)                # (B,nc,c,H)
+    states = torch.einsum("bushn,bushp->buhpn", Bf.repeat_interleave(rep, dim=3),
+                          xf * (dtf * decay_to_end)[..., None])
+    chunk_decay = torch.exp(dA_cs[:, :, -1])                          # (B,nc,H)
+    s = (torch.zeros(Bsz, H, P, N, device=x.device) if initial_state is None
+         else initial_state.float())
+    before = []
+    for u in range(nc):
+        before.append(s)
+        s = s * chunk_decay[:, u, :, None, None] + states[:, u]
+    Cr = Cf.repeat_interleave(rep, dim=3) * torch.exp(dA_cs)[..., None]
+    y = y + torch.einsum("buchn,buhpn->buchp", Cr, torch.stack(before, 1))
+    return y.reshape(Bsz, S + pad, H, P)[:, :S].to(x.dtype), s
+
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t, out=None):
+    """One token of the SSD recurrence for decode.
+
+    state (B, H, P, N) fp32; x_t (B, H, P); dt_t (B, H); B_t, C_t (B, G, N).
+    Returns (new_state, y_t (B, H, P) in x_t's dtype); the new state is
+    written into ``out`` when given (a view of the cache: no extra copy).
+    """
+    rep = x_t.shape[1] // B_t.shape[1]
+    Bh = B_t.float().repeat_interleave(rep, dim=1)
+    Ch = C_t.float().repeat_interleave(rep, dim=1)
+    dtf = dt_t.float()
+    decay = torch.exp(dtf * A[None, :])
+    new = torch.addcmul(state * decay[..., None, None],
+                        (x_t.float() * dtf[..., None])[..., None], Bh[:, :, None, :], out=out)
+    return new, torch.einsum("bhpn,bhn->bhp", new, Ch).to(x_t.dtype)

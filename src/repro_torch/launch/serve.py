@@ -4,6 +4,8 @@ tokens until every one has finished.
 
   python -m repro_torch.launch.serve --device cpu --requests 6 --max-new 8
   python -m repro_torch.launch.serve --no-reduced     # full width, on the card
+  python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu --requests 6
+  python -m repro_torch.launch.serve --arch mamba2-2.7b --no-reduced   # on the card
 
 The reference's ``--config``/``--dump-config`` (YAML), ``--trace*``, HTTP
 gateway and fault-injection flags wait for those features (ROADMAP).

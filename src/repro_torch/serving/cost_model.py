@@ -62,6 +62,14 @@ class CostModel:
     def kv_bytes_per_token(self):
         return self._n_attn() * 2 * self.cfg.n_kv_heads * self.cfg.head_dim * self.dtype_bytes
 
+    def ssm_state_bytes(self):
+        """The fp32 SSD state of one sequence over all SSM layers."""
+        s = self.cfg.ssm
+        if s is None:
+            return 0
+        n_ssm = self.cfg.n_layers - self._n_attn()
+        return n_ssm * s.n_heads(self.cfg.d_model) * s.head_dim * s.d_state * 4
+
     def prefill_time(self, prompt_len, cached_tokens=0):
         """One prompt through the prefill lane (compute-bound)."""
         live = max(prompt_len - cached_tokens, 0)
@@ -72,17 +80,19 @@ class CostModel:
         return max(flops / self.flops_rate, t_memory) + self.hw.dispatch_overhead
 
     def decode_step_time(self, batch, mean_context, t_tokens=1):
-        """One decode (or verify) iteration: weights once, KV per sequence."""
+        """One decode (or verify) iteration: weights once, KV and SSM state
+        per sequence."""
         weight_bytes = self.n_active * self.dtype_bytes
         kv_bytes = batch * mean_context * self.kv_bytes_per_token()
-        t_memory = (weight_bytes + kv_bytes) / self.mem_rate
+        state_bytes = batch * self.ssm_state_bytes()
+        t_memory = (weight_bytes + kv_bytes + state_bytes) / self.mem_rate
         t_compute = 2.0 * self.n_active * batch * t_tokens / self.flops_rate
         return max(t_compute, t_memory) + self.hw.dispatch_overhead
 
     def kv_transfer_time(self, prompt_len):
-        """Prefill -> decode KV handoff over the lanes' direct link."""
-        return prompt_len * self.kv_bytes_per_token() / self.hw.interconnect_bw \
-            + self.hw.dispatch_overhead
+        """Prefill -> decode KV (and SSM state) handoff over the lanes' direct link."""
+        nbytes = prompt_len * self.kv_bytes_per_token() + self.ssm_state_bytes()
+        return nbytes / self.hw.interconnect_bw + self.hw.dispatch_overhead
 
 
 class PrefillDelayEstimator:
