@@ -5,17 +5,23 @@
 Phases, each fatal on failure:
   1. print the card (nvidia-smi name and power limit) and versions; build the
      CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
-     all at once);
+     all at once); show from the SASS that the bf16 prefill and admission
+     kernels run both products on HGMMA (wgmma);
   2. hold each kernel against its plain PyTorch version at the serving
      shapes (bf16, plus fp32, stale-slot poisoning, fully masked rows, and
-     for the paged kernel shuffled pages, ragged -1 tails and a window), and
-     time kernel, plain version and the library yardstick
+     for the paged kernel shuffled pages, ragged -1 tails and a window; at
+     the edges of the bf16 tensor-core kernels: prefill lengths that are not
+     a multiple of the 64-row tile, a window with a q_offset, admission
+     shapes on both sides of K3's dispatch threshold, ranges that start and
+     end mid-page, rows that see nothing or whose positions pass the table),
+     and time kernel, plain version and the library yardstick
      (``scaled_dot_product_attention``; for the paged kernel a gather plus
-     SDPA, two calls);
+     SDPA, two calls) beside the previous kernels' times;
   3. check the full-width model on the card against the same weights on the
      CPU (2 layers, float32), dense and paged;
   4. serve qwen3-1.7b at full width (28 layers, d_model 2048) with 2 stream
-     pairs through ``StreamServe``, counting kernel launches;
+     pairs through ``StreamServe``, counting kernel launches (and which of
+     them took a tensor-core kernel);
   5. time a burst of 8 requests, then profile the same burst (device busy
      share of the wall, device time by kernel);
   6. serve the same model with paged KV (max_context 1024): shared-prefix
@@ -44,6 +50,9 @@ HBM_BYTES_PER_S = 3.35e12                                 # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}         # dense, per type
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}                 # tests/test_kernels.py:19
 SSD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}             # tests/test_kernels.py:180-181
+# the bf16 kernels' times on the CUDA cores, before they moved to the tensor
+# cores (PERF.md §6, by this script, NVIDIA H100 80GB HBM3, 700.00 W)
+PREVIOUS_MS = {"flash_attention": 0.2979, "admission": 5.2586}
 REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:113",
     "flash_attention": "src/repro/kernels/flash_attention.py:131",
@@ -58,12 +67,17 @@ def fail(msg: str) -> None:
 
 
 def timed(fn, iters: int) -> float:
-    """Mean milliseconds per call over ``iters`` calls, by CUDA events."""
+    """Mean milliseconds per call over ``iters`` calls, by CUDA events.  A
+    spin kernel (~50 ms) ahead of the start event lets the host queue the
+    calls before the device reaches them, so they run back to back and the
+    time is the device's, not the host's rate of issue (a wrapper's Python
+    and ctypes cost tens of microseconds a call, as much as a short kernel)."""
     import torch
 
     fn(0)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     start.record()
     for i in range(iters):
         fn(i)
@@ -95,6 +109,36 @@ def check(name: str, got, want, dt: str, tols: dict = TOL) -> float:
 
 
 # ------------------------------------------------------------------ kernels
+
+def tensor_core_sass(report: dict) -> None:
+    """The bf16 kernels' two products as compiled: the HGMMA (wgmma)
+    instruction forms in the SASS of flash_wgmma_kernel and
+    paged_prefill_kernel at head_dim 128 (``cuobjdump -sass`` of the built
+    libraries).  Fails unless each holds S = QK^T (64x64x16) and O += PV
+    (64x128x16) on the tensor cores."""
+    import re
+
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    found = {}
+    for lib, kernel in (("flash_attention", "flash_wgmma_kernel"),
+                        ("decode_attention_paged", "paged_prefill_kernel")):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(lib))],
+                              capture_output=True, text=True, timeout=120).stdout
+        fn, forms = "", set()
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line
+            elif "HGMMA" in line and kernel in fn and "ILi128E" in fn:
+                forms.add(re.search(r"HGMMA\.(\S+)", line).group(1))
+        found[kernel] = sorted(forms)
+        print(f"{kernel} (head_dim 128) SASS: HGMMA {', '.join(found[kernel]) or 'none'}")
+        if not all(any(f.startswith(shape) for f in forms) for shape in ("64x64x16.F32.BF16",
+                                                                          "64x128x16.F32.BF16")):
+            fail(f"{kernel}: the SASS does not run both products on HGMMA")
+    report["hgmma"] = found
+
 
 def decode_case(g, B, T, S, H, K, D, dt, fill, poison=True):
     """Decode inputs as the serving path makes them: row b holds fill[b]
@@ -204,10 +248,13 @@ def kernel_phase(report: dict) -> dict:
               ref.decode_attention(q, k, v, clen, kv_positions=pos), "bfloat16")
     lines.append(f"decode_attention fully masked row: finite, max_abs_err={e:.3g}")
     # ---- flash: the prefill buckets, bf16; fp32; window + q_offset ---------
+    # bf16 runs flash_wgmma_kernel (64-row tiles: S = 100 and 16 leave a
+    # ragged one), fp32 flash_kernel
     for B, Sq, dt, kw in [(4, 512, "bfloat16", {}), (2, 256, "bfloat16", {}),
                           (4, 64, "bfloat16", {}), (1, 16, "bfloat16", {}),
-                          (2, 256, "float32", {}),
-                          (1, 64, "bfloat16", {"q_offset": 192, "window": 100})]:
+                          (2, 100, "bfloat16", {}), (2, 256, "float32", {}),
+                          (1, 64, "bfloat16", {"q_offset": 192, "window": 100}),
+                          (2, 100, "bfloat16", {"q_offset": 60, "window": 70})]:
         Sk = Sq + kw.get("q_offset", 0)
         dtype = getattr(torch, dt)
         q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
@@ -253,18 +300,21 @@ def kernel_phase(report: dict) -> dict:
     }
     for name, r in out.items():
         r["max_abs_err"] = errs[name]
-        print(f"{name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"sdpa {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+        was = f" (CUDA-core kernel {PREVIOUS_MS[name]} ms)" if name in PREVIOUS_MS else ""
+        print(f"{name} [{r['shape']}]: kernel {r['ms']:.4f} ms{was}, plain {r['plain_ms']:.4f} "
+              f"ms, sdpa {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     report["kernel_checks"] = lines
     return out
 
 
 def paged_case(g, B, T, dt, lens, H=16, K=8, D=128, ps=16, P=64, n_pages=4096,
-               perm=None, pools=None):
+               perm=None, pools=None, ride=()):
     """Paged inputs as the serving path makes them: row b holds lens[b]
     positions (the T new tokens included) on shuffled, non-contiguous pages
     with a ragged -1 tail (a length of 0 leaves the whole row unset); the
-    slots past a row's length on its last page are poisoned."""
+    slots past a row's length on its last page are poisoned.  A row in
+    ``ride`` rides along in an admission as the engine sends it: cache_len
+    lens[b] + T, so its T query positions lie past what it holds."""
     import torch
 
     dev, dtype = "cuda", getattr(torch, dt)
@@ -283,7 +333,8 @@ def paged_case(g, B, T, dt, lens, H=16, K=8, D=128, ps=16, P=64, n_pages=4096,
         if L % ps:
             for pool, val in zip(pools, (60.0, -60.0), strict=True):
                 pool[int(bt[b, n - 1]), L % ps:] = val
-    clen = torch.tensor([max(L, T) for L in lens], dtype=torch.int32, device=dev)
+    clen = torch.tensor([L + T if b in ride else max(L, T) for b, L in enumerate(lens)],
+                        dtype=torch.int32, device=dev)
     return q, *pools, clen, bt.to(dev)
 
 
@@ -343,20 +394,37 @@ def paged_kernel_phase(report: dict) -> dict:
     from repro_torch.kernels.decode_attention import decode_attention_paged_cuda as k3
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    err, lines = 0.0, []
-    # every row ends mid-page but one (1024); the last row is all -1
-    for T, dt, window in [(1, "bfloat16", None), (2, "bfloat16", None), (3, "bfloat16", None),
-                          (5, "bfloat16", None), (9, "bfloat16", None), (16, "bfloat16", None),
-                          (128, "bfloat16", None), (512, "bfloat16", None),
-                          (5, "float32", None), (128, "float32", None), (16, "bfloat16", 100)]:
+    err, lines = [0.0, 0.0], []  # bf16, per kernel (route 0 decode, 1 admission)
+    # every row ends mid-page but one (1024); the last row is all -1.  bf16
+    # with T*G >= 32 (T >= 16) runs paged_prefill_kernel, the rest
+    # paged_decode_kernel: T = 9 and 16 sit on the two sides of the
+    # threshold; T*G = 200 leaves a ragged 64-row tile; the windows start
+    # each row's range mid-page; row 1 of the "ride" cases rides along past
+    # its 1024 positions (and row 3 past its 700)
+    for T, dt, window, ride in [
+            (1, "bfloat16", None, ()), (2, "bfloat16", None, ()), (3, "bfloat16", None, ()),
+            (5, "bfloat16", None, ()), (9, "bfloat16", None, ()), (16, "bfloat16", None, ()),
+            (100, "bfloat16", None, ()), (128, "bfloat16", None, ()),
+            (512, "bfloat16", None, ()), (5, "float32", None, ()), (128, "float32", None, ()),
+            (16, "bfloat16", 100, ()), (128, "bfloat16", 100, ()), (9, "bfloat16", 100, ()),
+            (64, "bfloat16", None, (1, 3)), (100, "bfloat16", 37, (1, 3))]:
         lens = [T + 37, 1024, T + 300, 700, T + 5, 513, T + 130, 0]
-        q, kp, vp, clen, bt = paged_case(g, 8, T, dt, lens)
+        q, kp, vp, clen, bt = paged_case(g, 8, T, dt, lens, ride=ride)
+        before = k3.wgmma_launches
         got = k3(q, kp, vp, clen, bt, window=window)
-        e = check(f"paged T={T} {dt} window={window}", got,
-                  ref.decode_attention_paged(q, kp, vp, clen, bt, window=window), dt)
-        if dt == "bfloat16":
-            err = max(err, e)
-        lines.append(f"decode_attention_paged B=8 T={T} {dt} window={window}: max_abs_err={e:.3g}")
+        tag = f"T={T} {dt} window={window} ride={list(ride)}"
+        want_path = int(dt == "bfloat16" and T * 2 >= 32)
+        if k3.wgmma_launches - before != want_path:
+            fail(f"paged {tag}: took the wrong kernel")
+        want = ref.decode_attention_paged(q, kp, vp, clen, bt, window=window)
+        e = check(f"paged {tag}", got, want, dt)
+        if dt == "bfloat16":  # recorded without the ride-along rows, which see
+            # poisoned slots (|x| = 60, where one bf16 step is 0.25)
+            keep = [b for b in range(8) if b not in ride]
+            err[want_path] = max(err[want_path], max_err(got[keep], want[keep]))
+        lines.append(f"decode_attention_paged B=8 {tag} "
+                     f"({'paged_prefill_kernel' if want_path else 'paged_decode_kernel'}): "
+                     f"max_abs_err={e:.3g}")
     for line in lines:
         print(line)
 
@@ -373,7 +441,7 @@ def paged_kernel_phase(report: dict) -> dict:
         # the timed shape is the path's own (admission runs K3 at T=1024): check it too
         e = check(f"paged {key} T={T} bfloat16", k3(*sets[0]),
                   ref.decode_attention_paged(*sets[0]), "bfloat16")
-        err = max(err, e)
+        err[key == "admission"] = max(err[key == "admission"], e)
         lines.append(f"decode_attention_paged B=8 T={T} bfloat16 ({key} timing set): "
                      f"max_abs_err={e:.3g}")
         print(lines[-1])
@@ -386,11 +454,12 @@ def paged_kernel_phase(report: dict) -> dict:
             "bound": bound_ms(nbytes, ops, "bfloat16"),
         }
         r = out[key]
-        print(f"decode_attention_paged {key} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, gather+sdpa {r['library_ms']:.4f} ms, bound "
+        was = f" (CUDA-core kernel {PREVIOUS_MS[key]} ms)" if key in PREVIOUS_MS else ""
+        print(f"decode_attention_paged {key} [{r['shape']}]: kernel {r['ms']:.4f} ms{was}, "
+              f"plain {r['plain_ms']:.4f} ms, gather+sdpa {r['library_ms']:.4f} ms, bound "
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
-    for r in out.values():  # the largest error over every check, timing sets included
-        r["max_abs_err"] = err
+    for key, r in out.items():  # the largest bf16 error over the kernel's own checks
+        r["max_abs_err"] = err[key == "admission"]
     report["paged_kernel_checks"] = lines
     return out
 
@@ -554,10 +623,16 @@ def kernel_counters():
 def zero_counts() -> None:
     for fn in kernel_counters().values():
         fn.launches = 0
+        if hasattr(fn, "wgmma_launches"):
+            fn.wgmma_launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    """Launches per kernel, and per bf16 tensor-core path ("<name>.wgmma")."""
+    counts = {name: fn.launches for name, fn in kernel_counters().items()}
+    counts.update({f"{name}.wgmma": fn.wgmma_launches for name, fn in kernel_counters().items()
+                   if hasattr(fn, "wgmma_launches")})
+    return counts
 
 
 def serve_phase(report: dict):
@@ -587,6 +662,9 @@ def serve_phase(report: dict):
     if launches["flash_attention"] != L * calls["prefill_calls"] or not calls["prefill_calls"]:
         fail(f"serve: flash launches {launches['flash_attention']} != {L} x "
              f"{calls['prefill_calls']} prefill calls")
+    if launches["flash_attention.wgmma"] != launches["flash_attention"]:
+        fail(f"serve: {launches['flash_attention.wgmma']} of {launches['flash_attention']} "
+             f"bf16 flash launches took flash_wgmma_kernel")
     if launches["decode_attention"] != L * calls["decode_calls"] or not calls["decode_calls"]:
         fail(f"serve: decode launches {launches['decode_attention']} != {L} x "
              f"{calls['decode_calls']} decode calls")
@@ -636,6 +714,13 @@ def paged_serve_phase(params, report: dict):
     if launches["decode_attention_paged"] != arch.n_layers * k3_calls or not k3_calls:
         fail(f"paged serve: K3 launches {launches['decode_attention_paged']} != "
              f"{arch.n_layers} x {k3_calls} admission and decode calls")
+    print(f"paged serve: K3 admission launches on paged_prefill_kernel "
+          f"{launches['decode_attention_paged.wgmma']} = {arch.n_layers} x "
+          f"{result['prefill_calls']} admission calls")
+    if launches["decode_attention_paged.wgmma"] != arch.n_layers * result["prefill_calls"]:
+        fail(f"paged serve: {launches['decode_attention_paged.wgmma']} K3 launches took "
+             f"paged_prefill_kernel, not {arch.n_layers} x {result['prefill_calls']} "
+             f"admission calls")
     if not any(len(h.request.prompt) > cfg.max_len for h in handles):
         fail("paged serve: no prompt beyond max_len was served")
     result.update(cache_hit_tokens=hits, shared_prefix_routing=dict(routing),
@@ -726,8 +811,11 @@ def profile_phase(serve, report: dict, key="profile", lens=(16, 400, 24, 300, 40
             for tokens in prompts:
                 serve.engine.pairs[0].lane.prefill({"tokens": tokens})
             torch.cuda.synchronize()
-    groups = (("ssd_kernel", "ssd_scan"), ("paged_decode_kernel", "decode_attention_paged"),
+    groups = (("ssd_kernel", "ssd_scan"),
+              ("paged_prefill_kernel", "decode_attention_paged (admission)"),
+              ("paged_decode_kernel", "decode_attention_paged (decode)"),
               ("decode_kernel", "decode_attention"), ("flash_kernel", "flash_attention"),
+              ("flash_wgmma_kernel", "flash_attention"),
               ("gemm", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
               ("cutlass", "matmul"), ("memcpy", "copies"), ("memset", "copies"))
     by_group: Counter = Counter()
@@ -971,6 +1059,7 @@ def main() -> None:
             if "Used" in ln:
                 print(f"  {name}: {ln.split('ptxas info    :')[-1].strip()}")
 
+    tensor_core_sass(report)
     timing = kernel_phase(report)
     paged_timing = paged_kernel_phase(report)
     model_phase(report)
@@ -993,22 +1082,27 @@ def main() -> None:
     del serve
     release()
 
-    def entry(name, r, n):
-        return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                "replaces": REPLACES[name], "launches": n, "max_abs_err": r["max_abs_err"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                "bound_by": r["bound"][1], "library_ms": r["library_ms"], "shape": r["shape"]}
+    def entry(name, kernel, r, n):
+        return {"name": name, "kernel": kernel, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name.split()[0]}.cu",
+                "replaces": REPLACES[name.split()[0]], "launches": n,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": r["library_ms"], "shape": r["shape"]}
 
-    # launches: K1 and K2 from the dense serve, K3 from the paged serve, K4
-    # from the mamba2 serve; K3's times at its decode shape, its admission
-    # shape beside them
-    kernels = [entry(name, r, launches[name]) for name, r in timing.items()]
-    kernels.append(entry("decode_attention_paged", paged_timing["decode"],
-                         paged_launches["decode_attention_paged"]))
-    kernels[-1]["admission"] = {k: v for k, v in entry(
-        "decode_attention_paged", paged_timing["admission"], 0).items()
-        if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}
-    kernels.append(entry("ssd_scan", ssd_timing, mamba_launches["ssd_scan"]))
+    # launches: K1 and K2 from the dense serve, K3 from the paged serve (its
+    # two kernels apart: admission calls take paged_prefill_kernel), K4 from
+    # the mamba2 serve
+    k3_admit = paged_launches["decode_attention_paged.wgmma"]
+    kernels = [entry("decode_attention", "decode_kernel", timing["decode_attention"],
+                     launches["decode_attention"]),
+               entry("flash_attention", "flash_wgmma_kernel", timing["flash_attention"],
+                     launches["flash_attention"]),
+               entry("decode_attention_paged", "paged_decode_kernel", paged_timing["decode"],
+                     paged_launches["decode_attention_paged"] - k3_admit),
+               entry("decode_attention_paged (admission)", "paged_prefill_kernel",
+                     paged_timing["admission"], k3_admit),
+               entry("ssd_scan", "ssd_kernel", ssd_timing, mamba_launches["ssd_scan"])]
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

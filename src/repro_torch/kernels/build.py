@@ -1,9 +1,10 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exports one plain C function and is compiled on its
+Each ``csrc/<name>.cu`` exports plain C functions and is compiled on its
 own into ``build/kernels/<name>-<hash>.so`` at the repository root the first
-time a kernel is needed; the hash covers the source and the flags, so an
-edited source is rebuilt.  ``build_all`` starts one nvcc per source at once.
+time a kernel is needed; the hash covers the source, every shared header
+``csrc/*.cuh`` and the nvcc flags, so an edited source or header is rebuilt.
+``build_all`` starts one nvcc per source at once.
 Nothing here runs at import time: this module imports on machines without
 the CUDA toolkit, and only a call that launches a kernel needs nvcc.
 """
@@ -39,8 +40,11 @@ def nvcc():
 
 
 def library_path(name):
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` is built."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -86,14 +90,16 @@ def check_inputs(kernel, q, floats, ints=()):
     return codes[str(q.dtype)]
 
 
-def load(name, argtypes):
-    """The C entry point ``name`` from ``csrc/<name>.cu``, built if needed,
-    with its argument types declared (pointers and the stream as c_void_p)."""
+def load(name, argtypes, symbol=None):
+    """The C function ``symbol`` (default ``name``) of ``csrc/<name>.cu``,
+    built if needed, with its argument types declared (pointers and the
+    stream as c_void_p) and an int result."""
     lib = _loaded.get(name)
     if lib is None:
         build_all([name])
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
-        fn = getattr(lib, name)
+    fn = getattr(lib, symbol or name)
+    if fn.argtypes is None:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    return getattr(lib, name)
+    return fn

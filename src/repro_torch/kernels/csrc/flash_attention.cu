@@ -11,33 +11,56 @@
 // GFLOP (~4.4 us at 989 TFLOP/s bf16) and moves ~25 MB (~7.5 us at 3.35
 // TB/s); smaller buckets are bytes-bound.
 //
-// Design: one block of 128 threads per (64-row q tile, batch*head).  The q
-// tile and each 64-key K/V tile are staged in shared memory as fp32 (rows
-// padded to D+1 floats against bank conflicts).  Each thread owns an 8x4
-// micro-tile of the scores and an 8 x D/16 slice of the output accumulator
-// in registers, so every shared-memory read feeds several FMAs; row max and
-// sum are reduced over the 16 threads that share a row with warp shuffles.
-// The loop over KV tiles stops at the causal limit and starts at the window's
-// first visible tile.  The products run on the CUDA cores in fp32: the tensor
-// cores (wgmma) and TMA staging are later work.
+// bf16 (every serve): flash_wgmma_kernel, the tensor-core tile loop of
+// attention_tile.cuh (ptxas/SASS: S = QK^T on HGMMA.64x64x16.F32.BF16 with
+// both operands from shared memory, O += PV on HGMMA.64x128x16.F32.BF16 with
+// P from registers; chip_smoke.py checks both forms in the built library).
+// One block per (tile of 64 query rows, batch*head), heaviest causal tiles
+// first; one consumer warpgroup (two were no faster at S = 512:
+// attention_variants.py).  K and V tiles of 64 positions come by TMA
+// (one thread issues them, an mbarrier per stage counts the bytes) through
+// tensor maps over the (B, Sk, K*D) view with the 128-byte swizzle wgmma
+// reads (64-byte at D = 32); rows past Sk are out of bounds and arrive as
+// zeros.  Two stages: tile i+1 is in flight while tile i is multiplied.
+// cuTensorMapEncodeTiled comes from the runtime's cudaGetDriverEntryPoint,
+// so the library links no libcuda.  The loop over KV tiles stops at the
+// causal limit and starts at the window's first visible tile, with
+// per-element masks inside.
+//
+// float32: flash_kernel, on the CUDA cores (tensor cores in TF32 cannot
+// hold the 2e-5 float32 tolerance).  One block of 128 threads per (64-row q
+// tile, batch*head); q and 64-key K/V tiles staged in shared memory as fp32
+// (rows padded to D+1 floats); each thread owns an 8x4 micro-tile of the
+// scores and an 8 x D/16 slice of the output accumulator in registers; row
+// max and sum are reduced over the 16 threads that share a row.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W (device
+// time, inputs rotated past the L2): B=4 S=512 causal bf16 0.0249 ms, 3.3x
+// its bound, against 0.2979 ms for the CUDA-core kernel it replaces and
+// 0.0216 ms for scaled_dot_product_attention.  What still holds it back:
+// no producer/consumer warp specialisation (a block barrier every tile, and
+// S = QK^T waits for the previous tile's softmax and PV), no persistent
+// grid (512 blocks make two uneven waves on 132 SMs), causal diagonal tiles
+// multiplied whole, and the G heads of a KV head in separate blocks (K/V
+// read G times, from L2).
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_tile.cuh"
+
 namespace {
+
+// ----------------------------------------------------- float32, CUDA cores
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64, BK = 64, THREADS = 128;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int Sq, int Sk, int H, int K, int causal, int window,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, int Sq, int Sk, int H, int K, int causal, int window,
     int q_offset, float scale) {
   constexpr int DC = D / 16;  // output columns per thread
   const int q0 = blockIdx.x * BQ;
@@ -52,7 +75,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D, qi = q0 + r;
     sq[r * (D + 1) + d] =
-        qi < Sq ? to_f(q[(((size_t)b * Sq + qi) * H + h) * D + d]) * scale : 0.f;
+        qi < Sq ? q[(((size_t)b * Sq + qi) * H + h) * D + d] * scale : 0.f;
   }
   float acc[8][DC], m[8], l[8];
 #pragma unroll
@@ -73,8 +96,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     for (int i = tid; i < BK * D; i += THREADS) {
       const int j = i / D, d = i % D, kj = k0 + j;
       const size_t off = (((size_t)b * Sk + kj) * K + kh) * D + d;
-      sk[j * (D + 1) + d] = kj < Sk ? to_f(k[off]) : 0.f;
-      sv[j * D + d] = kj < Sk ? to_f(v[off]) : 0.f;
+      sk[j * (D + 1) + d] = kj < Sk ? k[off] : 0.f;
+      sv[j * D + d] = kj < Sk ? v[off] : 0.f;
     }
     __syncthreads();
 
@@ -145,56 +168,223 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     const int qi = q0 + rg * 8 + i;
     if (qi >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* o = out + (((size_t)b * Sq + qi) * H + h) * D;
+    float* o = out + (((size_t)b * Sq + qi) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) store(o + cg + 16 * c, acc[i][c] * inv);
+    for (int c = 0; c < DC; ++c) o[cg + 16 * c] = acc[i][c] * inv;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
            int Sk, int H, int K, int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-  auto kern = flash_kernel<T, D>;
+  auto kern = flash_kernel<D>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   kern<<<dim3((Sq + BQ - 1) / BQ, B * H), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Sk, H, K, causal, window, q_offset, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, K, causal, window,
+      q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Sk, int H, int K, int causal, int window, int q_offset,
-               float scale, cudaStream_t st) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, K, causal, window, q_offset, scale, st);
-    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, K, causal, window, q_offset, scale, st);
-    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, K, causal, window, q_offset, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// ------------------------------------------------------------ bf16, wgmma
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
 }
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+constexpr int WGS = 1;  // consumer warpgroups (64 query rows each) per block
+
+template <int D>
+constexpr size_t wgmma_smem() {  // Q tiles, 2 stages of K and V, 2 mbarriers, alignment slack
+  return 1024 + (size_t)(WGS + 4) * tile::tile_bytes(D) + 16;
+}
+
+template <int D>
+__global__ void __launch_bounds__(128 * WGS) flash_wgmma_kernel(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out, int Sq, int Sk,
+    int H, int K, int causal, int window, int q_offset, float scale_log2) {
+  using namespace tile;
+  constexpr int ROWS = BQ * WGS, TB = tile_bytes(D), SW = swizzle_bytes(D), PW = SW / 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base, skv = base + WGS * TB, full = skv + 4 * TB;  // full[2]: 8 B each
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, kh = h / (H / K);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;  // heaviest causal tiles first
+
+  // KV tiles that any row of this q tile can see
+  int k_end = Sk, k_begin = 0;
+  if (causal) k_end = min(Sk, q_offset + q0 + ROWS);
+  if (window >= 0) k_begin = max(0, q_offset + q0 - window + 1) / BK * BK;
+  const int n = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  auto issue = [&](int i) {  // one thread: tile i's K and V into stage i % 2
+    const uint32_t st = skv + (i & 1) * 2 * TB, bar = full + (i & 1) * 8;
+    mbar_expect_tx(bar, 2 * TB);
+#pragma unroll
+    for (int p = 0; p < D / PW; ++p) {
+      tma_load_3d(st + p * BK * SW, &kmap, bar, kh * D + p * PW, k_begin + i * BK, b);
+      tma_load_3d(st + TB + p * BK * SW, &vmap, bar, kh * D + p * PW, k_begin + i * BK, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(full, 1);
+    mbar_init(full + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (n > 0) issue(0);
+  }
+  for (int i = tid; i < ROWS * (D / 8); i += 128 * WGS) {
+    const int r = i / (D / 8), c = i % (D / 8) * 8, qi = q0 + r;
+    cp_async16(sq + (r / BQ) * TB + tile_offset<D>(r % BQ, c),
+               q + (((size_t)b * Sq + min(qi, Sq - 1)) * H + h) * D + c, qi < Sq ? 16 : 0);
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  fence_async_smem();
+  __syncthreads();  // q tile staged, barriers initialised
+
+  Tile<D> t;
+  t.init();
+  const int row0 = q_offset + q0 + wg * BQ;  // position of this warpgroup's first row
+  for (int i = 0; i < n; ++i) {
+    const int k0 = k_begin + i * BK;
+    if (i > 0) __syncthreads();  // tile i-1 consumed: its stage takes tile i+1
+    if (tid == 0 && i + 1 < n) issue(i + 1);
+    mbar_wait(full + (i & 1) * 8, (i >> 1) & 1);
+    const uint32_t st = skv + (i & 1) * 2 * TB;
+    t.step(sq + wg * TB, st, st + TB, scale_log2, [&](int, int r, int c, float x) {
+      const int kp = k0 + c, qp = row0 + r;
+      if (kp >= Sk) return -INFINITY;
+      if ((causal && kp > qp) || (window >= 0 && kp <= qp - window)) return NEG_INF;
+      return x;
+    });
+  }
+  t.finish([&](int, int r, int c, float x0, float x1) {
+    const int qi = q0 + wg * BQ + r;
+    if (qi < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * Sq + qi) * H + h) * D + c) =
+          __floats2bfloat162_rn(x0, x1);
+  });
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A tensor map over k or v (B, Sk, K*D) bf16 whose box is one swizzle
+// panel (PW columns) of 64 positions.
+template <int D>
+bool kv_map(CUtensorMap* map, const void* ptr, int B, int Sk, int K) {
+  constexpr int SW = tile::swizzle_bytes(D);
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)K * D, (cuuint64_t)Sk, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)K * D * 2, (cuuint64_t)Sk * K * D * 2};
+  const cuuint32_t box[3] = {SW / 2, tile::BK, 1}, one[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+                 int H, int K, int causal, int window, int q_offset, float scale,
+                 cudaStream_t stream) {
+  CUtensorMap kmap, vmap;
+  if (!kv_map<D>(&kmap, k, B, Sk, K) || !kv_map<D>(&vmap, v, B, Sk, K))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = wgmma_smem<D>();
+  auto kern = flash_wgmma_kernel<D>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = tile::BQ * WGS;
+  kern<<<dim3(B * H, (Sq + rows - 1) / rows), 128 * WGS, smem, stream>>>(
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), Sq,
+      Sk, H, K, causal, window, q_offset, scale * tile::LOG2E);
+  return (int)cudaGetLastError();
+}
+
+#define FLASH_ARGS q, k, v, out, B, Sq, Sk, H, K, causal, window, q_offset, scale, st
+
+int dispatch(int D, int dtype, const void* q, const void* k, const void* v, void* out, int B,
+             int Sq, int Sk, int H, int K, int causal, int window, int q_offset, float scale,
+             cudaStream_t st) {
+  if (dtype == 0) switch (D) {
+      case 32: return launch<32>(FLASH_ARGS);
+      case 64: return launch<64>(FLASH_ARGS);
+      case 128: return launch<128>(FLASH_ARGS);
+    }
+  if (dtype == 1) switch (D) {
+      case 32: return launch_wgmma<32>(FLASH_ARGS);
+      case 64: return launch_wgmma<64>(FLASH_ARGS);
+      case 128: return launch_wgmma<128>(FLASH_ARGS);
+    }
+  return (int)cudaErrorInvalidValue;
+}
+
+#undef FLASH_ARGS
 
 }  // namespace
 
+// Which kernel a call takes: 1 = flash_wgmma_kernel (bf16, tensor cores),
+// 0 = flash_kernel (float32, CUDA cores).  The dtype alone decides.
+extern "C" int flash_attention_route(int dtype) { return dtype == 1 ? 1 : 0; }
+
 // q (B, Sq, H, D); k, v (B, Sk, K, D); out (B, Sq, H, D).  All contiguous.
 // dtype: 0 = float32, 1 = bfloat16.  window < 0 means no sliding window.
-// Returns cudaGetLastError() after the launch.
+// Returns cudaGetLastError() after the launch, or the error that refused it
+// (cudaErrorInvalidValue for a tensor map the driver does not encode).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                int B, int Sq, int Sk, int H, int K, int D, int causal,
                                int window, int q_offset, float scale, int dtype,
                                void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, out, B, Sq, Sk, H, K, causal, window, q_offset,
-                             scale, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, out, B, Sq, Sk, H, K, causal, window,
-                                     q_offset, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(D, dtype, q, k, v, out, B, Sq, Sk, H, K, causal, window, q_offset, scale,
+                  static_cast<cudaStream_t>(stream));
 }

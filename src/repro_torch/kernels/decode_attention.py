@@ -6,12 +6,15 @@ T new tokens (1 for decode, depth+1 for verify) against a dense or ring KV
 cache with positional masking from ``kv_positions``.
 ``csrc/decode_attention_paged.cu`` replaces ``decode_attention_paged_pallas``:
 the same over a global page pool through per-row block tables, at decode
-sizes and at paged admission's T up to max_context.  Each source note gives
-the bound and the design.
+sizes and at paged admission's T up to max_context.  Its C entry point sends
+bfloat16 admission shapes to ``paged_prefill_kernel`` (tensor cores) and the
+rest to ``paged_decode_kernel``.  Each source note gives the bound and the
+design.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -89,7 +92,17 @@ def decode_attention_paged_cuda(q, k_pages, v_pages, cache_len, block_tables, *,
     if err:
         raise RuntimeError(f"decode_attention_paged kernel launch failed: CUDA error {err}")
     decode_attention_paged_cuda.launches += 1
+    decode_attention_paged_cuda.wgmma_launches += _paged_route(T, H, K, dtype)
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _paged_route(T, H, K, dtype):
+    """1 if the C entry point sends this shape to paged_prefill_kernel."""
+    return build.load("decode_attention_paged", [ctypes.c_int] * 4,
+                      "decode_attention_paged_route")(T, H, K, dtype)
+
+
+# every launch, and those that took paged_prefill_kernel
 decode_attention_paged_cuda.launches = 0
+decode_attention_paged_cuda.wgmma_launches = 0

@@ -1,13 +1,16 @@
 """Flash attention (prefill): the CUDA kernel's wrapper and its plain version.
 
-The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
+The kernels (``csrc/flash_attention.cu``) replace the TPU kernel
 ``repro.kernels.flash_attention.flash_attention_pallas``: causal or full
 attention with GQA, an optional sliding window and a ``q_offset``
-continuation.  Its source note gives the bound and the design.
+continuation.  bfloat16 runs ``flash_wgmma_kernel`` on the tensor cores,
+float32 ``flash_kernel`` on the CUDA cores; the C entry point decides.  The
+source note gives the bound and the design.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -42,7 +45,16 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None,
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.wgmma_launches += _route(dtype)
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _route(dtype):
+    """1 if the C entry point sends this dtype to flash_wgmma_kernel."""
+    return build.load("flash_attention", [ctypes.c_int], "flash_attention_route")(dtype)
+
+
+# every launch, and those that took flash_wgmma_kernel
 flash_attention_cuda.launches = 0
+flash_attention_cuda.wgmma_launches = 0

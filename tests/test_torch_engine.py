@@ -157,9 +157,9 @@ def test_later_slices_refuse_by_name(fp32_model, overrides, item):
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """Every module of the port, and chip_smoke.py, import in a fresh process
-    without loading jax or any module of the ``repro`` package."""
-    code = ("import importlib, pkgutil, sys, repro_torch, chip_smoke\n"
+    """Every module of the port, chip_smoke.py and attention_variants.py import
+    in a fresh process without loading jax or any module of ``repro``."""
+    code = ("import importlib, pkgutil, sys, repro_torch, chip_smoke, attention_variants\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"

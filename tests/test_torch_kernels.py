@@ -14,7 +14,7 @@ from test_kernels import DECODE_CASES, FLASH_CASES, _ring_positions
 
 from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 
@@ -106,3 +106,20 @@ def test_cuda_wrappers_refuse_cpu_tensors(wrapper):
     with pytest.raises(ValueError, match="CUDA device"):
         wrapper(q, k, k, *extra)
     assert wrapper.launches == before
+
+
+def test_library_path_follows_shared_headers(tmp_path, monkeypatch):
+    """A built kernel is named by its source, every shared csrc/*.cuh header
+    and the flags, so an edited header is never served from a stale build."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "tile.cuh"\n')
+    (tmp_path / "tile.cuh").write_text("// v1\n")
+    first = build.library_path("k")
+    (tmp_path / "tile.cuh").write_text("// v2\n")
+    edited = build.library_path("k")
+    (tmp_path / "more.cuh").write_text("")
+    assert len({first, edited, build.library_path("k")}) == 3
+    (tmp_path / "more.cuh").unlink()
+    assert build.library_path("k") == edited
+    monkeypatch.setattr(build, "NVCC_FLAGS", (*build.NVCC_FLAGS, "-lineinfo"))
+    assert build.library_path("k") != edited

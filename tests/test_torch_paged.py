@@ -67,6 +67,83 @@ def test_paged_cuda_wrapper_refuses_cpu_tensors():
     assert decode_attention_paged_cuda.launches == before
 
 
+def _admission_walk(q, kp, vp, clen, bt, window):
+    """paged_prefill_kernel's schedule in numpy: per (row, KV head), 64-row
+    query tiles r = t*G + g; each tile walks 64-position KV tiles over its
+    rows' range [lo, hi] (hi clamped to P*ps - 1), gathering each position's
+    slot from the table (clamped; -1 outside the range or unset: masked and
+    read as zeros); base-2 online softmax with the -1e30 sentinel; P rounded
+    to bf16 before P.V; a row that saw nothing gets the mean of V over every
+    table entry, an unset entry read as page 0."""
+    B, T, H, D = q.shape
+    n_pages, ps, K, _ = kp.shape
+    P, G, c = bt.shape[1], H // K, D ** -0.5 * np.log2(np.e)
+    bf16 = lambda x: torch.from_numpy(x).to(torch.bfloat16).float().numpy()  # noqa: E731
+    out = np.zeros(q.shape, np.float32)
+    for b in range(B):
+        for kh in range(K):
+            for r0 in range(0, T * G, 64):
+                t, g = np.divmod(np.arange(r0, min(r0 + 64, T * G)), G)
+                qp = clen[b] - T + t
+                hi = min(qp[-1], P * ps - 1)
+                lo = 0 if window is None else max(0, qp[0] - window + 1)
+                m, l, o = np.full(len(t), -1e30), np.zeros(len(t)), np.zeros((len(t), D))
+                for s0 in range(lo // 64 * 64, hi + 1, 64):
+                    p = s0 + np.arange(64)
+                    page = np.where((p >= lo) & (p <= hi), bt[b, np.minimum(p // ps, P - 1)], -1)
+                    slot = np.where(page >= 0, np.minimum(page, n_pages - 1) * ps + p % ps, -1)
+                    kt, vt = (np.where(slot[:, None] >= 0, x.reshape(-1, K, D)[slot, kh], 0)
+                              for x in (kp, vp))
+                    ok = (slot >= 0) & (p <= qp[:, None])
+                    if window is not None:
+                        ok &= p > qp[:, None] - window
+                    s = np.where(ok, q[b, t, kh * G + g] @ kt.T * c, -1e30)
+                    m_new = np.maximum(m, s.max(1))
+                    pm = np.exp2(s - m_new[:, None])
+                    corr, m = np.exp2(m - m_new), m_new
+                    l, o = l * corr + pm.sum(1), o * corr[:, None] + bf16(pm) @ vt
+                res = o / np.maximum(l, 1e-30)[:, None]
+                res[m == -1e30] = vp[np.clip(bt[b], 0, n_pages - 1), :, kh].reshape(-1, D).mean(0)
+                out[b, t, kh * G + g] = res
+    return bf16(out)
+
+
+# case: (T, positions each row holds, window, rows that ride along, pages unset
+# inside a row's length).  B=3, G=2, 16-position pages, 8 a row (128 positions)
+ADMISSION_WALK_CASES = {
+    "ragged_last_tile": (40, [100, 128, 57], None, (), ()),
+    "ranges_start_and_end_mid_page": (20, [45, 83, 120], 19, (), ()),
+    "unset_tail_pages": (16, [30, 17, 64], None, (), ((0, 1), (2, 3))),
+    "window": (64, [128, 100, 70], 50, (), ()),
+    "row_sees_nothing": (16, [0, 40, 0], None, (), ()),
+    "ride_along_past_the_table": (48, [128, 100, 20], None, (0, 1), ()),
+}
+
+
+@pytest.mark.parametrize("case", ADMISSION_WALK_CASES)
+def test_admission_tile_schedule_matches_pallas(case):
+    """The K3 admission kernel's tile schedule, walked in numpy, against the
+    reference's plain version and its Pallas kernel (interpret mode), bf16."""
+    T, held, window, ride, holes = ADMISSION_WALK_CASES[case]
+    rng = np.random.default_rng(len(case))
+    B, P, ps, K, D, n_pages = 3, 8, 16, 2, 32, 24
+    bt = np.full((B, P), -1, np.int32)
+    ids = rng.permutation(n_pages)
+    for b, L in enumerate(held):
+        n = -(-L // ps)
+        bt[b, :n], ids = ids[:n], ids[n:]
+    for b, i in holes:
+        bt[b, i] = -1
+    clen = np.array([L + T if b in ride else max(L, T) for b, L in enumerate(held)], np.int32)
+    jx = [jnp.asarray(rng.normal(size=s), jnp.bfloat16)
+          for s in [(B, T, 2 * K, D), (n_pages, ps, K, D), (n_pages, ps, K, D)]]
+    got = _admission_walk(*[np.asarray(a, np.float32) for a in jx], clen, bt, window)
+    args = (*jx, jnp.asarray(clen), jnp.asarray(bt))
+    for want in (jax_ref.decode_attention_paged(*args, window=window),
+                 decode_attention_paged_pallas(*args, window=window, interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
+
+
 # ---------------------------------------------------------------------------
 # KVCacheManager serve mode, operation by operation (tests/test_paged_kv.py)
 # ---------------------------------------------------------------------------
