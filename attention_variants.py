@@ -2,13 +2,18 @@
 
     python3 attention_variants.py        # from the root of a checkout
 
-``csrc/flash_attention.cu`` (K2) and ``csrc/decode_attention_paged.cu`` (K3)
-fix three choices as constants: ``WGS``, the consumer warpgroups (64 query
-rows each) of a block (1 in K2, 2 in K3), and K3's ``PREFILL_MIN_ROWS``, the
-T*G at or above which bf16 takes paged_prefill_kernel (32).  This writes a
-copy of a source with one constant changed under ``build/variants/``, builds
-the copies with the port's nvcc flags (one nvcc each, all at once), holds
-each against the plain version and times it beside the kernel as built, at
+The kernels fix their choices as constants.  ``csrc/flash_attention.cu`` (K2)
+has ``WGS``, the consumer warpgroups (64 query rows each) of a block (1).
+``csrc/attention_tile.cuh`` has those of the split-KV walk that K1
+(``decode_attention.cu``) and K3 (``decode_attention_paged.cu``) share:
+``STAGES``, the K/V tiles a block keeps staged or in flight (3);
+``MAX_SPLIT``, the most splits of a query tile's KV range (8; 1 turns
+split-KV off); ``FILL``, the blocks per SM the split count aims for (1; 2
+puts two blocks on an SM, each over half the range, which is what two
+warpgroups splitting one block's range would walk).  This writes copies of
+the sources with one of those lines changed under ``build/variants/``,
+builds them with the port's nvcc flags (one nvcc each, all at once), holds
+each against the plain version and times it beside the kernels as built, at
 the main path's shapes (inputs rotated past the L2, CUDA events), all in one
 process on one card.  Prints the card and one line per variant and shape.
 """
@@ -30,34 +35,46 @@ from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
-ARGTYPES = {"flash_attention": fa._ARGTYPES, "decode_attention_paged": da._PAGED_ARGTYPES}
-# (source, label, the constant as built, the constant in the copy)
+ARGTYPES = {"flash_attention": fa._ARGTYPES, "decode_attention": da._ARGTYPES,
+            "decode_attention_paged": da._PAGED_ARGTYPES}
+HEADER = "attention_tile.cuh"
+# (edited file, label, [(the line as built, the line in the copy), ...]); an
+# edit of the header builds every source that includes it
 VARIANTS = [
-    ("flash_attention", "WGS=2", "constexpr int WGS = 1;", "constexpr int WGS = 2;"),
-    ("decode_attention_paged", "WGS=1", "constexpr int WGS = 2;", "constexpr int WGS = 1;"),
-    ("decode_attention_paged", "paged_prefill_kernel", "constexpr int PREFILL_MIN_ROWS = 32;",
-     "constexpr int PREFILL_MIN_ROWS = 1;"),
-    ("decode_attention_paged", "paged_decode_kernel", "constexpr int PREFILL_MIN_ROWS = 32;",
-     "constexpr int PREFILL_MIN_ROWS = 1 << 30;"),
+    ("flash_attention.cu", "WGS=2", [("constexpr int WGS = 1;", "constexpr int WGS = 2;")]),
+    (HEADER, "no split", [("constexpr int MAX_SPLIT = 8;", "constexpr int MAX_SPLIT = 1;")]),
+    (HEADER, "FILL=2", [("constexpr int FILL = 1;", "constexpr int FILL = 2;")]),
+    (HEADER, "FILL=2 STAGES=2", [("constexpr int FILL = 1;", "constexpr int FILL = 2;"),
+                                 ("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")]),
+    (HEADER, "STAGES=2", [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")]),
+    (HEADER, "STAGES=4", [("constexpr int STAGES = 3;", "constexpr int STAGES = 4;")]),
 ]
+
+
+def compile_lib(out: Path, name: str):
+    return subprocess.Popen(
+        [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out / f"{name}.so"), str(out / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def build_variants() -> dict:
     """{(source, label): C entry point} of every variant, built at once."""
     procs = {}
-    for name, label, old, new in VARIANTS:
-        src = (build.CSRC / f"{name}.cu").read_text()
-        if src.count(old) != 1:
-            cs.fail(f"{name}.cu: no single line {old!r} to change")
-        out = ROOT / "build" / "variants" / f"{name}-{label}"
-        out.mkdir(parents=True, exist_ok=True)
-        for header in build.CSRC.glob("*.cuh"):
-            shutil.copy(header, out)
-        (out / f"{name}.cu").write_text(src.replace(old, new))
-        lib = out / f"{name}.so"
-        procs[name, label] = lib, subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(out / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for edited, label, edits in VARIANTS:
+        text = (build.CSRC / edited).read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                cs.fail(f"{edited}: no single line {old!r} to change")
+            text = text.replace(old, new)
+        names = [edited[:-3]] if edited.endswith(".cu") else \
+            ["decode_attention", "decode_attention_paged"]
+        for name in names:
+            out = ROOT / "build" / "variants" / f"{name}-{label.replace(' ', '_')}"
+            out.mkdir(parents=True, exist_ok=True)
+            for src in (*build.CSRC.glob("*.cuh"), build.CSRC / f"{name}.cu"):
+                shutil.copy(src, out)
+            (out / edited).write_text(text)
+            procs[name, label] = out / f"{name}.so", compile_lib(out, name)
     fns = {}
     for (name, label), (lib, proc) in procs.items():
         log, _ = proc.communicate()
@@ -68,24 +85,34 @@ def build_variants() -> dict:
     return fns
 
 
+def call(name, fn, *args):
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        cs.fail(f"{name}: CUDA error {err}")
+
+
 def flash(fn, q, k, v):
     B, Sq, H, D = q.shape
     out = torch.empty_like(q)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, k.shape[1], H,
-             k.shape[2], D, 1, -1, 0, D ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
-    if err:
-        cs.fail(f"flash_attention: CUDA error {err}")
+    call("flash_attention", fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+         k.shape[1], H, k.shape[2], D, 1, -1, 0, D ** -0.5, 1)
+    return out
+
+
+def decode(fn, q, k, v, clen, pos):
+    B, T, H, D = q.shape
+    out = torch.empty_like(q)
+    call("decode_attention", fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), clen.data_ptr(),
+         pos.data_ptr(), out.data_ptr(), B, T, H, k.shape[2], D, k.shape[1], -1, D ** -0.5, 1)
     return out
 
 
 def paged(fn, q, kp, vp, clen, bt):
     B, T, H, D = q.shape
     out = torch.empty_like(q)
-    err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), clen.data_ptr(), bt.data_ptr(),
-             out.data_ptr(), B, T, H, kp.shape[2], D, kp.shape[0], kp.shape[1], bt.shape[1],
-             -1, D ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
-    if err:
-        cs.fail(f"decode_attention_paged: CUDA error {err}")
+    call("decode_attention_paged", fn, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+         clen.data_ptr(), bt.data_ptr(), out.data_ptr(), B, T, H, kp.shape[2], D, kp.shape[0],
+         kp.shape[1], bt.shape[1], -1, D ** -0.5, 1)
     return out
 
 
@@ -98,6 +125,7 @@ def main() -> None:
     fns = build_variants()
     for name in ARGTYPES:
         fns[name, "as built"] = build.load(name, ARGTYPES[name])
+    labels = {name: [lb for n, lb in fns if n == name] for name in ARGTYPES}
     g = torch.Generator(device="cuda").manual_seed(0)
     H, K, D = 16, 8, 128
     for B, S in ((4, 512), (2, 256)):
@@ -105,28 +133,38 @@ def main() -> None:
             torch.randn(B, S, h, D, generator=g, device="cuda").to(torch.bfloat16)
             for h in (H, K, K)), 2 * B * S * (H + 2 * K) * D)
         want = ref.flash_attention(*sets[0])
-        for label in ("as built", "WGS=2"):
+        for label in labels["flash_attention"]:
             fn = fns["flash_attention", label]
             e = cs.check(f"flash {label} B={B} S={S}", flash(fn, *sets[0]), want, "bfloat16")
             ms = cs.timed(lambda i, fn=fn, sets=sets: flash(fn, *sets[i % len(sets)]), 50)
             print(f"flash_wgmma_kernel {label} B={B} S={S} causal: {ms:.4f} ms "
                   f"(max_abs_err {e:.3g})")
 
+    S = 512
+    for T in (1, 5, 9):  # the cache full, as chip_smoke.py times K1
+        sets = cs.copies(lambda T=T: cs.decode_case(g, 8, T, S, H, K, D, "bfloat16",
+                                                    [S - T] * 8, poison=False),
+                         2 * 8 * S * K * D * 2)
+        want = ref.decode_attention(*sets[0][:4], kv_positions=sets[0][4])
+        for label in labels["decode_attention"]:
+            fn = fns["decode_attention", label]
+            e = cs.check(f"decode {label} T={T}", decode(fn, *sets[0]), want, "bfloat16")
+            ms = cs.timed(lambda i, fn=fn, sets=sets: decode(fn, *sets[i % len(sets)]), 200)
+            print(f"decode_attention {label} B=8 T={T} S={S}: {ms:.4f} ms (max_abs_err {e:.3g})")
+
     pools = tuple(torch.randn(4096, 16, K, D, generator=g, device="cuda").to(torch.bfloat16)
                   for _ in range(2))
     perm = torch.randperm(4096, generator=g, device="cuda").tolist()
-    for label, Ts in (("as built", (256, 1024)), ("WGS=1", (256, 1024)),
-                      ("paged_prefill_kernel", (5, 9, 16, 32)),
-                      ("paged_decode_kernel", (5, 9, 16, 32))):
-        fn = fns["decode_attention_paged", label]
-        for T in Ts:  # 8 disjoint page sets of 8 rows x 1024 positions
-            sets = [cs.paged_case(g, 8, T, "bfloat16", [1024] * 8, K=K, D=D,
-                                  perm=perm[i * 512:(i + 1) * 512], pools=pools)
-                    for i in range(8)]
-            e = cs.check(f"paged {label} T={T}", paged(fn, *sets[0]),
-                         ref.decode_attention_paged(*sets[0]), "bfloat16")
+    for T in (1, 9, 256, 1024):  # 8 disjoint page sets of 8 rows x 1024 positions
+        sets = [cs.paged_case(g, 8, T, "bfloat16", [1024] * 8, K=K, D=D,
+                              perm=perm[i * 512:(i + 1) * 512], pools=pools)
+                for i in range(8)]
+        want = ref.decode_attention_paged(*sets[0])
+        for label in labels["decode_attention_paged"]:
+            fn = fns["decode_attention_paged", label]
+            e = cs.check(f"paged {label} T={T}", paged(fn, *sets[0]), want, "bfloat16")
             ms = cs.timed(lambda i, fn=fn, sets=sets: paged(fn, *sets[i % 8]),
-                          20 if T > 100 else 100)
+                          20 if T > 100 else 200)
             print(f"decode_attention_paged {label} B=8 T={T} over 1024 positions: {ms:.4f} ms "
                   f"(max_abs_err {e:.3g})")
     print(f"nvidia-smi: {smi}")

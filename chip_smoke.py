@@ -5,23 +5,26 @@
 Phases, each fatal on failure:
   1. print the card (nvidia-smi name and power limit) and versions; build the
      CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
-     all at once); show from the SASS that the bf16 prefill and admission
-     kernels run both products on HGMMA (wgmma);
+     all at once); show from the SASS that the bf16 attention kernels (K1,
+     K2, K3) run both products on HGMMA (wgmma);
   2. hold each kernel against its plain PyTorch version at the serving
      shapes (bf16, plus fp32, stale-slot poisoning, fully masked rows, and
      for the paged kernel shuffled pages, ragged -1 tails and a window; at
      the edges of the bf16 tensor-core kernels: prefill lengths that are not
-     a multiple of the 64-row tile, a window with a q_offset, admission
-     shapes on both sides of K3's dispatch threshold, ranges that start and
-     end mid-page, rows that see nothing or whose positions pass the table),
-     and time kernel, plain version and the library yardstick
-     (``scaled_dot_product_attention``; for the paged kernel a gather plus
-     SDPA, two calls) beside the previous kernels' times;
+     a multiple of the 64-row tile, a window with a q_offset, K1 over a
+     ragged last tile and a wrapped ring with a window, rows short enough to
+     leave splits empty, ranges that start and end mid-page, rows that see
+     nothing or whose positions pass the table), check that bf16 takes the
+     tensor-core kernel and fp32 the CUDA-core one, and time kernel, plain
+     version and the library yardstick (``scaled_dot_product_attention``;
+     for the paged kernel a gather plus SDPA, two calls) beside the previous
+     kernels' times;
   3. check the full-width model on the card against the same weights on the
-     CPU (2 layers, float32), dense and paged;
+     CPU (2 layers, float32: every K1 and K3 launch on the CUDA-core
+     kernels), dense and paged;
   4. serve qwen3-1.7b at full width (28 layers, d_model 2048) with 2 stream
-     pairs through ``StreamServe``, counting kernel launches (and which of
-     them took a tensor-core kernel);
+     pairs through ``StreamServe``, counting kernel launches (every bf16 K1,
+     K2 and, in phase 6, K3 launch must take the tensor-core kernel);
   5. time a burst of 8 requests, then profile the same burst (device busy
      share of the wall, device time by kernel);
   6. serve the same model with paged KV (max_context 1024): shared-prefix
@@ -52,7 +55,8 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}                 # tests/test_kernels.p
 SSD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}             # tests/test_kernels.py:180-181
 # the bf16 kernels' times on the CUDA cores, before they moved to the tensor
 # cores (PERF.md §6, by this script, NVIDIA H100 80GB HBM3, 700.00 W)
-PREVIOUS_MS = {"flash_attention": 0.2979, "admission": 5.2586}
+PREVIOUS_MS = {"flash_attention": 0.2979, "admission": 5.2586, "decode_attention": 0.1722,
+               "decode": 0.4635}
 REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:113",
     "flash_attention": "src/repro/kernels/flash_attention.py:131",
@@ -112,8 +116,8 @@ def check(name: str, got, want, dt: str, tols: dict = TOL) -> float:
 
 def tensor_core_sass(report: dict) -> None:
     """The bf16 kernels' two products as compiled: the HGMMA (wgmma)
-    instruction forms in the SASS of flash_wgmma_kernel and
-    paged_prefill_kernel at head_dim 128 (``cuobjdump -sass`` of the built
+    instruction forms in the SASS of decode_wgmma_kernel, flash_wgmma_kernel
+    and paged_wgmma_kernel at head_dim 128 (``cuobjdump -sass`` of the built
     libraries).  Fails unless each holds S = QK^T (64x64x16) and O += PV
     (64x128x16) on the tensor cores."""
     import re
@@ -122,8 +126,9 @@ def tensor_core_sass(report: dict) -> None:
 
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     found = {}
-    for lib, kernel in (("flash_attention", "flash_wgmma_kernel"),
-                        ("decode_attention_paged", "paged_prefill_kernel")):
+    for lib, kernel in (("decode_attention", "decode_wgmma_kernel"),
+                        ("flash_attention", "flash_wgmma_kernel"),
+                        ("decode_attention_paged", "paged_wgmma_kernel")):
         sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True, timeout=120).stdout
         fn, forms = "", set()
@@ -140,19 +145,26 @@ def tensor_core_sass(report: dict) -> None:
     report["hgmma"] = found
 
 
-def decode_case(g, B, T, S, H, K, D, dt, fill, poison=True):
+def decode_case(g, B, T, S, H, K, D, dt, fill, poison=True, ring=False):
     """Decode inputs as the serving path makes them: row b holds fill[b]
     committed positions, the T new tokens written after them, and stale
-    speculative slots (positions past the horizon) poisoned."""
+    speculative slots (positions past the horizon) poisoned.  With ``ring``
+    the cache is a ring of S slots (slot = position % S) and a row may hold
+    more than S positions: its last S, wrapped."""
     import torch
 
     dev, dtype = "cuda", getattr(torch, dt)
     q = torch.randn(B, T, H, D, generator=g, device=dev).to(dtype)
     k = torch.randn(B, S, K, D, generator=g, device=dev).to(dtype)
     v = torch.randn(B, S, K, D, generator=g, device=dev).to(dtype)
-    clen = torch.tensor([min(f + T, S) for f in fill], dtype=torch.int32, device=dev)
+    clen = torch.tensor([f + T if ring else min(f + T, S) for f in fill], dtype=torch.int32,
+                        device=dev)
     pos = torch.full((B, S), -1, dtype=torch.int32, device=dev)
     for b, L in enumerate(clen.tolist()):
+        if ring and L > S:  # wrapped: no stale slot survives a full ring
+            p = torch.arange(L - S, L, dtype=torch.int32, device=dev)
+            pos[b, p.long() % S] = p
+            continue
         pos[b, :L] = torch.arange(L, dtype=torch.int32, device=dev)
         if poison and L < S and fill[b] > 0:  # stale slots from a rejected verify
             n = min(8, S - L)
@@ -231,22 +243,41 @@ def kernel_phase(report: dict) -> dict:
     H, K, D, S = 16, 8, 128, 512
     errs = {"decode_attention": 0.0, "flash_attention": 0.0}
     lines = []
-    # ---- decode: every verify bucket, bf16; fp32; a fully masked row -------
+    # ---- decode: every verify bucket, bf16; fp32; at the edges of the bf16
+    # split-KV kernel (decode_wgmma_kernel): S = 200 (a ragged last tile) and
+    # 250 (not a multiple of 4: a dense max_len may be any), a wrapped ring
+    # with a window, rows so short that most splits see
+    # nothing, an idle row (every position empty: the mean of V over all S),
+    # and chunk-sized T (a dense chunked ingest): T*G = 80 (two warpgroups,
+    # split) and 200 (two query tiles)
     fills = [20, 60, 140, 200, 290, 350, 420, 490]
-    for T, dt in [(1, "bfloat16"), (2, "bfloat16"), (3, "bfloat16"), (5, "bfloat16"),
-                  (9, "bfloat16"), (5, "float32")]:
-        q, k, v, clen, pos = decode_case(g, 8, T, S, H, K, D, dt, fills)
-        got = decode_attention_cuda(q, k, v, clen, kv_positions=pos)
-        want = ref.decode_attention(q, k, v, clen, kv_positions=pos)
-        e = check(f"decode T={T} {dt}", got, want, dt)
-        errs["decode_attention"] = max(errs["decode_attention"], e) if dt == "bfloat16" \
-            else errs["decode_attention"]
-        lines.append(f"decode_attention B=8 T={T} S={S} {dt}: max_abs_err={e:.3g}")
-    q, k, v, clen, pos = decode_case(g, 8, 3, S, H, K, D, "bfloat16", fills)
-    pos[2] = -1  # an idle slot: every position empty
-    e = check("decode fully masked row", decode_attention_cuda(q, k, v, clen, kv_positions=pos),
-              ref.decode_attention(q, k, v, clen, kv_positions=pos), "bfloat16")
-    lines.append(f"decode_attention fully masked row: finite, max_abs_err={e:.3g}")
+    for T, dt, S_, fill, kw in [
+            (1, "bfloat16", S, fills, {}), (2, "bfloat16", S, fills, {}),
+            (3, "bfloat16", S, fills, {}), (5, "bfloat16", S, fills, {}),
+            (9, "bfloat16", S, fills, {}), (5, "float32", S, fills, {}),
+            (5, "bfloat16", 200, [0, 10, 60, 64, 100, 150, 190, 195], {}),
+            (9, "bfloat16", 250, [9, 30, 64, 128, 129, 200, 249, 250], {}),
+            (5, "bfloat16", S, [600, 1000, 40, 700, 511, 513, 2000, 90],
+             {"ring": True, "window": 100}),
+            (9, "bfloat16", S, [0, 1, 3, 7, 0, 2, 5, 64], {}),
+            (3, "bfloat16", S, fills, {"idle": 2}),
+            (40, "bfloat16", S, fills, {}), (100, "bfloat16", S, fills, {})]:
+        window, idle = kw.get("window"), kw.get("idle")
+        q, k, v, clen, pos = decode_case(g, 8, T, S_, H, K, D, dt, fill,
+                                         ring=kw.get("ring", False))
+        if idle is not None:
+            pos[idle] = -1  # an idle slot: every position empty
+        before = decode_attention_cuda.wgmma_launches
+        got = decode_attention_cuda(q, k, v, clen, kv_positions=pos, window=window)
+        if decode_attention_cuda.wgmma_launches - before != int(dt == "bfloat16"):
+            fail(f"decode T={T} {dt} {kw}: took the wrong kernel")
+        want = ref.decode_attention(q, k, v, clen, kv_positions=pos, window=window)
+        e = check(f"decode T={T} S={S_} {dt} {kw}", got, want, dt)
+        if dt == "bfloat16":
+            errs["decode_attention"] = max(errs["decode_attention"], e)
+        lines.append(f"decode_attention B=8 T={T} S={S_} {dt} {kw} "
+                     f"({'decode_wgmma_kernel' if dt == 'bfloat16' else 'decode_kernel'}): "
+                     f"max_abs_err={e:.3g}")
     # ---- flash: the prefill buckets, bf16; fp32; window + q_offset ---------
     # bf16 runs flash_wgmma_kernel (64-row tiles: S = 100 and 16 leave a
     # ragged one), fp32 flash_kernel
@@ -300,7 +331,7 @@ def kernel_phase(report: dict) -> dict:
     }
     for name, r in out.items():
         r["max_abs_err"] = errs[name]
-        was = f" (CUDA-core kernel {PREVIOUS_MS[name]} ms)" if name in PREVIOUS_MS else ""
+        was = f" (previous kernel {PREVIOUS_MS[name]} ms)" if name in PREVIOUS_MS else ""
         print(f"{name} [{r['shape']}]: kernel {r['ms']:.4f} ms{was}, plain {r['plain_ms']:.4f} "
               f"ms, sdpa {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
     report["kernel_checks"] = lines
@@ -394,26 +425,28 @@ def paged_kernel_phase(report: dict) -> dict:
     from repro_torch.kernels.decode_attention import decode_attention_paged_cuda as k3
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    err, lines = [0.0, 0.0], []  # bf16, per kernel (route 0 decode, 1 admission)
-    # every row ends mid-page but one (1024); the last row is all -1.  bf16
-    # with T*G >= 32 (T >= 16) runs paged_prefill_kernel, the rest
-    # paged_decode_kernel: T = 9 and 16 sit on the two sides of the
-    # threshold; T*G = 200 leaves a ragged 64-row tile; the windows start
-    # each row's range mid-page; row 1 of the "ride" cases rides along past
-    # its 1024 positions (and row 3 past its 700)
+    err, lines = [0.0, 0.0], []  # bf16, decode/verify shapes (T <= 9) and admission
+    # every row ends mid-page but one (1024); the last row is all -1 (it sees
+    # nothing: the mean of V over its table).  Every bf16 call runs
+    # paged_wgmma_kernel (split-KV where the query tiles do not fill the
+    # card: the short rows, T + 5, and the empty one leave splits empty),
+    # float32 paged_decode_kernel.  T*G = 200 leaves a ragged 64-row tile;
+    # the windows start each row's range mid-page; row 1 of the "ride" cases
+    # rides along past its 1024 positions (and row 3 past its 700)
     for T, dt, window, ride in [
             (1, "bfloat16", None, ()), (2, "bfloat16", None, ()), (3, "bfloat16", None, ()),
             (5, "bfloat16", None, ()), (9, "bfloat16", None, ()), (16, "bfloat16", None, ()),
             (100, "bfloat16", None, ()), (128, "bfloat16", None, ()),
             (512, "bfloat16", None, ()), (5, "float32", None, ()), (128, "float32", None, ()),
             (16, "bfloat16", 100, ()), (128, "bfloat16", 100, ()), (9, "bfloat16", 100, ()),
+            (1, "bfloat16", 100, ()),
             (64, "bfloat16", None, (1, 3)), (100, "bfloat16", 37, (1, 3))]:
         lens = [T + 37, 1024, T + 300, 700, T + 5, 513, T + 130, 0]
         q, kp, vp, clen, bt = paged_case(g, 8, T, dt, lens, ride=ride)
         before = k3.wgmma_launches
         got = k3(q, kp, vp, clen, bt, window=window)
         tag = f"T={T} {dt} window={window} ride={list(ride)}"
-        want_path = int(dt == "bfloat16" and T * 2 >= 32)
+        want_path = int(dt == "bfloat16")
         if k3.wgmma_launches - before != want_path:
             fail(f"paged {tag}: took the wrong kernel")
         want = ref.decode_attention_paged(q, kp, vp, clen, bt, window=window)
@@ -421,9 +454,9 @@ def paged_kernel_phase(report: dict) -> dict:
         if dt == "bfloat16":  # recorded without the ride-along rows, which see
             # poisoned slots (|x| = 60, where one bf16 step is 0.25)
             keep = [b for b in range(8) if b not in ride]
-            err[want_path] = max(err[want_path], max_err(got[keep], want[keep]))
+            err[T > 9] = max(err[T > 9], max_err(got[keep], want[keep]))
         lines.append(f"decode_attention_paged B=8 {tag} "
-                     f"({'paged_prefill_kernel' if want_path else 'paged_decode_kernel'}): "
+                     f"({'paged_wgmma_kernel' if want_path else 'paged_decode_kernel'}): "
                      f"max_abs_err={e:.3g}")
     for line in lines:
         print(line)
@@ -454,7 +487,7 @@ def paged_kernel_phase(report: dict) -> dict:
             "bound": bound_ms(nbytes, ops, "bfloat16"),
         }
         r = out[key]
-        was = f" (CUDA-core kernel {PREVIOUS_MS[key]} ms)" if key in PREVIOUS_MS else ""
+        was = f" (previous kernel {PREVIOUS_MS[key]} ms)" if key in PREVIOUS_MS else ""
         print(f"decode_attention_paged {key} [{r['shape']}]: kernel {r['ms']:.4f} ms{was}, "
               f"plain {r['plain_ms']:.4f} ms, gather+sdpa {r['library_ms']:.4f} ms, bound "
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
@@ -469,7 +502,9 @@ def paged_kernel_phase(report: dict) -> dict:
 def model_phase(report: dict) -> None:
     """The full-width model's first 2 layers on the card (CUDA kernels) against
     the same weights on the CPU (plain versions), float32: prefill of a
-    bucketed batch, a 5-token verify step, a rewind and a plain step."""
+    bucketed batch, a 5-token verify step, a rewind and a plain step.  Every
+    float32 K1 and K3 launch must take the CUDA-core kernel (decode_kernel,
+    paged_decode_kernel), none the bf16 tensor-core one."""
     import dataclasses
 
     import torch
@@ -486,6 +521,7 @@ def model_phase(report: dict) -> None:
     tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, dtype=torch.int32)
     lengths = torch.tensor([64, 37], dtype=torch.int32)
     errs = []
+    zero_counts()
     lg, cg = gpu.prefill(params, {"tokens": tokens.cuda(), "lengths": lengths.cuda()}, 128)
     lc, cc = cpu.prefill(cpu_params, {"tokens": tokens, "lengths": lengths}, 128)
     errs.append(max_err(lg.cpu(), lc))
@@ -510,8 +546,13 @@ def model_phase(report: dict) -> None:
     step = torch.randint(0, cfg.vocab_size, (2, 5), generator=gen, dtype=torch.int32)
     errs.append(max_err(gpu.decode_step(params, caches[0], step.cuda()).cpu(),
                         cpu.decode_step(cpu_params, caches[1], step)))
+    launches = read_counts()
     print(f"model check (2 full-width layers, fp32, card vs CPU, dense and paged): "
-          f"max_abs_err={max(errs):.3g}")
+          f"max_abs_err={max(errs):.3g}; launches {launches}")
+    for name in ("decode_attention", "decode_attention_paged"):
+        if not launches[name] or launches[f"{name}.wgmma"]:
+            fail(f"model check: {launches[f'{name}.wgmma']} of {launches[name]} float32 "
+                 f"{name} launches took the bf16 tensor-core kernel")
     if max(errs) > 1e-3:
         fail(f"model check: logits differ by {max(errs):.3g} > 1e-3")
     report["model_check_max_abs_err"] = max(errs)
@@ -668,6 +709,9 @@ def serve_phase(report: dict):
     if launches["decode_attention"] != L * calls["decode_calls"] or not calls["decode_calls"]:
         fail(f"serve: decode launches {launches['decode_attention']} != {L} x "
              f"{calls['decode_calls']} decode calls")
+    if launches["decode_attention.wgmma"] != launches["decode_attention"]:
+        fail(f"serve: {launches['decode_attention.wgmma']} of {launches['decode_attention']} "
+             f"bf16 decode launches took decode_wgmma_kernel")
     result["prompt_lens"] = lens
     report["serve"] = result
     return launches, serve
@@ -714,13 +758,11 @@ def paged_serve_phase(params, report: dict):
     if launches["decode_attention_paged"] != arch.n_layers * k3_calls or not k3_calls:
         fail(f"paged serve: K3 launches {launches['decode_attention_paged']} != "
              f"{arch.n_layers} x {k3_calls} admission and decode calls")
-    print(f"paged serve: K3 admission launches on paged_prefill_kernel "
-          f"{launches['decode_attention_paged.wgmma']} = {arch.n_layers} x "
-          f"{result['prefill_calls']} admission calls")
-    if launches["decode_attention_paged.wgmma"] != arch.n_layers * result["prefill_calls"]:
-        fail(f"paged serve: {launches['decode_attention_paged.wgmma']} K3 launches took "
-             f"paged_prefill_kernel, not {arch.n_layers} x {result['prefill_calls']} "
-             f"admission calls")
+    print(f"paged serve: K3 launches on paged_wgmma_kernel "
+          f"{launches['decode_attention_paged.wgmma']} of {launches['decode_attention_paged']}")
+    if launches["decode_attention_paged.wgmma"] != launches["decode_attention_paged"]:
+        fail(f"paged serve: {launches['decode_attention_paged.wgmma']} of "
+             f"{launches['decode_attention_paged']} bf16 K3 launches took paged_wgmma_kernel")
     if not any(len(h.request.prompt) > cfg.max_len for h in handles):
         fail("paged serve: no prompt beyond max_len was served")
     result.update(cache_hit_tokens=hits, shared_prefix_routing=dict(routing),
@@ -776,6 +818,7 @@ def profile_phase(serve, report: dict, key="profile", lens=(16, 400, 24, 300, 40
     ``split`` the burst's prefill calls are then profiled alone (same prompt
     lengths, new tokens; admission's insert and sampling left out): their
     device time against the burst's is prefill's share, the rest decode's."""
+    import re
     from collections import Counter
 
     import numpy as np
@@ -811,16 +854,19 @@ def profile_phase(serve, report: dict, key="profile", lens=(16, 400, 24, 300, 40
             for tokens in prompts:
                 serve.engine.pairs[0].lane.prefill({"tokens": tokens})
             torch.cuda.synchronize()
-    groups = (("ssd_kernel", "ssd_scan"),
-              ("paged_prefill_kernel", "decode_attention_paged (admission)"),
-              ("paged_decode_kernel", "decode_attention_paged (decode)"),
-              ("decode_kernel", "decode_attention"), ("flash_kernel", "flash_attention"),
-              ("flash_wgmma_kernel", "flash_attention"),
-              ("gemm", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
-              ("cutlass", "matmul"), ("memcpy", "copies"), ("memset", "copies"))
+    # first match wins (paged_* before decode_*); K3 on one warpgroup (T*G <=
+    # 64: every decode and verify call, and admissions of up to 32 tokens)
+    # apart from K3 on two (the longer admissions)
+    groups = ((r"ssd_kernel", "ssd_scan"),
+              (r"paged_wgmma_kernel<\d+, ?1>", "decode_attention_paged (one warpgroup)"),
+              (r"paged_wgmma_kernel", "decode_attention_paged (two warpgroups)"),
+              (r"paged_decode_kernel", "decode_attention_paged (fp32)"),
+              (r"decode_wgmma_kernel|decode_kernel", "decode_attention"),
+              (r"flash_kernel|flash_wgmma_kernel", "flash_attention"),
+              (r"gemm|nvjet|xmma|cutlass", "matmul"), (r"memcpy|memset", "copies"))
     by_group: Counter = Counter()
     for name, ms in by_name.items():
-        by_group[next((g for k, g in groups if k in name.lower()), "other")] += ms
+        by_group[next((g for k, g in groups if re.search(k, name.lower())), "other")] += ms
     busy = sum(by_group.values())
     report[key] = {
         "burst_wall_ms": wall * 1e3, "burst_wall_profiled_ms": wall_profiled * 1e3,
@@ -1091,16 +1137,18 @@ def main() -> None:
                 "library_ms": r["library_ms"], "shape": r["shape"]}
 
     # launches: K1 and K2 from the dense serve, K3 from the paged serve (its
-    # two kernels apart: admission calls take paged_prefill_kernel), K4 from
+    # decode/verify and admission calls apart, 28 launches a call), K4 from
     # the mamba2 serve
-    k3_admit = paged_launches["decode_attention_paged.wgmma"]
-    kernels = [entry("decode_attention", "decode_kernel", timing["decode_attention"],
+    ps_calls = report["paged_serve"]
+    k3_admit = paged_launches["decode_attention_paged"] * ps_calls["prefill_calls"] // (
+        ps_calls["prefill_calls"] + ps_calls["decode_calls"])
+    kernels = [entry("decode_attention", "decode_wgmma_kernel", timing["decode_attention"],
                      launches["decode_attention"]),
                entry("flash_attention", "flash_wgmma_kernel", timing["flash_attention"],
                      launches["flash_attention"]),
-               entry("decode_attention_paged", "paged_decode_kernel", paged_timing["decode"],
+               entry("decode_attention_paged", "paged_wgmma_kernel", paged_timing["decode"],
                      paged_launches["decode_attention_paged"] - k3_admit),
-               entry("decode_attention_paged (admission)", "paged_prefill_kernel",
+               entry("decode_attention_paged (admission)", "paged_wgmma_kernel",
                      paged_timing["admission"], k3_admit),
                entry("ssd_scan", "ssd_kernel", ssd_timing, mamba_launches["ssd_scan"])]
     report["kernels"] = kernels

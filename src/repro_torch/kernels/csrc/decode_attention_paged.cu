@@ -22,56 +22,65 @@
 //     989 TFLOP/s bf16, against ~100 MB of q, out, K and V -> 30 us; the two
 //     are close, operations slightly ahead.
 //
-// Two kernels; the C entry point picks one from shape and dtype alone
-// (decode_attention_paged_route): bf16 with T*G >= PREFILL_MIN_ROWS (32:
-// every admission bucket, T >= 16) takes paged_prefill_kernel, everything
-// else (decode and verify, T <= 9, and all float32) paged_decode_kernel.
+// Two kernels; the C entry point picks one by dtype
+// (decode_attention_paged_route).
 //
-// paged_prefill_kernel (bf16 admission): the tensor-core tile loop of
-// attention_tile.cuh (SASS: HGMMA.64x64x16.F32.BF16 for S, 64x128x16 for
-// PV; chip_smoke.py checks both).  One block per (KV head, batch row, tile
-// of 128 query rows r = t*G + g of that head), heaviest causal tiles first;
-// two consumer warpgroups of 64 rows share each staged K/V tile (faster
-// than one: attention_variants.py).  The tile's rows see positions
-// [lo, hi] (the first row's window start to the last row's q_pos, hi
-// clamped to P*ps - 1), walked in tiles of 64 positions.  For each tile,
-// 64 threads read the block table once and write each position's pool
-// slot (-1: outside [lo, hi] or unset) to shared memory; then every thread
-// gathers K and V rows with 16-byte cp.async copies into the swizzled
-// layout wgmma reads, a slot of -1 filling zeros without a read.  Two
-// stages: tile i+1's copies are in flight while tile i is multiplied.
-// cp.async over TMA: a 64-position tile spans 4 pages of 16 rows at a
-// stride of K*D*2 bytes, so TMA would take 4 page boxes per panel and
-// tensor (16 issues a tile) and could not skip unset pages or clamp page
-// ids by itself; a per-row gather does all of it with no tensor map.  A
-// row that sees no position gets the mean of V over every table entry
-// (mean_of_v), as below.
+// paged_wgmma_kernel (bfloat16: every admission, decode and verify call):
+// the tensor-core tile loop of attention_tile.cuh (SASS: HGMMA.64x64x16.F32.
+// BF16 for S, 64x128x16 for PV; chip_smoke.py checks both).  One block per
+// (KV head, batch row, tile of query rows r = t*G + g, split), heaviest
+// causal tiles first: one warpgroup of 64 rows while T*G <= 64 (decode,
+// verify, admissions of up to 32 tokens), else two warpgroups of 64 sharing
+// each staged K/V tile (faster at admission than one).  The tile's rows see
+// positions [lo, hi] (the first row's window start to the last row's q_pos,
+// hi clamped to P*ps - 1).  Split-KV: where the query tiles leave SMs idle
+// (decode: 64 of them for 132 SMs) each one's 64-position tiles over P*ps
+// are cut into as many static ranges as put one block on every SM (2 at the
+// decode shape), at most 8, and a split walks the tiles of its range that
+// meet [lo, hi]; a split left with none (short rows, idle rows) is marked
+// empty, and the splits are merged by the cluster combine of
+// attention_tile.cuh.  Admission's query tiles fill the card: one split.
+// For each tile, 64 threads read the block table once and
+// write each position's pool slot (-1: outside [lo, hi] or unset) to shared
+// memory; then every thread gathers K and V rows with 16-byte cp.async
+// copies into the swizzled layout wgmma reads, a slot of -1 filling zeros
+// without a read (walk, attention_tile.cuh).  Three stages: two tiles'
+// copies in flight while one is multiplied.  cp.async over TMA: a
+// 64-position tile spans 4 pages of 16 rows at a stride of K*D*2 bytes, so
+// TMA would take 4 page boxes per panel and tensor and could not skip unset
+// pages or clamp page ids.  A row that sees no position in any split gets
+// the mean of V over every table entry (mean_of_v).  Measured by
+// attention_variants.py in the same run (B=8 T=9 over 1024): 2 splits
+// 0.0260 ms, no split 0.0385, 4 splits (two blocks an SM) 0.0340 with two
+// stages; two stages 0.0276, four 0.0273.
 //
-// paged_decode_kernel (decode and verify; float32): CUDA cores, fp32 (tensor
-// cores in TF32 cannot hold the 2e-5 float32 tolerance).  One block per
-// (tile of at most 32 query rows, KV head, batch row).  The rows of a tile
-// share one KV head (GQA), so each K/V position is read once for all of
-// them; tiling the rows over the grid keeps the fp32 query and accumulator
-// tiles in shared memory at any T.  A block walks only the positions its
-// rows can see, from its first row's window start (0 without a window) to
-// its last row's q_pos, in tiles of 64 positions.  Each position's page
-// id comes from the block table with a plain load; unset pages are not read
-// at all.  K/V are staged in shared memory as fp32 (K rows padded to D+1
-// floats, free of bank conflicts) with an fp32 online softmax, as in
-// decode_attention.cu.  Shared memory follows from the tile's row count at
-// launch and opts in above 48 KB.  Next step: split-KV for the decode
-// shapes (64 blocks for 132 SMs).
+// paged_decode_kernel (float32): CUDA cores, fp32 (tensor cores in TF32
+// cannot hold the 2e-5 float32 tolerance).  One block per (tile of at most
+// 32 query rows, KV head, batch row).  The rows of a tile share one KV head
+// (GQA), so each K/V position is read once for all of them; tiling the rows
+// over the grid keeps the fp32 query and accumulator tiles in shared memory
+// at any T.  A block walks only the positions its rows can see, from its
+// first row's window start (0 without a window) to its last row's q_pos, in
+// tiles of 64 positions.  Each position's page id comes from the block table
+// with a plain load; unset pages are not read at all.  K/V are staged in
+// shared memory as fp32 (K rows padded to D+1 floats, free of bank
+// conflicts) with an fp32 online softmax, as in decode_attention.cu.  Shared
+// memory follows from the tile's row count at launch and opts in above 48 KB.
 //
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W (device
-// time, inputs rotated past the L2): admission B=8 T=1024 over 1024
-// positions 0.1828 ms, 5.3x its bound, against 5.2586 ms for the CUDA-core
-// kernel it replaces and 0.2725 ms for a gather plus SDPA (one warpgroup a
-// block: ~10% slower, attention_variants.py).  What still holds it
-// back: no producer/consumer warp specialisation (every thread both gathers
-// and multiplies, with a block barrier every tile, and S = QK^T waits for
-// the previous tile's softmax and PV), no persistent grid, causal diagonal
-// tiles multiplied whole, and every query tile of a head re-reading its
-// pages from position 0 (from L2).
+// time, inputs rotated past the L2): decode B=8 T=9 over 1024 positions
+// 0.0262 ms, 2.6x its bound, against 0.4635 ms for the CUDA-core kernel it
+// replaces and 0.0654 ms for a gather plus SDPA; admission B=8 T=1024 0.1880
+// ms, 5.4x its bound, against 0.2760 ms for a gather plus SDPA, and 0.1821
+// ms for the admission kernel before split-KV (another run).  What still
+// holds it back: at decode, one block of one warpgroup an
+// SM (each tile's table read, gathers, products and barrier in series, with
+// nothing on the SM to hide them; the prologue and the cluster combine paid
+// per block) and a 64-row product tile for at most 18 live rows; at
+// admission, no producer/consumer warp specialisation (a block barrier every
+// tile, S = QK^T waiting for the previous tile's softmax and PV), no
+// persistent grid, causal diagonal tiles multiplied whole, and every query
+// tile of a head re-reading its pages from position 0 (from L2).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,8 +96,6 @@ constexpr int THREADS = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // The output of a row that sees no position: the plain version's softmax
 // over P*ps masked slots is uniform, so it is the mean of V over every table
@@ -115,11 +122,11 @@ __device__ void mean_of_v(float* out, const T* __restrict__ vp, const int* __res
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
+    const float* __restrict__ q, const float* __restrict__ kp, const float* __restrict__ vp,
     const int* __restrict__ cache_len, const int* __restrict__ bt,
-    T* __restrict__ out, int n_tok, int H, int K, int n_pages, int ps, int P,
+    float* __restrict__ out, int n_tok, int H, int K, int n_pages, int ps, int P,
     int rows, int window, float scale) {
   const int kh = blockIdx.y, b = blockIdx.z;
   const int G = H / K, TG = n_tok * G;
@@ -145,7 +152,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
 
   for (int i = tid; i < nr * D; i += THREADS) {
     const int r = r0 + i / D, d = i % D, t = r / G, g = r % G;
-    sq[i] = to_f(q[(((size_t)b * n_tok + t) * H + kh * G + g) * D + d]) * scale;
+    sq[i] = q[(((size_t)b * n_tok + t) * H + kh * G + g) * D + d] * scale;
     sacc[i] = 0.f;
   }
   for (int r = tid; r < nr; r += THREADS) {
@@ -165,8 +172,8 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
     for (int i = tid; i < BK * D; i += THREADS) {
       const int j = i / D, d = i % D, slot = sslot[j];
       const size_t at = (size_t)slot * slot_stride + (size_t)kh * D + d;
-      sk[j * (D + 1) + d] = slot >= 0 ? to_f(kp[at]) : 0.f;
-      sv[j * D + d] = slot >= 0 ? to_f(vp[at]) : 0.f;
+      sk[j * (D + 1) + d] = slot >= 0 ? kp[at] : 0.f;
+      sv[j * D + d] = slot >= 0 ? vp[at] : 0.f;
     }
     __syncthreads();
 
@@ -234,185 +241,129 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
   }
   for (int i = tid; i < nr * D; i += THREADS) {
     const int rl = i / D, r = r0 + rl, d = i % D, t = r / G, g = r % G;
-    store(out + (((size_t)b * n_tok + t) * H + kh * G + g) * D + d,
-          sm[rl] == NEG_INF ? sv[d] : sacc[i] / fmaxf(sl[rl], 1e-30f));
+    out[(((size_t)b * n_tok + t) * H + kh * G + g) * D + d] =
+        sm[rl] == NEG_INF ? sv[d] : sacc[i] / fmaxf(sl[rl], 1e-30f);
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* kp, const void* vp, const int* cache_len,
            const int* bt, void* out, int B, int n_tok, int H, int K, int n_pages,
            int ps, int P, int window, float scale, cudaStream_t stream) {
   const int TG = n_tok * (H / K), rows = TG < ROWS ? TG : ROWS;
   const size_t smem = sizeof(float) * (2 * rows * D + BK * (D + 1) + BK * D + rows * BK
                                        + 3 * rows) + sizeof(int) * (BK + 1);
-  auto kern = paged_decode_kernel<T, D>;
+  auto kern = paged_decode_kernel<D>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   kern<<<dim3((TG + rows - 1) / rows, K, B), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      cache_len, bt, static_cast<T*>(out), n_tok, H, K, n_pages, ps, P, rows, window,
-      scale);
+      static_cast<const float*>(q), static_cast<const float*>(kp),
+      static_cast<const float*>(vp), cache_len, bt, static_cast<float*>(out), n_tok, H, K,
+      n_pages, ps, P, rows, window, scale);
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------- bf16 admission, wgmma
+// --------------------------------------------- bf16, wgmma, split-KV
 
-constexpr int PREFILL_MIN_ROWS = 32;  // T*G at or above which bf16 takes paged_prefill_kernel
-constexpr int WGS = 2;                // consumer warpgroups (64 query rows each) per block
-
-template <int D>
-constexpr size_t prefill_smem() {  // Q tiles, 2 stages of K and V, 3 slot rows, mean of V
-  return 1024 + (size_t)(WGS + 4) * tile::tile_bytes(D) + 3 * tile::BK * 4 + D * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(128 * WGS) paged_prefill_kernel(
+template <int D, int WGS>
+__global__ void __launch_bounds__(128 * WGS) paged_wgmma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
     const __nv_bfloat16* __restrict__ vp, const int* __restrict__ cache_len,
     const int* __restrict__ bt, __nv_bfloat16* __restrict__ out, int n_tok, int H, int K,
-    int n_pages, int ps, int P, int window, float scale_log2) {
+    int n_pages, int ps, int P, int window, float scale_log2, int n_split) {
   using tile::BQ;
   using tile::Tile;
-  constexpr int ROWS = BQ * WGS, TB = tile::tile_bytes(D), NT = 128 * WGS, CH = D / 8;
+  using L = tile::Layout<D, WGS>;
+  constexpr int ROWS = BQ * WGS;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = tile::smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
-  const uint32_t sq = base, skv = base + WGS * TB;
-  int* sslot = reinterpret_cast<int*>(smem_raw + (base - raw) + (WGS + 4) * TB);  // [3][BK]
-  float* smean = reinterpret_cast<float*>(sslot + 3 * BK);                         // [D]
+  unsigned char* sm = tile::aligned_smem(smem_raw);
+  int* sslot = reinterpret_cast<int*>(sm + L::slot);
+  float* smean = reinterpret_cast<float*>(sm + L::mean);
   const int tid = threadIdx.x, wg = tid / 128;
-  const int kh = blockIdx.x, b = blockIdx.y;
+  const int kh = blockIdx.x / n_split, split = blockIdx.x % n_split, b = blockIdx.y;
   const int G = H / K, TG = n_tok * G;
   const int r0 = (gridDim.z - 1 - blockIdx.z) * ROWS;  // heaviest causal tiles first
   const int nr = min(ROWS, TG - r0);
   const int* btb = bt + (size_t)b * P;
-  const size_t slot_stride = (size_t)K * D;  // one page slot: K heads x D
-  const int q0 = cache_len[b] - n_tok;       // position of token 0
-  // the positions some row of this tile can see lie in [lo, hi]
+  const int q0 = cache_len[b] - n_tok;  // position of token 0
+  // the positions some row of this tile can see lie in [lo, hi]; this split
+  // walks the tiles of its static range that meet them
   const int hi = min(q0 + (r0 + nr - 1) / G, P * ps - 1);
   const int lo = window < 0 ? 0 : max(0, q0 + r0 / G - window + 1);
-  const int s_begin = lo / BK * BK;
-  const int n = hi >= s_begin ? (hi - s_begin) / BK + 1 : 0;
+  const int n_tiles = (P * ps + BK - 1) / BK, span = tile::split_span(n_tiles, n_split);
+  const int first = max(split * span, lo / BK);
+  const int last = hi < lo ? -1 : min(min(n_tiles, (split + 1) * span) - 1, hi / BK);
+  const int n = max(0, last - first + 1);
 
-  auto slots = [&](int i) {  // threads < BK: tile i's pool slots (-1: not read), from the table
-    const int p = s_begin + i * BK + tid;
-    int page = p >= lo && p <= hi ? btb[p / ps] : -1;
-    page = min(page, n_pages - 1);  // as the plain version's clamp
-    sslot[(i % 3) * BK + tid] = page >= 0 ? page * ps + p % ps : -1;
-  };
-  auto load = [&](int i) {  // every thread: tile i's K and V rows into stage i % 2
-    const int* sl = sslot + (i % 3) * BK;
-    const uint32_t st = skv + (i & 1) * 2 * TB;
-    for (int e = tid; e < BK * CH; e += NT) {
-      const int j = e / CH, c = e % CH * 8, slot = sl[j];
-      const size_t at = (size_t)max(slot, 0) * slot_stride + (size_t)kh * D + c;
-      const uint32_t off = tile::tile_offset<D>(j, c);
-      tile::cp_async16(st + off, kp + at, slot >= 0 ? 16 : 0);  // unread rows are zeros
-      tile::cp_async16(st + TB + off, vp + at, slot >= 0 ? 16 : 0);
-    }
-    tile::cp_async_commit();
-  };
-
-  if (tid < BK) {
-    if (n > 0) slots(0);
-    if (n > 1) slots(1);
-  }
-  for (int i = tid; i < ROWS * CH; i += NT) {  // query row r = t*G + g of KV head kh
-    const int r = r0 + i / CH, c = i % CH * 8, rr = min(r, TG - 1);
-    tile::cp_async16(sq + (i / CH / BQ) * TB + tile::tile_offset<D>(i / CH % BQ, c),
-                     q + (((size_t)b * n_tok + rr / G) * H + kh * G + rr % G) * D + c,
-                     r < TG ? 16 : 0);
-  }
-  tile::cp_async_commit();
-  __syncthreads();  // slot rows of tiles 0 and 1 written
-  if (n > 0) load(0);
-
+  tile::load_q<D, WGS>(tile::smem_u32(sm), q, b, n_tok, H, G, kh, r0);
   Tile<D> t;
   t.init();
   int qp[2];  // the query positions of this thread's two rows
 #pragma unroll
   for (int h = 0; h < 2; ++h) qp[h] = q0 + (r0 + wg * BQ + Tile<D>::row(h)) / G;
-  for (int i = 0; i < n; ++i) {
-    tile::cp_async_wait_all();  // tile i (and the q tile) landed
-    tile::fence_async_smem();
-    __syncthreads();            // ... for every thread; tile i-1 consumed
-    if (i + 1 < n) load(i + 1);
-    if (i + 2 < n && tid < BK) slots(i + 2);
-    const int s0 = s_begin + i * BK;
-    const int* sl = sslot + (i % 3) * BK;
-    const uint32_t st = skv + (i & 1) * 2 * TB;
-    t.step(sq + wg * TB, st, st + TB, scale_log2, [&](int h, int, int c, float x) {
-      const int p = s0 + c;
-      const bool ok = sl[c] >= 0 && p <= qp[h] && (window < 0 || p > qp[h] - window);
-      return ok ? x : NEG_INF;
-    });
-  }
-  tile::cp_async_wait_all();
-
-  bool none = false;
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    none |= r0 + wg * BQ + Tile<D>::row(h) < TG && t.m[h] == NEG_INF;
-  if (__syncthreads_or(none)) {
-    mean_of_v<D>(smean, vp, btb, kh, K, n_pages, ps, P, NT);
-    __syncthreads();
-  }
-  t.finish([&](int h, int r, int c, float x0, float x1) {
-    const int rr = r0 + wg * BQ + r;
-    if (rr >= TG) return;
-    if (t.m[h] == NEG_INF) {
-      x0 = smean[c];
-      x1 = smean[c + 1];
-    }
-    *reinterpret_cast<__nv_bfloat162*>(
-        out + (((size_t)b * n_tok + rr / G) * H + kh * G + rr % G) * D + c) =
-        __floats2bfloat162_rn(x0, x1);
-  });
+  tile::walk<D, WGS>(
+      t, sm, n, kp, vp, (size_t)K * D, (size_t)kh * D, scale_log2,
+      [&](int i, int ring) {  // pool rows from the table; -1 outside [lo, hi] or unset
+        const int p = (first + i) * BK + tid;
+        int page = p >= lo && p <= hi ? btb[p / ps] : -1;
+        page = min(page, n_pages - 1);  // as the plain version's clamp
+        sslot[ring * BK + tid] = page >= 0 ? page * ps + p % ps : -1;
+      },
+      [&](int i, int ring, int h, int c, float x) {
+        const int p = (first + i) * BK + c;
+        const bool ok = sslot[ring * BK + c] >= 0 && p <= qp[h] &&
+                        (window < 0 || p > qp[h] - window);
+        return ok ? x : NEG_INF;
+      });
+  tile::finish_rows<D, WGS>(
+      t, sm, nr, n_split, n > 0,
+      [&] { mean_of_v<D>(smean, vp, btb, kh, K, n_pages, ps, P, 128 * WGS); },
+      [&](int r, int c, float x0, float x1, float M) {
+        const int rr = r0 + r;
+        if (M <= NEG_INF) {  // saw no position: the mean of V over the table
+          x0 = smean[c];
+          x1 = smean[c + 1];
+        }
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + (((size_t)b * n_tok + rr / G) * H + kh * G + rr % G) * D + c) =
+            __floats2bfloat162_rn(x0, x1);
+      });
 }
 
-template <int D>
-int launch_prefill(const void* q, const void* kp, const void* vp, const int* cache_len,
-                   const int* bt, void* out, int B, int n_tok, int H, int K, int n_pages,
-                   int ps, int P, int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = prefill_smem<D>();
-  auto kern = paged_prefill_kernel<D>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int rows = tile::BQ * WGS, TG = n_tok * (H / K);
-  kern<<<dim3(K, B, (TG + rows - 1) / rows), 128 * WGS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), cache_len, bt, static_cast<__nv_bfloat16*>(out),
-      n_tok, H, K, n_pages, ps, P, window, scale * tile::LOG2E);
-  return (int)cudaGetLastError();
+template <int D, int WGS>
+int launch_wgmma(const void* q, const void* kp, const void* vp, const int* cache_len,
+                 const int* bt, void* out, int B, int n_tok, int H, int K, int n_pages, int ps,
+                 int P, int window, float scale, cudaStream_t stream) {
+  const int TG = n_tok * (H / K), q_tiles = (TG + tile::BQ * WGS - 1) / (tile::BQ * WGS);
+  const int n_split = tile::split_count(K * B * q_tiles, (P * ps + BK - 1) / BK);
+  return (int)tile::launch_split<paged_wgmma_kernel<D, WGS>>(
+      dim3(K * n_split, B, q_tiles), 128 * WGS, tile::Layout<D, WGS>::bytes, n_split, stream,
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kp), static_cast<const __nv_bfloat16*>(vp), cache_len,
+      bt, static_cast<__nv_bfloat16*>(out), n_tok, H, K, n_pages, ps, P, window,
+      scale * tile::LOG2E, n_split);
 }
 
 #define PAGED_ARGS q, kp, vp, cl, bt, out, B, n_tok, H, K, n_pages, ps, P, window, scale, st
 
-int route(int n_tok, int H, int K, int dtype) {
-  return dtype == 1 && n_tok * (H / K) >= PREFILL_MIN_ROWS ? 1 : 0;
-}
-
 int dispatch(int D, int dtype, const void* q, const void* kp, const void* vp, const int* cl,
              const int* bt, void* out, int B, int n_tok, int H, int K, int n_pages, int ps,
              int P, int window, float scale, cudaStream_t st) {
-  if (route(n_tok, H, K, dtype)) switch (D) {
-      case 32: return launch_prefill<32>(PAGED_ARGS);
-      case 64: return launch_prefill<64>(PAGED_ARGS);
-      case 128: return launch_prefill<128>(PAGED_ARGS);
+  // one warpgroup where one 64-row tile holds a KV head's rows (decode,
+  // verify, short admissions), two above
+  const bool one = n_tok * (H / K) <= tile::BQ;
+  if (dtype == 1) switch (D) {
+      case 32: return one ? launch_wgmma<32, 1>(PAGED_ARGS) : launch_wgmma<32, 2>(PAGED_ARGS);
+      case 64: return one ? launch_wgmma<64, 1>(PAGED_ARGS) : launch_wgmma<64, 2>(PAGED_ARGS);
+      case 128: return one ? launch_wgmma<128, 1>(PAGED_ARGS) : launch_wgmma<128, 2>(PAGED_ARGS);
     }
   if (dtype == 0) switch (D) {
-      case 32: return launch<float, 32>(PAGED_ARGS);
-      case 64: return launch<float, 64>(PAGED_ARGS);
-      case 128: return launch<float, 128>(PAGED_ARGS);
-    }
-  if (dtype == 1) switch (D) {
-      case 32: return launch<__nv_bfloat16, 32>(PAGED_ARGS);
-      case 64: return launch<__nv_bfloat16, 64>(PAGED_ARGS);
-      case 128: return launch<__nv_bfloat16, 128>(PAGED_ARGS);
+      case 32: return launch<32>(PAGED_ARGS);
+      case 64: return launch<64>(PAGED_ARGS);
+      case 128: return launch<128>(PAGED_ARGS);
     }
   return (int)cudaErrorInvalidValue;
 }
@@ -421,11 +372,10 @@ int dispatch(int D, int dtype, const void* q, const void* kp, const void* vp, co
 
 }  // namespace
 
-// Which kernel a call takes: 1 = paged_prefill_kernel (bf16 with T*G at or
-// above PREFILL_MIN_ROWS: admission), 0 = paged_decode_kernel.  Shape and
-// dtype only.
-extern "C" int decode_attention_paged_route(int n_tok, int H, int K, int dtype) {
-  return route(n_tok, H, K, dtype);
+// Which kernel a call takes: 1 = paged_wgmma_kernel (bfloat16), 0 =
+// paged_decode_kernel (float32).
+extern "C" int decode_attention_paged_route(int dtype) {
+  return dtype == 1;
 }
 
 // q (B, T, H, D); k_pages, v_pages (n_pages, ps, K, D); cache_len (B,) int32

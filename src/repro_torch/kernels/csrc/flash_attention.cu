@@ -43,7 +43,6 @@
 // grid (512 blocks make two uneven waves on 132 SMs), causal diagonal tiles
 // multiplied whole, and the G heads of a KV head in separate blocks (K/V
 // read G times, from L2).
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -194,28 +193,6 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
 
 // ------------------------------------------------------------ bf16, wgmma
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-}
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
 constexpr int WGS = 1;  // consumer warpgroups (64 query rows each) per block
 
 template <int D>
@@ -292,52 +269,12 @@ __global__ void __launch_bounds__(128 * WGS) flash_wgmma_kernel(
   });
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                  cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// A tensor map over k or v (B, Sk, K*D) bf16 whose box is one swizzle
-// panel (PW columns) of 64 positions.
-template <int D>
-bool kv_map(CUtensorMap* map, const void* ptr, int B, int Sk, int K) {
-  constexpr int SW = tile::swizzle_bytes(D);
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)K * D, (cuuint64_t)Sk, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)K * D * 2, (cuuint64_t)Sk * K * D * 2};
-  const cuuint32_t box[3] = {SW / 2, tile::BK, 1}, one[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
                  int H, int K, int causal, int window, int q_offset, float scale,
                  cudaStream_t stream) {
   CUtensorMap kmap, vmap;
-  if (!kv_map<D>(&kmap, k, B, Sk, K) || !kv_map<D>(&vmap, v, B, Sk, K))
+  if (!tile::kv_map<D>(&kmap, k, B, Sk, K) || !tile::kv_map<D>(&vmap, v, B, Sk, K))
     return (int)cudaErrorInvalidValue;
   constexpr size_t smem = wgmma_smem<D>();
   auto kern = flash_wgmma_kernel<D>;

@@ -6,10 +6,11 @@ T new tokens (1 for decode, depth+1 for verify) against a dense or ring KV
 cache with positional masking from ``kv_positions``.
 ``csrc/decode_attention_paged.cu`` replaces ``decode_attention_paged_pallas``:
 the same over a global page pool through per-row block tables, at decode
-sizes and at paged admission's T up to max_context.  Its C entry point sends
-bfloat16 admission shapes to ``paged_prefill_kernel`` (tensor cores) and the
-rest to ``paged_decode_kernel``.  Each source note gives the bound and the
-design.
+sizes and at paged admission's T up to max_context.  In both, the C entry
+point sends every bfloat16 call to a tensor-core kernel with split-KV
+(``decode_wgmma_kernel``, ``paged_wgmma_kernel``) and float32 to a CUDA-core
+kernel (``decode_kernel``, ``paged_decode_kernel``).  Each source note gives
+the bound and the design.
 """
 from __future__ import annotations
 
@@ -30,6 +31,14 @@ decode_attention_plain = ref.decode_attention
 decode_attention_paged_plain = ref.decode_attention_paged
 
 
+def dense_positions(cache_len, S):
+    """(B, S) int32 positions of a dense cache: slot i holds position i while
+    i < cache_len, else -1 (what the plain version assumes without
+    ``kv_positions``)."""
+    pos = torch.arange(S, dtype=torch.int32, device=cache_len.device)[None]
+    return torch.where(pos < cache_len[:, None], pos, -1).to(torch.int32)
+
+
 def decode_attention_cuda(q, k_cache, v_cache, cache_len, *, kv_positions=None,
                           window=None,
                           scale=None):
@@ -37,13 +46,15 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len, *, kv_positions=None,
 
     q (B, T, H, D); k/v_cache (B, S, K, D) of q's dtype; cache_len (B,) int32
     (the T new tokens included); kv_positions (B, S) int32, or None for a
-    dense cache whose slot i holds position i while i < cache_len.
+    dense cache whose slot i holds position i while i < cache_len.  None
+    builds those positions on the device on every call; the serving path
+    passes the cache's own ``kv_pos``, and that is how the kernel is timed
+    and served.
     """
     B, T, H, D = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     if kv_positions is None:
-        pos = torch.arange(S, dtype=torch.int32, device=q.device)[None]
-        kv_positions = torch.where(pos < cache_len[:, None], pos, -1).to(torch.int32)
+        kv_positions = dense_positions(cache_len, S)
     dtype = build.check_inputs("decode_attention", q, (k_cache, v_cache),
                                (cache_len, kv_positions))
     if (k_cache.shape != v_cache.shape or k_cache.shape[::3] != (B, D) or H % K
@@ -60,10 +71,19 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len, *, kv_positions=None,
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
     decode_attention_cuda.launches += 1
+    decode_attention_cuda.wgmma_launches += _route(dtype)
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _route(dtype):
+    """1 if the C entry point sends this dtype to decode_wgmma_kernel."""
+    return build.load("decode_attention", [ctypes.c_int], "decode_attention_route")(dtype)
+
+
+# every launch, and those that took decode_wgmma_kernel
 decode_attention_cuda.launches = 0
+decode_attention_cuda.wgmma_launches = 0
 
 
 def decode_attention_paged_cuda(q, k_pages, v_pages, cache_len, block_tables, *,
@@ -92,17 +112,17 @@ def decode_attention_paged_cuda(q, k_pages, v_pages, cache_len, block_tables, *,
     if err:
         raise RuntimeError(f"decode_attention_paged kernel launch failed: CUDA error {err}")
     decode_attention_paged_cuda.launches += 1
-    decode_attention_paged_cuda.wgmma_launches += _paged_route(T, H, K, dtype)
+    decode_attention_paged_cuda.wgmma_launches += _paged_route(dtype)
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _paged_route(T, H, K, dtype):
-    """1 if the C entry point sends this shape to paged_prefill_kernel."""
-    return build.load("decode_attention_paged", [ctypes.c_int] * 4,
-                      "decode_attention_paged_route")(T, H, K, dtype)
+def _paged_route(dtype):
+    """1 if the C entry point sends this dtype to paged_wgmma_kernel."""
+    return build.load("decode_attention_paged", [ctypes.c_int],
+                      "decode_attention_paged_route")(dtype)
 
 
-# every launch, and those that took paged_prefill_kernel
+# every launch, and those that took paged_wgmma_kernel
 decode_attention_paged_cuda.launches = 0
 decode_attention_paged_cuda.wgmma_launches = 0

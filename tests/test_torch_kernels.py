@@ -15,7 +15,7 @@ from test_kernels import DECODE_CASES, FLASH_CASES, _ring_positions
 from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.decode_attention import decode_attention_cuda, dense_positions
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -94,6 +94,20 @@ def test_decode_plain_stale_slots_and_idle_rows(idle_row):
     want = decode_attention_pallas(jq, jk, jv, jnp.asarray(clen), interpret=True,
                                    block_k=16, kv_positions=jnp.asarray(pos))
     _close(clean, want, "float32")
+
+
+def test_decode_wrapper_dense_positions_follow_the_plain_rule():
+    """Without kv_positions the plain version takes slot i to hold position i
+    while i < cache_len; the CUDA wrapper builds those positions explicitly
+    for the kernel, and they give the plain version the same result."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               for s in [(3, 2, 4, 32), (3, 40, 2, 32), (3, 40, 2, 32)])
+    clen = torch.tensor([2, 17, 40], dtype=torch.int32)
+    pos = dense_positions(clen, 40)
+    assert pos.dtype == torch.int32 and pos[1, 16] == 16 and pos[1, 17] == -1
+    torch.testing.assert_close(ref.decode_attention(q, k, v, clen, kv_positions=pos),
+                               ref.decode_attention(q, k, v, clen), atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("wrapper", [decode_attention_cuda, flash_attention_cuda])

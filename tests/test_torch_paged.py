@@ -16,7 +16,7 @@ from test_torch_engine import _one_torch_thread, _serve, fp32_model  # noqa: F40
 
 import repro.core.engine as jax_engine
 from repro.kernels import ref as jax_ref
-from repro.kernels.decode_attention import decode_attention_paged_pallas
+from repro.kernels.decode_attention import decode_attention_paged_pallas, decode_attention_pallas
 from repro.serving import kv_cache as jax_kv
 from repro.serving.cost_model import TPU_V5E
 from repro_torch.api import ServeConfig, StreamServe
@@ -67,29 +67,65 @@ def test_paged_cuda_wrapper_refuses_cpu_tensors():
     assert decode_attention_paged_cuda.launches == before
 
 
-def _admission_walk(q, kp, vp, clen, bt, window):
-    """paged_prefill_kernel's schedule in numpy: per (row, KV head), 64-row
-    query tiles r = t*G + g; each tile walks 64-position KV tiles over its
-    rows' range [lo, hi] (hi clamped to P*ps - 1), gathering each position's
-    slot from the table (clamped; -1 outside the range or unset: masked and
-    read as zeros); base-2 online softmax with the -1e30 sentinel; P rounded
-    to bf16 before P.V; a row that saw nothing gets the mean of V over every
-    table entry, an unset entry read as page 0."""
+def _bf16(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _split_walk(qs, n_tiles, n_split, seen, tile):
+    """K1's and K3's bf16 tile loop with split-KV, for one (batch row, KV head,
+    query tile) in numpy.  qs (R, D) are the rows' queries times scale *
+    log2(e).  The n_tiles tiles of 64 positions are cut into n_split static
+    ranges of ceil(n_tiles / n_split); split s walks the tiles of its range
+    that lie in ``seen``, a split with none is marked empty.  tile(i) gives
+    tile i's K and V rows (64, D), its visibility (R, 64) and whether each
+    position exists.  Each split runs a base-2 online softmax (masked scores
+    -1e30, positions that do not exist -inf) with P rounded to bf16 before
+    P.V; the combine skips the empty splits:  M = max m_i,  O = sum 2^(m_i -
+    M) O_i / sum 2^(m_i - M) l_i.  Returns (O, M)."""
+    span, parts = -(-n_tiles // n_split), []
+    for s in range(n_split):
+        walked = [i for i in range(s * span, min(n_tiles, (s + 1) * span)) if i in seen]
+        if not walked:
+            continue
+        m, l, o = np.full(len(qs), -1e30), np.zeros(len(qs)), np.zeros(qs.shape)
+        for i in walked:
+            kt, vt, ok, exists = tile(i)
+            sc = np.where(exists, np.where(ok, qs @ kt.T, -1e30), -np.inf)
+            m_new = np.maximum(m, sc.max(1))
+            p = np.exp2(sc - m_new[:, None])
+            corr, m = np.exp2(m - m_new), m_new
+            l, o = l * corr + p.sum(1), o * corr[:, None] + _bf16(p) @ vt
+        parts.append((m, l, o))
+    M = np.max([m for m, _, _ in parts], axis=0) if parts else np.full(len(qs), -np.inf)
+    w = [np.exp2(m - M) for m, _, _ in parts]
+    L = sum((wi * l for wi, (_, l, _) in zip(w, parts, strict=True)), np.zeros(len(qs)))
+    O = sum((wi[:, None] * o for wi, (_, _, o) in zip(w, parts, strict=True)), np.zeros(qs.shape))
+    return O / np.maximum(L, 1e-30)[:, None], M
+
+
+def _paged_walk(q, kp, vp, clen, bt, window, n_split=1):
+    """paged_wgmma_kernel's schedule: per (row, KV head), query tiles of 64
+    rows r = t*G + g (128 where T*G > 64: two warpgroups); each tile's rows
+    see positions [lo, hi] (hi clamped to P*ps - 1), and a split walks the
+    tiles of its range over P*ps that meet them, gathering each position's
+    slot from the table (clamped; -1 outside [lo, hi] or unset: masked and
+    read as zeros).  A row that saw nothing (M <= -1e30) gets the mean of V
+    over every table entry, an unset entry read as page 0."""
     B, T, H, D = q.shape
     n_pages, ps, K, _ = kp.shape
     P, G, c = bt.shape[1], H // K, D ** -0.5 * np.log2(np.e)
-    bf16 = lambda x: torch.from_numpy(x).to(torch.bfloat16).float().numpy()  # noqa: E731
+    rows = 64 if T * G <= 64 else 128
     out = np.zeros(q.shape, np.float32)
     for b in range(B):
         for kh in range(K):
-            for r0 in range(0, T * G, 64):
-                t, g = np.divmod(np.arange(r0, min(r0 + 64, T * G)), G)
+            for r0 in range(0, T * G, rows):
+                t, g = np.divmod(np.arange(r0, min(r0 + rows, T * G)), G)
                 qp = clen[b] - T + t
                 hi = min(qp[-1], P * ps - 1)
                 lo = 0 if window is None else max(0, qp[0] - window + 1)
-                m, l, o = np.full(len(t), -1e30), np.zeros(len(t)), np.zeros((len(t), D))
-                for s0 in range(lo // 64 * 64, hi + 1, 64):
-                    p = s0 + np.arange(64)
+
+                def tile(i, qp=qp, lo=lo, hi=hi, b=b, kh=kh):
+                    p = 64 * i + np.arange(64)
                     page = np.where((p >= lo) & (p <= hi), bt[b, np.minimum(p // ps, P - 1)], -1)
                     slot = np.where(page >= 0, np.minimum(page, n_pages - 1) * ps + p % ps, -1)
                     kt, vt = (np.where(slot[:, None] >= 0, x.reshape(-1, K, D)[slot, kh], 0)
@@ -97,15 +133,67 @@ def _admission_walk(q, kp, vp, clen, bt, window):
                     ok = (slot >= 0) & (p <= qp[:, None])
                     if window is not None:
                         ok &= p > qp[:, None] - window
-                    s = np.where(ok, q[b, t, kh * G + g] @ kt.T * c, -1e30)
-                    m_new = np.maximum(m, s.max(1))
-                    pm = np.exp2(s - m_new[:, None])
-                    corr, m = np.exp2(m - m_new), m_new
-                    l, o = l * corr + pm.sum(1), o * corr[:, None] + bf16(pm) @ vt
-                res = o / np.maximum(l, 1e-30)[:, None]
-                res[m == -1e30] = vp[np.clip(bt[b], 0, n_pages - 1), :, kh].reshape(-1, D).mean(0)
+                    return kt, vt, ok, np.ones(64, bool)
+
+                seen = range(lo // 64, hi // 64 + 1) if hi >= lo else range(0)
+                res, M = _split_walk(q[b, t, kh * G + g] * c, -(-P * ps // 64), n_split, seen,
+                                     tile)
+                res[M <= -1e30] = vp[np.clip(bt[b], 0, n_pages - 1), :, kh].reshape(-1, D).mean(0)
                 out[b, t, kh * G + g] = res
-    return bf16(out)
+    return _bf16(out)
+
+
+def _dense_walk(q, k, v, clen, pos, window, n_split):
+    """decode_wgmma_kernel's schedule: per (row, KV head) one tile of the T*G
+    rows; a split walks every slot of its range over S (a ring's slot order
+    is not position order), slot j visible iff 0 <= pos[j] <= q_pos (and >
+    q_pos - window), slots past S absent.  A row that sees nothing keeps
+    M = -1e30 in every split: equal weights, the mean of V over all S."""
+    B, T, H, D = q.shape
+    S, K = k.shape[1:3]
+    G, c = H // K, D ** -0.5 * np.log2(np.e)
+    t, g = np.divmod(np.arange(T * G), G)
+    out = np.zeros(q.shape, np.float32)
+    for b in range(B):
+        qp = clen[b] - T + t
+        for kh in range(K):
+            def tile(i, b=b, kh=kh, qp=qp):
+                p = 64 * i + np.arange(64)
+                exists = p < S
+                kv_pos = np.where(exists, pos[b, np.minimum(p, S - 1)], -1)
+                kt, vt = (np.where(exists[:, None], x[b, np.minimum(p, S - 1), kh], 0)
+                          for x in (k, v))
+                ok = (kv_pos >= 0) & (kv_pos <= qp[:, None])
+                if window is not None:
+                    ok &= kv_pos > qp[:, None] - window
+                return kt, vt, ok, exists
+
+            n_tiles = -(-S // 64)
+            out[b, t, kh * G + g] = _split_walk(q[b, t, kh * G + g] * c, n_tiles, n_split,
+                                                range(n_tiles), tile)[0]
+    return _bf16(out)
+
+
+def _paged_inputs(rng, T, held, ride=(), holes=(), P=8):
+    """G=2, 16-position pages, P a row: shuffled pages holding held[b]
+    positions, bf16."""
+    B, ps, K, D, n_pages = len(held), 16, 2, 32, 3 * P
+    bt = np.full((B, P), -1, np.int32)
+    ids = rng.permutation(n_pages)
+    for b, L in enumerate(held):
+        n = -(-L // ps)
+        bt[b, :n], ids = ids[:n], ids[n:]
+    for b, i in holes:
+        bt[b, i] = -1
+    clen = np.array([L + T if b in ride else max(L, T) for b, L in enumerate(held)], np.int32)
+    jx = [jnp.asarray(rng.normal(size=s), jnp.bfloat16)
+          for s in [(B, T, 2 * K, D), (n_pages, ps, K, D), (n_pages, ps, K, D)]]
+    return jx, clen, bt
+
+
+def _close_all(got, want_jax, want_torch):
+    for want in (*want_jax, want_torch):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
 
 
 # case: (T, positions each row holds, window, rows that ride along, pages unset
@@ -122,26 +210,78 @@ ADMISSION_WALK_CASES = {
 
 @pytest.mark.parametrize("case", ADMISSION_WALK_CASES)
 def test_admission_tile_schedule_matches_pallas(case):
-    """The K3 admission kernel's tile schedule, walked in numpy, against the
-    reference's plain version and its Pallas kernel (interpret mode), bf16."""
+    """The K3 kernel's tile schedule at admission shapes (one split), walked in
+    numpy, against the reference's plain version and its Pallas kernel
+    (interpret mode), bf16."""
     T, held, window, ride, holes = ADMISSION_WALK_CASES[case]
-    rng = np.random.default_rng(len(case))
-    B, P, ps, K, D, n_pages = 3, 8, 16, 2, 32, 24
-    bt = np.full((B, P), -1, np.int32)
-    ids = rng.permutation(n_pages)
-    for b, L in enumerate(held):
-        n = -(-L // ps)
-        bt[b, :n], ids = ids[:n], ids[n:]
-    for b, i in holes:
-        bt[b, i] = -1
-    clen = np.array([L + T if b in ride else max(L, T) for b, L in enumerate(held)], np.int32)
-    jx = [jnp.asarray(rng.normal(size=s), jnp.bfloat16)
-          for s in [(B, T, 2 * K, D), (n_pages, ps, K, D), (n_pages, ps, K, D)]]
-    got = _admission_walk(*[np.asarray(a, np.float32) for a in jx], clen, bt, window)
+    jx, clen, bt = _paged_inputs(np.random.default_rng(len(case)), T, held, ride, holes)
+    got = _paged_walk(*[np.asarray(a, np.float32) for a in jx], clen, bt, window)
     args = (*jx, jnp.asarray(clen), jnp.asarray(bt))
     for want in (jax_ref.decode_attention_paged(*args, window=window),
                  decode_attention_paged_pallas(*args, window=window, interpret=True)):
         np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
+
+
+def _ring_cache(rng, B, T, S, fill, stale=0):
+    """A ring of S slots (slot = position % S): row b holds its last
+    min(fill[b] + T, S) positions; ``stale`` slots after a row that has not
+    wrapped hold positions past its horizon, as a rejected verify leaves
+    them.  bf16 q, k, v (H = 4, K = 2, D = 32)."""
+    clen = np.array([f + T for f in fill], np.int32)
+    pos = np.full((B, S), -1, np.int32)
+    for b, L in enumerate(clen):
+        p = np.arange(max(0, L - S), L + (stale if L + stale <= S else 0))
+        pos[b, p % S] = p
+    jx = [jnp.asarray(rng.normal(size=s), jnp.bfloat16)
+          for s in [(B, T, 4, 32), (B, S, 2, 32), (B, S, 2, 32)]]
+    return jx, clen, pos
+
+
+# case: (kernel, T, positions held a row, window, n_split, idle row).  B=3;
+# K3 over 256 positions a row (4 tiles), K1 over a ring of S = 200 slots (4
+# tiles, the last with 8 slots), or 256 with an idle row: the reference's
+# Pallas kernel pads S to its block with masked zero slots, so where S is not
+# a multiple of the block its fully masked row averages the padding too
+# (ROADMAP §3), while its plain version and the port average over S
+SPLIT_WALK_CASES = {
+    "paged_T1": ("paged", 1, [200, 256, 57], None, 4, None),
+    "paged_T9_window": ("paged", 9, [256, 180, 70], 50, 4, None),
+    "paged_split_left_empty_by_a_short_row": ("paged", 5, [10, 256, 3], None, 4, None),
+    "paged_row_sees_nothing": ("paged", 3, [0, 40, 0], None, 2, None),
+    "dense_wrapped_ring_and_stale_slots": ("dense", 5, [300, 100, 40], 70, 4, None),
+    "dense_idle_row": ("dense", 3, [150, 20, 190], None, 2, 1),
+}
+
+
+@pytest.mark.parametrize("case", SPLIT_WALK_CASES)
+def test_split_kv_schedule_matches_pallas(case):
+    """The bf16 K1 and K3 kernels' split-KV schedule and LSE combine, walked
+    in numpy, against the reference's plain versions, its Pallas kernels
+    (interpret mode) and the port's plain versions, bf16."""
+    kernel, T, held, window, n_split, idle = SPLIT_WALK_CASES[case]
+    rng = np.random.default_rng(len(case))
+    if kernel == "paged":
+        jx, clen, bt = _paged_inputs(rng, T, held, P=16)
+        got = _paged_walk(*[np.asarray(a, np.float32) for a in jx], clen, bt, window, n_split)
+        args = (*jx, jnp.asarray(clen), jnp.asarray(bt))
+        tx = [torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16) for a in jx]
+        _close_all(got, (jax_ref.decode_attention_paged(*args, window=window),
+                         decode_attention_paged_pallas(*args, window=window, interpret=True)),
+                   ops.decode_attention_paged(*tx, torch.from_numpy(clen), torch.from_numpy(bt),
+                                              window=window).float())
+        return
+    jx, clen, pos = _ring_cache(rng, len(held), T, 200 if idle is None else 256, held, stale=4)
+    if idle is not None:
+        pos[idle] = -1
+    got = _dense_walk(*[np.asarray(a, np.float32) for a in jx], clen, pos, window, n_split)
+    want = [jax_ref.decode_attention(*jx, jnp.asarray(clen), kv_positions=jnp.asarray(pos),
+                                     window=window),
+            decode_attention_pallas(*jx, jnp.asarray(clen), kv_positions=jnp.asarray(pos),
+                                    window=window, interpret=True, block_k=64)]
+    tx = [torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16) for a in jx]
+    _close_all(got, want, ops.decode_attention(*tx, torch.from_numpy(clen),
+                                               kv_positions=torch.from_numpy(pos),
+                                               window=window).float())
 
 
 # ---------------------------------------------------------------------------
