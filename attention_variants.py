@@ -1,4 +1,4 @@
-"""Time the compile-time choices of the bf16 attention kernels on one NVIDIA GPU.
+"""Time the compile-time choices of the bf16 tensor-core kernels on one NVIDIA GPU.
 
     python3 attention_variants.py        # from the root of a checkout
 
@@ -10,7 +10,13 @@ has ``WGS``, the consumer warpgroups (64 query rows each) of a block (1).
 ``MAX_SPLIT``, the most splits of a query tile's KV range (8; 1 turns
 split-KV off); ``FILL``, the blocks per SM the split count aims for (1; 2
 puts two blocks on an SM, each over half the range, which is what two
-warpgroups splitting one block's range would walk).  This writes copies of
+warpgroups splitting one block's range would walk).  ``csrc/ssd_scan.cu``
+(K4) has ``MAX_BLOCKS``, the most spans (blocks of one cluster) a (row,
+head)'s chunks are cut into (8; fewer make each block walk more chunks in
+series, 1 is one block a head), ``STAGES``, its chunk stages (1; 2 lets a
+block whose span holds more than one chunk prefetch the next), and
+``MIN_BLOCKS``, the blocks an SM its registers are held to (3; 2 lifts the
+cap from 168 registers a thread to 255).  This writes copies of
 the sources with one of those lines changed under ``build/variants/``,
 builds them with the port's nvcc flags (one nvcc each, all at once), holds
 each against the plain version and times it beside the kernels as built, at
@@ -34,9 +40,10 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 ARGTYPES = {"flash_attention": fa._ARGTYPES, "decode_attention": da._ARGTYPES,
-            "decode_attention_paged": da._PAGED_ARGTYPES}
+            "decode_attention_paged": da._PAGED_ARGTYPES, "ssd_scan": ssd._ARGTYPES}
 HEADER = "attention_tile.cuh"
 # (edited file, label, [(the line as built, the line in the copy), ...]); an
 # edit of the header builds every source that includes it
@@ -48,6 +55,16 @@ VARIANTS = [
                                  ("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")]),
     (HEADER, "STAGES=2", [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")]),
     (HEADER, "STAGES=4", [("constexpr int STAGES = 3;", "constexpr int STAGES = 4;")]),
+    ("ssd_scan.cu", "MAX_BLOCKS=4", [("constexpr int MAX_BLOCKS = 8;",
+                                      "constexpr int MAX_BLOCKS = 4;")]),
+    ("ssd_scan.cu", "MAX_BLOCKS=2", [("constexpr int MAX_BLOCKS = 8;",
+                                      "constexpr int MAX_BLOCKS = 2;")]),
+    ("ssd_scan.cu", "MAX_BLOCKS=1", [("constexpr int MAX_BLOCKS = 8;",
+                                      "constexpr int MAX_BLOCKS = 1;")]),
+    ("ssd_scan.cu", "STAGES=2", [("constexpr int STAGES = 1;       // chunk stages",
+                                  "constexpr int STAGES = 2;       // chunk stages")]),
+    ("ssd_scan.cu", "MIN_BLOCKS=2", [("constexpr int MIN_BLOCKS = 3;",
+                                      "constexpr int MIN_BLOCKS = 2;")]),
 ]
 
 
@@ -116,6 +133,17 @@ def paged(fn, q, kp, vp, clen, bt):
     return out
 
 
+def ssd(fn, x, dt, A, Bm, C):
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    sf = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    call("ssd_scan", fn, x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), C.data_ptr(),
+         None, y.data_ptr(), sf.data_ptr(), B, S, H, G, P, N, *x.stride()[:2], *dt.stride()[:2],
+         *Bm.stride()[:2], *C.stride()[:2], 1)
+    return y, sf
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -166,6 +194,19 @@ def main() -> None:
             ms = cs.timed(lambda i, fn=fn, sets=sets: paged(fn, *sets[i % 8]),
                           20 if T > 100 else 200)
             print(f"decode_attention_paged {label} B=8 T={T} over 1024 positions: {ms:.4f} ms "
+                  f"(max_abs_err {e:.3g})")
+
+    for S in (400, 1000, 2048):  # the serve shape, and 2 and 4 chunks a block
+        sets = cs.copies(lambda S=S: cs.ssd_case(g, 1, S, 80, 64, 1, 128, "bfloat16"),
+                         S * (80 * 64 * 2 + 256 * 2 + 80 * 4))
+        wy, ws = ref.ssd_scan(*sets[0][:5], chunk=256)
+        for label in labels["ssd_scan"]:
+            fn = fns["ssd_scan", label]
+            y, sf = ssd(fn, *sets[0][:5])
+            e = max(cs.check(f"ssd {label} S={S}", y, wy, "bfloat16", cs.SSD_TOL),
+                    cs.check(f"ssd {label} S={S} state", sf, ws, "bfloat16", cs.SSD_TOL))
+            ms = cs.timed(lambda i, fn=fn, sets=sets: ssd(fn, *sets[i % len(sets)][:5]), 100)
+            print(f"ssd_scan {label} B=1 S={S} H=80 P=64 N=128: {ms:.4f} ms "
                   f"(max_abs_err {e:.3g})")
     print(f"nvidia-smi: {smi}")
 

@@ -6,7 +6,8 @@ Phases, each fatal on failure:
   1. print the card (nvidia-smi name and power limit) and versions; build the
      CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
      all at once); show from the SASS that the bf16 attention kernels (K1,
-     K2, K3) run both products on HGMMA (wgmma);
+     K2, K3) run both products, and the bf16 SSD-scan kernel (K4) its four,
+     on HGMMA (wgmma);
   2. hold each kernel against its plain PyTorch version at the serving
      shapes (bf16, plus fp32, stale-slot poisoning, fully masked rows, and
      for the paged kernel shuffled pages, ragged -1 tails and a window; at
@@ -30,11 +31,14 @@ Phases, each fatal on failure:
   6. serve the same model with paged KV (max_context 1024): shared-prefix
      requests that hit the radix index, prompts beyond max_len; profile a
      paged burst; then a burst that outgrows a small pool and truncates;
-  7. hold the SSD-scan kernel against its plain version (bf16 and fp32, 1
-     and 2 groups, ragged tails, an initial state, the serve shape) and time
-     it; check 2 full-width mamba2-2.7b layers on the card against the CPU;
-     serve mamba2-2.7b at full width (64 layers, d_model 2560), counting
-     SSD-scan launches, and profile a burst, splitting device time between
+  7. hold the SSD-scan kernel against its plain version (bf16 and fp32, 1,
+     2 and 4 groups, ragged tails, one chunk and one more, an initial state,
+     the serve shape, 2 and 4 chunks a block), check that bf16 takes the
+     tensor-core kernel and fp32 the CUDA-core one, and time it; check 2
+     full-width mamba2-2.7b layers on the card against the CPU (fp32: every
+     K4 launch on the CUDA-core kernel); serve mamba2-2.7b at full width (64
+     layers, d_model 2560), counting SSD-scan launches (every one on the
+     tensor-core kernel), and profile a burst, splitting device time between
      prefill and decode;
   8. print the kernel table as one JSON line, then the result line.
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
@@ -56,7 +60,7 @@ SSD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}             # tests/test_kernels.p
 # the bf16 kernels' times on the CUDA cores, before they moved to the tensor
 # cores (PERF.md §6, by this script, NVIDIA H100 80GB HBM3, 700.00 W)
 PREVIOUS_MS = {"flash_attention": 0.2979, "admission": 5.2586, "decode_attention": 0.1722,
-               "decode": 0.4635}
+               "decode": 0.4635, "ssd_scan": 0.2542}
 REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:113",
     "flash_attention": "src/repro/kernels/flash_attention.py:131",
@@ -115,33 +119,37 @@ def check(name: str, got, want, dt: str, tols: dict = TOL) -> float:
 # ------------------------------------------------------------------ kernels
 
 def tensor_core_sass(report: dict) -> None:
-    """The bf16 kernels' two products as compiled: the HGMMA (wgmma)
-    instruction forms in the SASS of decode_wgmma_kernel, flash_wgmma_kernel
-    and paged_wgmma_kernel at head_dim 128 (``cuobjdump -sass`` of the built
-    libraries).  Fails unless each holds S = QK^T (64x64x16) and O += PV
-    (64x128x16) on the tensor cores."""
+    """The bf16 kernels' products as compiled: the HGMMA (wgmma) instruction
+    forms in the SASS of decode_wgmma_kernel, flash_wgmma_kernel and
+    paged_wgmma_kernel at head_dim 128, and of ssd_wgmma_kernel (``cuobjdump
+    -sass`` of the built libraries).  Fails unless each attention kernel holds
+    S = QK^T (64x64x16) and O += PV (64x128x16) on the tensor cores, and the
+    SSD scan its scores, intra- and inter-chunk terms (64x64x16) and state
+    update (64x128x16)."""
     import re
 
     from repro_torch.kernels import build
 
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     found = {}
-    for lib, kernel in (("decode_attention", "decode_wgmma_kernel"),
-                        ("flash_attention", "flash_wgmma_kernel"),
-                        ("decode_attention_paged", "paged_wgmma_kernel")):
+    for lib, kernel, tag in (("decode_attention", "decode_wgmma_kernel", "ILi128E"),
+                             ("flash_attention", "flash_wgmma_kernel", "ILi128E"),
+                             ("decode_attention_paged", "paged_wgmma_kernel", "ILi128E"),
+                             ("ssd_scan", "ssd_wgmma_kernel", "")):
         sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True, timeout=120).stdout
         fn, forms = "", set()
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line
-            elif "HGMMA" in line and kernel in fn and "ILi128E" in fn:
+            elif "HGMMA" in line and kernel in fn and tag in fn:
                 forms.add(re.search(r"HGMMA\.(\S+)", line).group(1))
         found[kernel] = sorted(forms)
-        print(f"{kernel} (head_dim 128) SASS: HGMMA {', '.join(found[kernel]) or 'none'}")
+        print(f"{kernel}{' (head_dim 128)' if tag else ''} SASS: HGMMA "
+              f"{', '.join(found[kernel]) or 'none'}")
         if not all(any(f.startswith(shape) for f in forms) for shape in ("64x64x16.F32.BF16",
                                                                           "64x128x16.F32.BF16")):
-            fail(f"{kernel}: the SASS does not run both products on HGMMA")
+            fail(f"{kernel}: the SASS does not run its products on HGMMA")
     report["hgmma"] = found
 
 
@@ -550,15 +558,21 @@ def model_phase(report: dict) -> None:
     print(f"model check (2 full-width layers, fp32, card vs CPU, dense and paged): "
           f"max_abs_err={max(errs):.3g}; launches {launches}")
     for name in ("decode_attention", "decode_attention_paged"):
-        if not launches[name] or launches[f"{name}.wgmma"]:
-            fail(f"model check: {launches[f'{name}.wgmma']} of {launches[name]} float32 "
-                 f"{name} launches took the bf16 tensor-core kernel")
+        no_wgmma(launches, name, "model check")
     if max(errs) > 1e-3:
         fail(f"model check: logits differ by {max(errs):.3g} > 1e-3")
     report["model_check_max_abs_err"] = max(errs)
 
 
 # -------------------------------------------------------------------- serve
+
+def no_wgmma(launches: dict, name: str, tag: str) -> None:
+    """Fail unless the phase launched kernel ``name`` and every launch took
+    its float32 CUDA-core kernel."""
+    if not launches[name] or launches[f"{name}.wgmma"]:
+        fail(f"{tag}: {launches[f'{name}.wgmma']} of {launches[name]} float32 {name} "
+             f"launches took the bf16 tensor-core kernel")
+
 
 def instrument(serve):
     """Count non-finite logits on the device (no sync) and zero the lanes'
@@ -652,7 +666,6 @@ def serve_stats(tag, serve, bad, run, launches: dict) -> dict:
 def kernel_counters():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-
     from repro_torch.kernels import ssd_scan as ssd
 
     return {"decode_attention": da.decode_attention_cuda,
@@ -663,16 +676,13 @@ def kernel_counters():
 
 def zero_counts() -> None:
     for fn in kernel_counters().values():
-        fn.launches = 0
-        if hasattr(fn, "wgmma_launches"):
-            fn.wgmma_launches = 0
+        fn.launches = fn.wgmma_launches = 0
 
 
 def read_counts() -> dict:
     """Launches per kernel, and per bf16 tensor-core path ("<name>.wgmma")."""
     counts = {name: fn.launches for name, fn in kernel_counters().items()}
-    counts.update({f"{name}.wgmma": fn.wgmma_launches for name, fn in kernel_counters().items()
-                   if hasattr(fn, "wgmma_launches")})
+    counts.update({f"{name}.wgmma": fn.wgmma_launches for name, fn in kernel_counters().items()})
     return counts
 
 
@@ -857,7 +867,7 @@ def profile_phase(serve, report: dict, key="profile", lens=(16, 400, 24, 300, 40
     # first match wins (paged_* before decode_*); K3 on one warpgroup (T*G <=
     # 64: every decode and verify call, and admissions of up to 32 tokens)
     # apart from K3 on two (the longer admissions)
-    groups = ((r"ssd_kernel", "ssd_scan"),
+    groups = ((r"ssd_kernel|ssd_wgmma_kernel", "ssd_scan"),
               (r"paged_wgmma_kernel<\d+, ?1>", "decode_attention_paged (one warpgroup)"),
               (r"paged_wgmma_kernel", "decode_attention_paged (two warpgroups)"),
               (r"paged_decode_kernel", "decode_attention_paged (fp32)"),
@@ -902,6 +912,10 @@ SSD_CHECKS = [  # B, S, H, P, G, N, dtype, initial state
     (2, 130, 8, 32, 2, 64, "float32", True),
     (1, 48, 16, 32, 4, 16, "float32", True),      # 4 groups of 4 heads
     (1, 1000, 80, 64, 1, 128, "bfloat16", False),  # 16 chunks, decay far below e^-100
+    (1, 64, 80, 64, 1, 128, "bfloat16", False),    # one chunk
+    (1, 65, 80, 64, 1, 128, "bfloat16", False),    # one chunk and one row: 2 blocks
+    (1, 2048, 80, 64, 1, 128, "bfloat16", False),  # 32 chunks: 4 a block
+    (2, 300, 16, 64, 4, 128, "bfloat16", True),    # 4 groups of 4 heads
 ]
 
 
@@ -942,8 +956,9 @@ def ssd_cost(x, Bm, s0, chunk=64):
 
 
 def ssd_kernel_phase(report: dict) -> dict:
-    """K4 against its plain version on SSD_CHECKS (y and final state), then
-    checked and timed at the serve shape on views rotated past the L2."""
+    """K4 against its plain version on SSD_CHECKS (y and final state; bf16 on
+    ssd_wgmma_kernel, fp32 on ssd_kernel), then checked and timed at the
+    serve shape on views rotated past the L2."""
     import torch
 
     from repro_torch.kernels import ref
@@ -953,9 +968,13 @@ def ssd_kernel_phase(report: dict) -> dict:
     err, lines = 0.0, []
     for B, S, H, P, G, N, dt, init in SSD_CHECKS:
         x, dtv, A, Bm, C, s0 = ssd_case(g, B, S, H, P, G, N, dt, init)
+        before = ssd_scan_cuda.wgmma_launches
         y, sf = ssd_scan_cuda(x, dtv, A, Bm, C, initial_state=s0)
+        kernel = "ssd_wgmma_kernel" if dt == "bfloat16" else "ssd_kernel"
+        tag = f"ssd_scan B={B} S={S} H={H} P={P} G={G} N={N} {dt} init={init} ({kernel})"
+        if ssd_scan_cuda.wgmma_launches - before != int(dt == "bfloat16"):
+            fail(f"{tag}: took the wrong kernel")
         wy, ws = ref.ssd_scan(x, dtv, A, Bm, C, chunk=256, initial_state=s0)
-        tag = f"ssd_scan B={B} S={S} H={H} P={P} G={G} N={N} {dt} init={init}"
         e = max(check(tag, y, wy, dt, SSD_TOL), check(tag + " state", sf, ws, dt, SSD_TOL))
         if dt == "bfloat16":
             err = max(err, e)
@@ -973,8 +992,9 @@ def ssd_kernel_phase(report: dict) -> dict:
            "ms": timed(lambda i: ssd_scan_cuda(*sets[i % len(sets)][:5]), 200),
            "plain_ms": timed(lambda i: ref.ssd_scan(*sets[i % len(sets)][:5], chunk=256), 20),
            "library_ms": None, "bound": bound_ms(nbytes, ops, "bfloat16"), "max_abs_err": err}
-    print(f"ssd_scan [{out['shape']}]: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
-          f"no single PyTorch call, bound {out['bound'][0]:.4f} ms ({out['bound'][1]})")
+    print(f"ssd_scan [{out['shape']}]: kernel {out['ms']:.4f} ms (previous kernel "
+          f"{PREVIOUS_MS['ssd_scan']} ms), plain {out['plain_ms']:.4f} ms, no single PyTorch "
+          f"call, bound {out['bound'][0]:.4f} ms ({out['bound'][1]})")
     report["ssd_kernel_checks"] = lines
     return out
 
@@ -991,7 +1011,8 @@ def mamba_model_phase(report: dict) -> None:
     """mamba2-2.7b's first 2 layers at full width on the card (K4) against the
     same weights on the CPU (plain versions), float32: an exact-shape prefill
     of 2 rows of 300 tokens, a 5-token verify, a per-row commit and a plain
-    step; logits and the committed SSM state."""
+    step; logits and the committed SSM state.  Every K4 launch must take the
+    CUDA-core kernel (ssd_kernel)."""
     import dataclasses
 
     import torch
@@ -1005,6 +1026,7 @@ def mamba_model_phase(report: dict) -> None:
     cpu_params = to_cpu(params)
     gen = torch.Generator().manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (2, 300), generator=gen, dtype=torch.int32)
+    zero_counts()
     lg, cg = gpu.prefill(params, {"tokens": tokens.cuda()}, 512)
     lc, cc = cpu.prefill(cpu_params, {"tokens": tokens}, 512)
     errs = [max_err(lg.cpu(), lc)]
@@ -1016,8 +1038,11 @@ def mamba_model_phase(report: dict) -> None:
             gpu.commit_cache(cg, cg["len"] - T, accept.cuda())
             cpu.commit_cache(cc, cc["len"] - T, accept)
             errs.append(max_err(cg["state"].cpu(), cc["state"]))
+    launches = read_counts()
     print(f"mamba2 model check (2 full-width layers, fp32, card vs CPU): "
-          f"max_abs_err={max(errs):.3g}")
+          f"max_abs_err={max(errs):.3g}; K4 launches {launches['ssd_scan']}, on "
+          f"ssd_wgmma_kernel {launches['ssd_scan.wgmma']}")
+    no_wgmma(launches, "ssd_scan", "mamba2 model check")
     if max(errs) > 1e-3:
         fail(f"mamba2 model check: logits or state differ by {max(errs):.3g} > 1e-3")
     report["mamba_model_check_max_abs_err"] = max(errs)
@@ -1051,11 +1076,16 @@ def mamba_serve_phase(report: dict):
     launches = read_counts()
     result = serve_stats("mamba2 serve", serve, bad, run, launches)
     L, n_pre = arch.n_layers, result["prefill_calls"]
-    print(f"mamba2 serve: K4 launches {launches['ssd_scan']} = {L} x {n_pre} prefill calls")
+    print(f"mamba2 serve: K4 launches {launches['ssd_scan']} = {L} x {n_pre} prefill calls, "
+          f"on ssd_wgmma_kernel {launches['ssd_scan.wgmma']}")
     if n_pre != len(prompts) or launches["ssd_scan"] != L * n_pre:
         fail(f"mamba2 serve: {launches['ssd_scan']} K4 launches, {n_pre} prefill calls: "
              f"expected one call per request and {L} launches per call")
-    if not result["decode_calls"] or any(n for k, n in launches.items() if k != "ssd_scan"):
+    if launches["ssd_scan.wgmma"] != launches["ssd_scan"]:
+        fail(f"mamba2 serve: {launches['ssd_scan.wgmma']} of {launches['ssd_scan']} bf16 K4 "
+             f"launches took ssd_wgmma_kernel")
+    if not result["decode_calls"] or any(n for k, n in launches.items()
+                                         if not k.startswith("ssd_scan")):
         fail(f"mamba2 serve: unexpected launches {launches} or no decode call")
     result["prompt_lens"] = lens
     report["mamba_serve"] = result
@@ -1128,13 +1158,14 @@ def main() -> None:
     del serve
     release()
 
-    def entry(name, kernel, r, n):
+    def entry(name, kernel, r, n, was):
         return {"name": name, "kernel": kernel, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name.split()[0]}.cu",
                 "replaces": REPLACES[name.split()[0]], "launches": n,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-                "library_ms": r["library_ms"], "shape": r["shape"]}
+                "library_ms": r["library_ms"], "shape": r["shape"],
+                "previous_ms": PREVIOUS_MS[was]}
 
     # launches: K1 and K2 from the dense serve, K3 from the paged serve (its
     # decode/verify and admission calls apart, 28 launches a call), K4 from
@@ -1143,14 +1174,15 @@ def main() -> None:
     k3_admit = paged_launches["decode_attention_paged"] * ps_calls["prefill_calls"] // (
         ps_calls["prefill_calls"] + ps_calls["decode_calls"])
     kernels = [entry("decode_attention", "decode_wgmma_kernel", timing["decode_attention"],
-                     launches["decode_attention"]),
+                     launches["decode_attention"], "decode_attention"),
                entry("flash_attention", "flash_wgmma_kernel", timing["flash_attention"],
-                     launches["flash_attention"]),
+                     launches["flash_attention"], "flash_attention"),
                entry("decode_attention_paged", "paged_wgmma_kernel", paged_timing["decode"],
-                     paged_launches["decode_attention_paged"] - k3_admit),
+                     paged_launches["decode_attention_paged"] - k3_admit, "decode"),
                entry("decode_attention_paged (admission)", "paged_wgmma_kernel",
-                     paged_timing["admission"], k3_admit),
-               entry("ssd_scan", "ssd_kernel", ssd_timing, mamba_launches["ssd_scan"])]
+                     paged_timing["admission"], k3_admit, "admission"),
+               entry("ssd_scan", "ssd_wgmma_kernel", ssd_timing, mamba_launches["ssd_scan"],
+                     "ssd_scan")]
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

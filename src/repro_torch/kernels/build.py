@@ -11,6 +11,7 @@ the CUDA toolkit, and only a call that launches a kernel needs nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -88,6 +89,25 @@ def check_inputs(kernel, q, floats, ints=()):
     if any(str(t.dtype) != "torch.int32" for t in ints):
         raise TypeError(f"{kernel}: lengths and positions must be int32")
     return codes[str(q.dtype)]
+
+
+@functools.lru_cache(maxsize=None)
+def route(name, dtype):
+    """1 if the C entry point of ``csrc/<name>.cu`` sends this dtype code to
+    its bf16 tensor-core kernel (its ``<name>_route``), else 0."""
+    return load(name, [ctypes.c_int], f"{name}_route")(dtype)
+
+
+def launch(wrapper, name, argtypes, dtype, stream, *args):
+    """Call the C entry point of ``csrc/<name>.cu`` on ``args``, the dtype
+    code and the stream; raise if it returns a CUDA error, else count the
+    launch on ``wrapper`` (``launches``, and ``wgmma_launches`` where the
+    dtype goes to the bf16 tensor-core kernel)."""
+    err = load(name, argtypes)(*args, dtype, stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
+    wrapper.wgmma_launches += route(name, dtype)
 
 
 def load(name, argtypes, symbol=None):

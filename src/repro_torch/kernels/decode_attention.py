@@ -15,7 +15,6 @@ the bound and the design.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -63,27 +62,16 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len, *, kv_positions=None,
         raise ValueError(f"decode_attention: unsupported shapes q{tuple(q.shape)} "
                          f"kv{tuple(k_cache.shape)} (head_dim must be 32, 64 or 128)")
     out = torch.empty_like(q)
-    err = build.load("decode_attention", _ARGTYPES)(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
-        kv_positions.data_ptr(), out.data_ptr(), B, T, H, K, D, S,
-        -1 if window is None else window, D ** -0.5 if scale is None else scale, dtype,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
-    decode_attention_cuda.launches += 1
-    decode_attention_cuda.wgmma_launches += _route(dtype)
+    build.launch(decode_attention_cuda, "decode_attention", _ARGTYPES, dtype,
+                 torch.cuda.current_stream(q.device).cuda_stream, q.data_ptr(),
+                 k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
+                 kv_positions.data_ptr(), out.data_ptr(), B, T, H, K, D, S,
+                 -1 if window is None else window, D ** -0.5 if scale is None else scale)
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _route(dtype):
-    """1 if the C entry point sends this dtype to decode_wgmma_kernel."""
-    return build.load("decode_attention", [ctypes.c_int], "decode_attention_route")(dtype)
-
-
 # every launch, and those that took decode_wgmma_kernel
-decode_attention_cuda.launches = 0
-decode_attention_cuda.wgmma_launches = 0
+decode_attention_cuda.launches = decode_attention_cuda.wgmma_launches = 0
 
 
 def decode_attention_paged_cuda(q, k_pages, v_pages, cache_len, block_tables, *,
@@ -104,25 +92,13 @@ def decode_attention_paged_cuda(q, k_pages, v_pages, cache_len, block_tables, *,
         raise ValueError(f"decode_attention_paged: unsupported shapes q{tuple(q.shape)} "
                          f"pages{tuple(k_pages.shape)} (head_dim must be 32, 64 or 128)")
     out = torch.empty_like(q)
-    err = build.load("decode_attention_paged", _PAGED_ARGTYPES)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), cache_len.data_ptr(),
-        block_tables.data_ptr(), out.data_ptr(), B, T, H, K, D, n_pages, ps, P,
-        -1 if window is None else window, D ** -0.5 if scale is None else scale, dtype,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"decode_attention_paged kernel launch failed: CUDA error {err}")
-    decode_attention_paged_cuda.launches += 1
-    decode_attention_paged_cuda.wgmma_launches += _paged_route(dtype)
+    build.launch(decode_attention_paged_cuda, "decode_attention_paged", _PAGED_ARGTYPES, dtype,
+                 torch.cuda.current_stream(q.device).cuda_stream, q.data_ptr(),
+                 k_pages.data_ptr(), v_pages.data_ptr(), cache_len.data_ptr(),
+                 block_tables.data_ptr(), out.data_ptr(), B, T, H, K, D, n_pages, ps, P,
+                 -1 if window is None else window, D ** -0.5 if scale is None else scale)
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _paged_route(dtype):
-    """1 if the C entry point sends this dtype to paged_wgmma_kernel."""
-    return build.load("decode_attention_paged", [ctypes.c_int],
-                      "decode_attention_paged_route")(dtype)
-
-
 # every launch, and those that took paged_wgmma_kernel
-decode_attention_paged_cuda.launches = 0
-decode_attention_paged_cuda.wgmma_launches = 0
+decode_attention_paged_cuda.launches = decode_attention_paged_cuda.wgmma_launches = 0

@@ -10,7 +10,6 @@ source note gives the bound and the design.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -37,24 +36,13 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None,
         raise ValueError(f"flash_attention: unsupported shapes q{tuple(q.shape)} "
                          f"kv{tuple(k.shape)} (head_dim must be 32, 64 or 128)")
     out = torch.empty_like(q)
-    err = build.load("flash_attention", _ARGTYPES)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, D,
-        int(causal), -1 if window is None else window, q_offset,
-        D ** -0.5 if scale is None else scale, dtype,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    flash_attention_cuda.launches += 1
-    flash_attention_cuda.wgmma_launches += _route(dtype)
+    build.launch(flash_attention_cuda, "flash_attention", _ARGTYPES, dtype,
+                 torch.cuda.current_stream(q.device).cuda_stream, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, K, D, int(causal),
+                 -1 if window is None else window, q_offset,
+                 D ** -0.5 if scale is None else scale)
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _route(dtype):
-    """1 if the C entry point sends this dtype to flash_wgmma_kernel."""
-    return build.load("flash_attention", [ctypes.c_int], "flash_attention_route")(dtype)
-
-
 # every launch, and those that took flash_wgmma_kernel
-flash_attention_cuda.launches = 0
-flash_attention_cuda.wgmma_launches = 0
+flash_attention_cuda.launches = flash_attention_cuda.wgmma_launches = 0

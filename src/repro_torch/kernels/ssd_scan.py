@@ -1,10 +1,12 @@
-"""Mamba2 SSD chunked scan: the CUDA kernel's wrapper and its plain version.
+"""Mamba2 SSD chunked scan: the CUDA kernels' wrapper and its plain version.
 
-The kernel (``csrc/ssd_scan.cu``) replaces the TPU kernel
+The kernels (``csrc/ssd_scan.cu``) replace the TPU kernel
 ``repro.kernels.ssd_scan.ssd_scan_pallas``: the decay-masked intra-chunk
 quadratic form plus an (H, P, N) fp32 state carried across chunks, from an
-initial state to the final one.  Its source note gives the bound and the
-design.
+initial state to the final one.  bfloat16 runs ``ssd_wgmma_kernel`` on the
+tensor cores (chunk-parallel, the state passed across a thread-block
+cluster), float32 ``ssd_kernel`` on the CUDA cores; the C entry point
+decides.  The source note gives the bound and the design.
 """
 from __future__ import annotations
 
@@ -29,8 +31,10 @@ def ssd_scan_cuda(x, dt, A, Bm, C, *, initial_state=None):
     dt (B, S, H) and A (H,) float32, initial_state (B, H, P, N) float32 or
     None.  x, dt, Bm and C may be strided views over batch and sequence
     (the model passes slices of the conv output); their trailing dimensions
-    must be packed.  The kernel scans in 64-row chunks whatever the model's
-    chunk size: the chunking moves only rounding.
+    must be packed.  bfloat16 takes P = 64 and N = 128 only, and x, Bm and C
+    16-byte aligned with strides that are multiples of 8 elements (16-byte
+    copies).  The kernels scan in 64-row chunks whatever the model's chunk
+    size: the chunking moves only rounding.
     """
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2:]
@@ -45,25 +49,25 @@ def ssd_scan_cuda(x, dt, A, Bm, C, *, initial_state=None):
     packed = (x.stride()[2:] == (P, 1) and dt.stride(2) == 1 and A.is_contiguous()
               and Bm.stride()[2:] == (N, 1) and C.stride()[2:] == (N, 1)
               and (initial_state is None or initial_state.is_contiguous()))
-    if (not packed or dt.shape != (Bsz, S, H) or A.shape != (H,) or C.shape != Bm.shape
-            or Bm.shape[:2] != (Bsz, S) or H % G or P % 16 or not 16 <= P <= 64 or N % 16
-            or not 16 <= N <= 128
+    fits = ((P, N) == (64, 128) and not any(t.data_ptr() % 16 or t.stride(0) % 8
+                                            or t.stride(1) % 8 for t in (x, Bm, C))
+            if codes[x.dtype] else not (P % 16 or N % 16) and 16 <= P <= 64 and 16 <= N <= 128)
+    if (not packed or not fits or S < 1 or dt.shape != (Bsz, S, H) or A.shape != (H,)
+            or C.shape != Bm.shape or Bm.shape[:2] != (Bsz, S) or H % G
             or (initial_state is not None and initial_state.shape != (Bsz, H, P, N))):
         raise ValueError(f"ssd_scan: unsupported layout x{tuple(x.shape)} B{tuple(Bm.shape)} "
-                         "(trailing dimensions packed; P and N multiples of 16, "
-                         "P <= 64, N <= 128)")
+                         "(trailing dimensions packed; bfloat16: P = 64, N = 128, 16-byte "
+                         "aligned rows; float32: P and N multiples of 16, P <= 64, N <= 128)")
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     sf = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    err = build.load("ssd_scan", _ARGTYPES)(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), C.data_ptr(),
-        None if initial_state is None else initial_state.data_ptr(), y.data_ptr(),
-        sf.data_ptr(), Bsz, S, H, G, P, N, *x.stride()[:2], *dt.stride()[:2],
-        *Bm.stride()[:2], *C.stride()[:2], codes[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
-    ssd_scan_cuda.launches += 1
+    build.launch(ssd_scan_cuda, "ssd_scan", _ARGTYPES, codes[x.dtype],
+                 torch.cuda.current_stream(x.device).cuda_stream, x.data_ptr(), dt.data_ptr(),
+                 A.data_ptr(), Bm.data_ptr(), C.data_ptr(),
+                 None if initial_state is None else initial_state.data_ptr(), y.data_ptr(),
+                 sf.data_ptr(), Bsz, S, H, G, P, N, *x.stride()[:2], *dt.stride()[:2],
+                 *Bm.stride()[:2], *C.stride()[:2])
     return y, sf
 
 
-ssd_scan_cuda.launches = 0
+# every launch, and those that took ssd_wgmma_kernel
+ssd_scan_cuda.launches = ssd_scan_cuda.wgmma_launches = 0

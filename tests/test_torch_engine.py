@@ -47,12 +47,40 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def fp32_model():
-    jcfg = dataclasses.replace(jax_reduced("qwen3-1.7b"), n_layers=2, dtype="float32")
-    tcfg = dataclasses.replace(reduced_config("qwen3-1.7b"), n_layers=2, dtype="float32")
+def fp32_pair(arch):
+    """The reference's and the port's reduced ``arch``, 2 layers in float32,
+    with the same weights: (jcfg, jparams, tcfg, tparams)."""
+    jcfg = dataclasses.replace(jax_reduced(arch), n_layers=2, dtype="float32")
+    tcfg = dataclasses.replace(reduced_config(arch), n_layers=2, dtype="float32")
     jparams, _ = unzip_params(jax_build(jcfg).init(jax.random.PRNGKey(0)))
     return jcfg, jparams, tcfg, from_jax_tree(jax.tree.map(np.asarray, jparams), tcfg)
+
+
+@pytest.fixture(scope="module")
+def fp32_model():
+    return fp32_pair("qwen3-1.7b")
+
+
+def _engines(pair, n_pairs, **kw):
+    """The JAX engine and the port's on the same weights; routing prices
+    prefill with the reference's TPU profile."""
+    jcfg, jparams, tcfg, tparams = pair
+    kw = {"max_batch": 2, "max_len": 96, **kw}
+    return (jax_engine.PipeServeEngine(jcfg, jparams, n_pairs=n_pairs,
+                                       econf=jax_engine.EngineConfig(**kw)),
+            PipeServeEngine(tcfg, tparams, n_pairs=n_pairs, econf=EngineConfig(**kw),
+                            device="cpu", hardware=HardwareProfile(**dataclasses.asdict(TPU_V5E))))
+
+
+def _copy(reqs):
+    return [Request(prompt=list(r.prompt), request_id=r.request_id,
+                    params=SamplingParams(max_new_tokens=r.params.max_new_tokens),
+                    arrival_time=r.arrival_time, slo_ttft=r.slo_ttft, slo_tpot=r.slo_tpot)
+            for r in reqs]
+
+
+def _records(engine):
+    return [dataclasses.asdict(r) for r in engine.monitor.completed]
 
 
 def _serve(engine, reqs, max_steps=600):
@@ -69,27 +97,32 @@ def _serve(engine, reqs, max_steps=600):
     raise AssertionError("engine did not drain")
 
 
-@pytest.mark.parametrize("trace", ["bursty", "uniform", "mixed_slo"])
-def test_engine_matches_jax_engine(fp32_model, trace_factory, trace):
-    jcfg, jparams, tcfg, tparams = fp32_model
-    kw = {"max_batch": 2, "max_len": 96}
-    jreqs = trace_factory(trace, n=6)
-    treqs = [Request(prompt=list(r.prompt), request_id=r.request_id,
-                     params=SamplingParams(max_new_tokens=r.params.max_new_tokens),
-                     arrival_time=r.arrival_time, slo_ttft=r.slo_ttft, slo_tpot=r.slo_tpot)
-             for r in jreqs]
-    jeng = jax_engine.PipeServeEngine(jcfg, jparams, n_pairs=2,
-                                      econf=jax_engine.EngineConfig(**kw))
+def _serve_both(jeng, teng, jreqs, treqs):
+    """Serve a trace on the JAX engine and its copy on the port's: the same
+    tokens and the same pair for every request."""
     _serve(jeng, jreqs)
-    teng = PipeServeEngine(tcfg, tparams, n_pairs=2, econf=EngineConfig(**kw), device="cpu",
-                           hardware=HardwareProfile(**dataclasses.asdict(TPU_V5E)))
     _serve(teng, treqs)
     assert [r.output_tokens for r in treqs] == [r.output_tokens for r in jreqs]
     assert [r.worker_id for r in treqs] == [r.worker_id for r in jreqs]
+
+
+def _refused(wrapper, *args):
+    """A CUDA wrapper given CPU tensors raises and counts no launch."""
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        wrapper(*args)
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("trace", ["bursty", "uniform", "mixed_slo"])
+def test_engine_matches_jax_engine(fp32_model, trace_factory, trace):
+    jreqs = trace_factory(trace, n=6)
+    treqs = _copy(jreqs)
+    jeng, teng = _engines(fp32_model, 2)
+    _serve_both(jeng, teng, jreqs, treqs)
     assert {r.worker_id for r in treqs} == {0, 1}
     assert len(teng.monitor.completed) == len(treqs)
-    assert [dataclasses.asdict(r) for r in teng.monitor.completed] == \
-        [dataclasses.asdict(r) for r in jeng.monitor.completed]
+    assert _records(teng) == _records(jeng)
 
 
 def test_verify_tokens_matches_jax_greedy_per_row_depth():

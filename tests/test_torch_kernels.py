@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 from test_kernels import DECODE_CASES, FLASH_CASES, _ring_positions
+from test_torch_engine import _one_torch_thread, _refused  # noqa: F401
 
 from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
@@ -21,25 +22,15 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny shapes need one intra-op thread; the suite's other workers get
-    the rest of the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _pair(rng, shape, dt):
     """The same random values as a JAX array and a torch tensor of dtype dt."""
     a = jnp.asarray(rng.normal(size=shape), dt)
     return a, torch.from_numpy(np.array(a.astype(jnp.float32))).to(getattr(torch, dt))
 
 
-def _close(got, want, dt):
+def _close(got, want, dt, tols=TOL):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               atol=TOL[dt], rtol=TOL[dt])
+                               atol=tols[dt], rtol=tols[dt])
 
 
 # (case, q_offset): the reference's table, plus a continuation block whose
@@ -115,11 +106,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(wrapper):
     """A wrapper launches its kernel or raises: it never computes on the CPU,
     and a refused call does not count as a launch."""
     q, k = torch.zeros(1, 2, 4, 32), torch.zeros(1, 8, 2, 32)
-    before = wrapper.launches
     extra = (torch.tensor([2], dtype=torch.int32),) if wrapper is decode_attention_cuda else ()
-    with pytest.raises(ValueError, match="CUDA device"):
-        wrapper(q, k, k, *extra)
-    assert wrapper.launches == before
+    _refused(wrapper, q, k, k, *extra)
 
 
 def test_library_path_follows_shared_headers(tmp_path, monkeypatch):

@@ -3,12 +3,15 @@ weights (through the weight bridge) and the same tokens give the same logits
 and the same cache positions.  Tolerances: 1e-4 in float32 (summation order
 differs), 2e-2 in bfloat16 (the frameworks round at different places)."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_engine import _one_torch_thread  # noqa: F401
+from test_torch_kernels import _close as _close_at
 
 from repro.configs import reduced_config as jax_reduced
 from repro.distributed.sharding import unzip_params
@@ -21,31 +24,25 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 MAX_LEN = 64
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny shapes need one intra-op thread; the suite's other workers get
-    the rest of the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+def model_pair(arch, dt):
+    """(dt, jcfg, JAX model, its params, the port's model, its params): the
+    reduced ``arch``, 2 layers in dtype dt, the same weights in both."""
+    jcfg = dataclasses.replace(jax_reduced(arch), n_layers=2, dtype=dt)
+    tcfg = dataclasses.replace(reduced_config(arch), n_layers=2, dtype=dt)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    jm = jax_build(jcfg)
+    jparams, _ = unzip_params(jm.init(jax.random.PRNGKey(0)))
+    tparams = from_jax_tree(jax.tree.map(np.asarray, jparams), tcfg, dtype=getattr(torch, dt))
+    return dt, jcfg, jm, jparams, build_model(tcfg, "cpu"), tparams
 
 
 @pytest.fixture(scope="module", params=["float32", "bfloat16"])
 def models(request):
-    dt = request.param
-    jcfg = dataclasses.replace(jax_reduced("qwen3-1.7b"), n_layers=2, dtype=dt)
-    tcfg = dataclasses.replace(reduced_config("qwen3-1.7b"), n_layers=2, dtype=dt)
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    jm = jax_build(jcfg)
-    jparams, _ = unzip_params(jm.init(jax.random.PRNGKey(0)))
-    tparams = from_jax_tree(jax.tree.map(np.asarray, jparams), tcfg)
-    return dt, jm, jparams, build_model(tcfg, "cpu"), tparams
+    dt, _, *rest = model_pair("qwen3-1.7b", request.param)
+    return (dt, *rest)
 
 
-def _close(got, want, dt):
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               atol=TOL[dt], rtol=TOL[dt])
+_close = functools.partial(_close_at, tols=TOL)
 
 
 def _prefill(models):

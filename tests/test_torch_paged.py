@@ -12,23 +12,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_engine import _one_torch_thread, _serve, fp32_model  # noqa: F401
+from test_torch_engine import _copy, _engines, _records, _refused, _serve_both
+from test_torch_kernels import _close, _pair
+from test_torch_engine import _one_torch_thread, fp32_model  # noqa: F401
 
-import repro.core.engine as jax_engine
 from repro.kernels import ref as jax_ref
 from repro.kernels.decode_attention import decode_attention_paged_pallas, decode_attention_pallas
 from repro.serving import kv_cache as jax_kv
-from repro.serving.cost_model import TPU_V5E
 from repro_torch.api import ServeConfig, StreamServe
-from repro_torch.core.engine import EngineConfig, PipeServeEngine
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention_paged_cuda
 from repro_torch.serving import kv_cache
-from repro_torch.serving.cost_model import HardwareProfile
-from repro_torch.serving.request import Request, SamplingParams
-
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-
 
 # (T, dtype, window): decode and verify sizes, an admission-sized T, bf16
 @pytest.mark.parametrize("T, dt, window", [(1, "float32", None), (3, "float32", None),
@@ -40,31 +34,20 @@ def test_paged_plain_matches_reference_and_pallas(T, dt, window):
     rng = np.random.default_rng(T)
     B, P, ps, K, D, n_pages = 4, 4, 16, 2, 32, 24
     clen = np.array([T + 5, P * ps, T + 21, T + 2], np.int32)
-    bt = np.full((B, P), -1, np.int32)
-    ids = rng.permutation(n_pages)
-    for b in range(B - 1):
-        n = -(-int(clen[b]) // ps)
-        bt[b, :n], ids = ids[:n], ids[n:]
-    shapes = [(B, T, 2 * K, D), (n_pages, ps, K, D), (n_pages, ps, K, D)]
-    jx = [jnp.asarray(rng.normal(size=s), dt) for s in shapes]
-    tx = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(getattr(torch, dt)) for a in jx]
+    bt = _tables(rng, [*clen[:-1], 0], P, n_pages)
+    jx, tx = zip(*(_pair(rng, s, dt) for s in [(B, T, 2 * K, D), (n_pages, ps, K, D),
+                                                (n_pages, ps, K, D)]), strict=True)
     got = ops.decode_attention_paged(*tx, torch.from_numpy(clen), torch.from_numpy(bt),
                                      window=window)
     assert torch.isfinite(got).all()
-    args = (*jx, jnp.asarray(clen), jnp.asarray(bt))
-    for want in (jax_ref.decode_attention_paged(*args, window=window),
-                 decode_attention_paged_pallas(*args, window=window, interpret=True)):
-        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                                   atol=TOL[dt], rtol=TOL[dt])
+    for want in _paged_refs(jx, clen, bt, window):
+        _close(got, want, dt)
 
 
 def test_paged_cuda_wrapper_refuses_cpu_tensors():
-    before = decode_attention_paged_cuda.launches
-    with pytest.raises(ValueError, match="CUDA device"):
-        decode_attention_paged_cuda(torch.zeros(1, 2, 4, 32), torch.zeros(4, 16, 2, 32),
-                                    torch.zeros(4, 16, 2, 32), torch.tensor([2], dtype=torch.int32),
-                                    torch.zeros(1, 2, dtype=torch.int32))
-    assert decode_attention_paged_cuda.launches == before
+    _refused(decode_attention_paged_cuda, torch.zeros(1, 2, 4, 32), torch.zeros(4, 16, 2, 32),
+             torch.zeros(4, 16, 2, 32), torch.tensor([2], dtype=torch.int32),
+             torch.zeros(1, 2, dtype=torch.int32))
 
 
 def _bf16(x):
@@ -174,15 +157,22 @@ def _dense_walk(q, k, v, clen, pos, window, n_split):
     return _bf16(out)
 
 
-def _paged_inputs(rng, T, held, ride=(), holes=(), P=8):
-    """G=2, 16-position pages, P a row: shuffled pages holding held[b]
-    positions, bf16."""
-    B, ps, K, D, n_pages = len(held), 16, 2, 32, 3 * P
-    bt = np.full((B, P), -1, np.int32)
+def _tables(rng, held, P, n_pages, ps=16):
+    """Block tables (len(held), P): row b's first ceil(held[b] / ps) entries
+    are distinct pages of the shuffled pool, the rest -1."""
+    bt = np.full((len(held), P), -1, np.int32)
     ids = rng.permutation(n_pages)
     for b, L in enumerate(held):
         n = -(-L // ps)
         bt[b, :n], ids = ids[:n], ids[n:]
+    return bt
+
+
+def _paged_inputs(rng, T, held, ride=(), holes=(), P=8):
+    """G=2, 16-position pages, P a row: shuffled pages holding held[b]
+    positions, bf16."""
+    B, ps, K, D, n_pages = len(held), 16, 2, 32, 3 * P
+    bt = _tables(rng, held, P, n_pages)
     for b, i in holes:
         bt[b, i] = -1
     clen = np.array([L + T if b in ride else max(L, T) for b, L in enumerate(held)], np.int32)
@@ -191,8 +181,20 @@ def _paged_inputs(rng, T, held, ride=(), holes=(), P=8):
     return jx, clen, bt
 
 
-def _close_all(got, want_jax, want_torch):
-    for want in (*want_jax, want_torch):
+def _paged_refs(jx, clen, bt, window):
+    """The reference's plain paged attention and its Pallas kernel (interpret
+    mode) on the same inputs."""
+    args = (*jx, jnp.asarray(clen), jnp.asarray(bt))
+    return (jax_ref.decode_attention_paged(*args, window=window),
+            decode_attention_paged_pallas(*args, window=window, interpret=True))
+
+
+def _f32(jx):
+    return [np.asarray(a, np.float32) for a in jx]
+
+
+def _close_all(got, *wants):
+    for want in wants:
         np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
 
 
@@ -215,11 +217,7 @@ def test_admission_tile_schedule_matches_pallas(case):
     (interpret mode), bf16."""
     T, held, window, ride, holes = ADMISSION_WALK_CASES[case]
     jx, clen, bt = _paged_inputs(np.random.default_rng(len(case)), T, held, ride, holes)
-    got = _paged_walk(*[np.asarray(a, np.float32) for a in jx], clen, bt, window)
-    args = (*jx, jnp.asarray(clen), jnp.asarray(bt))
-    for want in (jax_ref.decode_attention_paged(*args, window=window),
-                 decode_attention_paged_pallas(*args, window=window, interpret=True)):
-        np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
+    _close_all(_paged_walk(*_f32(jx), clen, bt, window), *_paged_refs(jx, clen, bt, window))
 
 
 def _ring_cache(rng, B, T, S, fill, stale=0):
@@ -262,24 +260,21 @@ def test_split_kv_schedule_matches_pallas(case):
     rng = np.random.default_rng(len(case))
     if kernel == "paged":
         jx, clen, bt = _paged_inputs(rng, T, held, P=16)
-        got = _paged_walk(*[np.asarray(a, np.float32) for a in jx], clen, bt, window, n_split)
-        args = (*jx, jnp.asarray(clen), jnp.asarray(bt))
-        tx = [torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16) for a in jx]
-        _close_all(got, (jax_ref.decode_attention_paged(*args, window=window),
-                         decode_attention_paged_pallas(*args, window=window, interpret=True)),
+        tx = [torch.from_numpy(a).bfloat16() for a in _f32(jx)]
+        _close_all(_paged_walk(*_f32(jx), clen, bt, window, n_split),
+                   *_paged_refs(jx, clen, bt, window),
                    ops.decode_attention_paged(*tx, torch.from_numpy(clen), torch.from_numpy(bt),
                                               window=window).float())
         return
     jx, clen, pos = _ring_cache(rng, len(held), T, 200 if idle is None else 256, held, stale=4)
     if idle is not None:
         pos[idle] = -1
-    got = _dense_walk(*[np.asarray(a, np.float32) for a in jx], clen, pos, window, n_split)
-    want = [jax_ref.decode_attention(*jx, jnp.asarray(clen), kv_positions=jnp.asarray(pos),
-                                     window=window),
-            decode_attention_pallas(*jx, jnp.asarray(clen), kv_positions=jnp.asarray(pos),
-                                    window=window, interpret=True, block_k=64)]
-    tx = [torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16) for a in jx]
-    _close_all(got, want, ops.decode_attention(*tx, torch.from_numpy(clen),
+    got = _dense_walk(*_f32(jx), clen, pos, window, n_split)
+    args, kw = (*jx, jnp.asarray(clen)), {"kv_positions": jnp.asarray(pos), "window": window}
+    want = [jax_ref.decode_attention(*args, **kw),
+            decode_attention_pallas(*args, **kw, interpret=True, block_k=64)]
+    tx = [torch.from_numpy(a).bfloat16() for a in _f32(jx)]
+    _close_all(got, *want, ops.decode_attention(*tx, torch.from_numpy(clen),
                                                kv_positions=torch.from_numpy(pos),
                                                window=window).float())
 
@@ -347,25 +342,6 @@ PAGED = {"paged_kv": True, "kv_blocks": 256, "kv_block_size": 16}
 TINY_POOL = {"paged_kv": True, "kv_blocks": 7, "kv_block_size": 16}
 
 
-def _engines(fp32_model, n_pairs, **kw):
-    jcfg, jparams, tcfg, tparams = fp32_model
-    kw = {"max_batch": 2, "max_len": 96, **kw}
-    return (jax_engine.PipeServeEngine(jcfg, jparams, n_pairs=n_pairs,
-                                       econf=jax_engine.EngineConfig(**kw)),
-            PipeServeEngine(tcfg, tparams, n_pairs=n_pairs, econf=EngineConfig(**kw),
-                            device="cpu", hardware=HardwareProfile(**dataclasses.asdict(TPU_V5E))))
-
-
-def _copy(reqs):
-    return [Request(prompt=list(r.prompt), request_id=r.request_id,
-                    params=SamplingParams(max_new_tokens=r.params.max_new_tokens),
-                    arrival_time=r.arrival_time) for r in reqs]
-
-
-def _records(engine):
-    return [dataclasses.asdict(r) for r in engine.monitor.completed]
-
-
 # case -> (n_pairs, engine overrides, bursty-trace kwargs, arrival ticks or None)
 ENGINE_CASES = {
     "bursty": (2, PAGED, {}, None),
@@ -388,10 +364,8 @@ def test_paged_engine_matches_jax_engine(fp32_model, trace_factory, case):
             r.arrival_time = t
     treqs = _copy(jreqs)
     jeng, teng = _engines(fp32_model, n_pairs, **econf)
-    _serve(jeng, jreqs)
-    _serve(teng, treqs)
-    assert [r.output_tokens for r in treqs] == [r.output_tokens for r in jreqs]
-    for field in ("worker_id", "cache_hit_tokens", "kv_requeued", "error"):
+    _serve_both(jeng, teng, jreqs, treqs)
+    for field in ("cache_hit_tokens", "kv_requeued", "error"):
         assert [getattr(r, field) for r in treqs] == [getattr(r, field) for r in jreqs], field
     assert _records(teng) == _records(jeng)
     assert len(_records(teng)) == len(treqs)

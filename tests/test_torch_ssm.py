@@ -16,40 +16,27 @@ import numpy as np
 import pytest
 import torch
 from test_kernels import SSD_CASES
-from test_torch_engine import _serve
+from test_torch_engine import _copy, _engines, _records, _refused, _serve_both, fp32_pair
+from test_torch_engine import _one_torch_thread  # noqa: F401
+from test_torch_model import _close, model_pair
+from test_torch_paged import _bf16
 
-import repro.core.engine as jax_engine
 from repro.configs import get_config as jax_get_config
-from repro.configs import reduced_config as jax_reduced
-from repro.distributed.sharding import unzip_params
 from repro.kernels import ref as jax_ref
 from repro.kernels.ssd_scan import ssd_scan_pallas
-from repro.models import build_model as jax_build
 from repro.models import ssm as jax_ssm
 from repro.serving.cost_model import TPU_V5E
 from repro.serving.cost_model import PrefillDelayEstimator as JaxEstimator
-from repro_torch.configs import ArchConfig, SSMConfig, get_config, reduced_config
+from repro_torch.configs import ArchConfig, SSMConfig, get_config
 from repro_torch.core.engine import EngineConfig, PipeServeEngine
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.models import build_model
 from repro_torch.models import ssm
-from repro_torch.params import from_jax_tree
 from repro_torch.serving.cost_model import HardwareProfile, PrefillDelayEstimator
-from repro_torch.serving.request import Request, SamplingParams
+from repro_torch.serving.request import Request
 
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 ARCH = "mamba2-2.7b"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny shapes need one intra-op thread; the suite's other workers get
-    the rest of the CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _ssd_inputs(rng, B, S, H, P, G, N, init):
@@ -62,20 +49,90 @@ def _ssd_inputs(rng, B, S, H, P, G, N, init):
     return [a.astype(np.float32) for a in arrays]
 
 
+def _ssd_refs(arrays, chunk=256):
+    """The reference's Pallas kernel (interpret mode), its plain version and
+    the port's plain version on the numpy inputs (and initial state, when
+    given): three (y, final state)."""
+    jx, tx = [jnp.asarray(a) for a in arrays], [torch.from_numpy(a) for a in arrays]
+    kw = {"chunk": chunk, "initial_state": jx[5] if len(jx) > 5 else None, "return_state": True}
+    return (ssd_scan_pallas(*jx[:5], interpret=True, **kw), jax_ref.ssd_scan(*jx[:5], **kw),
+            ops.ssd_scan(*tx[:5], chunk=chunk, initial_state=tx[5] if len(tx) > 5 else None))
+
+
 @pytest.mark.parametrize("case", SSD_CASES + [(2, 5, 4, 16, 1, 16, 256, True),
                                               (1, 300, 4, 16, 2, 32, 256, True)])
 def test_ssd_plain_matches_pallas(case):
     """Every row of the reference's table, a prompt shorter than 8 and a
     ragged tail behind a full 256-row chunk: output and final state."""
     B, S, H, P, G, N, chunk, init = case
-    arrays = _ssd_inputs(np.random.default_rng(S), B, S, H, P, G, N, init)
-    want_y, want_s = ssd_scan_pallas(*map(jnp.asarray, arrays[:5]), chunk=chunk,
-                                     initial_state=jnp.asarray(arrays[5]) if init else None,
-                                     return_state=True, interpret=True)
-    t = [torch.from_numpy(a) for a in arrays]
-    y, s = ops.ssd_scan(*t[:5], chunk=chunk, initial_state=t[5] if init else None)
+    (want_y, want_s), _, (y, s) = _ssd_refs(
+        _ssd_inputs(np.random.default_rng(S), B, S, H, P, G, N, init), chunk)
     np.testing.assert_allclose(y.numpy(), np.asarray(want_y), atol=1e-4)
     np.testing.assert_allclose(s.numpy(), np.asarray(want_s), atol=1e-4)
+
+
+def _ssd_walk(rnd, x, dt, A, Bm, C, s0=None, wrong=False):
+    """ssd_wgmma_kernel's schedule in numpy (fp32): 64-row chunks, cut into
+    spans of ceil(nc / min(nc, 8)), a block each.  Phase A: each span's update
+    U from a zero state (U = exp(cs_last) U + rnd(x o w)^T B) and its decay D,
+    U published through rnd.  The combine walks the spans in order from the
+    initial state, S = S D + U (``wrong``: (S + U) D, a span's decay on its own
+    update); rnd(S) enters the span, what leaves the last is the final state.
+    Phase B: y = rnd(scores) x + rnd(C o exp(cs)) rnd(S)^T a chunk, the state
+    stepping on in fp32 between a span's chunks.  rnd rounds to bf16 where the
+    kernel does, or is the identity (fp32)."""
+    Bsz, S, H, P = x.shape
+    nc = -(-S // 64)
+    span = -(-nc // min(nc, 8))
+    x, dt, Bm, C = (np.pad(a, [(0, 0), (0, nc * 64 - S)] + [(0, 0)] * (a.ndim - 2))
+                    .reshape(Bsz, nc, 64, *a.shape[2:]) for a in (x, dt, Bm, C))
+    Bm, C = (a.repeat(H // a.shape[3], 3) for a in (Bm, C))
+    cs = np.cumsum(dt * A, axis=2)
+    seg = np.where(np.tri(64, dtype=bool)[..., None], cs[:, :, :, None] - cs[:, :, None], -np.inf)
+    scores = np.einsum("bcihn,bcjhn->bcijh", C, Bm) * np.exp(seg) * dt[:, :, None]
+    y = np.einsum("bcijh,bcjhp->bcihp", rnd(scores), x)
+    upd = np.einsum("bcjhp,bcjhn->bchpn", rnd(x * (np.exp(cs[:, :, -1:] - cs) * dt)[..., None]),
+                    Bm)
+    L, s, st_in = np.exp(cs[:, :, -1])[..., None, None], 0 * upd[:, 0] if s0 is None else s0, []
+    for k in range(0, nc, span):
+        st, u = rnd(s), 0
+        for c in range(k, min(nc, k + span)):
+            st_in.append(rnd(st))
+            st, u = L[:, c] * st + upd[:, c], L[:, c] * u + upd[:, c]
+        d = np.exp(cs[:, k:k + span, -1].sum(1))[..., None, None]
+        s = (s + rnd(u)) * d if wrong else s * d + rnd(u)
+    y += np.einsum("bcihn,bchpn->bcihp", rnd(C * np.exp(cs)[..., None]), np.stack(st_in, 1))
+    return rnd(y.reshape(Bsz, nc * 64, H, P)[:, :S]), s
+
+
+# B, S, H, P, G, N, initial state: one chunk and less, one chunk and one row
+# (two blocks), 5 blocks over a ragged tail, 2 and 4 chunks a block
+SCHEDULE_CASES = {"S5": (2, 5, 2, 16, 1, 32, False), "S64": (1, 64, 2, 16, 1, 32, True),
+                  "S65": (1, 65, 2, 16, 1, 32, False), "S300": (2, 300, 4, 16, 2, 32, True),
+                  "S1000": (1, 1000, 2, 16, 1, 32, False), "S2048": (1, 2048, 2, 16, 1, 32, True)}
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_chunk_parallel_schedule_matches_pallas(case):
+    """The bf16 K4 kernel's chunk-parallel schedule and combine, walked in
+    numpy on inputs rounded to bf16, against the reference's Pallas kernel
+    (interpret mode), its plain version and the port's plain version: within
+    2e-2 with the kernel's bf16 roundings, 1e-4 without.  A combine that puts
+    each span's decay on its own update fails."""
+    arrays = _ssd_inputs(np.random.default_rng(SCHEDULE_CASES[case][1]), *SCHEDULE_CASES[case])
+    for i in (0, 3, 4):
+        arrays[i] = _bf16(arrays[i])
+    wants = _ssd_refs(arrays)
+
+    def check(got, tol):
+        for want in wants:
+            for g, w in zip(got, want, strict=True):
+                np.testing.assert_allclose(g, np.asarray(w), atol=tol, rtol=tol)
+
+    check(_ssd_walk(_bf16, *arrays), 2e-2)
+    check(_ssd_walk(lambda a: a, *arrays), 1e-4)
+    with pytest.raises(AssertionError):
+        check(_ssd_walk(_bf16, *arrays, wrong=True), 2e-2)
 
 
 def test_ssd_decode_step_matches_reference():
@@ -91,29 +148,13 @@ def test_ssd_decode_step_matches_reference():
 
 
 def test_ssd_cuda_wrapper_refuses_cpu_tensors():
-    arrays = [torch.from_numpy(a) for a in _ssd_inputs(np.random.default_rng(2),
-                                                       1, 8, 2, 16, 1, 16, False)]
-    before = ssd_scan_cuda.launches
-    with pytest.raises(ValueError, match="CUDA device"):
-        ssd_scan_cuda(*arrays)
-    assert ssd_scan_cuda.launches == before
+    _refused(ssd_scan_cuda, *map(torch.from_numpy, _ssd_inputs(np.random.default_rng(2),
+                                                                1, 8, 2, 16, 1, 16, False)))
 
 
 @pytest.fixture(scope="module", params=["float32", "bfloat16"])
 def models(request):
-    dt = request.param
-    jcfg = dataclasses.replace(jax_reduced(ARCH), n_layers=2, dtype=dt)
-    tcfg = dataclasses.replace(reduced_config(ARCH), n_layers=2, dtype=dt)
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    jm = jax_build(jcfg)
-    jparams, _ = unzip_params(jm.init(jax.random.PRNGKey(0)))
-    tparams = from_jax_tree(jax.tree.map(np.asarray, jparams), tcfg, dtype=getattr(torch, dt))
-    return dt, jcfg, jm, jparams, build_model(tcfg, "cpu"), tparams
-
-
-def _close(got, want, dt):
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
-                               atol=TOL[dt], rtol=TOL[dt])
+    return model_pair(ARCH, request.param)
 
 
 def test_mamba_layer_prefill_and_decode_match_reference(models):
@@ -196,36 +237,21 @@ def test_prefill_equals_decoding_from_an_empty_cache(models, n):
 
 @pytest.fixture(scope="module")
 def fp32_mamba():
-    jcfg = dataclasses.replace(jax_reduced(ARCH), n_layers=2, dtype="float32")
-    tcfg = dataclasses.replace(reduced_config(ARCH), n_layers=2, dtype="float32")
-    jparams, _ = unzip_params(jax_build(jcfg).init(jax.random.PRNGKey(0)))
-    return jcfg, jparams, tcfg, from_jax_tree(jax.tree.map(np.asarray, jparams), tcfg)
+    return fp32_pair(ARCH)
 
 
 @pytest.mark.parametrize("trace", ["bursty", "uniform", "mixed_slo"])
 def test_engine_matches_jax_engine(fp32_mamba, trace_factory, trace):
     """Exact-shape admission (one per call), verify with per-token states and
     rollback, on 2 pairs: the same tokens, routing and RequestRecords."""
-    jcfg, jparams, tcfg, tparams = fp32_mamba
-    kw = {"max_batch": 2, "max_len": 96}
     jreqs = trace_factory(trace, n=6)
-    treqs = [Request(prompt=list(r.prompt), request_id=r.request_id,
-                     params=SamplingParams(max_new_tokens=r.params.max_new_tokens),
-                     arrival_time=r.arrival_time, slo_ttft=r.slo_ttft, slo_tpot=r.slo_tpot)
-             for r in jreqs]
-    jeng = jax_engine.PipeServeEngine(jcfg, jparams, n_pairs=2,
-                                      econf=jax_engine.EngineConfig(**kw))
-    teng = PipeServeEngine(tcfg, tparams, n_pairs=2, econf=EngineConfig(**kw), device="cpu",
-                           hardware=HardwareProfile(**dataclasses.asdict(TPU_V5E)))
+    treqs = _copy(jreqs)
+    jeng, teng = _engines(fp32_mamba, 2)
     assert [p.admit_cap() for p in teng.pairs] == [1, 1]
     if trace == "bursty":  # no prefill program: the verify buckets and the plain step
         assert teng.warmup() == jeng.warmup() == 2 * (len(EngineConfig().verify_buckets) + 1)
-    _serve(jeng, jreqs)
-    _serve(teng, treqs)
-    assert [r.output_tokens for r in treqs] == [r.output_tokens for r in jreqs]
-    assert [r.worker_id for r in treqs] == [r.worker_id for r in jreqs]
-    assert [dataclasses.asdict(r) for r in teng.monitor.completed] == \
-        [dataclasses.asdict(r) for r in jeng.monitor.completed]
+    _serve_both(jeng, teng, jreqs, treqs)
+    assert _records(teng) == _records(jeng)
     assert sum(p.lane.calls["prefill"] for p in teng.pairs) == \
         sum(r.generated > 0 for r in teng.monitor.completed)
 
