@@ -169,16 +169,19 @@ def main() -> None:
                   f"(max_abs_err {e:.3g})")
 
     S = 512
-    for T in (1, 5, 9):  # the cache full, as chip_smoke.py times K1
-        sets = cs.copies(lambda T=T: cs.decode_case(g, 8, T, S, H, K, D, "bfloat16",
-                                                    [S - T] * 8, poison=False),
-                         2 * 8 * S * K * D * 2)
+    # the cache full, as chip_smoke.py times K1: decode and verify, and the
+    # chunked serve's chunk step (4 staging rows, a chunk of 64)
+    for B, T in ((8, 1), (8, 5), (8, 9), (4, 64)):
+        sets = cs.copies(lambda B=B, T=T: cs.decode_case(g, B, T, S, H, K, D, "bfloat16",
+                                                         [S - T] * B, poison=False),
+                         2 * B * S * K * D * 2)
         want = ref.decode_attention(*sets[0][:4], kv_positions=sets[0][4])
         for label in labels["decode_attention"]:
             fn = fns["decode_attention", label]
             e = cs.check(f"decode {label} T={T}", decode(fn, *sets[0]), want, "bfloat16")
             ms = cs.timed(lambda i, fn=fn, sets=sets: decode(fn, *sets[i % len(sets)]), 200)
-            print(f"decode_attention {label} B=8 T={T} S={S}: {ms:.4f} ms (max_abs_err {e:.3g})")
+            print(f"decode_attention {label} B={B} T={T} S={S}: {ms:.4f} ms "
+                  f"(max_abs_err {e:.3g})")
 
     pools = tuple(torch.randn(4096, 16, K, D, generator=g, device="cuda").to(torch.bfloat16)
                   for _ in range(2))

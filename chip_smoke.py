@@ -19,18 +19,24 @@ Phases, each fatal on failure:
      tensor-core kernel and fp32 the CUDA-core one, and time kernel, plain
      version and the library yardstick (``scaled_dot_product_attention``;
      for the paged kernel a gather plus SDPA, two calls) beside the previous
-     kernels' times;
+     kernels' times, K1 also at the chunked serve's chunk step (B=4 T=64);
   3. check the full-width model on the card against the same weights on the
      CPU (2 layers, float32: every K1 and K3 launch on the CUDA-core
-     kernels), dense and paged;
+     kernels), dense and paged; and a 300-token prompt ingested in chunks of
+     64 against its one-shot prefill, on the card;
   4. serve qwen3-1.7b at full width (28 layers, d_model 2048) with 2 stream
      pairs through ``StreamServe``, counting kernel launches (every bf16 K1,
      K2 and, in phase 6, K3 launch must take the tensor-core kernel);
   5. time a burst of 8 requests, then profile the same burst (device busy
-     share of the wall, device time by kernel);
+     share of the wall, device time by kernel); serve the dense serve's
+     prompts with chunked prefill (chunk 64: every chunk step a K1 launch a
+     layer, no K2) and profile a burst; run the long-prompt trace with EDF
+     preemption on and off (the shorts' TTFT must be lower with it on);
   6. serve the same model with paged KV (max_context 1024): shared-prefix
      requests that hit the radix index, prompts beyond max_len; profile a
      paged burst; then a burst that outgrows a small pool and truncates;
+     then chunked (K1 on every chunk step, K3 on every decode call, no
+     prefix hit: chunked ingest is private);
   7. hold the SSD-scan kernel against its plain version (bf16 and fp32, 1,
      2 and 4 groups, ragged tails, one chunk and one more, an initial state,
      the serve shape, 2 and 4 chunks a block), check that bf16 takes the
@@ -256,8 +262,9 @@ def kernel_phase(report: dict) -> dict:
     # 250 (not a multiple of 4: a dense max_len may be any), a wrapped ring
     # with a window, rows so short that most splits see
     # nothing, an idle row (every position empty: the mean of V over all S),
-    # and chunk-sized T (a dense chunked ingest): T*G = 80 (two warpgroups,
-    # split) and 200 (two query tiles)
+    # and chunk-sized T (a chunked ingest): T*G = 80 (two warpgroups, split),
+    # 128 (the serve's chunk of 64) and 200 (two query tiles); fp32 at T*G =
+    # 128 and 512 (two and eight 64-row tiles of decode_kernel)
     fills = [20, 60, 140, 200, 290, 350, 420, 490]
     for T, dt, S_, fill, kw in [
             (1, "bfloat16", S, fills, {}), (2, "bfloat16", S, fills, {}),
@@ -269,7 +276,9 @@ def kernel_phase(report: dict) -> dict:
              {"ring": True, "window": 100}),
             (9, "bfloat16", S, [0, 1, 3, 7, 0, 2, 5, 64], {}),
             (3, "bfloat16", S, fills, {"idle": 2}),
-            (40, "bfloat16", S, fills, {}), (100, "bfloat16", S, fills, {})]:
+            (40, "bfloat16", S, fills, {}), (64, "bfloat16", S, fills, {}),
+            (100, "bfloat16", S, fills, {}), (64, "float32", S, fills, {}),
+            (256, "float32", S, fills, {})]:
         window, idle = kw.get("window"), kw.get("idle")
         q, k, v, clen, pos = decode_case(g, 8, T, S_, H, K, D, dt, fill,
                                          ring=kw.get("ring", False))
@@ -307,23 +316,30 @@ def kernel_phase(report: dict) -> dict:
     for line in lines:
         print(line)
 
-    # ---- timing at the main path's shapes ----------------------------------
+    # ---- timing at the main path's shapes: a verify step at the depth-4
+    # bucket (B=8 T=5) and a chunk step of the chunked serve (4 staging rows,
+    # a chunk of 64); the cache is full
     out = {}
-    T = 5  # a verify step at the depth-4 bucket; the cache is full
-    make = lambda: decode_case(g, 8, T, S, H, K, D, "bfloat16", [S - T] * 8, poison=False)  # noqa: E731
-    sets = copies(make, 2 * 8 * S * K * D * 2)
-    q, k, v, clen, pos = sets[0]
-    nbytes, ops = decode_cost(q, k, clen, pos)
-    lib = [sdpa_decode(*s) for s in sets]
-    out["decode_attention"] = {
-        "shape": f"B=8 T={T} S={S} H={H} K={K} D={D} bf16",
-        "ms": timed(lambda i: decode_attention_cuda(*sets[i % len(sets)][:4],
-                                                    kv_positions=sets[i % len(sets)][4]), 200),
-        "plain_ms": timed(lambda i: ref.decode_attention(*sets[i % len(sets)][:4],
-                                                         kv_positions=sets[i % len(sets)][4]), 20),
-        "library_ms": timed(lambda i: lib[i % len(lib)](), 50),
-        "bound": bound_ms(nbytes, ops, "bfloat16"),
-    }
+    for key, B, T in (("decode_attention", 8, 5), ("decode_attention (chunk)", 4, 64)):
+        make = lambda: decode_case(g, B, T, S, H, K, D, "bfloat16", [S - T] * B,  # noqa: E731
+                                   poison=False)
+        sets = copies(make, 2 * B * S * K * D * 2)
+        q, k, v, clen, pos = sets[0]
+        nbytes, ops = decode_cost(q, k, clen, pos)
+        e = check(f"decode timing set B={B} T={T}", decode_attention_cuda(
+            q, k, v, clen, kv_positions=pos), ref.decode_attention(q, k, v, clen, kv_positions=pos),
+            "bfloat16")
+        errs[key] = max(errs["decode_attention"], e)
+        lib = [sdpa_decode(*s) for s in sets]
+        out[key] = {
+            "shape": f"B={B} T={T} S={S} H={H} K={K} D={D} bf16",
+            "ms": timed(lambda i: decode_attention_cuda(*sets[i % len(sets)][:4],
+                                                        kv_positions=sets[i % len(sets)][4]), 200),
+            "plain_ms": timed(lambda i: ref.decode_attention(
+                *sets[i % len(sets)][:4], kv_positions=sets[i % len(sets)][4]), 20),
+            "library_ms": timed(lambda i: lib[i % len(lib)](), 50),
+            "bound": bound_ms(nbytes, ops, "bfloat16"),
+        }
     B, Sq = 4, 512
     fsets = copies(lambda: tuple(torch.randn(B, Sq, h, D, generator=g, device="cuda")
                                  .to(torch.bfloat16) for h in (H, K, K)),
@@ -564,6 +580,62 @@ def model_phase(report: dict) -> None:
     report["model_check_max_abs_err"] = max(errs)
 
 
+def chunked_model_phase(report: dict) -> None:
+    """Chunked ingest against one-shot prefill on the card, float32, with the
+    full-width model's first 2 layers: a 300-token prompt ingested by the
+    engine's chunk step (4 staging rows, chunks of 64, the prompt on row 1,
+    the others idle), moved into a decode slot by the engine's insert, then
+    one decode step; against the prompt's one-shot prefill and the same
+    step.  Logits within 1e-3, and kv_pos equal over the prompt (past it a
+    staging row holds only -1 or positions no query of the prompt can see).
+    Every chunk step launches K1 once a layer, on decode_kernel (fp32)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import ModelLane
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=2, dtype="float32")
+    L, R, C, S = 300, 4, 64, 512
+    lane = ModelLane(cfg, build_model(cfg, "cuda").init(1), 2, S, "cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (L,), generator=torch.Generator().manual_seed(3),
+                           dtype=torch.int32).cuda()
+    one_logits, one = lane.model.prefill(lane.params, {"tokens": prompt[None]}, S)
+    staging = lane.model.init_cache(R, S)
+    zero_counts()
+    for cur in range(0, L, C):
+        n = min(C, L - cur)
+        tokens = torch.zeros((R, C), dtype=torch.int32, device="cuda")
+        tokens[1, :n] = prompt[cur:cur + n]
+        lens, n_new = (torch.tensor([0, x, 0, 0], dtype=torch.int32, device="cuda")
+                       for x in (cur, n))
+        logits = lane.chunk_step(staging, tokens, lens, n_new, 1, n)
+    launches = read_counts()
+    errs = [max_err(logits, one_logits)]
+    pos = staging["kv_pos"][:, 1]
+    if not torch.equal(pos[:, :L], one["kv_pos"][:, 0, :L]) or bool(
+            ((pos[:, L:] >= 0) & (pos[:, L:] < L)).any()):
+        fail("chunked model check: kv_pos of the chunked ingest differs from the one-shot's")
+    lane.insert_rows(np.array([2, 1, 2, 2], np.int32), staging)  # row 1 -> slot 1, rest dropped
+    nxt = one_logits.argmax(-1).to(torch.int32)
+    errs.append(max_err(lane.decode(torch.stack([nxt, nxt]))[1],
+                        lane.model.decode_step(lane.params, one, nxt[:, None])[0]))
+    if not torch.equal(lane.cache["kv_pos"][:, 1, :L + 1], one["kv_pos"][:, 0, :L + 1]):
+        fail("chunked model check: kv_pos differs after the move into a decode slot")
+    print(f"chunked model check (2 full-width layers, fp32, {L}-token prompt in chunks of {C} "
+          f"vs one-shot, then a decode step): max_abs_err={max(errs):.3g}; K1 launches "
+          f"{launches['decode_attention']}")
+    no_wgmma(launches, "decode_attention", "chunked model check")
+    if launches["decode_attention"] != cfg.n_layers * -(-L // C):
+        fail(f"chunked model check: {launches['decode_attention']} K1 launches")
+    if max(errs) > 1e-3:
+        fail(f"chunked model check: logits differ by {max(errs):.3g} > 1e-3")
+    report["chunked_model_check_max_abs_err"] = max(errs)
+
+
 # -------------------------------------------------------------------- serve
 
 def no_wgmma(launches: dict, name: str, tag: str) -> None:
@@ -572,6 +644,14 @@ def no_wgmma(launches: dict, name: str, tag: str) -> None:
     if not launches[name] or launches[f"{name}.wgmma"]:
         fail(f"{tag}: {launches[f'{name}.wgmma']} of {launches[name]} float32 {name} "
              f"launches took the bf16 tensor-core kernel")
+
+
+def wgmma_only(launches: dict, tag: str, *names) -> None:
+    """Fail unless every launch of each bf16 kernel ``name`` took its tensor-core kernel."""
+    for name in names:
+        if launches[f"{name}.wgmma"] != launches[name]:
+            fail(f"{tag}: {launches[f'{name}.wgmma']} of {launches[name]} bf16 {name} "
+                 f"launches took the tensor-core kernel")
 
 
 def instrument(serve):
@@ -590,8 +670,9 @@ def instrument(serve):
 
     for pair in serve.engine.pairs:
         lane = pair.lane
-        lane.decode, lane.prefill, lane.paged_admit = (
-            watch(lane.decode), watch(lane.prefill), watch(lane.paged_admit))
+        lane.decode, lane.prefill, lane.paged_admit, lane.chunk_step = (
+            watch(lane.decode), watch(lane.prefill), watch(lane.paged_admit),
+            watch(lane.chunk_step))
         lane.calls = {"prefill": 0, "decode": 0}
     return bad
 
@@ -713,15 +794,10 @@ def serve_phase(report: dict):
     if launches["flash_attention"] != L * calls["prefill_calls"] or not calls["prefill_calls"]:
         fail(f"serve: flash launches {launches['flash_attention']} != {L} x "
              f"{calls['prefill_calls']} prefill calls")
-    if launches["flash_attention.wgmma"] != launches["flash_attention"]:
-        fail(f"serve: {launches['flash_attention.wgmma']} of {launches['flash_attention']} "
-             f"bf16 flash launches took flash_wgmma_kernel")
     if launches["decode_attention"] != L * calls["decode_calls"] or not calls["decode_calls"]:
         fail(f"serve: decode launches {launches['decode_attention']} != {L} x "
              f"{calls['decode_calls']} decode calls")
-    if launches["decode_attention.wgmma"] != launches["decode_attention"]:
-        fail(f"serve: {launches['decode_attention.wgmma']} of {launches['decode_attention']} "
-             f"bf16 decode launches took decode_wgmma_kernel")
+    wgmma_only(launches, "serve", "flash_attention", "decode_attention")
     result["prompt_lens"] = lens
     report["serve"] = result
     return launches, serve
@@ -770,15 +846,104 @@ def paged_serve_phase(params, report: dict):
              f"{arch.n_layers} x {k3_calls} admission and decode calls")
     print(f"paged serve: K3 launches on paged_wgmma_kernel "
           f"{launches['decode_attention_paged.wgmma']} of {launches['decode_attention_paged']}")
-    if launches["decode_attention_paged.wgmma"] != launches["decode_attention_paged"]:
-        fail(f"paged serve: {launches['decode_attention_paged.wgmma']} of "
-             f"{launches['decode_attention_paged']} bf16 K3 launches took paged_wgmma_kernel")
+    wgmma_only(launches, "paged serve", "decode_attention_paged")
     if not any(len(h.request.prompt) > cfg.max_len for h in handles):
         fail("paged serve: no prompt beyond max_len was served")
     result.update(cache_hit_tokens=hits, shared_prefix_routing=dict(routing),
                   prompt_lens=[len(h.request.prompt) for h in handles])
     report["paged_serve"] = result
     return launches, serve
+
+
+def chunked_serve_phase(params, report: dict, paged=False):
+    """Chunked prefill at full width (chunk 64, preemption on, 2 pairs x 8
+    slots, max_len 512): one (4, 64) chunk step a tick a pair, each a decode
+    step over the staging rows, so K1 runs 28 times a chunk step and K2
+    never.  Dense: the dense serve's 12 prompts, and K1 also on every decode
+    call.  Paged (max_context 1024): 8 prompts sharing a 256-token prefix
+    (the first at tick 0, the rest 6 ticks later), 4 of 300-480 tokens and 4
+    short; chunked ingest is private, so no prefix hit, and K3 runs on every
+    decode call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ServeConfig, StreamServe
+
+    tag = "paged chunked serve" if paged else "chunked serve"
+    cfg = ServeConfig(reduced=False, n_pairs=2, max_batch=8, max_len=512, max_new_tokens=32,
+                      prefill_chunk=64, **({"paged_kv": True, "kv_block_size": 16,
+                                            "max_context": 1024} if paged else {}))
+    serve = StreamServe(cfg, params=params, device="cuda")
+    vocab = serve.arch.vocab_size
+    bad = instrument(serve)
+    rng = np.random.default_rng(8 if paged else 0)
+    if paged:
+        prefix = rng.integers(0, vocab, 256).tolist()
+        shared = [prefix + rng.integers(0, vocab, int(n)).tolist() for n in rng.integers(16, 97, 8)]
+        other = [rng.integers(0, vocab, n).tolist() for n in (300, 400, 450, 480, 12, 30, 50, 90)]
+        waves = {0: [shared[0], *other], 6: shared[1:]}
+    else:
+        lens = [16, 400, 24, 300, 40, 200, 64, 130, 350, 33, 100, 250]
+        prompts = [rng.integers(0, vocab, n).tolist() for n in lens]
+        waves = {0: prompts[:8], 3: prompts[8:]}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    run = drive(serve, waves)
+    launches = read_counts()
+    result = serve_stats(tag, serve, bad, run, launches)
+    L, chunks, decodes = serve.arch.n_layers, result["prefill_calls"], result["decode_calls"]
+    hits = sum(h.request.cache_hit_tokens for h in run[0])
+    k1 = L * (chunks + (0 if paged else decodes))
+    print(f"{tag}: {chunks} chunk steps, {decodes} decode calls; K1 launches "
+          f"{launches['decode_attention']} (expected {k1}), K3 {launches['decode_attention_paged']}"
+          f", K2 {launches['flash_attention']}; cache_hit_tokens {hits}")
+    if not chunks or not decodes or launches["decode_attention"] != k1:
+        fail(f"{tag}: K1 launches {launches['decode_attention']} != {k1}")
+    if launches["flash_attention"] or launches["decode_attention_paged"] != L * decodes * paged:
+        fail(f"{tag}: unexpected K2 or K3 launches {launches}")
+    wgmma_only(launches, tag, "decode_attention", "decode_attention_paged")
+    if paged and hits:
+        fail(f"{tag}: chunked ingest hit {hits} tokens of the radix index")
+    result.update(prompt_lens=[len(h.request.prompt) for h in run[0]], cache_hit_tokens=hits,
+                  chunk_step_k1_launches=L * chunks)
+    report["paged_chunked_serve" if paged else "chunked_serve"] = result
+    return launches, serve
+
+
+def preempt_phase(params, report: dict) -> None:
+    """The reference bench's long-prompt trace at full width on one pair
+    (benchmarks/engine_bench.py: long_prompt_trace, serve_staged): a
+    480-token prompt (8 chunks of 64), one tick, then 3 prompts of 12
+    tokens with a TTFT deadline of 60 ticks; once with EDF preemption at
+    chunk boundaries and once without.  The shorts' TTFT p99 in ticks must
+    be lower with preemption on."""
+    import numpy as np
+
+    from repro_torch.api import ServeConfig, StreamServe
+
+    out = {}
+    for preempt in (True, False):
+        cfg = ServeConfig(reduced=False, n_pairs=1, max_batch=8, max_len=512, max_new_tokens=32,
+                          prefill_chunk=64, prefill_preempt=preempt)
+        serve = StreamServe(cfg, params=params, device="cuda")
+        rng = np.random.default_rng(17)
+        long = serve.submit(rng.integers(0, serve.arch.vocab_size, 480).tolist())
+        serve.step()
+        shorts = [serve.submit(rng.integers(0, serve.arch.vocab_size, 12).tolist(), slo_ttft=60.0)
+                  for _ in range(3)]
+        t0 = time.perf_counter()
+        serve.run_until_done()
+        ttft = [h.slo()["ttft"] for h in shorts]
+        out[preempt] = {"shorts_ttft_ticks": ttft, "shorts_ttft_p99_ticks":
+                        float(np.percentile(ttft, 99)), "long_ttft_ticks": long.slo()["ttft"],
+                        "wall_s": time.perf_counter() - t0}
+        print(f"preemption probe, preempt={preempt}: shorts' TTFT {ttft} ticks (p99 "
+              f"{out[preempt]['shorts_ttft_p99_ticks']:.2f}), the long prompt's "
+              f"{out[preempt]['long_ttft_ticks']} ticks")
+        del serve
+    if not out[True]["shorts_ttft_p99_ticks"] < out[False]["shorts_ttft_p99_ticks"]:
+        fail("preemption probe: the shorts' TTFT p99 is not lower with preemption on")
+    report["preempt_probe"] = {str(k).lower(): v for k, v in out.items()}
 
 
 def pressure_phase(params, report: dict) -> None:
@@ -1081,9 +1246,7 @@ def mamba_serve_phase(report: dict):
     if n_pre != len(prompts) or launches["ssd_scan"] != L * n_pre:
         fail(f"mamba2 serve: {launches['ssd_scan']} K4 launches, {n_pre} prefill calls: "
              f"expected one call per request and {L} launches per call")
-    if launches["ssd_scan.wgmma"] != launches["ssd_scan"]:
-        fail(f"mamba2 serve: {launches['ssd_scan.wgmma']} of {launches['ssd_scan']} bf16 K4 "
-             f"launches took ssd_wgmma_kernel")
+    wgmma_only(launches, "mamba2 serve", "ssd_scan")
     if not result["decode_calls"] or any(n for k, n in launches.items()
                                          if not k.startswith("ssd_scan")):
         fail(f"mamba2 serve: unexpected launches {launches} or no decode call")
@@ -1139,17 +1302,26 @@ def main() -> None:
     timing = kernel_phase(report)
     paged_timing = paged_kernel_phase(report)
     model_phase(report)
+    chunked_model_phase(report)
     launches, serve = serve_phase(report)
     profile_phase(serve, report)
-    params = serve.engine.pairs[0].lane.params  # the same weights serve paged
+    params = serve.engine.pairs[0].lane.params  # the same weights serve the rest
     del serve
+    release()
+    _, serve = chunked_serve_phase(params, report)
+    profile_phase(serve, report, "chunked_profile", seed=4)
+    del serve
+    release()
+    preempt_phase(params, report)
     release()
     paged_launches, serve = paged_serve_phase(params, report)
     profile_phase(serve, report, "paged_profile", PAGED_BURST, seed=2)
     del serve
     release()
     pressure_phase(params, report)
-    del params
+    release()
+    _, serve = chunked_serve_phase(params, report, paged=True)
+    del serve, params
     release()
     ssd_timing = ssd_kernel_phase(report)
     mamba_model_phase(report)
@@ -1165,16 +1337,19 @@ def main() -> None:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                 "library_ms": r["library_ms"], "shape": r["shape"],
-                "previous_ms": PREVIOUS_MS[was]}
+                "previous_ms": PREVIOUS_MS.get(was)}
 
-    # launches: K1 and K2 from the dense serve, K3 from the paged serve (its
-    # decode/verify and admission calls apart, 28 launches a call), K4 from
-    # the mamba2 serve
+    # launches: K1 and K2 from the dense serve, K1 at the chunk shape from the
+    # chunked serve's chunk steps, K3 from the paged serve (its decode/verify
+    # and admission calls apart, 28 launches a call), K4 from the mamba2 serve
     ps_calls = report["paged_serve"]
     k3_admit = paged_launches["decode_attention_paged"] * ps_calls["prefill_calls"] // (
         ps_calls["prefill_calls"] + ps_calls["decode_calls"])
     kernels = [entry("decode_attention", "decode_wgmma_kernel", timing["decode_attention"],
                      launches["decode_attention"], "decode_attention"),
+               entry("decode_attention (chunk)", "decode_wgmma_kernel",
+                     timing["decode_attention (chunk)"],
+                     report["chunked_serve"]["chunk_step_k1_launches"], None),
                entry("flash_attention", "flash_wgmma_kernel", timing["flash_attention"],
                      launches["flash_attention"], "flash_attention"),
                entry("decode_attention_paged", "paged_wgmma_kernel", paged_timing["decode"],

@@ -8,9 +8,8 @@
 
 Policy fields (``router``, ``draft``, ``spec_policy``) are registry names
 (:mod:`repro_torch.api.registry`).  Fields of features the port does not
-have yet (chunked prefill, the gateway, StreamTrace) keep the reference's
-defaults and are not validated here: the engine refuses a non-default chunk
-or trace setting by name.  The paged fields are checked by the engine's
+have yet (the gateway, StreamTrace) keep the reference's defaults and are
+not validated here: the engine refuses a non-default trace setting by name.  The paged fields are checked by the engine's
 paged gate.  YAML round trips and the paper presets are not ported yet.
 """
 from __future__ import annotations
@@ -50,8 +49,8 @@ class ServeConfig:
     prefill_bucket_min: int = 16
     admit_batch: int = 4             # max admissions fused into one prefill call
     verify_buckets: Optional[Tuple[int, ...]] = VERIFY_BUCKETS
-    prefill_chunk: Optional[int] = None  # chunked prefill (not ported yet)
-    prefill_preempt: bool = True
+    prefill_chunk: Optional[int] = None  # chunked prefill: tokens a chunk; None = one-shot
+    prefill_preempt: bool = True     # EDF preemption at chunk boundaries
     # ---- paged KV + radix prefix reuse ---------------------------------------
     paged_kv: bool = False           # global page pool + per-row block tables
     max_context: Optional[int] = None  # per-sequence ceiling when paged; None = max_len
@@ -88,6 +87,11 @@ class ServeConfig:
             v = getattr(self, field)
             if not isinstance(v, int) or v < lo:
                 raise ValueError(f"{field} must be an int >= {lo} (got {v!r})")
+        if self.prefill_chunk is not None and (
+                not isinstance(self.prefill_chunk, int) or self.prefill_chunk < 8
+                or self.prefill_chunk > self.max_len):
+            raise ValueError(f"prefill_chunk must be an int in [8, max_len] or None "
+                             f"(got {self.prefill_chunk!r}, max_len {self.max_len})")
         for field in ("per_row_depth", "slo_routing", "prefill_buckets",
                       "prefill_preempt", "reduced", "paged_kv"):
             if not isinstance(getattr(self, field), bool):

@@ -169,9 +169,9 @@ class StreamServe:
 
     @property
     def pending(self):
-        """Requests queued or mid-decode across healthy pairs."""
+        """Requests queued, mid-chunked-prefill or mid-decode across healthy pairs."""
         return self.engine.scheduler.pending_total() + sum(
-            len(p.active_slots()) for p in self.engine.pairs if p.healthy)
+            len(p.active_slots()) + p.prefill_in_flight() for p in self.engine.pairs if p.healthy)
 
     def fail_worker(self, worker_id):
         return self.engine.fail_worker(worker_id)

@@ -21,11 +21,15 @@ With ``paged_kv`` the decode lane keeps a global page pool with per-row
 block tables instead: admission prefills only each prompt's suffix past its
 resident radix prefix, straight into pages, sequences grow page by page up
 to ``max_context``, and pool pressure evicts and requeues a victim (or
-truncates).  A stack with SSM layers (Mamba2) admits one request per
-prefill call at its exact prompt length, since the SSM state would absorb
-padding, and is refused paged KV.  Chunked prefill, the model draft and StreamTrace recording
-raise ``NotImplementedError`` naming their ROADMAP item.  The engine is
-single-controller and deterministic given the request trace.
+truncates).  With ``prefill_chunk`` the prefill lane instead ingests one
+fixed-size chunk a tick through one (R, C) step over dense staging rows, and
+an earlier deadline can park a long prompt at a chunk boundary (EDF
+preemption); a finished row moves into a decode slot (or, paged, into
+pages).  A stack with SSM layers (Mamba2) admits one request per prefill
+call at its exact prompt length, since the SSM state would absorb padding,
+and is refused paged KV and chunking.  The model draft and StreamTrace
+recording raise ``NotImplementedError`` naming their ROADMAP item.  The
+engine is single-controller and deterministic given the request trace.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from repro_torch.core.metrics import PerformanceMonitor, RequestRecord
 from repro_torch.core.scheduler import StreamScheduler, edf_deadline
 from repro_torch.core.specustream import VERIFY_BUCKETS, SlotSignals, pad_to_bucket
 from repro_torch.models import build_model
+from repro_torch.models.attention import SPEC_MARGIN, cache_capacity
 from repro_torch.obs.spans import request_phases
 from repro_torch.serving.cost_model import H100_SXM, HardwareProfile, PrefillDelayEstimator
 from repro_torch.serving.draft import DraftContext
@@ -75,6 +80,16 @@ def _terminal_record(req, now, kv_evicted=False,
         phase_queued=queued, phase_prefill=prefill, phase_decode=decode,
         phase_stall=stall,
     )
+
+
+def _restart(req):
+    """Forget a request's progress on its pair: it is queued again and
+    restarts from scratch."""
+    req.output_tokens.clear()
+    req.token_times.clear()
+    req.spec_depths.clear()
+    req.prefill_active_ticks = 0
+    req.state = RequestState.QUEUED
 
 
 def attention_only(cfg):
@@ -115,6 +130,30 @@ class ModelLane:
         self.max_batch, self.max_len, self.paged, self.steps = max_batch, max_len, paged, steps
         self.reset_cache()
         self.calls = {"prefill": 0, "decode": 0}
+
+    def chunk_step(self, cache, tokens, lens, n_new, row, n):
+        """One (R, C) chunked-prefill step on the staging ``cache`` (the
+        counterpart of the reference's ``_chunk_step``): row ``row`` ingests
+        its ``n`` new tokens, the others idle at their cursors.  Returns that
+        row's logits (1, V) at its last new token; the unembed runs on one
+        position a row, not C."""
+        self.calls["prefill"] += 1
+        last = torch.full((tokens.shape[0],), max(n - 1, 0), dtype=torch.long,
+                          device=tokens.device)
+        return self.model.chunk_prefill(self.params, cache, tokens, lens, n_new,
+                                        last)[row:row + 1, 0]
+
+    def insert_pages(self, chunk_cache, row, page_ids, slot, seq_len):
+        """Move chunk row ``row`` (positions [0, max_len)) into the page pool
+        as whole pages: page i of the row to ``page_ids[i]`` in every layer,
+        where the pool's spare page takes the pages past the prompt (the
+        reference's dropped writes); seed ``len[slot]``."""
+        ps = self.cache["k"].shape[2]
+        for name in ("k", "v"):
+            src = chunk_cache[name][:, row]
+            self.cache[name].index_copy_(1, page_ids, src.reshape(
+                src.shape[0], -1, ps, *src.shape[2:]))
+        self.cache["len"][slot] = seq_len
 
     def paged_admit(self, tokens, lens, n_new):
         """Prefill row b's ``n_new[b]`` suffix tokens at cursor ``lens[b]``
@@ -176,8 +215,8 @@ class EngineConfig:
     prefill_bucket_min: int = 16
     admit_batch: int = 4
     verify_buckets: Optional[Tuple[int, ...]] = VERIFY_BUCKETS
-    prefill_chunk: Optional[int] = None   # not ported yet (ROADMAP M6)
-    prefill_preempt: bool = True
+    prefill_chunk: Optional[int] = None   # chunked prefill: tokens a chunk; None = one-shot
+    prefill_preempt: bool = True          # EDF preemption at chunk boundaries
     per_row_depth: bool = True
     slo_routing: bool = True
     paged_kv: bool = False                # global page pool + radix prefix reuse
@@ -227,6 +266,26 @@ class StreamPair:
         self._bucketed = econf.prefill_buckets and attention_only(cfg)
         self._len_buckets = _pow2_buckets(econf.prefill_bucket_min, self._max_context)
         self._admit_buckets = _pow2_buckets(1, max(econf.admit_batch, 1))
+        # chunked prefill (off for SSM stacks, as the reference's arch gate):
+        # every chunk step writes C positions from a multiple of C, so C must
+        # divide the cache capacity or the last window wraps the ring onto
+        # the prompt's head; under a sliding window the write burst is also
+        # held to SPEC_MARGIN, the ring slack that keeps in-step writes from
+        # evicting positions still inside the earliest query's window
+        self._chunk = None
+        self.chunk_rows: List[Optional[Request]] = []
+        self.chunk_cursor = {}  # request_id -> tokens ingested so far
+        if econf.prefill_chunk and attention_only(cfg):
+            cap = cache_capacity(cfg, econf.max_len)
+            C = min(econf.prefill_chunk, cap)
+            if cfg.sliding_window is not None:
+                C = min(C, SPEC_MARGIN)
+            while cap % C:
+                C -= 1
+            self._chunk = C
+            R = max(econf.admit_batch, 2)  # >= 2: one parked + one active
+            self.chunk_rows = [None] * R
+            self.chunk_cache = self.lane.model.init_cache(R, econf.max_len)
         B = econf.max_batch
         self.slot_req: List[Optional[Request]] = [None] * B
         # device-resident pending next-token per slot (sampled, not ingested)
@@ -242,6 +301,10 @@ class StreamPair:
     def active_slots(self):
         return [i for i, r in enumerate(self.slot_req) if r is not None]
 
+    def prefill_in_flight(self):
+        """Requests parked or active in chunk rows (0 when chunking is off)."""
+        return sum(r is not None for r in self.chunk_rows)
+
     @property
     def load(self):
         return len(self.active_slots()) / self.econf.max_batch
@@ -256,10 +319,11 @@ class StreamPair:
     def reserve_kv(self, req):
         """Reserve KV blocks ahead of the prefill: prompt + max_new on the
         dense path; prompt + page margin when paged (the sequence then grows
-        page by page), sharing the resident prefix (the reference opts out
-        only for chunked ingest, which is not ported)."""
+        page by page), sharing the resident prefix unless the prompt is
+        ingested by chunks, which recompute every row from position 0."""
         extra = self._kv_margin if self._paged else req.params.max_new_tokens
-        alloc = self.kv.allocate_sequence(req.request_id, list(req.prompt), extra_tokens=extra)
+        alloc = self.kv.allocate_sequence(req.request_id, list(req.prompt), extra_tokens=extra,
+                                          share=not (self._paged and self._chunk))
         if alloc is None:
             return False  # pool exhausted: stays queued
         req.cache_hit_tokens = alloc.shared_blocks * self.kv.block_size
@@ -267,9 +331,28 @@ class StreamPair:
 
     def prompt_fits(self, req):
         """Whether a request can EVER be admitted here: a paged prompt over
-        the context ceiling would requeue forever, so it fails instead."""
-        return not self._paged or \
-            len(req.prompt) + self._kv_margin <= self._pages_max * self.econf.kv_block_size
+        the context ceiling would requeue forever, so it fails instead; so
+        does a paged prompt over max_len when chunked (the staging rows hold
+        max_len positions)."""
+        n = len(req.prompt)
+        return not self._paged or (
+            n + self._kv_margin <= self._pages_max * self.econf.kv_block_size
+            and (self._chunk is None or n <= self.econf.max_len))
+
+    def next_reserved(self, scheduler, now):
+        """The next queued request for this pair with its KV reserved, and
+        whether the pool ran dry: then the request stays at the queue's head
+        and None comes back, as it does for an empty queue.  A request that
+        can never fit fails on the way."""
+        while (req := scheduler.next_for_prefill(self.worker_id, now)) is not None:
+            if not self.prompt_fits(req):
+                scheduler.fail_request(req, now, "exceeds_max_context")
+            elif self.reserve_kv(req):
+                return req, False
+            else:
+                scheduler.prefill_queues[self.worker_id].appendleft(req)
+                return None, True
+        return None, False
 
     def _refresh_bt_row(self, slot, request_id):
         """Mirror a sequence's block ids into the host block table."""
@@ -299,13 +382,17 @@ class StreamPair:
             first = self._admit_dense(reqs, slots)
         self.pending[self._to_dev(np.asarray(slots, np.int64))] = first.to(torch.int32)
         for slot, req, tok in zip(slots, reqs, first.tolist(), strict=True):  # ONE copy
-            req.state = RequestState.DECODING
-            req.t_prefill_end = req.t_first_token = now
-            req.output_tokens.append(tok)
-            req.token_times.append(now)
-            self.slot_req[slot] = req
-            self.histories[slot] = [*req.prompt, tok]
-            self.spec.reset_slot(slot)  # fresh request, fresh EMA
+            self._seat(slot, req, tok, now)
+
+    def _seat(self, slot, req, tok, now):
+        """A prefilled request starts decoding in ``slot`` with its first token."""
+        req.state = RequestState.DECODING
+        req.t_prefill_end = req.t_first_token = now
+        req.output_tokens.append(tok)
+        req.token_times.append(now)
+        self.slot_req[slot] = req
+        self.histories[slot] = [*req.prompt, tok]
+        self.spec.reset_slot(slot)  # fresh request, fresh EMA
 
     def _admit_dense(self, reqs, slots):
         longest = max(len(r.prompt) for r in reqs)
@@ -354,6 +441,93 @@ class StreamPair:
                                      self._to_dev(n_new))
         first = sample(self.gen, last, self.econf.temperature)  # every row, as the reference
         return first[self._to_dev(np.asarray(slots, np.int64))]
+
+    def _chunk_pull(self, scheduler, now):
+        """Move queued requests into free chunk rows.  A row is granted only
+        while free decode slots outnumber the occupied rows, so every row can
+        claim a slot when it completes.  With preemption off one request is
+        in flight at a time (run to completion); with it on, arrivals join
+        eagerly so EDF can park work in progress."""
+        while True:
+            free = [r for r, rq in enumerate(self.chunk_rows) if rq is None]
+            occupied = len(self.chunk_rows) - len(free)
+            if not free or len(self.free_slots()) <= occupied:
+                return
+            if occupied and not self.econf.prefill_preempt:
+                return
+            req, _ = self.next_reserved(scheduler, now)
+            if req is None:
+                return
+            req.state, req.t_prefill_start = RequestState.PREFILLING, now
+            self.chunk_rows[free[0]] = req
+            self.chunk_cursor[req.request_id] = 0
+
+    def chunk_tick(self, scheduler, now):
+        """One prefill-lane tick under chunked prefill: pull arrivals, serve
+        ONE chunk to the earliest-deadline row (ties to the lowest row; the
+        single row in flight without preemption), and move the row into a
+        decode slot once its cursor reaches the prompt's end.  The chunk
+        boundary is the preemption point: a parked row keeps its KV and its
+        cursor, and resumes chunk-aligned."""
+        self._chunk_pull(scheduler, now)
+        occupied = [(r, rq) for r, rq in enumerate(self.chunk_rows) if rq is not None]
+        if not occupied:
+            return
+        if self.econf.prefill_preempt:
+            row, req = min(occupied, key=lambda t: (edf_deadline(t[1]), t[0]))
+        else:
+            row, req = occupied[0]
+        C, R = self._chunk, len(self.chunk_rows)
+        cur = self.chunk_cursor[req.request_id]
+        req.prefill_active_ticks += 1  # a lane turn granted
+        n = min(C, len(req.prompt) - cur)
+        tokens = np.zeros((R, C), np.int32)
+        tokens[row, :n] = req.prompt[cur:cur + n]
+        lens = np.zeros((R,), np.int32)
+        for r, rq in occupied:  # idle rows write padding at their own cursor
+            lens[r] = self.chunk_cursor[rq.request_id]
+        n_new = np.zeros((R,), np.int32)
+        n_new[row] = n
+        last = self.lane.chunk_step(self.chunk_cache, self._to_dev(tokens), self._to_dev(lens),
+                                    self._to_dev(n_new), row, n)
+        self.chunk_cursor[req.request_id] = cur + n
+        if cur + n >= len(req.prompt):
+            self._chunk_complete(row, req, last, now)
+
+    def _chunk_complete(self, row, req, last_logits, now):
+        """The last chunk is in: move the row's KV into a free decode slot
+        (dense: the admission insert; paged: whole pages into the pool) and
+        sample the first token (one host copy)."""
+        slot = self.free_slots()[0]  # guaranteed by _chunk_pull's budget
+        req.state = RequestState.TRANSFERRING
+        if self._paged:
+            ps, econf = self.econf.kv_block_size, self.econf
+            bids = self.kv.seqs[req.request_id].block_ids
+            n_pages = -(-len(req.prompt) // ps)
+            page_ids = np.full((econf.max_len // ps,), econf.kv_blocks, np.int64)  # the spare
+            page_ids[:n_pages] = bids[:n_pages]
+            self.lane.insert_pages(self.chunk_cache, row, self._to_dev(page_ids), slot,
+                                   len(req.prompt))
+            self._refresh_bt_row(slot, req.request_id)
+        else:
+            slot_ids = np.full((len(self.chunk_rows),), self.econf.max_batch, np.int32)
+            slot_ids[row] = slot
+            self.lane.insert_rows(slot_ids, self.chunk_cache)
+        first = sample(self.gen, last_logits, self.econf.temperature).to(torch.int32)
+        self.pending[slot] = first[0]
+        self._seat(slot, req, int(first[0]), now)
+        self.chunk_rows[row] = None
+        del self.chunk_cursor[req.request_id]
+
+    def chunk_release(self, row):
+        """Empty a chunk row without completing it (cancel, worker failure)
+        and free its KV.  The parked cache rows are simply abandoned: the
+        row's next occupant shadows them by position."""
+        req = self.chunk_rows[row]
+        self.chunk_rows[row] = None
+        self.chunk_cursor.pop(req.request_id, None)
+        self.kv.free_sequence(req.request_id)
+        return req
 
     def decode_iteration(self, now):
         """One continuous-batching decode step (speculative when enabled).
@@ -471,12 +645,8 @@ class StreamPair:
         req = self.slot_req[slot]
         self.kv.free_sequence(req.request_id)
         self.clear_slot(slot)
-        req.output_tokens.clear()
-        req.token_times.clear()
-        req.spec_depths.clear()
-        req.prefill_active_ticks = 0
+        _restart(req)
         req.kv_requeued += 1
-        req.state = RequestState.QUEUED
         self.requeue(req, now)
         return True
 
@@ -497,22 +667,39 @@ class StreamPair:
             self._bt_dirty = True
 
     def warmup(self, max_prompt_len=None):
-        """Run every steady-state shape once (prefill or paged-admission
-        buckets, none on the exact-shape path of an SSM stack; verify depths;
-        the plain step) ahead of traffic, then reset
-        the lane.  Returns the number of distinct shapes exercised, counted
-        as the reference counts its programs."""
-        if self.active_slots():
-            raise RuntimeError("warmup() resets the decode cache; call it before serving")
+        """Run every steady-state shape once (the chunk step and its
+        completion, or the prefill or paged-admission buckets, none on the
+        exact-shape path of an SSM stack; verify depths; the plain step) ahead
+        of traffic, then reset the lane.  Returns the number of distinct
+        shapes exercised, counted as the reference counts its programs."""
+        if self.active_slots() or self.prefill_in_flight():
+            raise RuntimeError("warmup() resets the decode and chunk caches; call it "
+                               "before serving")
         econf, dev = self.econf, self.device
         B = econf.max_batch
         gen = torch.Generator(device=dev).manual_seed(0)  # must not perturb self.gen
         n = 0
         cap = min(max_prompt_len or self._max_context, self._max_context)
-        if self._paged:
-            # all-(-1) tables: every page write goes to the spare page
+        if self._paged:  # all-(-1) tables: every page write goes to the spare page
             self._bt_dirty = True
             self._sync_bt()
+        if self._chunk is not None:
+            # ONE chunk-step shape covers every prompt length; the completion
+            # runs too, its pages all to the spare, its rows all dropped
+            R = len(self.chunk_rows)
+            zeros = torch.zeros((R,), dtype=torch.int32, device=dev)
+            last = self.lane.chunk_step(self.chunk_cache, torch.zeros(
+                (R, self._chunk), dtype=torch.int32, device=dev), zeros, zeros, 0, 0)
+            if self._paged:
+                spare = torch.full((econf.max_len // econf.kv_block_size,), econf.kv_blocks,
+                                   dtype=torch.long, device=dev)
+                self.lane.insert_pages(self.chunk_cache, 0, spare, 0, 0)
+            else:
+                self.lane.insert_rows(np.full((R,), B, np.int32), self.chunk_cache)
+            sample(gen, last, econf.temperature)
+            self.chunk_cache = self.lane.model.init_cache(R, econf.max_len)
+            n += 1
+        elif self._paged:
             zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
             for S in (b for b in self._len_buckets if b <= _bucket(cap, self._len_buckets)):
                 tokens = torch.zeros((B, S), dtype=torch.int32, device=dev)
@@ -560,8 +747,7 @@ class PipeServeEngine:
                  hardware=H100_SXM):
         self.device = resolve_device(device)
         self.econf = econf = econf or EngineConfig()
-        for bad, what in ((econf.prefill_chunk, "prefill_chunk (ROADMAP M6)"),
-                          (econf.trace != "off", "StreamTrace recording (ROADMAP)"),
+        for bad, what in ((econf.trace != "off", "StreamTrace recording (ROADMAP)"),
                           (not (econf.per_row_depth and econf.verify_buckets),
                            "single-depth verify (per_row_depth=False or no verify_buckets;"
                            " ROADMAP)")):
@@ -586,9 +772,11 @@ class PipeServeEngine:
         self.pairs = [StreamPair(i, cfg, params, econf, self.monitor, self.device)
                       for i in range(n_pairs)]
         # SLO routing prices queued prefill work in engine ticks via the cost
-        # model, so TTFT slack is comparable with slo_ttft deadlines
+        # model, so TTFT slack is comparable with slo_ttft deadlines; chunked,
+        # at the pairs' effective chunk (clamped, or None for an SSM stack)
         self._estimator = estimator = PrefillDelayEstimator(
-            cfg, hw=hardware, max_batch=econf.max_batch, mean_context=max(econf.max_len // 2, 1))
+            cfg, hw=hardware, max_batch=econf.max_batch, mean_context=max(econf.max_len // 2, 1),
+            prefill_chunk=self.pairs[0]._chunk)
         self.scheduler = StreamScheduler(
             n_pairs, router, self.monitor, slo_routing=econf.slo_routing,
             delay_estimator=estimator.ticks if econf.slo_routing else None)
@@ -598,6 +786,17 @@ class PipeServeEngine:
             self.scheduler.prefix_probe = self._prefix_score
             for pair in self.pairs:
                 pair.requeue = self.scheduler.resubmit_or_fail
+        if self.pairs[0]._chunk is not None:
+            # routing sees requests parked in chunk rows: they left the queue
+            # but still owe the lane one tick per chunk left
+            self.scheduler.inflight_depth = lambda wid: self.pairs[wid].prefill_in_flight()
+            self.scheduler.inflight_delay = self._chunk_backlog_ticks
+
+    def _chunk_backlog_ticks(self, worker_id):
+        """Lane turns a pair's chunk rows still owe (one chunk a tick)."""
+        pair = self.pairs[worker_id]
+        return float(sum(-(-(len(r.prompt) - pair.chunk_cursor[r.request_id]) // pair._chunk)
+                         for r in pair.chunk_rows if r is not None))
 
     def _prefix_score(self, worker_id, req):
         """The prefill a pair's resident prefix would save this request, as
@@ -609,8 +808,9 @@ class PipeServeEngine:
         return self.scheduler.submit(req, self._now)
 
     def cancel(self, request_id):
-        """Cancel a request that is queued or mid-decode.  Returns True if it
-        was found and cancelled, False if unknown or already done."""
+        """Cancel a request that is queued, mid-chunked-prefill or mid-decode.
+        Returns True if it was found and cancelled, False if unknown or
+        already done."""
         req = self.scheduler.cancel(request_id)
         for pair in self.pairs:
             for slot, occupant in enumerate(pair.slot_req):
@@ -618,6 +818,9 @@ class PipeServeEngine:
                     req = occupant
                     pair.kv.free_sequence(request_id)
                     pair.clear_slot(slot)
+            for row, occupant in enumerate(pair.chunk_rows):
+                if req is None and occupant is not None and occupant.request_id == request_id:
+                    req = pair.chunk_release(row)
         if req is None:
             return False
         req.state, req.t_end = RequestState.CANCELLED, self._now
@@ -626,18 +829,21 @@ class PipeServeEngine:
 
     def fail_worker(self, worker_id):
         """Simulate a node failure: drop the pair and re-route its queued and
-        in-flight work (in-flight restarts from scratch)."""
+        in-flight work (in-flight restarts from scratch): the decode slots'
+        requests first, then the chunk rows', in the reference's order, which
+        decides their routing."""
         pair = self.pairs[worker_id]
         pair.healthy = False
         rerouted = self.scheduler.mark_unhealthy(worker_id, self._now)
+        orphans = []
         for slot in pair.active_slots():
-            req = pair.slot_req[slot]
-            pair.kv.free_sequence(req.request_id)
+            orphans.append(pair.slot_req[slot])
+            pair.kv.free_sequence(orphans[-1].request_id)
             pair.clear_slot(slot)
-            req.output_tokens.clear()
-            req.token_times.clear()
-            req.spec_depths.clear()
-            req.state = RequestState.QUEUED
+        orphans += [pair.chunk_release(row) for row, r in enumerate(pair.chunk_rows)
+                    if r is not None]
+        for req in orphans:
+            _restart(req)
             # FAILED with a terminal record when this was the last worker
             rerouted += self.scheduler.resubmit_or_fail(req, self._now)
         return rerouted
@@ -648,27 +854,23 @@ class PipeServeEngine:
         emitted = 0
         for pair in (p for p in self.pairs if p.healthy):
             wid = pair.worker_id
-            # stall-free admission: fill free slots from the queue, fusing up
-            # to admit_cap() reserved requests into one bucketed prefill call
-            while True:
-                batch: List[Request] = []
-                blocked = False
-                while len(batch) < min(len(pair.free_slots()), pair.admit_cap()):
-                    req = self.scheduler.next_for_prefill(wid, self._now)
-                    if req is None:
+            if pair._chunk is not None:  # one chunk a tick, preemptible at its boundary
+                pair.chunk_tick(self.scheduler, self._now)
+            else:
+                # stall-free admission: fill free slots from the queue, fusing up
+                # to admit_cap() reserved requests into one bucketed prefill call
+                while True:
+                    batch: List[Request] = []
+                    blocked = False
+                    while len(batch) < min(len(pair.free_slots()), pair.admit_cap()):
+                        req, blocked = pair.next_reserved(self.scheduler, self._now)
+                        if req is None:
+                            break
+                        batch.append(req)
+                    if batch:
+                        pair.admit(batch, self._now)
+                    if blocked or not batch:
                         break
-                    if not pair.prompt_fits(req):
-                        self.scheduler.fail_request(req, self._now, "exceeds_max_context")
-                        continue
-                    if not pair.reserve_kv(req):
-                        self.scheduler.prefill_queues[wid].appendleft(req)
-                        blocked = True
-                        break
-                    batch.append(req)
-                if batch:
-                    pair.admit(batch, self._now)
-                if blocked or not batch:
-                    break
             n = pair.decode_iteration(self._now)
             emitted += n
             self.monitor.record_tokens(wid, n, self._now)
@@ -676,9 +878,14 @@ class PipeServeEngine:
         return emitted
 
     def drained(self):
-        """True when nothing is queued or decoding."""
+        """True when nothing is queued, mid-chunked-prefill or decoding."""
         return self.scheduler.pending_total() == 0 and all(
-            not p.active_slots() for p in self.pairs if p.healthy)
+            not p.active_slots() and not p.prefill_in_flight() for p in self.pairs if p.healthy)
+
+    def chunk_progress(self):
+        """request_id -> tokens ingested so far, for every request in a chunk
+        row on any pair: the handle on parked partial prefills."""
+        return {rid: cur for pair in self.pairs for rid, cur in pair.chunk_cursor.items()}
 
     def run_until_done(self, max_steps=10_000):
         for _ in range(max_steps):

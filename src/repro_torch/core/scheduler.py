@@ -1,6 +1,6 @@
 """StreamScheduler — request orchestration (paper Alg 1); a copy of
 ``repro.core.scheduler`` without its StreamTrace events (recording is not
-ported yet) and without the chunked-prefill hooks.
+ported yet).
 
 Receives requests, consults the router for placement, enqueues to the
 selected stream pair's prefill queue, and tracks lifecycle transitions.
@@ -58,15 +58,24 @@ class StreamScheduler:
         self.slo_routing = slo_routing
         self.delay_estimator = delay_estimator
         self.shed: List[Request] = []
+        # chunked-prefill hooks (wired by the engine): requests parked in a
+        # pair's chunk rows left the queue but still owe the lane ticks
+        self.inflight_depth = None
+        self.inflight_delay = None
         # paged-KV hook (wired by the engine): a pair's saved-prefill
         # fraction for a request, from its radix index
         self.prefix_probe = None
 
     def queue_delay(self, worker_id):
-        """Estimated ticks of prefill service ahead of a new arrival."""
+        """Estimated ticks of prefill service ahead of a new arrival: the
+        queued requests plus the chunk rows' remaining backlog."""
         if self.delay_estimator is None:
-            return float(len(self.prefill_queues[worker_id]))
-        return sum(self.delay_estimator(r) for r in self.prefill_queues[worker_id])
+            delay = float(len(self.prefill_queues[worker_id]))
+        else:
+            delay = sum(self.delay_estimator(r) for r in self.prefill_queues[worker_id])
+        if self.inflight_delay is not None:
+            delay += self.inflight_delay(worker_id)
+        return delay
 
     def submit(self, req, now):
         healthy = [i for i, ok in self.healthy.items() if ok]
@@ -122,7 +131,11 @@ class StreamScheduler:
             phase_decode=decode, phase_stall=stall))
 
     def queue_depth(self, worker_id):
-        return len(self.prefill_queues[worker_id])
+        """Queued requests plus any parked mid-chunked-prefill on the pair."""
+        depth = len(self.prefill_queues[worker_id])
+        if self.inflight_depth is not None:
+            depth += self.inflight_depth(worker_id)
+        return depth
 
     def cancel(self, request_id):
         """Drop a still-queued request.  Returns it, or None if not queued."""

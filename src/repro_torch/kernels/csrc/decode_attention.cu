@@ -36,12 +36,15 @@
 // cp.async row gathers on the same tiles.
 //
 // decode_kernel (float32): CUDA cores (tensor cores in TF32 cannot hold the
-// 2e-5 float32 tolerance).  One block per (kv head, batch row), so the T*G
-// query rows that share a KV head (GQA) read every K/V tile once.  The block
-// walks the cache in tiles of 64 slots staged in shared memory (as fp32; K
-// rows padded to D+1 floats so the score loop is free of bank conflicts),
-// keeps an fp32 online softmax per row in shared memory, and writes fp32.
-// Shared memory is sized from T*G at launch and opts in above 48 KB.
+// 2e-5 float32 tolerance).  One block per (kv head, batch row, tile of up to
+// QT = 64 of the T*G query rows that share the KV head), so GQA's rows read
+// each K/V tile once a tile of rows.  The block walks the cache in tiles of 64
+// slots staged in shared memory (as fp32; K rows padded to D+1 floats so the
+// score loop is free of bank conflicts), keeps an fp32 online softmax per row
+// in shared memory, and writes fp32.  Shared memory is sized from the row
+// tile (148,736 B at D = 128), not from T*G, so any chunked-prefill T
+// launches (T*G = 128 alone took 231,424 B, near the 232,448 B opt-in
+// ceiling, and 256 rows were refused); it opts in above 48 KB.
 //
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W (device
 // time, inputs rotated past the L2): B=8 T=5 S=512 bf16 0.0151 ms, 3.0x its
@@ -64,6 +67,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BK = 64;        // cache slots per tile
+constexpr int QT = 64;        // query rows a float32 block
 constexpr int THREADS = 256;
 
 // ----------------------------------------------------- float32, CUDA cores
@@ -74,29 +78,29 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(
     const int* __restrict__ cache_len, const int* __restrict__ kv_pos,
     float* __restrict__ out, int n_tok, int H, int K, int S, int window, float scale) {
   const int kh = blockIdx.x, b = blockIdx.y;
-  const int G = H / K, TG = n_tok * G;
+  const int G = H / K, r0 = blockIdx.z * QT, nr = min(QT, n_tok * G - r0);
   extern __shared__ float smem[];
-  float* sq = smem;                      // TG x D      scaled queries
-  float* sacc = sq + TG * D;             // TG x D      output accumulator
-  float* sk = sacc + TG * D;             // BK x (D+1)  K tile
+  float* sq = smem;                      // nr x D      scaled queries
+  float* sacc = sq + nr * D;             // nr x D      output accumulator
+  float* sk = sacc + nr * D;             // BK x (D+1)  K tile
   float* sv = sk + BK * (D + 1);         // BK x D      V tile
-  float* ss = sv + BK * D;               // TG x BK     scores, then p
-  float* sm = ss + TG * BK;              // TG          running max
-  float* sl = sm + TG;                   // TG          running sum
-  float* scorr = sl + TG;                // TG          this tile's rescale
-  int* spos = reinterpret_cast<int*>(scorr + TG);  // BK slot positions
+  float* ss = sv + BK * D;               // nr x BK     scores, then p
+  float* sm = ss + nr * BK;              // nr          running max
+  float* sl = sm + nr;                   // nr          running sum
+  float* scorr = sl + nr;                // nr          this tile's rescale
+  int* spos = reinterpret_cast<int*>(scorr + nr);  // BK slot positions
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int clen = cache_len[b];
   const size_t slot_stride = (size_t)K * D;
   const float* kb = k + (size_t)b * S * slot_stride + (size_t)kh * D;
   const float* vb = v + (size_t)b * S * slot_stride + (size_t)kh * D;
 
-  for (int i = tid; i < TG * D; i += THREADS) {
-    const int r = i / D, d = i % D, t = r / G, g = r % G;
+  for (int i = tid; i < nr * D; i += THREADS) {
+    const int r = r0 + i / D, d = i % D, t = r / G, g = r % G;
     sq[i] = q[(((size_t)b * n_tok + t) * H + kh * G + g) * D + d] * scale;
     sacc[i] = 0.f;
   }
-  for (int r = tid; r < TG; r += THREADS) {
+  for (int r = tid; r < nr; r += THREADS) {
     sm[r] = NEG_INF;
     sl[r] = 0.f;
   }
@@ -114,14 +118,14 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(
     __syncthreads();
 
     // scores: a warp covers 32 slots of one row (q broadcast, K conflict-free)
-    for (int i = tid; i < TG * BK; i += THREADS) {
+    for (int i = tid; i < nr * BK; i += THREADS) {
       const int r = i / BK, j = i % BK;
       const float* qr = sq + r * D;
       const float* kj = sk + j * (D + 1);
       float dot = 0.f;
 #pragma unroll 16
       for (int d = 0; d < D; ++d) dot += qr[d] * kj[d];
-      const int p = spos[j], q_pos = clen - n_tok + r / G;
+      const int p = spos[j], q_pos = clen - n_tok + (r0 + r) / G;
       const bool ok = p >= 0 && p <= q_pos && (window < 0 || p > q_pos - window);
       // slots past S do not exist at all (-inf); masked slots are -1e30
       ss[i] = s0 + j >= S ? -INFINITY : (ok ? dot : NEG_INF);
@@ -129,7 +133,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(
     __syncthreads();
 
     // online softmax: one warp per row
-    for (int r = warp; r < TG; r += THREADS / 32) {
+    for (int r = warp; r < nr; r += THREADS / 32) {
       float* sr = ss + r * BK;
       float mx = NEG_INF;
       for (int j = lane; j < BK; j += 32) mx = fmaxf(mx, sr[j]);
@@ -152,7 +156,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(
     __syncthreads();
 
     // acc = acc * corr + p @ V: consecutive threads take consecutive d
-    for (int i = tid; i < TG * D; i += THREADS) {
+    for (int i = tid; i < nr * D; i += THREADS) {
       const int r = i / D, d = i % D;
       const float* pr = ss + r * BK;
       float a = 0.f;
@@ -162,8 +166,8 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(
     }
   }
   __syncthreads();
-  for (int i = tid; i < TG * D; i += THREADS) {
-    const int r = i / D, d = i % D, t = r / G, g = r % G;
+  for (int i = tid; i < nr * D; i += THREADS) {
+    const int r = i / D, d = i % D, t = (r0 + r) / G, g = (r0 + r) % G;
     out[(((size_t)b * n_tok + t) * H + kh * G + g) * D + d] = sacc[i] / fmaxf(sl[r], 1e-30f);
   }
 }
@@ -172,8 +176,8 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const int* cache_len,
            const int* kv_pos, void* out, int B, int n_tok, int H, int K, int S,
            int window, float scale, cudaStream_t stream) {
-  const int TG = n_tok * (H / K);
-  const size_t smem = sizeof(float) * (2 * TG * D + BK * (D + 1) + BK * D + TG * BK + 3 * TG)
+  const int TG = n_tok * (H / K), QR = TG < QT ? TG : QT;  // rows of the largest tile
+  const size_t smem = sizeof(float) * (2 * QR * D + BK * (D + 1) + BK * D + QR * BK + 3 * QR)
                       + sizeof(int) * BK;
   auto kern = decode_kernel<D>;
   if (smem > 48 * 1024) {
@@ -181,7 +185,7 @@ int launch(const void* q, const void* k, const void* v, const int* cache_len,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<dim3(K, B), THREADS, smem, stream>>>(
+  kern<<<dim3(K, B, (TG + QT - 1) / QT), THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       cache_len, kv_pos, static_cast<float*>(out), n_tok, H, K, S, window, scale);
   return (int)cudaGetLastError();

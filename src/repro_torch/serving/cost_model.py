@@ -98,12 +98,18 @@ class CostModel:
 class PrefillDelayEstimator:
     """Prices queued prefill work in engine-tick units for SLO routing: one
     tick is one batched decode step, so a queued prompt costs its prefill
-    plus KV-transfer time over the decode-step time (at least 1 tick)."""
+    plus KV-transfer time over the decode-step time (at least 1 tick).  With
+    chunked prefill the lane serves one ``prefill_chunk`` a tick, so a prompt
+    costs ceil(prompt / chunk) ticks."""
 
     def __init__(self, cfg, hw=H100_SXM,
-                 max_batch=8, mean_context=256):
+                 max_batch=8, mean_context=256, prefill_chunk=None):
         self.cost = CostModel(cfg, hw=hw)
         self.tick_s = self.cost.decode_step_time(max_batch, max(mean_context, 1))
+        self.prefill_chunk = prefill_chunk
+
+    def _chunks(self, n):
+        return max(-(-n // self.prefill_chunk), 1)
 
     def ticks(self, req):
         """Estimated service ticks to prefill one queued request (memoised on
@@ -112,10 +118,24 @@ class PrefillDelayEstimator:
         if cached is not None:
             return cached
         plen = len(req.prompt)
-        t = self.cost.prefill_time(plen, getattr(req, "cache_hit_tokens", 0))
-        t = max((t + self.cost.kv_transfer_time(plen)) / self.tick_s, 1.0)
+        if self.prefill_chunk:
+            t = float(self._chunks(plen))
+        else:
+            t = self.cost.prefill_time(plen, getattr(req, "cache_hit_tokens", 0))
+            t = max((t + self.cost.kv_transfer_time(plen)) / self.tick_s, 1.0)
         req._prefill_ticks = t
         return t
+
+    def saved_ticks(self, prompt_len, hit_tokens):
+        """Prefill ticks a resident prefix of ``hit_tokens`` saves a
+        ``prompt_len`` prompt, in the units of :meth:`ticks`."""
+        hit = min(max(hit_tokens, 0), prompt_len)
+        if hit == 0:
+            return 0.0
+        if self.prefill_chunk:
+            return float(self._chunks(prompt_len) - self._chunks(prompt_len - hit))
+        rem = self.cost.prefill_time(prompt_len, cached_tokens=hit)
+        return max(self.cost.prefill_time(prompt_len) - rem, 0.0) / self.tick_s
 
     def saved_frac(self, prompt_len, hit_tokens):
         """Prefill work a resident prefix of ``hit_tokens`` saves, as a
@@ -125,8 +145,9 @@ class PrefillDelayEstimator:
         hit = min(max(hit_tokens, 0), prompt_len)
         if prompt_len <= 0 or hit == 0:
             return 0.0
-        t_full = self.cost.prefill_time(prompt_len)
-        saved = max(t_full - self.cost.prefill_time(prompt_len, cached_tokens=hit), 0.0)
-        full = t_full / self.tick_s
-        frac = saved / self.tick_s / full if full > 0.0 else 0.0
+        if self.prefill_chunk:
+            full = float(self._chunks(prompt_len))
+        else:
+            full = self.cost.prefill_time(prompt_len) / self.tick_s
+        frac = self.saved_ticks(prompt_len, hit) / full if full > 0.0 else 0.0
         return min(max(frac if frac > 0.0 else hit / prompt_len, 0.0), 1.0)

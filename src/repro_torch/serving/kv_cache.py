@@ -46,7 +46,7 @@ class SequenceAllocation:
     last_hash: int = 0
     n_hashed: int = 0
     tail: List[int] = dataclasses.field(default_factory=list)
-    private: bool = False  # chunked ingest's opt-out (M6, not ported): always False
+    private: bool = False  # chunked ingest's opt-out: never registered in the index
 
 
 class KVCacheManager:
@@ -116,8 +116,10 @@ class KVCacheManager:
                 self._unregister(bid)
             self.free.append(bid)
 
-    def allocate_sequence(self, request_id, tokens, extra_tokens=0):
-        """Blocks for a prompt (+ planned generation); None on OOM."""
+    def allocate_sequence(self, request_id, tokens, extra_tokens=0, share=True):
+        """Blocks for a prompt (+ planned generation); None on OOM.  With
+        ``share=False`` (serve mode) no page is shared or registered: the
+        request writes every page and its hashes never enter the index."""
         bs = self.block_size
         hashes = chain_hashes(tokens, bs)
         total = -(-(len(tokens) + extra_tokens) // bs)
@@ -134,12 +136,12 @@ class KVCacheManager:
             if not self.serve_prefixes:
                 bid = self._share(h) if resident else self._fresh(h, parent)
                 shared += resident
-            elif leading and resident and shared < max_shared:
+            elif share and leading and resident and shared < max_shared:
                 bid = self._share(h)
                 shared += 1
-            else:  # a private page this request writes; its hash is shared later
+            else:  # a page this request writes; its hash is shared later
                 leading = False
-                bid = self._fresh(None if resident else h, parent)
+                bid = self._fresh(h if share and not resident else None, parent)
             if bid is None:
                 for held in got:
                     self._release(held)
@@ -147,7 +149,8 @@ class KVCacheManager:
             got.append(bid)
         alloc = self.seqs[request_id] = SequenceAllocation(
             request_id, got, len(tokens), shared, last_hash=hashes[-1] if hashes else 0,
-            n_hashed=len(hashes) * bs, tail=[int(t) for t in tokens[len(hashes) * bs:]])
+            n_hashed=len(hashes) * bs, tail=[int(t) for t in tokens[len(hashes) * bs:]],
+            private=not share)
         if hashes:  # prompts under one block have no sharing chance: no vote
             hit = min(shared / len(hashes), 1.0)
             self.hit_rate = self._hit_ema * self.hit_rate + (1 - self._hit_ema) * hit
@@ -171,7 +174,7 @@ class KVCacheManager:
             capacity += bs
         granted = min(max(capacity, 0), n_new_tokens)
         alloc.n_tokens += granted
-        if granted and tokens is not None and self.serve_prefixes:
+        if granted and tokens is not None and self.serve_prefixes and not alloc.private:
             alloc.tail.extend(int(t) for t in tokens[:granted])
             self._absorb_tail(alloc)
         return granted

@@ -47,11 +47,13 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def fp32_pair(arch):
-    """The reference's and the port's reduced ``arch``, 2 layers in float32,
-    with the same weights: (jcfg, jparams, tcfg, tparams)."""
-    jcfg = dataclasses.replace(jax_reduced(arch), n_layers=2, dtype="float32")
-    tcfg = dataclasses.replace(reduced_config(arch), n_layers=2, dtype="float32")
+def fp32_pair(arch, **fields):
+    """The reference's and the port's reduced ``arch``, 2 layers in float32
+    (and any other ``fields``), with the same weights: (jcfg, jparams, tcfg,
+    tparams)."""
+    fields = {"n_layers": 2, "dtype": "float32", **fields}
+    jcfg = dataclasses.replace(jax_reduced(arch), **fields)
+    tcfg = dataclasses.replace(reduced_config(arch), **fields)
     jparams, _ = unzip_params(jax_build(jcfg).init(jax.random.PRNGKey(0)))
     return jcfg, jparams, tcfg, from_jax_tree(jax.tree.map(np.asarray, jparams), tcfg)
 
@@ -59,6 +61,18 @@ def fp32_pair(arch):
 @pytest.fixture(scope="module")
 def fp32_model():
     return fp32_pair("qwen3-1.7b")
+
+
+@pytest.fixture(scope="module")
+def fp32_models(fp32_model):
+    """fp32_pair by (arch, sliding window), each built once."""
+    made = {("qwen3-1.7b", None): fp32_model}
+
+    def get(arch="qwen3-1.7b", window=None):
+        if (arch, window) not in made:
+            made[arch, window] = fp32_pair(arch, **({"sliding_window": window} if window else {}))
+        return made[arch, window]
+    return get
 
 
 def _engines(pair, n_pairs, **kw):
@@ -83,27 +97,37 @@ def _records(engine):
     return [dataclasses.asdict(r) for r in engine.monitor.completed]
 
 
-def _serve(engine, reqs, max_steps=600):
+def _serve(engine, reqs, max_steps=600, fail=None):
     """Submit each request once the engine clock reaches its arrival time
-    (all at once for traces without one), then drain."""
-    queue = list(reqs)
+    (all at once for traces without one), then drain.  With ``fail`` = (pair,
+    tick) that pair fails once the clock reaches the tick; returns how many
+    requests it re-routed and how many were in its chunk rows."""
+    queue, failed = list(reqs), None
     for _ in range(max_steps):
         while queue and (queue[0].arrival_time if queue[0].arrival_time is not None
                          else 0.0) <= engine._now:
             engine.submit(queue.pop(0))
+        if fail and failed is None and engine._now >= fail[1]:
+            in_flight = engine.pairs[fail[0]].prefill_in_flight()
+            failed = engine.fail_worker(fail[0]), in_flight
         if not queue and engine.drained():
-            return
+            return failed
         engine.step()
     raise AssertionError("engine did not drain")
 
 
-def _serve_both(jeng, teng, jreqs, treqs):
+def _serve_both(jeng, teng, jreqs, treqs, fail=None):
     """Serve a trace on the JAX engine and its copy on the port's: the same
-    tokens and the same pair for every request."""
-    _serve(jeng, jreqs)
-    _serve(teng, treqs)
-    assert [r.output_tokens for r in treqs] == [r.output_tokens for r in jreqs]
-    assert [r.worker_id for r in treqs] == [r.worker_id for r in jreqs]
+    tokens, pair, errors and prefix hits for every request, the same
+    RequestRecords and chunk size, and (``fail``) the same re-routing.
+    Returns what ``_serve`` returned."""
+    failed = _serve(jeng, jreqs, fail=fail)
+    assert _serve(teng, treqs, fail=fail) == failed
+    for field in ("output_tokens", "worker_id", "error", "cache_hit_tokens"):
+        assert [getattr(r, field) for r in treqs] == [getattr(r, field) for r in jreqs], field
+    assert _records(teng) == _records(jeng)
+    assert [p._chunk for p in teng.pairs] == [p._chunk for p in jeng.pairs]
+    return failed
 
 
 def _refused(wrapper, *args):
@@ -114,15 +138,36 @@ def _refused(wrapper, *args):
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("trace", ["bursty", "uniform", "mixed_slo"])
-def test_engine_matches_jax_engine(fp32_model, trace_factory, trace):
-    jreqs = trace_factory(trace, n=6)
+TRACES = ("bursty", "uniform", "mixed_slo")
+PAGED = {"paged_kv": True, "kv_blocks": 256, "kv_block_size": 16}
+# case -> (sliding window, engine overrides, trace, its prompt lengths,
+# (pair, tick) that fails or None).  The plain traces; a pair failing early
+# or late, dense and paged; a dense sliding-window ring (capacity 48 and 72)
+# under prompts that wrap it, one-shot and chunked
+ENGINE_CASES = {t: (None, {}, t, (6, 50), None) for t in TRACES}
+ENGINE_CASES.update({f"fail{w}@{tick}-{kv}-{t}": (None, PAGED if kv == "paged" else {}, t, (6, 50),
+                                                  (w, tick))
+                     for kv in ("dense", "paged") for w, tick in ((0, 2), (1, 4)) for t in TRACES})
+ENGINE_CASES.update({f"window{w}-{c}-{t}": (w, {"prefill_chunk": 16} if c == "chunked" else {},
+                                            t, (30, 89), None)
+                     for w in (16, 40) for c in ("oneshot", "chunked") for t in TRACES})
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_engine_matches_jax_engine(fp32_models, trace_factory, case):
+    window, econf, trace, (lo, hi), fail = ENGINE_CASES[case]
+    jreqs = trace_factory(trace, n=6, lo=lo, hi=hi)
     treqs = _copy(jreqs)
-    jeng, teng = _engines(fp32_model, 2)
-    _serve_both(jeng, teng, jreqs, treqs)
-    assert {r.worker_id for r in treqs} == {0, 1}
+    jeng, teng = _engines(fp32_models(window=window), 2, **econf)
+    failed = _serve_both(jeng, teng, jreqs, treqs, fail=fail)
     assert len(teng.monitor.completed) == len(treqs)
-    assert _records(teng) == _records(jeng)
+    if fail:  # the dead pair's requests were re-routed and finished on the other
+        assert failed[0] > 0 and all(r.worker_id != fail[0] for r in teng.monitor.completed
+                                     if r.t_end > fail[1])
+    else:
+        assert {r.worker_id for r in treqs} == {0, 1}
+    if window:  # the ring wrapped: some prompt outgrew its capacity
+        assert max(len(r.prompt) for r in treqs) > teng.pairs[0].lane.cache["k"].shape[2]
 
 
 def test_verify_tokens_matches_jax_greedy_per_row_depth():
@@ -179,11 +224,10 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, fp32
 
 
 @pytest.mark.parametrize("overrides, item", [
-    ({"prefill_chunk": 16, "paged_kv": True}, "M6"), ({"prefill_chunk": 16}, "M6"),
     ({"draft": "model"}, "M8"), ({"trace": "on"}, "ROADMAP"),
     ({"per_row_depth": False}, "single-depth")])
 def test_later_slices_refuse_by_name(fp32_model, overrides, item):
-    """Paged KV serves; chunked prefill, alone or paged, still refuses."""
+    """Paged KV and chunked prefill serve; the later slices' features refuse."""
     with pytest.raises(NotImplementedError, match=item):
         PipeServeEngine(*fp32_model[2:], n_pairs=1, device="cpu",
                         econf=EngineConfig(max_batch=2, max_len=96, **overrides))
