@@ -37,7 +37,19 @@ Phases, each fatal on failure:
      paged burst; then a burst that outgrows a small pool and truncates;
      then chunked (K1 on every chunk step, K3 on every decode call, no
      prefix hit: chunked ingest is private);
-  7. hold the SSD-scan kernel against its plain version (bf16 and fp32, 1,
+  7. llama2-7b, the paper's model (MHA: one query head a KV head): hold K1,
+     K2 and K3 at H = K = 32 against their plain versions (K1 at the paper
+     serve's B=16 S=2048 for T = 1, 2, 3, 5, 9 and an unbucketed 7, with an
+     idle row, and fp32; K2 at the 2048 bucket and a ragged length; K3
+     decode) and time K1 and K2 there; check 2 full-width layers on the card
+     against the CPU (fp32); serve the paper's operating point
+     (``paper_stream_pairs("llama2-7b", draft="model")``: 2 pairs x 16
+     slots, max_len 2048, the 2-layer model draft) with a burst of 20
+     requests of 16-1500 tokens, counting K1 and K2 launches by lane, and
+     profile a burst; the ablation serve (round-robin, single depth 4, no
+     verify buckets: K1 at T = 5); the self-draft check (2 fp32 layers as
+     their own draft: the tokens of plain decoding);
+  8. hold the SSD-scan kernel against its plain version (bf16 and fp32, 1,
      2 and 4 groups, ragged tails, one chunk and one more, an initial state,
      the serve shape, 2 and 4 chunks a block), check that bf16 takes the
      tensor-core kernel and fp32 the CUDA-core one, and time it; check 2
@@ -46,12 +58,13 @@ Phases, each fatal on failure:
      layers, d_model 2560), counting SSD-scan launches (every one on the
      tensor-core kernel), and profile a burst, splitting device time between
      prefill and decode;
-  8. print the kernel table as one JSON line, then the result line.
+  9. print the kernel table as one JSON line, then the result line.
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -319,47 +332,71 @@ def kernel_phase(report: dict) -> dict:
     # ---- timing at the main path's shapes: a verify step at the depth-4
     # bucket (B=8 T=5) and a chunk step of the chunked serve (4 staging rows,
     # a chunk of 64); the cache is full
-    out = {}
-    for key, B, T in (("decode_attention", 8, 5), ("decode_attention (chunk)", 4, 64)):
-        make = lambda: decode_case(g, B, T, S, H, K, D, "bfloat16", [S - T] * B,  # noqa: E731
-                                   poison=False)
-        sets = copies(make, 2 * B * S * K * D * 2)
-        q, k, v, clen, pos = sets[0]
-        nbytes, ops = decode_cost(q, k, clen, pos)
-        e = check(f"decode timing set B={B} T={T}", decode_attention_cuda(
-            q, k, v, clen, kv_positions=pos), ref.decode_attention(q, k, v, clen, kv_positions=pos),
-            "bfloat16")
-        errs[key] = max(errs["decode_attention"], e)
-        lib = [sdpa_decode(*s) for s in sets]
-        out[key] = {
-            "shape": f"B={B} T={T} S={S} H={H} K={K} D={D} bf16",
-            "ms": timed(lambda i: decode_attention_cuda(*sets[i % len(sets)][:4],
-                                                        kv_positions=sets[i % len(sets)][4]), 200),
-            "plain_ms": timed(lambda i: ref.decode_attention(
-                *sets[i % len(sets)][:4], kv_positions=sets[i % len(sets)][4]), 20),
-            "library_ms": timed(lambda i: lib[i % len(lib)](), 50),
-            "bound": bound_ms(nbytes, ops, "bfloat16"),
-        }
-    B, Sq = 4, 512
+    out = {"decode_attention": decode_timing(g, 8, 5, S, H, K, D),
+           "decode_attention (chunk)": decode_timing(g, 4, 64, S, H, K, D),
+           "flash_attention": flash_timing(g, 4, 512, H, K, D)}
+    for name, r in out.items():
+        r["max_abs_err"] = max(errs[name.split()[0]], r.pop("err"))
+        show_timing(name, r)
+    report["kernel_checks"] = lines
+    return out
+
+
+def decode_timing(g, B: int, T: int, S: int, H: int, K: int, D: int) -> dict:
+    """K1 (bf16) on a full cache at (B, T, S, H, K, D), on copies rotated past
+    the L2: checked against its plain version, then kernel, plain version and
+    SDPA timed, and the bound of this input."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+
+    sets = copies(lambda: decode_case(g, B, T, S, H, K, D, "bfloat16", [S - T] * B,
+                                      poison=False), 2 * B * S * K * D * 2)
+    q, k, v, clen, pos = sets[0]
+    nbytes, ops = decode_cost(q, k, clen, pos)
+    e = check(f"decode timing set B={B} T={T} H={H} K={K}", decode_attention_cuda(
+        q, k, v, clen, kv_positions=pos), ref.decode_attention(q, k, v, clen, kv_positions=pos),
+        "bfloat16")
+    lib = [sdpa_decode(*s) for s in sets]
+    return {
+        "shape": f"B={B} T={T} S={S} H={H} K={K} D={D} bf16",
+        "ms": timed(lambda i: decode_attention_cuda(*sets[i % len(sets)][:4],
+                                                    kv_positions=sets[i % len(sets)][4]), 200),
+        "plain_ms": timed(lambda i: ref.decode_attention(
+            *sets[i % len(sets)][:4], kv_positions=sets[i % len(sets)][4]), 20),
+        "library_ms": timed(lambda i: lib[i % len(lib)](), 50),
+        "bound": bound_ms(nbytes, ops, "bfloat16"), "err": e,
+    }
+
+
+def flash_timing(g, B: int, Sq: int, H: int, K: int, D: int) -> dict:
+    """K2 (bf16, causal) at (B, Sq, H, K, D) on copies rotated past the L2:
+    checked against its plain version, then kernel, plain version and SDPA
+    timed, and the bound."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
     fsets = copies(lambda: tuple(torch.randn(B, Sq, h, D, generator=g, device="cuda")
                                  .to(torch.bfloat16) for h in (H, K, K)),
                    2 * B * Sq * (H + 2 * K) * D)
     nbytes, ops = flash_cost(fsets[0][0], fsets[0][1])
+    e = check(f"flash timing set B={B} S={Sq} H={H} K={K}", flash_attention_cuda(*fsets[0]),
+              ref.flash_attention(*fsets[0]), "bfloat16")
     tsets = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in fsets]
-    out["flash_attention"] = {
+    return {
         "shape": f"B={B} Sq=Sk={Sq} H={H} K={K} D={D} causal bf16",
         "ms": timed(lambda i: flash_attention_cuda(*fsets[i % len(fsets)]), 50),
         "plain_ms": timed(lambda i: ref.flash_attention(*fsets[i % len(fsets)]), 10),
         "library_ms": timed(lambda i: sdpa(*tsets[i % len(tsets)], is_causal=True), 50),
-        "bound": bound_ms(nbytes, ops, "bfloat16"),
+        "bound": bound_ms(nbytes, ops, "bfloat16"), "err": e,
     }
-    for name, r in out.items():
-        r["max_abs_err"] = errs[name]
-        was = f" (previous kernel {PREVIOUS_MS[name]} ms)" if name in PREVIOUS_MS else ""
-        print(f"{name} [{r['shape']}]: kernel {r['ms']:.4f} ms{was}, plain {r['plain_ms']:.4f} "
-              f"ms, sdpa {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
-    report["kernel_checks"] = lines
-    return out
+
+
+def show_timing(name: str, r: dict) -> None:
+    was = f" (previous kernel {PREVIOUS_MS[name]} ms)" if name in PREVIOUS_MS else ""
+    print(f"{name} [{r['shape']}]: kernel {r['ms']:.4f} ms{was}, plain {r['plain_ms']:.4f} "
+          f"ms, sdpa {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
 
 
 def paged_case(g, B, T, dt, lens, H=16, K=8, D=128, ps=16, P=64, n_pages=4096,
@@ -523,12 +560,13 @@ def paged_kernel_phase(report: dict) -> dict:
 
 # -------------------------------------------------------------------- model
 
-def model_phase(report: dict) -> None:
+def model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
     """The full-width model's first 2 layers on the card (CUDA kernels) against
     the same weights on the CPU (plain versions), float32: prefill of a
     bucketed batch, a 5-token verify step, a rewind and a plain step.  Every
     float32 K1 and K3 launch must take the CUDA-core kernel (decode_kernel,
-    paged_decode_kernel), none the bf16 tensor-core one."""
+    paged_decode_kernel), none the bf16 tensor-core one.  qwen3-1.7b (two
+    query heads a KV head) and llama2-7b (one: MHA, an untied head)."""
     import dataclasses
 
     import torch
@@ -536,7 +574,7 @@ def model_phase(report: dict) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
     gpu = build_model(cfg, "cuda")
     params = gpu.init(1)
     cpu_params = to_cpu(params)
@@ -571,13 +609,15 @@ def model_phase(report: dict) -> None:
     errs.append(max_err(gpu.decode_step(params, caches[0], step.cuda()).cpu(),
                         cpu.decode_step(cpu_params, caches[1], step)))
     launches = read_counts()
-    print(f"model check (2 full-width layers, fp32, card vs CPU, dense and paged): "
+    tag = f"{arch} model check"
+    print(f"{tag} (2 full-width layers, fp32, card vs CPU, dense and paged): "
           f"max_abs_err={max(errs):.3g}; launches {launches}")
     for name in ("decode_attention", "decode_attention_paged"):
-        no_wgmma(launches, name, "model check")
+        no_wgmma(launches, name, tag)
     if max(errs) > 1e-3:
-        fail(f"model check: logits differ by {max(errs):.3g} > 1e-3")
-    report["model_check_max_abs_err"] = max(errs)
+        fail(f"{tag}: logits differ by {max(errs):.3g} > 1e-3")
+    report["model_check_max_abs_err" if arch == "qwen3-1.7b" else
+           f"{arch}_model_check_max_abs_err"] = max(errs)
 
 
 def chunked_model_phase(report: dict) -> None:
@@ -668,13 +708,21 @@ def instrument(serve):
             return out
         return call
 
-    for pair in serve.engine.pairs:
-        lane = pair.lane
+    for lane in lanes(serve, "target") + lanes(serve, "draft"):
         lane.decode, lane.prefill, lane.paged_admit, lane.chunk_step = (
             watch(lane.decode), watch(lane.prefill), watch(lane.paged_admit),
             watch(lane.chunk_step))
         lane.calls = {"prefill": 0, "decode": 0}
     return bad
+
+
+def lanes(serve, which: str) -> list:
+    """The serve's target lanes, or its pairs' model-draft lanes (none
+    without draft='model')."""
+    pairs = serve.engine.pairs
+    if which == "target":
+        return [p.lane for p in pairs]
+    return [p.draft.lane for p in pairs if hasattr(p.draft, "lane")]
 
 
 def drive(serve, waves: dict):
@@ -1066,6 +1114,267 @@ def profile_phase(serve, report: dict, key="profile", lens=(16, 400, 24, 300, 40
               f"rest {busy - prefill_ms:.1f} ms = {1 - prefill_ms / busy:.1%}")
 
 
+# ------------------------------------------------------- llama2-7b (the paper)
+
+# the paper serve's burst: 20 prompts of 16-1500 tokens, 16 at tick 0 and 4
+# two steps later; the bucketed prefill reaches its 2048 bucket
+LLAMA_LENS = [16, 1500, 24, 900, 40, 600, 64, 300, 1200, 33, 100, 250, 700, 48, 1024, 200,
+              128, 400, 80, 1400]
+PAPER_NEW_TOKENS = 64  # the paper preset's 512 new tokens cut to fit the time limit
+
+
+def llama_kernel_phase(report: dict) -> dict:
+    """K1, K2 and K3 at one query head per KV head (llama2-7b's MHA, H = K =
+    32, D = 128), held against their plain versions: K1 at the paper serve's
+    cache (B=16, S=2048) for T = 1 (the draft's proposals), the verify
+    buckets' T = 2, 3, 5, 9 and an unbucketed T = 7, rows filled from 0 to
+    2048 with stale slots poisoned and one idle row, bf16 and one fp32 case;
+    K2 at the largest prefill bucket (B=4, S=2048) and a ragged length; K3
+    decode over shuffled pages.  Every bf16 call must take the tensor-core
+    kernel.  Then K1 (full cache, T = 9 and 1) and K2 (B=4, S=2048) timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda as k1
+    from repro_torch.kernels.decode_attention import decode_attention_paged_cuda as k3
+    from repro_torch.kernels.flash_attention import flash_attention_cuda as k2
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    B, S, H, D = 16, 2048, 32, 128
+    err, lines = {"decode_attention": 0.0, "flash_attention": 0.0}, []
+    fills = [int(f) for f in np.linspace(0, S, B)]
+
+    def held(tag, name, fn, got_args, want, dt):
+        before = fn.wgmma_launches
+        got = fn(*got_args[0], **got_args[1])
+        if fn.wgmma_launches - before != int(dt == "bfloat16"):
+            fail(f"G=1 {tag}: took the wrong kernel")
+        e = check(f"G=1 {tag}", got, want(), dt)
+        if dt == "bfloat16":
+            err[name] = max(err.get(name, 0.0), e)
+        lines.append(f"G=1 {tag}: max_abs_err={e:.3g}")
+        print(lines[-1])
+
+    for T, dt in ((1, "bfloat16"), (2, "bfloat16"), (3, "bfloat16"), (5, "bfloat16"),
+                  (9, "bfloat16"), (7, "bfloat16"), (5, "float32")):
+        q, k, v, clen, pos = decode_case(g, B, T, S, H, H, D, dt, fills)
+        pos[3] = -1  # an idle slot: every position empty
+        held(f"decode_attention B={B} T={T} S={S} H=K={H} {dt}", "decode_attention", k1,
+             ((q, k, v, clen), {"kv_positions": pos}),
+             lambda: ref.decode_attention(q, k, v, clen, kv_positions=pos), dt)
+    for Bf, Sq in ((4, 2048), (2, 1500)):
+        q, k, v = (torch.randn(Bf, Sq, H, D, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        held(f"flash_attention B={Bf} S={Sq} H=K={H} bfloat16", "flash_attention", k2,
+             ((q, k, v), {}), lambda: ref.flash_attention(q, k, v), "bfloat16")
+    for T in (1, 9):
+        args = paged_case(g, B, T, "bfloat16", [max(f, 1) if b % 5 else 0
+                                                for b, f in enumerate(fills)],
+                          H=H, K=H, D=D, P=S // 16)
+        held(f"decode_attention_paged B={B} T={T} H=K={H} bfloat16", "decode_attention_paged",
+             k3, (args, {}), lambda: ref.decode_attention_paged(*args), "bfloat16")
+    out = {"decode_attention (llama2 verify)": decode_timing(g, B, 9, S, H, H, D),
+           "decode_attention (llama2 draft)": decode_timing(g, B, 1, S, H, H, D),
+           "flash_attention (llama2)": flash_timing(g, 4, S, H, H, D)}
+    for name, r in out.items():
+        r["max_abs_err"] = max(err[name.split()[0]], r.pop("err"))
+        show_timing(name, r)
+    report["llama2_kernel_checks"] = lines
+    return out
+
+
+@contextlib.contextmanager
+def acceptance_counted():
+    """Record (accepted, proposed) draft tokens over the active rows of
+    every verify step the port's engine takes inside the block, on the
+    device (no sync); yields the list."""
+    import torch
+
+    from repro_torch.core import engine
+
+    seen, verify = [], engine.verify_tokens
+
+    def counted(*args, active, depth, **kw):
+        res = verify(*args, active=active, depth=depth, **kw)
+        d = torch.full_like(res.n_accepted, args[1].shape[1]) if depth is None else depth.long()
+        seen.append(torch.stack([res.n_accepted[active].sum(), d[active].sum()]))
+        return res
+
+    engine.verify_tokens = counted
+    try:
+        yield seen
+    finally:
+        engine.verify_tokens = verify
+
+
+def acceptance(seen: list) -> float:
+    import torch
+
+    accepted, proposed = torch.stack(seen).sum(0).tolist() if seen else (0, 0)
+    return accepted / max(proposed, 1)
+
+
+def paper_serve_phase(report: dict):
+    """The paper's §4 operating point at full width: StreamServe(ServeConfig.
+    paper_stream_pairs("llama2-7b", draft="model")) on seeded random weights,
+    2 stream pairs x 16 slots, a 2048-token dense cache, bucketed fused
+    prefill, FlowGuard and EDF, the 2-layer model draft with SpecuStream
+    per-row depths and depth-bucketed verify; 512 new tokens cut to
+    PAPER_NEW_TOKENS.  K2 runs on every prefill of both lanes (32 and 2
+    launches a call) and K1 on every target decode and draft proposal (32
+    and 2), all on the tensor-core kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ServeConfig, StreamServe
+
+    cfg = ServeConfig.paper_stream_pairs("llama2-7b", draft="model",
+                                         max_new_tokens=PAPER_NEW_TOKENS)
+    t0 = time.perf_counter()
+    serve = StreamServe(cfg, device="cuda")
+    torch.cuda.synchronize()
+    arch, draft = serve.arch, cfg.build_draft_arch_config()
+    print(f"paper serve: {arch.name} L={arch.n_layers} d_model={arch.d_model} heads "
+          f"{arch.n_heads}/{arch.n_kv_heads} vocab={arch.vocab_size} {arch.dtype}, draft "
+          f"{draft.name} L={draft.n_layers}, {cfg.n_pairs} pairs x {cfg.max_batch} slots, "
+          f"max_len {cfg.max_len}; init {time.perf_counter() - t0:.2f} s")
+    bad = instrument(serve)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, arch.vocab_size, n).tolist() for n in LLAMA_LENS]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with acceptance_counted() as seen:
+        run = drive(serve, {0: prompts[:16], 2: prompts[16:]})
+    launches = read_counts()
+    result = serve_stats("paper serve", serve, bad, run, launches)
+    split = {}
+    for which, n in (("target", arch.n_layers), ("draft", draft.n_layers)):
+        for call, kernel in (("decode", "decode_attention"), ("prefill", "flash_attention")):
+            split[f"{kernel}.{which}"] = n * sum(ln.calls[call] for ln in lanes(serve, which))
+    result.update(launch_split=split, draft_acceptance=acceptance(seen), prompt_lens=LLAMA_LENS,
+                  draft_calls={c: sum(ln.calls[c] for ln in lanes(serve, "draft"))
+                               for c in ("prefill", "decode")})
+    print(f"paper serve: K1 launches {launches['decode_attention']} = target "
+          f"{split['decode_attention.target']} + draft {split['decode_attention.draft']}, K2 "
+          f"{launches['flash_attention']} = target {split['flash_attention.target']} + draft "
+          f"{split['flash_attention.draft']}; draft acceptance {result['draft_acceptance']:.4f}")
+    for kernel in ("decode_attention", "flash_attention"):
+        parts = (split[f"{kernel}.target"], split[f"{kernel}.draft"])
+        if launches[kernel] != sum(parts) or not all(parts):
+            fail(f"paper serve: {kernel} launches {launches[kernel]} != target + draft {parts}")
+    wgmma_only(launches, "paper serve", "decode_attention", "flash_attention")
+    if launches["decode_attention_paged"] or launches["ssd_scan"]:
+        fail(f"paper serve: unexpected launches {launches}")
+    report["paper_serve"] = result
+    return launches, serve
+
+
+def ablation_phase(params, draft_params, report: dict) -> None:
+    """The paper's Table 8/9 switches on the same weights and operating
+    point: round-robin routing, single-depth verify without verify buckets,
+    a fixed depth of 4.  Requests alternate pairs and every target verify
+    step runs K1 at T = 5, unpadded; the draft proposes at T = 1."""
+    import numpy as np
+
+    from repro_torch.api import ServeConfig, StreamServe
+
+    cfg = ServeConfig.paper_stream_pairs(
+        "llama2-7b", draft="model", router="roundrobin", per_row_depth=False,
+        verify_buckets=None, spec_policy="fixed", fixed_depth=4, max_new_tokens=32)
+    serve = StreamServe(cfg, params=params, draft_params=draft_params, device="cuda")
+    widths = {"target": set(), "draft": set()}
+    for which in widths:
+        for lane in lanes(serve, which):
+            lane.decode = lambda t, f=lane.decode, w=widths[which]: (w.add(t.shape[1]), f(t))[1]
+    rng = np.random.default_rng(12)
+    zero_counts()
+    handles = [serve.submit(rng.integers(0, serve.arch.vocab_size, n).tolist())
+               for n in (40, 700, 120, 1500, 16, 300)]
+    t0 = time.perf_counter()
+    serve.run_until_done()
+    launches = read_counts()
+    pairs = [h.request.worker_id for h in handles]
+    print(f"ablation serve (round-robin, single depth 4, no verify buckets): {len(handles)} "
+          f"requests in {time.perf_counter() - t0:.2f} s, pairs {pairs}, decode widths "
+          f"{ {k: sorted(v) for k, v in widths.items()} }, launches {launches}")
+    if any(h.state.value != "finished" or len(h.result()) != cfg.max_new_tokens
+           for h in handles):
+        fail("ablation serve: not every request finished")
+    if pairs != [0, 1] * 3 or widths != {"target": {5}, "draft": {1}}:
+        fail("ablation serve: requests did not alternate pairs or K1 ran at another width")
+    wgmma_only(launches, "ablation serve", "decode_attention", "flash_attention")
+    report["ablation_serve"] = {"pairs": pairs, "launches": launches,
+                                "decode_widths": {k: sorted(v) for k, v in widths.items()}}
+
+
+def self_draft_phase(report: dict) -> None:
+    """llama2-7b's first 2 layers at full width in fp32 as their own draft
+    (draft_cfg and draft_params the target's, all its layers), 12 requests of
+    32 new tokens on 2 pairs x 8 slots: greedy verify must give the tokens of
+    decoding without a draft.  The draft protocol is the reference's, which
+    never ingests the k-th proposal, so a step that accepts all k leaves the
+    draft a token short (ROADMAP §3) and acceptance stays below 1; a draft
+    that also ingests its last proposal must accept >= 0.9 and give the same
+    tokens.  The one check on the card of the draft lane's propose, commit
+    and rollback."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import EngineConfig, ModelLaneDraft, PipeServeEngine
+    from repro_torch.models import build_model
+    from repro_torch.serving.request import Request, SamplingParams
+
+    class IngestLast(ModelLaneDraft):
+        def propose(self, pair, k):
+            toks, q = super().propose(pair, k)
+            self.lane.decode(toks[:, -1:].int())
+            return toks, q
+
+        def on_commit(self, pair, accept_idx, k):
+            self.lane.commit(k + 1, accept_idx)
+
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2, dtype="float32")
+    params = build_model(cfg, "cuda").init(1)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (16, 400, 24, 300, 40, 200, 64, 130, 350, 33, 100, 250)]
+
+    def run(draft, cls=ModelLaneDraft):
+        engine = PipeServeEngine(cfg, params, n_pairs=2, device="cuda", draft_cfg=cfg,
+                                 draft_params=params,
+                                 econf=EngineConfig(max_batch=8, max_len=512, draft=draft))
+        for pair in engine.pairs:
+            if draft == "model":
+                pair.draft.__class__ = cls
+        reqs = [Request(prompt=p, params=SamplingParams(max_new_tokens=32)) for p in prompts]
+        with acceptance_counted() as seen:
+            for r in reqs:
+                engine.submit(r)
+            engine.run_until_done()
+        return [r.output_tokens for r in reqs], acceptance(seen)
+
+    zero_counts()
+    plain, _ = run("none")
+    mirrored, ref_protocol = run("model")
+    level, ingest_last = run("model", IngestLast)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    same = plain == mirrored == level
+    print(f"self-draft check (llama2-7b, 2 full-width layers, fp32): acceptance "
+          f"{ref_protocol:.4f} with the reference's draft protocol, {ingest_last:.4f} with the "
+          f"draft ingesting its last proposal; tokens equal to decoding without a draft: {same}")
+    for name in ("decode_attention", "flash_attention"):
+        no_wgmma(launches, name, "self-draft check")
+    if not same or ingest_last < 0.9:
+        fail("self-draft check: tokens differ from plain decoding or acceptance < 0.9")
+    report["self_draft"] = {"acceptance_reference_protocol": ref_protocol,
+                            "acceptance_ingest_last": ingest_last, "tokens_equal": same}
+
+
 # --------------------------------------------------------------- SSM (mamba2)
 
 SSD_CHECKS = [  # B, S, H, P, G, N, dtype, initial state
@@ -1323,6 +1632,19 @@ def main() -> None:
     _, serve = chunked_serve_phase(params, report, paged=True)
     del serve, params
     release()
+    llama_timing = llama_kernel_phase(report)
+    model_phase(report, "llama2-7b")
+    release()
+    paper_launches, serve = paper_serve_phase(report)
+    profile_phase(serve, report, "paper_profile", LLAMA_LENS[:8], seed=5)
+    params, draft_params = serve.engine.pairs[0].lane.params, lanes(serve, "draft")[0].params
+    del serve
+    release()
+    ablation_phase(params, draft_params, report)
+    del params, draft_params
+    release()
+    self_draft_phase(report)
+    release()
     ssd_timing = ssd_kernel_phase(report)
     mamba_model_phase(report)
     mamba_launches, serve = mamba_serve_phase(report)
@@ -1341,7 +1663,9 @@ def main() -> None:
 
     # launches: K1 and K2 from the dense serve, K1 at the chunk shape from the
     # chunked serve's chunk steps, K3 from the paged serve (its decode/verify
-    # and admission calls apart, 28 launches a call), K4 from the mamba2 serve
+    # and admission calls apart, 28 launches a call), K4 from the mamba2
+    # serve; at one query head per KV head, K1 from the paper serve's target
+    # lanes (verify) and draft lanes (proposals), K2 from both lanes' prefills
     ps_calls = report["paged_serve"]
     k3_admit = paged_launches["decode_attention_paged"] * ps_calls["prefill_calls"] // (
         ps_calls["prefill_calls"] + ps_calls["decode_calls"])
@@ -1358,6 +1682,16 @@ def main() -> None:
                      paged_timing["admission"], k3_admit, "admission"),
                entry("ssd_scan", "ssd_wgmma_kernel", ssd_timing, mamba_launches["ssd_scan"],
                      "ssd_scan")]
+    split = report["paper_serve"]["launch_split"]
+    kernels += [entry("decode_attention (llama2 verify)", "decode_wgmma_kernel",
+                      llama_timing["decode_attention (llama2 verify)"],
+                      split["decode_attention.target"], None),
+                entry("decode_attention (llama2 draft)", "decode_wgmma_kernel",
+                      llama_timing["decode_attention (llama2 draft)"],
+                      split["decode_attention.draft"], None),
+                entry("flash_attention (llama2)", "flash_wgmma_kernel",
+                      llama_timing["flash_attention (llama2)"],
+                      paper_launches["flash_attention"], None)]
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -10,7 +10,7 @@ Policy fields (``router``, ``draft``, ``spec_policy``) are registry names
 (:mod:`repro_torch.api.registry`).  Fields of features the port does not
 have yet (the gateway, StreamTrace) keep the reference's defaults and are
 not validated here: the engine refuses a non-default trace setting by name.  The paged fields are checked by the engine's
-paged gate.  YAML round trips and the paper presets are not ported yet.
+paged gate.  YAML round trips are not ported yet.
 """
 from __future__ import annotations
 
@@ -107,7 +107,10 @@ class ServeConfig:
                         (self.n_layers is None or self.n_layers >= 1,
                          "n_layers override must be >= 1"),
                         (self.max_new_tokens < self.max_len,
-                         "max_new_tokens must leave prompt room under max_len")):
+                         "max_new_tokens must leave prompt room under max_len"),
+                        (not (self.paged_kv and self.draft == "model"),
+                         "paged_kv does not support the 'model' draft (the draft lane keeps "
+                         "a dense cache with its own admission path)")):
             if not ok:
                 raise ValueError(msg)
 
@@ -122,6 +125,22 @@ class ServeConfig:
                 "max_len": 96, "max_new_tokens": 12, "kv_blocks": 1024, "kv_block_size": 8}
         return cls(**{**base, **overrides})
 
+    @classmethod
+    def paper_stream_pairs(cls, arch="qwen3-1.7b", **overrides):
+        """The paper's §4 operating point: 2 stream pairs, FlowGuard +
+        SpecuStream, the full-size model (the reference's preset)."""
+        base = {"arch": arch, "reduced": False, "n_pairs": 2, "max_batch": 16,
+                "max_len": 2048, "max_new_tokens": 512, "kv_blocks": 8192}
+        return cls(**{**base, **overrides})
+
+    @classmethod
+    def ablation_fixed_depth(cls, depth, arch="qwen3-1.7b", **overrides):
+        """Table 8/9 ablation row: fixed speculation depth (0 disables)."""
+        base = {"arch": arch, "spec_policy": "fixed" if depth > 0 else "none",
+                "fixed_depth": max(depth, 0), "draft": "ngram" if depth > 0 else "none",
+                **overrides}
+        return cls.reduced_smoke(**base) if base.get("reduced", True) else cls(**base)
+
     def build_arch_config(self):
         from repro_torch.configs import get_config, reduced_config
 
@@ -129,6 +148,13 @@ class ServeConfig:
         if self.n_layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=self.n_layers)
         return cfg
+
+    def build_draft_arch_config(self):
+        """Arch config of the small 'model' draft: the same family with
+        ``draft_layers`` layers (at most the target's)."""
+        base = self.build_arch_config()
+        return dataclasses.replace(base, n_layers=min(self.draft_layers, base.n_layers),
+                                   name=base.name + "-draft")
 
     def build_engine_config(self):
         """EngineConfig from the fields both share, plus the three renamed."""

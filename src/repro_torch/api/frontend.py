@@ -115,13 +115,15 @@ class StreamServe:
     """Single public entry point to the serving stack.
 
     Builds the model (or takes ``params`` in the port's layout, e.g. from
-    :func:`repro_torch.params.from_jax_tree`), resolves all policies through
-    the registries, and wraps :class:`PipeServeEngine` with an online
-    submit/stream/cancel surface.  ``device=None`` runs on the card and
-    raises where there is none; tests pass ``device="cpu"``.
+    :func:`repro_torch.params.from_jax_tree`) and, for ``draft="model"``,
+    the draft model (its seeded init at ``seed + 1``, or ``draft_params``),
+    resolves all policies through the registries, and wraps
+    :class:`PipeServeEngine` with an online submit/stream/cancel surface.
+    ``device=None`` runs on the card and raises where there is none; tests
+    pass ``device="cpu"``.
     """
 
-    def __init__(self, config=None, *, params=None,
+    def __init__(self, config=None, *, params=None, draft_params=None,
                  arch_cfg=None, device=None, **overrides):
         from repro_torch.core.engine import PipeServeEngine, resolve_device
         from repro_torch.models import build_model
@@ -132,8 +134,14 @@ class StreamServe:
         self.arch = arch_cfg if arch_cfg is not None else config.build_arch_config()
         if params is None:  # no checkpoint: seeded random weights on the device
             params = build_model(self.arch, self.device).init(config.seed)
+        draft_cfg = None
+        if config.draft == "model":
+            draft_cfg = config.build_draft_arch_config()
+            if draft_params is None:
+                draft_params = build_model(draft_cfg, self.device).init(config.seed + 1)
         self.engine = PipeServeEngine(self.arch, params, n_pairs=config.n_pairs,
-                                      econf=config.build_engine_config(), device=self.device)
+                                      econf=config.build_engine_config(), draft_cfg=draft_cfg,
+                                      draft_params=draft_params, device=self.device)
 
     def submit(self, prompt, params=None, *,
                slo_ttft=None,

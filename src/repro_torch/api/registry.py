@@ -85,7 +85,8 @@ class Registry:
 
 
 ROUTERS = Registry("router", builtin_modules=["repro_torch.core.flowguard"])
-DRAFTS = Registry("draft", builtin_modules=["repro_torch.serving.draft"])
+DRAFTS = Registry("draft", builtin_modules=["repro_torch.serving.draft",
+                                            "repro_torch.core.engine"])
 SPEC_POLICIES = Registry("spec_policy", builtin_modules=["repro_torch.core.specustream"])
 
 register_router = ROUTERS.register

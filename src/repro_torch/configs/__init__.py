@@ -1,7 +1,7 @@
 """Config registry: ``get_config("<arch-id>")`` and reduced test variants.
 
-qwen3-1.7b (dense) and mamba2-2.7b (SSM) are ported so far; the other
-architectures of ``repro`` arrive with their model code (ROADMAP, M9).
+qwen3-1.7b and llama2-7b (dense) and mamba2-2.7b (SSM) are ported so far;
+the other architectures of ``repro`` arrive with their model code (ROADMAP, M9).
 """
 from __future__ import annotations
 
@@ -9,10 +9,11 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import ArchConfig, SSMConfig
+from repro_torch.configs.llama2_7b import CONFIG as _llama2
 from repro_torch.configs.mamba2_2_7b import CONFIG as _mamba2
 from repro_torch.configs.qwen3_1_7b import CONFIG as _qwen3
 
-ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [_mamba2, _qwen3]}
+ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [_mamba2, _qwen3, _llama2]}
 
 
 def get_config(name):

@@ -92,3 +92,5 @@ class ArchConfig:
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         mixers = sum(attn if kind == "attn" else ssm for kind in self.layer_kinds())
         return embed + mixers + self.n_layers * (mlp + 2 * d)
+
+    n_params = n_active_params  # without MoE every parameter is active

@@ -27,9 +27,12 @@ an earlier deadline can park a long prompt at a chunk boundary (EDF
 preemption); a finished row moves into a decode slot (or, paged, into
 pages).  A stack with SSM layers (Mamba2) admits one request per prefill
 call at its exact prompt length, since the SSM state would absorb padding,
-and is refused paged KV and chunking.  The model draft and StreamTrace
-recording raise ``NotImplementedError`` naming their ROADMAP item.  The
-engine is single-controller and deterministic given the request trace.
+and is refused paged KV and chunking.  The small-transformer draft
+(``draft="model"``, :class:`ModelLaneDraft`) keeps its own dense
+``ModelLane`` per pair, which mirrors the target's admissions, so it is
+refused paged KV and chunking too.  StreamTrace recording raises
+``NotImplementedError`` naming its ROADMAP item.  The engine is
+single-controller and deterministic given the request trace.
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.api.registry import resolve_draft, resolve_router, resolve_spec_policy
+from repro_torch.api.registry import (register_draft, resolve_draft, resolve_router,
+                                     resolve_spec_policy)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.metrics import PerformanceMonitor, RequestRecord
 from repro_torch.core.scheduler import StreamScheduler, edf_deadline
@@ -48,10 +52,10 @@ from repro_torch.models import build_model
 from repro_torch.models.attention import SPEC_MARGIN, cache_capacity
 from repro_torch.obs.spans import request_phases
 from repro_torch.serving.cost_model import H100_SXM, HardwareProfile, PrefillDelayEstimator
-from repro_torch.serving.draft import DraftContext
+from repro_torch.serving.draft import DraftContext, EngineDraft
 from repro_torch.serving.kv_cache import KVCacheManager
 from repro_torch.serving.request import Request, RequestState
-from repro_torch.serving.sampling import sample
+from repro_torch.serving.sampling import sample, sample_probs
 from repro_torch.serving.speculative import verify_tokens
 
 
@@ -236,14 +240,14 @@ class StreamPair:
     """One disaggregated prefill+decode lane pair (paper Alg 3)."""
 
     def __init__(self, worker_id, cfg, params, econf,
-                 monitor, device):
+                 monitor, device, draft_cfg=None, draft_params=None):
         self.worker_id, self.econf, self.monitor, self.device = worker_id, econf, monitor, device
         self._paged = paged = econf.paged_kv
-        ps = econf.kv_block_size
+        ps, vb = econf.kv_block_size, econf.verify_buckets
         # page headroom every row keeps ahead of its committed length: the
         # deepest verify writes bucket+1 tokens before the host can extend a
         # table, and writes past a row's table are dropped
-        self._kv_margin = econf.verify_buckets[-1] + 1
+        self._kv_margin = vb[-1] + 1 if vb else 9
         self._max_context = (econf.max_context or econf.max_len) if paged else econf.max_len
         self._pages_max = -(-self._max_context // ps)
         self.lane = ModelLane(cfg, params, econf.max_batch, econf.max_len, device,
@@ -260,7 +264,15 @@ class StreamPair:
         self.requeue = None
         self.spec = resolve_spec_policy(econf.resolved_spec_policy(), config=econf.spec_config,
                                         fixed_depth=econf.fixed_depth)
-        self.draft = resolve_draft(econf.draft, DraftContext(cfg=cfg, econf=econf))
+        self.draft = resolve_draft(econf.draft, DraftContext(cfg, econf, draft_cfg, draft_params,
+                                                             device))
+        if type(self.draft).on_admit is not EngineDraft.on_admit:  # it mirrors admission
+            for on, what, off in ((paged, "paged_kv", "paging"),
+                                  (econf.prefill_chunk and attention_only(cfg), "prefill_chunk",
+                                   "chunking")):
+                if on:
+                    raise ValueError(f"{what} is incompatible with drafts that mirror admission "
+                                     f"state (draft='model'); use 'ngram'/'none' or disable {off}")
         # length bucketing needs padding to be invisible, which holds for
         # causal attention but not for SSM state (the reference's arch_ok)
         self._bucketed = econf.prefill_buckets and attention_only(cfg)
@@ -289,7 +301,7 @@ class StreamPair:
         B = econf.max_batch
         self.slot_req: List[Optional[Request]] = [None] * B
         # device-resident pending next-token per slot (sampled, not ingested)
-        self.pending = torch.zeros(B, dtype=torch.int32, device=device)
+        self.pending = self._i32(B)
         self.histories: List[List[int]] = [[] for _ in range(B)]
         self.acceptance = 0.7  # optimistic prior
         self.gen = torch.Generator(device=device).manual_seed(worker_id)
@@ -315,6 +327,10 @@ class StreamPair:
 
     def _to_dev(self, a):
         return torch.from_numpy(a).to(self.device)
+
+    def _i32(self, *shape, fill=0):
+        """An int32 tensor of ``shape`` on the pair's device, filled."""
+        return torch.full(shape, fill, dtype=torch.int32, device=self.device)
 
     def reserve_kv(self, req):
         """Reserve KV blocks ahead of the prefill: prompt + max_new on the
@@ -519,6 +535,19 @@ class StreamPair:
         self.chunk_rows[row] = None
         del self.chunk_cursor[req.request_id]
 
+    def release(self, request_id=None):
+        """Take every request (or the one ``request_id``) out of its decode
+        slot, then out of its chunk row, freeing its KV; returns them in that
+        order."""
+        out = []
+        for slot, r in enumerate(self.slot_req):
+            if r is not None and request_id in (None, r.request_id):
+                out.append(r)
+                self.kv.free_sequence(r.request_id)
+                self.clear_slot(slot)
+        return out + [self.chunk_release(row) for row, r in enumerate(self.chunk_rows)
+                      if r is not None and request_id in (None, r.request_id)]
+
     def chunk_release(self, row):
         """Empty a chunk row without completing it (cancel, worker failure)
         and free its KV.  The parked cache rows are simply abandoned: the
@@ -539,18 +568,23 @@ class StreamPair:
             self._sync_bt()  # page-table edits land before any device step
         B = self.econf.max_batch
         throughput = self.monitor.workers[self.worker_id].recent_throughput
-        self.spec.adapt(self.acceptance, self.load, throughput)  # advances the flow state
+        # advances the flow state; its depth serves single-depth verify
+        decision = self.spec.adapt(self.acceptance, self.load, throughput)
         vb = self.econf.verify_buckets
         # per-row depths: each slot picks from its own acceptance and TPOT
-        # headroom; the rows share the verify bucket >= the deepest row (also
-        # the paged clamp: depth <= page margin - 1)
-        signals = [None if r is None else SlotSignals(slo_tpot=r.slo_tpot, tpot=r.measured_tpot())
-                   for r in self.slot_req]
-        rows = np.asarray(self.spec.select_depths(signals, self.load, throughput), np.int64)
-        rows = np.minimum(rows, min(self.draft.max_depth, vb[-1]))
+        # headroom, and the rows share the verify bucket >= the deepest row;
+        # without buckets, or with per_row_depth off, every active row takes
+        # the pair's single decision.  Depth is clamped to the deepest bucket
+        # (paged: page margin - 1)
+        per_row = self.econf.per_row_depth and vb is not None
+        active_mask = np.isin(np.arange(B), active)
+        rows = np.asarray(self.spec.select_depths(
+            [None if r is None else SlotSignals(slo_tpot=r.slo_tpot, tpot=r.measured_tpot())
+             for r in self.slot_req], self.load, throughput), np.int64) if per_row \
+            else active_mask * decision.bucket_depth
+        cap = self._kv_margin - 1 if vb or self._paged else self.draft.max_depth
+        rows = np.minimum(rows, min(self.draft.max_depth, cap))
         k = int(rows.max())
-        active_mask = np.zeros((B,), bool)
-        active_mask[active] = True
         active_dev = self._to_dev(active_mask)
 
         if k == 0:  # plain autoregressive step (its commit would be a no-op)
@@ -560,34 +594,43 @@ class StreamPair:
             nxt_h = nxt.tolist()  # the ONE decode round-trip
             return sum(self._emit(s, [nxt_h[s]], now) for s in active)
 
-        # draft proposal at the real depth k, padded to a shape bucket
+        # draft proposal at the real depth k, padded to a shape bucket (the
+        # last token repeated, q = 1); n-gram proposals come from the host,
+        # the model draft's stay on the device
         k_pad = pad_to_bucket(k, vb)
-        draft_np, draft_q = self.draft.propose(self, k)
-        draft_np = np.pad(draft_np, ((0, 0), (0, k_pad - k)), mode="edge").astype(np.int32)
-        draft_q = np.pad(draft_q, ((0, 0), (0, k_pad - k)), constant_values=1.0)
-        depth = self._to_dev(rows.astype(np.int32))  # heterogeneous, one shape
+        draft, draft_q = self.draft.propose(self, k)
+        draft = torch.as_tensor(draft, device=self.device).to(torch.int32)
+        draft_q = torch.as_tensor(draft_q, device=self.device).float()
+        if k_pad > k:
+            draft = torch.cat([draft, draft[:, -1:].expand(-1, k_pad - k)], 1)
+            draft_q = torch.cat([draft_q, draft_q.new_ones((B, k_pad - k))], 1)
+        depth = (self._to_dev(rows.astype(np.int32)) if per_row  # heterogeneous, one shape
+                 else self._i32(B, fill=k) if vb else None)
         for s in active:
             self.slot_req[s].spec_depths.append(int(rows[s]))
         # target verify step over T = k_pad + 1 tokens
-        draft_toks = self._to_dev(draft_np)
-        logits = self.lane.decode(torch.cat([self.pending[:, None], draft_toks], 1))
-        res = verify_tokens(self.gen, draft_toks, self._to_dev(draft_q.astype(np.float32)),
-                            logits, active=active_dev, temperature=self.econf.temperature,
-                            depth=depth)
+        logits = self.lane.decode(torch.cat([self.pending[:, None], draft], 1))
+        res = verify_tokens(self.gen, draft, draft_q, logits, active=active_dev,
+                            temperature=self.econf.temperature, depth=depth)
         self.lane.commit(k_pad + 1, res.accept_idx)
         self.draft.on_commit(self, res.accept_idx, k)
         self.pending = torch.where(active_dev, res.next_token.to(torch.int32), self.pending)
         # the ONE decode round-trip: everything host bookkeeping needs at once
-        n_acc, nxt = torch.stack([res.n_accepted, res.next_token]).tolist()
-        # each slot's fraction of ITS OWN depth feeds the per-slot EMA; the
-        # pair-level EMA keeps the mean
-        fracs = [n_acc[s] / max(int(rows[s]), 1) for s in active]
-        for s, frac in zip(active, fracs, strict=True):
-            if rows[s] > 0:
-                self.spec.observe_slot(s, frac)
-        self.acceptance = 0.8 * self.acceptance + 0.2 * sum(fracs) / len(fracs)
-        return sum(self._emit(s, [*draft_np[s, : n_acc[s]].tolist(), nxt[s]], now)
-                   for s in active)
+        host = torch.cat([res.n_accepted[:, None], res.next_token[:, None], draft.long()],
+                         1).tolist()
+        n_acc = [h[0] for h in host]
+        if per_row:
+            # each slot's fraction of ITS OWN depth feeds the per-slot EMA;
+            # the pair-level EMA keeps the mean
+            fracs = [n_acc[s] / max(int(rows[s]), 1) for s in active]
+            for s, frac in zip(active, fracs, strict=True):
+                if rows[s] > 0:
+                    self.spec.observe_slot(s, frac)
+            accepted = sum(fracs) / len(fracs)
+        else:
+            accepted = sum(n_acc[s] for s in active) / len(active) / max(k, 1)
+        self.acceptance = 0.8 * self.acceptance + 0.2 * accepted
+        return sum(self._emit(s, [*host[s][2:2 + n_acc[s]], host[s][1]], now) for s in active)
 
     def _emit(self, slot, tokens, now):
         """Host bookkeeping for one slot's freshly decoded tokens (the device
@@ -678,7 +721,7 @@ class StreamPair:
         econf, dev = self.econf, self.device
         B = econf.max_batch
         gen = torch.Generator(device=dev).manual_seed(0)  # must not perturb self.gen
-        n = 0
+        n, batches = 0, []  # batches: one a prefill shape, for the draft's warmup
         cap = min(max_prompt_len or self._max_context, self._max_context)
         if self._paged:  # all-(-1) tables: every page write goes to the spare page
             self._bt_dirty = True
@@ -687,9 +730,8 @@ class StreamPair:
             # ONE chunk-step shape covers every prompt length; the completion
             # runs too, its pages all to the spare, its rows all dropped
             R = len(self.chunk_rows)
-            zeros = torch.zeros((R,), dtype=torch.int32, device=dev)
-            last = self.lane.chunk_step(self.chunk_cache, torch.zeros(
-                (R, self._chunk), dtype=torch.int32, device=dev), zeros, zeros, 0, 0)
+            last = self.lane.chunk_step(self.chunk_cache, self._i32(R, self._chunk), self._i32(R),
+                                        self._i32(R), 0, 0)
             if self._paged:
                 spare = torch.full((econf.max_len // econf.kv_block_size,), econf.kv_blocks,
                                    dtype=torch.long, device=dev)
@@ -700,30 +742,28 @@ class StreamPair:
             self.chunk_cache = self.lane.model.init_cache(R, econf.max_len)
             n += 1
         elif self._paged:
-            zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
             for S in (b for b in self._len_buckets if b <= _bucket(cap, self._len_buckets)):
-                tokens = torch.zeros((B, S), dtype=torch.int32, device=dev)
-                sample(gen, self.lane.paged_admit(tokens, zeros, zeros), econf.temperature)
+                sample(gen, self.lane.paged_admit(self._i32(B, S), self._i32(B), self._i32(B)),
+                       econf.temperature)
                 n += 1
             n += 1  # the reference's block-table install program
         elif self._bucketed:
             for S in (b for b in self._len_buckets if b <= _bucket(cap, self._len_buckets)):
                 for Bb in self._admit_buckets:
-                    logits, small = self.lane.prefill(
-                        {"tokens": torch.zeros((Bb, S), dtype=torch.int32, device=dev),
-                         "lengths": torch.full((Bb,), S, dtype=torch.int32, device=dev)})
+                    batches.append({"tokens": self._i32(Bb, S), "lengths": self._i32(Bb, fill=S)})
+                    logits, small = self.lane.prefill(batches[-1])
                     self.lane.insert_rows(np.full((Bb,), B, np.int32), small)  # all dropped
                     sample(gen, logits, econf.temperature)
                     n += 1
-        zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+        zeros = self._i32(B)
         for d in econf.verify_buckets or ():
-            logits = self.lane.decode(torch.zeros((B, d + 1), dtype=torch.int32, device=dev))
-            verify_tokens(gen, torch.zeros((B, d), dtype=torch.int32, device=dev),
-                          torch.ones((B, d), device=dev), logits, active=zeros.bool(),
-                          temperature=econf.temperature, depth=zeros + d)
+            logits = self.lane.decode(self._i32(B, d + 1))
+            verify_tokens(gen, self._i32(B, d), torch.ones((B, d), device=dev), logits,
+                          active=zeros.bool(), temperature=econf.temperature, depth=zeros + d)
             self.lane.commit(d + 1, zeros)
             n += 1
         sample(gen, self.lane.decode(zeros[:, None])[:, 0], econf.temperature)
+        self.draft.warmup(self, batches)
         self.lane.reset_cache()
         self.pending = zeros
         return n + 1
@@ -735,24 +775,69 @@ class StreamPair:
             active_load=self.load, acceptance_rate=self.acceptance)
 
 
+class ModelLaneDraft(EngineDraft):
+    """Small-transformer draft on its own :class:`ModelLane` (on the pair's
+    device), mirroring the target's per-slot prefill/insert/commit cache
+    protocol (the EAGLE-class production path).
+
+    As in the reference, the k-th proposal is never ingested by the draft and
+    its commit keeps at most k tokens, so after a step that accepts all k the
+    draft's cache lacks that token (ROADMAP §3)."""
+
+    def __init__(self, cfg, params, max_batch, max_len, temperature, device):
+        self.lane = ModelLane(cfg, params, max_batch, max_len, device)
+        self.temperature = temperature
+
+    def on_admit(self, pair, batch, slots):
+        self.lane.insert_rows(slots, self.lane.prefill(batch)[1])
+
+    def propose(self, pair, k):
+        """k single-token decodes from the pair's pending tokens, each
+        sampling the next from the draft's logits."""
+        out = [(pair.pending, None)]
+        for _ in range(k):
+            out.append(sample_probs(pair.gen, self.lane.decode(out[-1][0][:, None].int())[:, -1],
+                                    self.temperature))
+        toks, qs = zip(*out[1:], strict=True)
+        return torch.stack(toks, 1), torch.stack(qs, 1)
+
+    def on_commit(self, pair, accept_idx, k):
+        # the draft ingested [pending, d_1..d_{k-1}] during propose
+        self.lane.commit(k, accept_idx.clamp_max(k - 1))
+
+    def warmup(self, pair, prefill_batches):
+        for batch in prefill_batches:  # every insert row dropped
+            self.on_admit(pair, batch, np.full(len(batch["tokens"]), self.lane.max_batch))
+        sample_probs(torch.Generator(device=pair.device).manual_seed(0),
+                     self.lane.decode(pair.pending[:, None])[:, -1], self.temperature)
+        self.lane.reset_cache()
+
+
+@register_draft("model")
+def _make_model_draft(ctx):
+    if ctx.draft_cfg is None or ctx.draft_params is None:
+        raise ValueError("draft='model' requires draft_cfg and draft_params")
+    e = ctx.econf
+    return ModelLaneDraft(ctx.draft_cfg, ctx.draft_params, e.max_batch, e.max_len,
+                          e.temperature, ctx.device)
+
+
 class PipeServeEngine:
     """The StreamServe system on the PyTorch execution path (paper Alg 1).
 
-    ``device=None`` runs on the card and raises where there is none;
-    ``hardware`` is the profile SLO routing prices queued prefill with.
+    ``draft_cfg``/``draft_params`` are the small draft model of
+    ``draft="model"``; ``device=None`` runs on the card and raises where
+    there is none; ``hardware`` is the profile SLO routing prices queued
+    prefill with.
     """
 
     def __init__(self, cfg, params, n_pairs=2,
-                 econf=None, router=None, device=None,
+                 econf=None, router=None, draft_cfg=None, draft_params=None, device=None,
                  hardware=H100_SXM):
         self.device = resolve_device(device)
         self.econf = econf = econf or EngineConfig()
-        for bad, what in ((econf.trace != "off", "StreamTrace recording (ROADMAP)"),
-                          (not (econf.per_row_depth and econf.verify_buckets),
-                           "single-depth verify (per_row_depth=False or no verify_buckets;"
-                           " ROADMAP)")):
-            if bad:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if econf.trace != "off":
+            raise NotImplementedError("StreamTrace recording (ROADMAP) is not ported yet")
         if econf.paged_kv:  # the reference's paged gating (write-once pages: no window)
             for bad, what in (
                     (not attention_only(cfg), "an attention-only stack (SSM state is "
@@ -769,8 +854,8 @@ class PipeServeEngine:
             router = resolve_router(router or econf.router, config=econf.router_config)
         self._now = 0.0
         self.monitor = PerformanceMonitor(n_pairs, clock=lambda: self._now)
-        self.pairs = [StreamPair(i, cfg, params, econf, self.monitor, self.device)
-                      for i in range(n_pairs)]
+        self.pairs = [StreamPair(i, cfg, params, econf, self.monitor, self.device, draft_cfg,
+                                 draft_params) for i in range(n_pairs)]
         # SLO routing prices queued prefill work in engine ticks via the cost
         # model, so TTFT slack is comparable with slo_ttft deadlines; chunked,
         # at the pairs' effective chunk (clamped, or None for an SSM stack)
@@ -811,16 +896,8 @@ class PipeServeEngine:
         """Cancel a request that is queued, mid-chunked-prefill or mid-decode.
         Returns True if it was found and cancelled, False if unknown or
         already done."""
-        req = self.scheduler.cancel(request_id)
-        for pair in self.pairs:
-            for slot, occupant in enumerate(pair.slot_req):
-                if req is None and occupant is not None and occupant.request_id == request_id:
-                    req = occupant
-                    pair.kv.free_sequence(request_id)
-                    pair.clear_slot(slot)
-            for row, occupant in enumerate(pair.chunk_rows):
-                if req is None and occupant is not None and occupant.request_id == request_id:
-                    req = pair.chunk_release(row)
+        req = self.scheduler.cancel(request_id) or next(
+            (r for pair in self.pairs for r in pair.release(request_id)), None)
         if req is None:
             return False
         req.state, req.t_end = RequestState.CANCELLED, self._now
@@ -835,14 +912,7 @@ class PipeServeEngine:
         pair = self.pairs[worker_id]
         pair.healthy = False
         rerouted = self.scheduler.mark_unhealthy(worker_id, self._now)
-        orphans = []
-        for slot in pair.active_slots():
-            orphans.append(pair.slot_req[slot])
-            pair.kv.free_sequence(orphans[-1].request_id)
-            pair.clear_slot(slot)
-        orphans += [pair.chunk_release(row) for row, r in enumerate(pair.chunk_rows)
-                    if r is not None]
-        for req in orphans:
+        for req in pair.release():
             _restart(req)
             # FAILED with a terminal record when this was the last worker
             rerouted += self.scheduler.resubmit_or_fail(req, self._now)

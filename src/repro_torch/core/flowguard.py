@@ -1,6 +1,5 @@
-"""FlowGuard — multi-signal metric-aware routing (paper §3.3, Alg 2); a copy
-of ``repro.core.flowguard`` (its round-robin ablation router is not ported
-yet).
+"""FlowGuard — multi-signal metric-aware routing (paper §3.3, Alg 2), and
+the round-robin ablation router; a copy of ``repro.core.flowguard``.
 
   Eq 1:  S_w = α1·C_w + α2·(1−M_w) + α3·(1−Q_w) + α4·(1−L_w)
   Eq 2:  Overload(w) = ω_w > τ
@@ -110,6 +109,25 @@ class FlowGuard:
         return max(scores, key=lambda i: (scores[i], -i)), scores
 
 
+class RoundRobinRouter:
+    """Ablation baseline (paper Table 8, 'w/ Round-Robin'): the healthy
+    pairs in turn, blind to load, SLOs and prefixes."""
+
+    def __init__(self):
+        self._next = 0
+
+    def select(self, metrics, now, healthy=None, request=None, queue_delays=None,
+               prefix_scores=None):
+        candidates = sorted(metrics.keys() if healthy is None else healthy)
+        self._next += 1
+        return candidates[(self._next - 1) % len(candidates)], {}
+
+
 @register_router("flowguard")
 def _make_flowguard(config=None):
     return FlowGuard(FlowGuardConfig(**config) if isinstance(config, dict) else config)
+
+
+@register_router("roundrobin")
+def _make_roundrobin(config=None):
+    return RoundRobinRouter()

@@ -6,6 +6,9 @@ tokens until every one has finished.
   python -m repro_torch.launch.serve --no-reduced     # full width, on the card
   python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu --requests 6
   python -m repro_torch.launch.serve --arch mamba2-2.7b --no-reduced   # on the card
+  # the paper's model with the small-transformer draft, round-robin routing
+  python -m repro_torch.launch.serve --arch llama2-7b --reduced --draft model \
+      --router roundrobin --device cpu --requests 6
 
 The reference's ``--config``/``--dump-config`` (YAML), ``--trace*``, HTTP
 gateway and fault-injection flags wait for those features (ROADMAP).

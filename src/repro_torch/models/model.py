@@ -112,7 +112,8 @@ class Model:
             raise ValueError("prefill of a stack with SSM layers needs every row "
                              "unpadded (lengths == S): the SSM state would absorb padding")
         cap = attn.cache_capacity(cfg, max_len)
-        cache = {"len": lengths.to(torch.int32)}
+        # a copy: decode grows the cache's len in place, never the caller's lengths
+        cache = {"len": lengths.to(torch.int32, copy=True)}
         if self.n_attn:
             cache.update(self._attn_cache(B, cap, False))
         if self.n_ssm:

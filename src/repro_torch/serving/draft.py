@@ -2,13 +2,13 @@
 providers of ``repro.serving.draft``).
 
 The engine consumes the per-pair :class:`EngineDraft` protocol.  The
-small-transformer draft (``draft="model"``) is not ported yet: its name is
-registered so that configs validate, and building it raises (ROADMAP M8).
+small-transformer draft (``draft="model"``, ``ModelLaneDraft``) lives in
+``core/engine.py`` next to the ``ModelLane`` whose cache protocol it mirrors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
@@ -22,6 +22,9 @@ class DraftContext:
 
     cfg: ArchConfig
     econf: Any                      # repro_torch.core.engine.EngineConfig
+    draft_cfg: Optional[ArchConfig] = None  # the small 'model' draft, when given
+    draft_params: Any = None
+    device: Any = None                       # the pair's device, where a draft lane lives
 
 
 class EngineDraft:
@@ -43,6 +46,10 @@ class EngineDraft:
     def on_commit(self, pair, accept_idx, k):
         """The target accepted ``accept_idx`` tokens per row of the real
         depth ``k`` (bucket padding never reaches providers)."""
+
+    def warmup(self, pair, prefill_batches):
+        """Run the provider's own steps once (one dummy ``batch`` per prefill
+        shape bucket the engine uses) and leave its state as it was."""
 
 
 class NGramEngineDraft(EngineDraft):
@@ -86,8 +93,3 @@ def _make_ngram(ctx):
 def _make_none(ctx):
     return NoDraft()
 
-
-@register_draft("model")
-def _make_model_draft(ctx):
-    raise NotImplementedError("draft='model' (the small-transformer draft lane) is "
-                              "not ported yet (ROADMAP M8); use 'ngram' or 'none'")

@@ -19,3 +19,12 @@ def sample(gen, logits, temperature=0.0):
     if temperature <= 0.0:
         return logits.argmax(-1)
     return torch.multinomial(token_probs(logits, temperature), 1, generator=gen)[:, 0]
+
+
+def sample_probs(gen, logits, temperature=0.0):
+    """Sample and return (token (B,), q(token) (B,)): the probability the
+    sampler gave the token, which speculative verification needs of a draft."""
+    probs = token_probs(logits, temperature)
+    tok = (logits.argmax(-1) if temperature <= 0.0
+           else torch.multinomial(probs, 1, generator=gen)[:, 0])
+    return tok, probs.gather(-1, tok[:, None])[:, 0]

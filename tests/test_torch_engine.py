@@ -47,14 +47,14 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def fp32_pair(arch, **fields):
+def fp32_pair(arch, seed=0, **fields):
     """The reference's and the port's reduced ``arch``, 2 layers in float32
-    (and any other ``fields``), with the same weights: (jcfg, jparams, tcfg,
-    tparams)."""
+    (and any other ``fields``), with the same weights from the reference's
+    init at ``seed``: (jcfg, jparams, tcfg, tparams)."""
     fields = {"n_layers": 2, "dtype": "float32", **fields}
     jcfg = dataclasses.replace(jax_reduced(arch), **fields)
     tcfg = dataclasses.replace(reduced_config(arch), **fields)
-    jparams, _ = unzip_params(jax_build(jcfg).init(jax.random.PRNGKey(0)))
+    jparams, _ = unzip_params(jax_build(jcfg).init(jax.random.PRNGKey(seed)))
     return jcfg, jparams, tcfg, from_jax_tree(jax.tree.map(np.asarray, jparams), tcfg)
 
 
@@ -75,15 +75,18 @@ def fp32_models(fp32_model):
     return get
 
 
-def _engines(pair, n_pairs, **kw):
-    """The JAX engine and the port's on the same weights; routing prices
-    prefill with the reference's TPU profile."""
+def _engines(pair, n_pairs, draft_model=(None,) * 4, **kw):
+    """The JAX engine and the port's on the same weights (and the same
+    ``draft_model``, an fp32_pair, for draft='model'); routing prices prefill
+    with the reference's TPU profile."""
     jcfg, jparams, tcfg, tparams = pair
     kw = {"max_batch": 2, "max_len": 96, **kw}
     return (jax_engine.PipeServeEngine(jcfg, jparams, n_pairs=n_pairs,
-                                       econf=jax_engine.EngineConfig(**kw)),
+                                       econf=jax_engine.EngineConfig(**kw),
+                                       draft_cfg=draft_model[0], draft_params=draft_model[1]),
             PipeServeEngine(tcfg, tparams, n_pairs=n_pairs, econf=EngineConfig(**kw),
-                            device="cpu", hardware=HardwareProfile(**dataclasses.asdict(TPU_V5E))))
+                            draft_cfg=draft_model[2], draft_params=draft_model[3], device="cpu",
+                            hardware=HardwareProfile(**dataclasses.asdict(TPU_V5E))))
 
 
 def _copy(reqs):
@@ -223,11 +226,9 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, fp32
         PipeServeEngine(*fp32_model[2:], n_pairs=1)
 
 
-@pytest.mark.parametrize("overrides, item", [
-    ({"draft": "model"}, "M8"), ({"trace": "on"}, "ROADMAP"),
-    ({"per_row_depth": False}, "single-depth")])
+@pytest.mark.parametrize("overrides, item", [({"trace": "on"}, "ROADMAP")])
 def test_later_slices_refuse_by_name(fp32_model, overrides, item):
-    """Paged KV and chunked prefill serve; the later slices' features refuse."""
+    """The features of later slices refuse, naming their ROADMAP item."""
     with pytest.raises(NotImplementedError, match=item):
         PipeServeEngine(*fp32_model[2:], n_pairs=1, device="cpu",
                         econf=EngineConfig(max_batch=2, max_len=96, **overrides))

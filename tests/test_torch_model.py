@@ -1,7 +1,8 @@
-"""The port's model against the JAX model on the tiny qwen3 config: the same
-weights (through the weight bridge) and the same tokens give the same logits
-and the same cache positions.  Tolerances: 1e-4 in float32 (summation order
-differs), 2e-2 in bfloat16 (the frameworks round at different places)."""
+"""The port's model against the JAX model on the tiny qwen3 and llama2
+configs: the same weights (through the weight bridge) and the same tokens
+give the same logits and the same cache positions.  Tolerances: 1e-4 in
+float32 (summation order differs), 2e-2 in bfloat16 (the frameworks round at
+different places)."""
 import dataclasses
 import functools
 
@@ -36,9 +37,13 @@ def model_pair(arch, dt):
     return dt, jcfg, jm, jparams, build_model(tcfg, "cpu"), tparams
 
 
-@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+# qwen3 (GQA, tied embeddings) and llama2 (MHA: one query head a KV head,
+# an untied head), each in both dtypes
+@pytest.fixture(scope="module", params=[("qwen3-1.7b", "float32"), ("qwen3-1.7b", "bfloat16"),
+                                        ("llama2-7b", "float32"), ("llama2-7b", "bfloat16")],
+                ids=["float32", "bfloat16", "llama2-7b-float32", "llama2-7b-bfloat16"])
 def models(request):
-    dt, _, *rest = model_pair("qwen3-1.7b", request.param)
+    dt, _, *rest = model_pair(*request.param)
     return (dt, *rest)
 
 
