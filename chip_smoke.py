@@ -59,6 +59,13 @@ Phases, each fatal on failure:
      tensor-core kernel), and profile a burst, splitting device time between
      prefill and decode;
   9. print the kernel table as one JSON line, then the result line.
+Every serve of phases 4-8 runs twice on the same weights: eager (its lanes'
+graph caches cleared, so each step runs op by op), then on CUDA graphs
+(warmed up: every fixed-shape step captured), each profiled; the graphed
+serve must give the eager one's tokens and launch counts and capture
+nothing after warmup (the unbucketed ablation excepted), and the dense serve
+also runs sampled (temperature 1.0), seed for seed.  The dense and paper
+serves also split a step's host time (dispatch, device wait, bookkeeping).
 Without CUDA, or outside a checkout, it exits non-zero and prints no result.
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -652,14 +659,14 @@ def chunked_model_phase(report: dict) -> None:
         tokens[1, :n] = prompt[cur:cur + n]
         lens, n_new = (torch.tensor([0, x, 0, 0], dtype=torch.int32, device="cuda")
                        for x in (cur, n))
-        logits = lane.chunk_step(staging, tokens, lens, n_new, 1, n)
+        logits = lane.chunk_body(staging, tokens, lens, n_new, torch.tensor([1], device="cuda"))
     launches = read_counts()
     errs = [max_err(logits, one_logits)]
     pos = staging["kv_pos"][:, 1]
     if not torch.equal(pos[:, :L], one["kv_pos"][:, 0, :L]) or bool(
             ((pos[:, L:] >= 0) & (pos[:, L:] < L)).any()):
         fail("chunked model check: kv_pos of the chunked ingest differs from the one-shot's")
-    lane.insert_rows(np.array([2, 1, 2, 2], np.int32), staging)  # row 1 -> slot 1, rest dropped
+    lane.insert_body(*(t.cuda() for t in lane.rows(np.array([2, 1, 2, 2]))), staging)  # row 1
     nxt = one_logits.argmax(-1).to(torch.int32)
     errs.append(max_err(lane.decode(torch.stack([nxt, nxt]))[1],
                         lane.model.decode_step(lane.params, one, nxt[:, None])[0]))
@@ -695,25 +702,64 @@ def wgmma_only(launches: dict, tag: str, *names) -> None:
 
 
 def instrument(serve):
-    """Count non-finite logits on the device (no sync) and zero the lanes'
-    call counts.  Returns the counter."""
+    """Count non-finite floats (logits, draft probabilities) in what every
+    lane step returns, on the device (no sync): a replayed graph's outputs,
+    an eager step's results.  Zero the lanes' call counts.  Returns the
+    counter."""
     import torch
+    from torch.utils._pytree import tree_flatten
 
     bad = torch.zeros((), dtype=torch.int64, device="cuda")
 
     def watch(f):
-        def call(*args):
-            out = f(*args)
-            bad.add_((~torch.isfinite(out[0] if isinstance(out, tuple) else out)).sum())
+        def call(*args, **kw):
+            out = f(*args, **kw)
+            for t in tree_flatten(out)[0]:
+                if isinstance(t, torch.Tensor) and t.is_floating_point():
+                    bad.add_((~torch.isfinite(t)).sum())
             return out
         return call
 
     for lane in lanes(serve, "target") + lanes(serve, "draft"):
-        lane.decode, lane.prefill, lane.paged_admit, lane.chunk_step = (
-            watch(lane.decode), watch(lane.prefill), watch(lane.paged_admit),
-            watch(lane.chunk_step))
+        lane.run, lane.prefill = watch(lane.run), watch(lane.prefill)
         lane.calls = {"prefill": 0, "decode": 0}
     return bad
+
+
+def served(cfg, graphed: bool, **kw):
+    """A StreamServe on the card, warmed up.  Graphed, the warmup captures
+    every fixed-shape step's CUDA graph; eager (the comparison), every lane's
+    graph cache is cleared first (``lane.graphs = None``), so each step runs
+    op by op.  Returns the serve and the warmup's numbers: seconds, graphs
+    captured, the graph pool's size and the peak memory."""
+    import torch
+
+    from repro_torch.api import StreamServe
+    from repro_torch.core import graphs
+
+    serve = StreamServe(cfg, device="cuda", **kw)
+    if not graphed:
+        for lane in lanes(serve, "target") + lanes(serve, "draft"):
+            lane.graphs = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    serve.engine.warmup()
+    torch.cuda.synchronize()
+    pool = graphs.pool("cuda") if graphed else None
+    serve.warm = {"graphed": graphed, "warmup_s": time.perf_counter() - t0,
+                  "captured": captured(serve), "programs": serve.engine.jit_cache_total(),
+                  "pool_gb": sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                                 if pool is not None
+                                 and tuple(seg.get("segment_pool_id", ())) == tuple(pool)) / 1e9,
+                  "warmup_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return serve
+
+
+def captured(serve) -> int:
+    """CUDA graphs the serve's lanes hold."""
+    return sum(len(lane.graphs.steps) for lane in lanes(serve, "target") + lanes(serve, "draft")
+               if lane.graphs is not None)
 
 
 def lanes(serve, which: str) -> list:
@@ -770,7 +816,11 @@ def serve_stats(tag, serve, bad, run, launches: dict) -> dict:
               / (len(r.token_times) - 1) for r in recs]
     s = serve.summary()
     generated = sum(r.generated for r in recs)
+    warm = getattr(serve, "warm", {})
     result = {
+        **warm, "tokens": [h.request.output_tokens for h in handles],
+        "captured_after_warmup": captured(serve) - warm.get("captured", 0),
+        "programs_after_warmup": serve.engine.jit_cache_total() - warm.get("programs", 0),
         "requests": len(recs), "engine_steps": steps,
         "prefill_calls": calls["prefill"], "decode_calls": calls["decode"],
         "launches": launches, "wall_s": wall, "generated_tokens": generated,
@@ -789,7 +839,106 @@ def serve_stats(tag, serve, bad, run, launches: dict) -> dict:
     print(f"{tag}: TTFT mean {result['ttft_ticks_mean']:.2f} ticks = "
           f"{result['ttft_s_mean']:.3f} s, TPOT mean {result['tpot_ticks_mean']:.3f} ticks = "
           f"{result['tpot_s_mean'] * 1e3:.2f} ms; peak memory {result['peak_mem_gb']:.2f} GB")
+    if warm.get("graphed"):
+        print(f"{tag}: {warm['captured']} graphs captured in a {warm['warmup_s']:.2f} s warmup, "
+              f"pool {warm['pool_gb']:.2f} GB, warmup peak {warm['warmup_peak_gb']:.2f} GB; after "
+              f"warmup {result['captured_after_warmup']} captures, "
+              f"{result['programs_after_warmup']} programs")
     return result
+
+
+def twice(report: dict, key: str, phase, profile: dict = None, split=None):
+    """Run a serve phase eager, then graphed, on the same weights (the eager
+    run makes them), each followed by its profiled burst (``profile``: the
+    arguments of profile_phase, its key suffixed "_eager" for the first) and
+    its host split over a burst of ``split`` prompt lengths; hold the graphed
+    serve to the eager one's tokens and launch counts, and to no capture and
+    no new program after warmup.  Returns the graphed phase's (launches,
+    serve) and the weights."""
+    weights = {}
+    for graphed in (False, True):
+        launches, serve = phase(graphed, **weights)
+        suffix = "" if graphed else "_eager"
+        if profile is not None:
+            profile_phase(serve, report, **{**profile, "key": profile["key"] + suffix})
+        if split is not None:
+            host_split(serve, report, key + suffix, split)
+        weights = {"params": serve.engine.pairs[0].lane.params}
+        if lanes(serve, "draft"):
+            weights["draft_params"] = lanes(serve, "draft")[0].params
+        if not graphed:
+            del serve
+            release()
+    same_as_eager(report, key)
+    return launches, serve, weights
+
+
+def same_as_eager(report: dict, key: str, bucketed: bool = True) -> None:
+    """The graphed serve ``report[key]`` against ``report[key + "_eager"]``:
+    equal tokens and launch counts; where every shape is bucketed, nothing
+    captured and no program added after warmup (a stack with SSM layers adds
+    its exact prompt lengths as programs, run eagerly, as the reference
+    retraces them)."""
+    g, e = report[key], report[key + "_eager"]
+    if g["tokens"] != e["tokens"]:
+        fail(f"{key}: the graphed serve's tokens differ from the eager serve's")
+    if g["launches"] != e["launches"]:
+        fail(f"{key}: launches graphed {g['launches']} != eager {e['launches']}")
+    if bucketed and g["captured_after_warmup"]:
+        fail(f"{key}: {g['captured_after_warmup']} graphs captured after warmup")
+    if bucketed and g.get("programs_after_warmup") and not key.startswith("mamba"):
+        fail(f"{key}: {g['programs_after_warmup']} programs added after warmup")
+    line = {m: (e[m], g[m]) for m in ("wall_s", "step_s_mean", "ttft_s_mean", "tpot_s_mean")
+            if m in g}
+    report.setdefault("graphed_vs_eager", {})[key] = line
+    print(f"{key}: graphed tokens and launches equal the eager serve's; (eager, graphed) "
+          + ", ".join(f"{m} ({a:.4g}, {b:.4g})" for m, (a, b) in line.items()))
+
+
+def host_split(serve, report: dict, key: str, lens, seed=9) -> None:
+    """Where a step's host time goes, on a burst that synchronises after every
+    lane step, so that the parts add up to the wall: inside lane steps
+    (dispatch: the ops launched one by one, or a graph's input copies and its
+    replay), waiting for the device after them, and the rest (the engine's
+    bookkeeping: routing, SpecuStream, drafts, KV and request state, the one
+    bulk copy a step).  Per engine step, host clock."""
+    import numpy as np
+    import torch
+
+    spent = {"dispatch": 0.0, "device": 0.0}
+
+    def timed_step(f):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = f(*args, **kw)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            spent["dispatch"] += t1 - t0
+            spent["device"] += time.perf_counter() - t1
+            return out
+        return call
+
+    all_lanes = lanes(serve, "target") + lanes(serve, "draft")
+    saved = [(lane.run, lane.prefill) for lane in all_lanes]
+    for lane in all_lanes:
+        lane.run, lane.prefill = timed_step(lane.run), timed_step(lane.prefill)
+    rng = np.random.default_rng(seed)
+    for n in lens:
+        serve.submit(rng.integers(0, serve.arch.vocab_size, n).tolist())
+    ticks = serve.engine._now
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve.run_until_done()
+    torch.cuda.synchronize()
+    wall, steps = time.perf_counter() - t0, serve.engine._now - ticks
+    for lane, (run, prefill) in zip(all_lanes, saved, strict=True):
+        lane.run, lane.prefill = run, prefill
+    ms = {k: v / steps * 1e3 for k, v in spent.items()}
+    ms.update(wall=wall / steps * 1e3, steps=steps)
+    ms["bookkeeping"] = ms["wall"] - ms["dispatch"] - ms["device"]
+    report.setdefault("host_split", {})[key] = ms
+    print(f"host split, {key}: {ms['wall']:.2f} ms a step = dispatch {ms['dispatch']:.2f} + "
+          f"device wait {ms['device']:.2f} + bookkeeping {ms['bookkeeping']:.2f} ({steps:g} steps)")
 
 
 def kernel_counters():
@@ -815,15 +964,17 @@ def read_counts() -> dict:
     return counts
 
 
-def serve_phase(report: dict):
+def serve_phase(report: dict, params=None, graphed=True, temperature=0.0):
+    """The default serve at full width (sampled, with ``temperature`` > 0)."""
     import numpy as np
     import torch
 
-    from repro_torch.api import ServeConfig, StreamServe
+    from repro_torch.api import ServeConfig
 
-    cfg = ServeConfig(reduced=False, n_pairs=2, max_batch=8, max_len=512, max_new_tokens=32)
+    cfg = ServeConfig(reduced=False, n_pairs=2, max_batch=8, max_len=512, max_new_tokens=32,
+                      temperature=temperature)
     t0 = time.perf_counter()
-    serve = StreamServe(cfg, device="cuda")
+    serve = served(cfg, graphed, **({} if params is None else {"params": params}))
     torch.cuda.synchronize()
     arch = serve.arch
     print(f"serve: {arch.name} L={arch.n_layers} d_model={arch.d_model} vocab={arch.vocab_size} "
@@ -837,7 +988,8 @@ def serve_phase(report: dict):
     zero_counts()
     run = drive(serve, {0: prompts[:8], 3: prompts[8:]})  # a second wave joins mid-decode
     launches = read_counts()
-    result = serve_stats("serve", serve, bad, run, launches)
+    tag = "sampled serve" if temperature else "serve"
+    result = serve_stats(tag + ("" if graphed else " (eager)"), serve, bad, run, launches)
     L, calls = arch.n_layers, result
     if launches["flash_attention"] != L * calls["prefill_calls"] or not calls["prefill_calls"]:
         fail(f"serve: flash launches {launches['flash_attention']} != {L} x "
@@ -847,11 +999,11 @@ def serve_phase(report: dict):
              f"{calls['decode_calls']} decode calls")
     wgmma_only(launches, "serve", "flash_attention", "decode_attention")
     result["prompt_lens"] = lens
-    report["serve"] = result
+    report[tag.replace(" ", "_") + ("" if graphed else "_eager")] = result
     return launches, serve
 
 
-def paged_serve_phase(params, report: dict):
+def paged_serve_phase(params, report: dict, graphed=True):
     """The paged path at full width: 16 requests of 32 new tokens on 2 pairs
     (max_len 512, max_context 1024, 4096 pages of 16 a pair).  8 share a
     256-token prefix and arrive once the first of them was admitted, so the
@@ -862,11 +1014,11 @@ def paged_serve_phase(params, report: dict):
     import numpy as np
     import torch
 
-    from repro_torch.api import ServeConfig, StreamServe
+    from repro_torch.api import ServeConfig
 
     cfg = ServeConfig(reduced=False, n_pairs=2, max_batch=8, max_len=512, max_new_tokens=32,
                       paged_kv=True, kv_block_size=16, max_context=1024)
-    serve = StreamServe(cfg, params=params, device="cuda")
+    serve = served(cfg, graphed, params=params)
     arch = serve.arch
     bad = instrument(serve)
     rng = np.random.default_rng(5)
@@ -879,7 +1031,8 @@ def paged_serve_phase(params, report: dict):
     zero_counts()
     run = drive(serve, {0: [shared[0], *long, *short], 1: shared[1:]})
     launches = read_counts()
-    result = serve_stats("paged serve", serve, bad, run, launches)
+    result = serve_stats("paged serve" + ("" if graphed else " (eager)"), serve, bad, run,
+                         launches)
     handles = run[0]
     hits = [h.request.cache_hit_tokens for h in handles]
     routing = Counter(h.request.worker_id for h in handles if list(h.request.prompt[:256]) == prefix)
@@ -899,11 +1052,11 @@ def paged_serve_phase(params, report: dict):
         fail("paged serve: no prompt beyond max_len was served")
     result.update(cache_hit_tokens=hits, shared_prefix_routing=dict(routing),
                   prompt_lens=[len(h.request.prompt) for h in handles])
-    report["paged_serve"] = result
+    report["paged_serve" + ("" if graphed else "_eager")] = result
     return launches, serve
 
 
-def chunked_serve_phase(params, report: dict, paged=False):
+def chunked_serve_phase(params, report: dict, paged=False, graphed=True):
     """Chunked prefill at full width (chunk 64, preemption on, 2 pairs x 8
     slots, max_len 512): one (4, 64) chunk step a tick a pair, each a decode
     step over the staging rows, so K1 runs 28 times a chunk step and K2
@@ -915,13 +1068,13 @@ def chunked_serve_phase(params, report: dict, paged=False):
     import numpy as np
     import torch
 
-    from repro_torch.api import ServeConfig, StreamServe
+    from repro_torch.api import ServeConfig
 
     tag = "paged chunked serve" if paged else "chunked serve"
     cfg = ServeConfig(reduced=False, n_pairs=2, max_batch=8, max_len=512, max_new_tokens=32,
                       prefill_chunk=64, **({"paged_kv": True, "kv_block_size": 16,
                                             "max_context": 1024} if paged else {}))
-    serve = StreamServe(cfg, params=params, device="cuda")
+    serve = served(cfg, graphed, params=params)
     vocab = serve.arch.vocab_size
     bad = instrument(serve)
     rng = np.random.default_rng(8 if paged else 0)
@@ -938,7 +1091,7 @@ def chunked_serve_phase(params, report: dict, paged=False):
     zero_counts()
     run = drive(serve, waves)
     launches = read_counts()
-    result = serve_stats(tag, serve, bad, run, launches)
+    result = serve_stats(tag + ("" if graphed else " (eager)"), serve, bad, run, launches)
     L, chunks, decodes = serve.arch.n_layers, result["prefill_calls"], result["decode_calls"]
     hits = sum(h.request.cache_hit_tokens for h in run[0])
     k1 = L * (chunks + (0 if paged else decodes))
@@ -954,7 +1107,8 @@ def chunked_serve_phase(params, report: dict, paged=False):
         fail(f"{tag}: chunked ingest hit {hits} tokens of the radix index")
     result.update(prompt_lens=[len(h.request.prompt) for h in run[0]], cache_hit_tokens=hits,
                   chunk_step_k1_launches=L * chunks)
-    report["paged_chunked_serve" if paged else "chunked_serve"] = result
+    report[("paged_chunked_serve" if paged else "chunked_serve") + ("" if graphed else "_eager")] \
+        = result
     return launches, serve
 
 
@@ -967,13 +1121,13 @@ def preempt_phase(params, report: dict) -> None:
     be lower with preemption on."""
     import numpy as np
 
-    from repro_torch.api import ServeConfig, StreamServe
+    from repro_torch.api import ServeConfig
 
     out = {}
     for preempt in (True, False):
         cfg = ServeConfig(reduced=False, n_pairs=1, max_batch=8, max_len=512, max_new_tokens=32,
                           prefill_chunk=64, prefill_preempt=preempt)
-        serve = StreamServe(cfg, params=params, device="cuda")
+        serve = served(cfg, True, params=params)
         rng = np.random.default_rng(17)
         long = serve.submit(rng.integers(0, serve.arch.vocab_size, 480).tolist())
         serve.step()
@@ -1000,12 +1154,12 @@ def pressure_phase(params, report: dict) -> None:
     every request finishes and at least one is truncated (kv_evicted)."""
     import numpy as np
 
-    from repro_torch.api import ServeConfig, StreamServe
+    from repro_torch.api import ServeConfig
 
     cfg = ServeConfig(reduced=False, n_pairs=1, max_batch=8, max_len=512, max_new_tokens=64,
                       paged_kv=True, kv_block_size=16, kv_blocks=120,
                       kv_evict_policy="truncate")
-    serve = StreamServe(cfg, params=params, device="cuda")
+    serve = served(cfg, True, params=params)
     rng = np.random.default_rng(6)
     t0 = time.perf_counter()
     handles = [serve.submit(rng.integers(0, serve.arch.vocab_size, 200).tolist())
@@ -1027,7 +1181,10 @@ def pressure_phase(params, report: dict) -> None:
 PAGED_BURST = (256 + 40, 256 + 70, 640, 16, 256 + 20, 900, 48, 256 + 90)
 
 
-def profile_phase(serve, report: dict, key="profile", lens=(16, 400, 24, 300, 40, 200, 64, 130),
+PROFILE_LENS = (16, 400, 24, 300, 40, 200, 64, 130)
+
+
+def profile_phase(serve, report: dict, key="profile", lens=PROFILE_LENS,
                   seed=1, split=False) -> None:
     """Where the time goes.  The same burst of 8 requests runs twice through
     the same server (after the launch counts were read): once plain, timed
@@ -1187,25 +1344,27 @@ def llama_kernel_phase(report: dict) -> dict:
 @contextlib.contextmanager
 def acceptance_counted():
     """Record (accepted, proposed) draft tokens over the active rows of
-    every verify step the port's engine takes inside the block, on the
-    device (no sync); yields the list."""
+    every verify step the port's engine takes inside the block, from what
+    the step returns (a replayed graph's outputs), on the device (no sync);
+    yields the list."""
     import torch
 
-    from repro_torch.core import engine
+    from repro_torch.core.engine import StreamPair
 
-    seen, verify = [], engine.verify_tokens
+    seen, verify = [], StreamPair._verify_step
 
-    def counted(*args, active, depth, **kw):
-        res = verify(*args, active=active, depth=depth, **kw)
-        d = torch.full_like(res.n_accepted, args[1].shape[1]) if depth is None else depth.long()
-        seen.append(torch.stack([res.n_accepted[active].sum(), d[active].sum()]))
-        return res
+    def counted(pair, pending, draft, draft_q, active, depth=None):
+        res, host = verify(pair, pending, draft, draft_q, active, depth)
+        d = (torch.full_like(res.n_accepted, draft.shape[1]) if depth is None
+             else depth.to(active.device).long())
+        seen.append(torch.stack([(res.n_accepted * active).sum(), (d * active).sum()]))
+        return res, host
 
-    engine.verify_tokens = counted
+    StreamPair._verify_step = counted
     try:
         yield seen
     finally:
-        engine.verify_tokens = verify
+        StreamPair._verify_step = verify
 
 
 def acceptance(seen: list) -> float:
@@ -1215,7 +1374,7 @@ def acceptance(seen: list) -> float:
     return accepted / max(proposed, 1)
 
 
-def paper_serve_phase(report: dict):
+def paper_serve_phase(report: dict, params=None, draft_params=None, graphed=True):
     """The paper's §4 operating point at full width: StreamServe(ServeConfig.
     paper_stream_pairs("llama2-7b", draft="model")) on seeded random weights,
     2 stream pairs x 16 slots, a 2048-token dense cache, bucketed fused
@@ -1227,12 +1386,13 @@ def paper_serve_phase(report: dict):
     import numpy as np
     import torch
 
-    from repro_torch.api import ServeConfig, StreamServe
+    from repro_torch.api import ServeConfig
 
     cfg = ServeConfig.paper_stream_pairs("llama2-7b", draft="model",
                                          max_new_tokens=PAPER_NEW_TOKENS)
     t0 = time.perf_counter()
-    serve = StreamServe(cfg, device="cuda")
+    serve = served(cfg, graphed, **({} if params is None else
+                                    {"params": params, "draft_params": draft_params}))
     torch.cuda.synchronize()
     arch, draft = serve.arch, cfg.build_draft_arch_config()
     print(f"paper serve: {arch.name} L={arch.n_layers} d_model={arch.d_model} heads "
@@ -1247,7 +1407,8 @@ def paper_serve_phase(report: dict):
     with acceptance_counted() as seen:
         run = drive(serve, {0: prompts[:16], 2: prompts[16:]})
     launches = read_counts()
-    result = serve_stats("paper serve", serve, bad, run, launches)
+    result = serve_stats("paper serve" + ("" if graphed else " (eager)"), serve, bad, run,
+                         launches)
     split = {}
     for which, n in (("target", arch.n_layers), ("draft", draft.n_layers)):
         for call, kernel in (("decode", "decode_attention"), ("prefill", "flash_attention")):
@@ -1266,27 +1427,31 @@ def paper_serve_phase(report: dict):
     wgmma_only(launches, "paper serve", "decode_attention", "flash_attention")
     if launches["decode_attention_paged"] or launches["ssd_scan"]:
         fail(f"paper serve: unexpected launches {launches}")
-    report["paper_serve"] = result
+    report["paper_serve" + ("" if graphed else "_eager")] = result
     return launches, serve
 
 
-def ablation_phase(params, draft_params, report: dict) -> None:
+def ablation_phase(params, draft_params, report: dict, graphed=True) -> None:
     """The paper's Table 8/9 switches on the same weights and operating
     point: round-robin routing, single-depth verify without verify buckets,
     a fixed depth of 4.  Requests alternate pairs and every target verify
     step runs K1 at T = 5, unpadded; the draft proposes at T = 1."""
     import numpy as np
 
-    from repro_torch.api import ServeConfig, StreamServe
+    from repro_torch.api import ServeConfig
 
     cfg = ServeConfig.paper_stream_pairs(
         "llama2-7b", draft="model", router="roundrobin", per_row_depth=False,
         verify_buckets=None, spec_policy="fixed", fixed_depth=4, max_new_tokens=32)
-    serve = StreamServe(cfg, params=params, draft_params=draft_params, device="cuda")
+    serve = served(cfg, graphed, params=params, draft_params=draft_params)
+    warm = captured(serve)
     widths = {"target": set(), "draft": set()}
-    for which in widths:
+    for which in widths:  # the width of every decode program a step runs
         for lane in lanes(serve, which):
-            lane.decode = lambda t, f=lane.decode, w=widths[which]: (w.add(t.shape[1]), f(t))[1]
+            def run(programs, *args, f=lane.run, w=widths[which], **kw):
+                w.update(shape[0] for name, shape in programs if name == "lane_decode")
+                return f(programs, *args, **kw)
+            lane.run = run
     rng = np.random.default_rng(12)
     zero_counts()
     handles = [serve.submit(rng.integers(0, serve.arch.vocab_size, n).tolist())
@@ -1295,17 +1460,21 @@ def ablation_phase(params, draft_params, report: dict) -> None:
     serve.run_until_done()
     launches = read_counts()
     pairs = [h.request.worker_id for h in handles]
-    print(f"ablation serve (round-robin, single depth 4, no verify buckets): {len(handles)} "
+    tag = "ablation serve" + ("" if graphed else " (eager)")
+    print(f"{tag} (round-robin, single depth 4, no verify buckets): {len(handles)} "
           f"requests in {time.perf_counter() - t0:.2f} s, pairs {pairs}, decode widths "
-          f"{ {k: sorted(v) for k, v in widths.items()} }, launches {launches}")
+          f"{ {k: sorted(v) for k, v in widths.items()} }, launches {launches}; graphs captured "
+          f"after warmup (unbucketed verify: each new width) {captured(serve) - warm}")
     if any(h.state.value != "finished" or len(h.result()) != cfg.max_new_tokens
            for h in handles):
         fail("ablation serve: not every request finished")
     if pairs != [0, 1] * 3 or widths != {"target": {5}, "draft": {1}}:
         fail("ablation serve: requests did not alternate pairs or K1 ran at another width")
     wgmma_only(launches, "ablation serve", "decode_attention", "flash_attention")
-    report["ablation_serve"] = {"pairs": pairs, "launches": launches,
-                                "decode_widths": {k: sorted(v) for k, v in widths.items()}}
+    report["ablation_serve" + ("" if graphed else "_eager")] = {
+        "pairs": pairs, "launches": launches, "tokens": [h.result() for h in handles],
+        "decode_widths": {k: sorted(v) for k, v in widths.items()},
+        "captured_after_warmup": captured(serve) - warm}
 
 
 def self_draft_phase(report: dict) -> None:
@@ -1317,7 +1486,9 @@ def self_draft_phase(report: dict) -> None:
     draft a token short (ROADMAP §3) and acceptance stays below 1; a draft
     that also ingests its last proposal must accept >= 0.9 and give the same
     tokens.  The one check on the card of the draft lane's propose, commit
-    and rollback."""
+    and rollback.  The engines are graphed without a warmup, so each step's
+    graph is captured at its first call; the model draft also runs eager, on
+    the same tokens and acceptance."""
     import dataclasses
 
     import numpy as np
@@ -1328,7 +1499,7 @@ def self_draft_phase(report: dict) -> None:
     from repro_torch.models import build_model
     from repro_torch.serving.request import Request, SamplingParams
 
-    class IngestLast(ModelLaneDraft):
+    class IngestLast(ModelLaneDraft):  # the draft lane's decode and commit, graphed
         def propose(self, pair, k):
             toks, q = super().propose(pair, k)
             self.lane.decode(toks[:, -1:].int())
@@ -1343,13 +1514,17 @@ def self_draft_phase(report: dict) -> None:
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in (16, 400, 24, 300, 40, 200, 64, 130, 350, 33, 100, 250)]
 
-    def run(draft, cls=ModelLaneDraft):
+    def run(draft, cls=ModelLaneDraft, graphed=True):
         engine = PipeServeEngine(cfg, params, n_pairs=2, device="cuda", draft_cfg=cfg,
                                  draft_params=params,
                                  econf=EngineConfig(max_batch=8, max_len=512, draft=draft))
         for pair in engine.pairs:
             if draft == "model":
                 pair.draft.__class__ = cls
+            if not graphed:
+                pair.lane.graphs = None
+                if draft == "model":
+                    pair.draft.lane.graphs = None
         reqs = [Request(prompt=p, params=SamplingParams(max_new_tokens=32)) for p in prompts]
         with acceptance_counted() as seen:
             for r in reqs:
@@ -1357,12 +1532,15 @@ def self_draft_phase(report: dict) -> None:
             engine.run_until_done()
         return [r.output_tokens for r in reqs], acceptance(seen)
 
+    eager = run("model", graphed=False)  # the draft lane's steps, eager
     zero_counts()
     plain, _ = run("none")
     mirrored, ref_protocol = run("model")
     level, ingest_last = run("model", IngestLast)
     torch.cuda.synchronize()
     launches = read_counts()
+    if eager != (mirrored, ref_protocol):
+        fail("self-draft check: the graphed engine's tokens or acceptance differ from eager")
     same = plain == mirrored == level
     print(f"self-draft check (llama2-7b, 2 full-width layers, fp32): acceptance "
           f"{ref_protocol:.4f} with the reference's draft protocol, {ingest_last:.4f} with the "
@@ -1522,19 +1700,19 @@ def mamba_model_phase(report: dict) -> None:
     report["mamba_model_check_max_abs_err"] = max(errs)
 
 
-def mamba_serve_phase(report: dict):
+def mamba_serve_phase(report: dict, params=None, graphed=True):
     """mamba2-2.7b at full width on 2 pairs: the dense serve's 12 prompts of
     16-400 tokens, 32 new tokens each.  Every admission is its own exact-shape
     prefill call, which runs K4 once per layer."""
     import numpy as np
     import torch
 
-    from repro_torch.api import ServeConfig, StreamServe
+    from repro_torch.api import ServeConfig
 
     cfg = ServeConfig(arch="mamba2-2.7b", reduced=False, n_pairs=2, max_batch=8, max_len=512,
                       max_new_tokens=32)
     t0 = time.perf_counter()
-    serve = StreamServe(cfg, device="cuda")
+    serve = served(cfg, graphed, **({} if params is None else {"params": params}))
     torch.cuda.synchronize()
     arch = serve.arch
     print(f"mamba2 serve: {arch.name} L={arch.n_layers} d_model={arch.d_model} vocab="
@@ -1548,7 +1726,8 @@ def mamba_serve_phase(report: dict):
     zero_counts()
     run = drive(serve, {0: prompts[:8], 3: prompts[8:]})
     launches = read_counts()
-    result = serve_stats("mamba2 serve", serve, bad, run, launches)
+    result = serve_stats("mamba2 serve" + ("" if graphed else " (eager)"), serve, bad, run,
+                         launches)
     L, n_pre = arch.n_layers, result["prefill_calls"]
     print(f"mamba2 serve: K4 launches {launches['ssd_scan']} = {L} x {n_pre} prefill calls, "
           f"on ssd_wgmma_kernel {launches['ssd_scan.wgmma']}")
@@ -1560,7 +1739,7 @@ def mamba_serve_phase(report: dict):
                                          if not k.startswith("ssd_scan")):
         fail(f"mamba2 serve: unexpected launches {launches} or no decode call")
     result["prompt_lens"] = lens
-    report["mamba_serve"] = result
+    report["mamba_serve" + ("" if graphed else "_eager")] = result
     return launches, serve
 
 
@@ -1612,43 +1791,53 @@ def main() -> None:
     paged_timing = paged_kernel_phase(report)
     model_phase(report)
     chunked_model_phase(report)
-    launches, serve = serve_phase(report)
-    profile_phase(serve, report)
-    params = serve.engine.pairs[0].lane.params  # the same weights serve the rest
+    launches, serve, w = twice(report, "serve", lambda g, **w: serve_phase(report, graphed=g, **w),
+                               profile={"key": "profile"}, split=PROFILE_LENS)
+    params = w["params"]  # the same weights serve the rest
     del serve
     release()
-    _, serve = chunked_serve_phase(params, report)
-    profile_phase(serve, report, "chunked_profile", seed=4)
+    twice(report, "sampled_serve", lambda g, **w: serve_phase(report, params, g, temperature=1.0))
+    release()
+    _, serve, _ = twice(report, "chunked_serve",
+                        lambda g, **w: chunked_serve_phase(params, report, graphed=g),
+                        profile={"key": "chunked_profile", "seed": 4})
     del serve
     release()
     preempt_phase(params, report)
     release()
-    paged_launches, serve = paged_serve_phase(params, report)
-    profile_phase(serve, report, "paged_profile", PAGED_BURST, seed=2)
+    paged_launches, serve, _ = twice(report, "paged_serve",
+                                     lambda g, **w: paged_serve_phase(params, report, g),
+                                     profile={"key": "paged_profile", "lens": PAGED_BURST,
+                                              "seed": 2})
     del serve
     release()
     pressure_phase(params, report)
     release()
-    _, serve = chunked_serve_phase(params, report, paged=True)
+    _, serve, _ = twice(report, "paged_chunked_serve",
+                        lambda g, **w: chunked_serve_phase(params, report, True, g))
     del serve, params
     release()
     llama_timing = llama_kernel_phase(report)
     model_phase(report, "llama2-7b")
     release()
-    paper_launches, serve = paper_serve_phase(report)
-    profile_phase(serve, report, "paper_profile", LLAMA_LENS[:8], seed=5)
-    params, draft_params = serve.engine.pairs[0].lane.params, lanes(serve, "draft")[0].params
+    paper_launches, serve, w = twice(
+        report, "paper_serve", lambda g, **w: paper_serve_phase(report, graphed=g, **w),
+        profile={"key": "paper_profile", "lens": LLAMA_LENS[:8], "seed": 5}, split=LLAMA_LENS[:8])
     del serve
     release()
-    ablation_phase(params, draft_params, report)
-    del params, draft_params
+    for graphed in (False, True):
+        ablation_phase(w["params"], w["draft_params"], report, graphed)
+        release()
+    same_as_eager(report, "ablation_serve", bucketed=False)
+    del w
     release()
     self_draft_phase(report)
     release()
     ssd_timing = ssd_kernel_phase(report)
     mamba_model_phase(report)
-    mamba_launches, serve = mamba_serve_phase(report)
-    profile_phase(serve, report, "mamba_profile", seed=3, split=True)
+    mamba_launches, serve, _ = twice(report, "mamba_serve",
+                                     lambda g, **w: mamba_serve_phase(report, graphed=g, **w),
+                                     profile={"key": "mamba_profile", "seed": 3, "split": True})
     del serve
     release()
 

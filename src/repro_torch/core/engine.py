@@ -37,6 +37,7 @@ single-controller and deterministic given the request trace.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
@@ -45,6 +46,7 @@ import torch
 from repro_torch.api.registry import (register_draft, resolve_draft, resolve_router,
                                      resolve_spec_policy)
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import graphs
 from repro_torch.core.metrics import PerformanceMonitor, RequestRecord
 from repro_torch.core.scheduler import StreamScheduler, edf_deadline
 from repro_torch.core.specustream import VERIFY_BUCKETS, SlotSignals, pad_to_bucket
@@ -111,6 +113,17 @@ def _pow2_buckets(lo, hi):
     return (*out, hi)
 
 
+_LANES = itertools.count()  # lane serial numbers: a lane's own programs are keyed by it
+# the programs that invoke the model, by the ``ModelLane.calls`` entry they count in
+_CALLS = {"lane_decode": "decode", "lane_prefill": "prefill", "paged_admit": "prefill",
+          "chunk_prefill": "prefill"}
+
+
+def _sample_program(name, rows, lane, temperature):
+    """The reference's sampler program ``name`` over (rows, V) logits of ``lane``."""
+    return name, (rows, lane.model.cfg.padded_vocab, temperature)
+
+
 def _bucket(n, buckets):
     """Smallest bucket >= n (n itself when oversize: correctness first)."""
     return next((b for b in buckets if b >= n), n)
@@ -118,84 +131,144 @@ def _bucket(n, buckets):
 
 class ModelLane:
     """A model, its batched decode cache (per-slot dense, or a page pool with
-    ``paged=(n_pages, page_size, max_context)``) and the step helpers.
+    ``paged=(n_pages, page_size, max_context)``) and the step bodies.
     ``steps`` is the longest decode step (the deepest verify bucket + 1),
     for which SSM layers keep per-token states.
 
-    The cache is preallocated and every step updates it in place; callers
-    treat ``self.cache`` as the only live handle.  ``calls`` counts model
-    invocations (paged admissions as "prefill"), so a run can show how many
-    kernel launches to expect.
+    The cache is preallocated, every step updates it in place, and a reset
+    empties it in place: its buffers keep their addresses for the lane's
+    life.  Every step goes through :meth:`run`, which counts it under the
+    reference programs it stands for and, on the card, replays its CUDA graph
+    (``graphs``; None runs it eagerly, as on the CPU).  ``calls`` counts model
+    invocations (paged admissions and chunk steps as "prefill"), so a run can
+    show how many kernel launches to expect.
     """
 
     def __init__(self, cfg, params, max_batch, max_len, device, paged=None, steps=0):
         self.model = build_model(cfg, device)
         self.params = params
-        self.max_batch, self.max_len, self.paged, self.steps = max_batch, max_len, paged, steps
-        self.reset_cache()
+        self.max_batch, self.max_len, self.paged = max_batch, max_len, paged
+        self.cache = (self.model.init_paged_cache(max_batch, *paged) if paged
+                      else self.model.init_cache(max_batch, max_len, steps))
         self.calls = {"prefill": 0, "decode": 0}
+        self.serial = next(_LANES)
+        self.graphs = graphs.Graphs(device) if self.model.device.type == "cuda" else None
 
-    def chunk_step(self, cache, tokens, lens, n_new, row, n):
-        """One (R, C) chunked-prefill step on the staging ``cache`` (the
-        counterpart of the reference's ``_chunk_step``): row ``row`` ingests
-        its ``n`` new tokens, the others idle at their cursors.  Returns that
-        row's logits (1, V) at its last new token; the unembed runs on one
-        position a row, not C."""
-        self.calls["prefill"] += 1
-        last = torch.full((tokens.shape[0],), max(n - 1, 0), dtype=torch.long,
-                          device=tokens.device)
-        return self.model.chunk_prefill(self.params, cache, tokens, lens, n_new,
-                                        last)[row:row + 1, 0]
+    def run(self, programs, fn, *inputs, gen=None, ahead=False):
+        """One step standing for the reference's ``programs``, (name, shape
+        key) pairs, the lane's own keyed by the lane too (the reference keys
+        them by its model): counted, then ``fn(*inputs)`` replayed from its
+        graph on the card (captured at first use) or run on the CPU.  The
+        inputs are the tensors that change from call to call, on any device;
+        ``gen`` is the generator ``fn`` draws from; all else ``fn`` reads it
+        must find at the same address on every call.  ``ahead`` only
+        captures (counted when it runs); ``fn`` None only counts."""
+        key = tuple((name, (self.serial, *shape) if name in graphs.PER_LANE else shape)
+                    for name, shape in programs)
+        for name, k in () if ahead else key:
+            graphs.PROGRAMS[name].add(k)
+            if name in _CALLS:
+                self.calls[_CALLS[name]] += 1
+        if self.graphs is not None and fn is not None:
+            return (self.graphs.capture if ahead else self.graphs)(key, fn, inputs, gen)
+        if fn is not None and not ahead:
+            return fn(*(t.to(self.model.device, non_blocking=True) for t in inputs))
+        return None
 
-    def insert_pages(self, chunk_cache, row, page_ids, slot, seq_len):
-        """Move chunk row ``row`` (positions [0, max_len)) into the page pool
-        as whole pages: page i of the row to ``page_ids[i]`` in every layer,
-        where the pool's spare page takes the pages past the prompt (the
-        reference's dropped writes); seed ``len[slot]``."""
-        ps = self.cache["k"].shape[2]
-        for name in ("k", "v"):
-            src = chunk_cache[name][:, row]
-            self.cache[name].index_copy_(1, page_ids, src.reshape(
-                src.shape[0], -1, ps, *src.shape[2:]))
-        self.cache["len"][slot] = seq_len
+    def decode(self, tokens):
+        """Logits (B, T, V) of one decode step over the cache."""
+        return self.run([("lane_decode", (tokens.shape[1],))], self.decode_body, tokens)
 
-    def paged_admit(self, tokens, lens, n_new):
-        """Prefill row b's ``n_new[b]`` suffix tokens at cursor ``lens[b]``
-        straight into its pages (the block tables are already installed):
-        admission is the KV transfer.  Returns each row's logits (B, V) at
-        its last suffix token."""
-        self.calls["prefill"] += 1
-        last = (n_new.long() - 1).clamp(0, tokens.shape[1] - 1)
-        return self.model.chunk_prefill(self.params, self.cache, tokens, lens, n_new,
-                                        last)[:, 0]
+    def commit(self, n_new, accept_idx):
+        """Roll back the last ``n_new`` ingested tokens to ``accept_idx``."""
+        self.run([self.commit_program(n_new)], self.commit_body,
+                 torch.tensor(n_new, dtype=torch.int32), accept_idx)
 
     def prefill(self, batch):
-        self.calls["prefill"] += 1
-        return self.model.prefill(self.params, batch, self.max_len)
+        """Eager prefill: (last logits (B, V), its cache).  A stack with SSM
+        layers admits at each prompt's exact length, so this stays eager, and
+        each new length counts as a program, as the reference retraces."""
+        self.run([("lane_prefill", tuple(batch["tokens"].shape))], None)
+        return self.model.prefill(self.params, {k: t.to(self.model.device)
+                                                for k, t in batch.items()}, self.max_len)
 
-    def insert_rows(self, slot_ids, small_cache):
-        """Copy prefill row r into decode slot ``slot_ids[r]`` (the KV and
-        SSM-state transfer): every per-slot tensor the prefill cache has.
-        Ids >= max_batch mark padded admission rows: dropped."""
-        rows = np.nonzero(slot_ids < self.max_batch)[0]
-        dev = self.cache["len"].device
-        src = torch.from_numpy(rows).to(dev)
-        dst = torch.from_numpy(slot_ids[rows].astype(np.int64)).to(dev)
+    def decode_body(self, tokens):
+        return self.model.decode_step(self.params, self.cache, tokens)
+
+    def commit_body(self, n_new, accept_idx):
+        self.model.commit_cache(self.cache, self.cache["len"] - n_new, accept_idx)
+
+    def commit_program(self, T):
+        """The reference's rollback program after a T-token step: one a lane,
+        or one a width where SSM layers keep T per-token states."""
+        return "lane_commit", (T,) if self.model.n_ssm else ()
+
+    def insert_program(self, rows):
+        """The reference's insert of ``rows`` prefill rows, keyed by shape."""
+        return "tree_insert", (self.model.cfg, self.max_batch, self.max_len, rows)
+
+    def rows(self, slot_ids):
+        """(src, dst) of an insert: prefill row src[i] goes to decode slot
+        dst[i]; ids >= max_batch mark padded admission rows, dropped.  Both
+        keep the batch's length, the kept pairs repeated in the dropped ones'
+        places, so one graph serves every admission of a shape (with none
+        kept, as in warmup, row 0 goes to slot 0, which warmup resets)."""
+        keep = np.flatnonzero(slot_ids < self.max_batch)
+        src = np.resize(keep if len(keep) else [0], len(slot_ids))
+        return torch.from_numpy(src), torch.from_numpy(slot_ids[src] % self.max_batch).long()
+
+    def insert_body(self, src, dst, small_cache):
+        """Copy prefill row src[i] into decode slot dst[i] (the KV and
+        SSM-state transfer): every per-slot tensor the prefill cache has."""
         for name, t in small_cache.items():
             dim = 0 if name == "len" else 1  # the rest are stacked over layers
             self.cache[name].index_copy_(dim, dst, t.index_select(dim, src))
 
-    def decode(self, tokens):
-        self.calls["decode"] += 1
-        return self.model.decode_step(self.params, self.cache, tokens)
+    def admit_body(self, src, dst, *batch):
+        """Prefill ``batch`` (tokens[, lengths]) and insert its rows: the
+        reference's ``_lane_prefill`` then ``_tree_insert_rows``."""
+        logits, small = self.model.prefill(self.params, dict(zip(("tokens", "lengths"), batch)),
+                                           self.max_len)
+        self.insert_body(src, dst, small)
+        return logits
 
-    def commit(self, n_new, accept_idx):
-        """Roll back the last ``n_new`` ingested tokens to ``accept_idx``."""
-        self.model.commit_cache(self.cache, self.cache["len"] - n_new, accept_idx)
+    def paged_admit_body(self, tokens, lens, n_new):
+        """Prefill row b's ``n_new[b]`` suffix tokens at cursor ``lens[b]``
+        straight into its pages (the block tables are already installed):
+        admission is the KV transfer.  Returns each row's logits (B, V) at
+        its last suffix token."""
+        last = (n_new.long() - 1).clamp(0, tokens.shape[1] - 1)
+        return self.model.chunk_prefill(self.params, self.cache, tokens, lens, n_new,
+                                        last)[:, 0]
 
-    def reset_cache(self):
-        self.cache = (self.model.init_paged_cache(self.max_batch, *self.paged) if self.paged
-                      else self.model.init_cache(self.max_batch, self.max_len, self.steps))
+    def chunk_body(self, cache, tokens, lens, n_new, row):
+        """One (R, C) chunked-prefill step on the staging ``cache`` (the
+        reference's ``_chunk_step``): row ``row`` ingests its ``n_new`` new
+        tokens, the others idle at their cursors.  Returns that row's logits
+        (1, V) at its last new token; the unembed runs on one position a
+        row, not C."""
+        last = (n_new.long() - 1).clamp_min(0)
+        return self.model.chunk_prefill(self.params, cache, tokens, lens, n_new,
+                                        last).index_select(0, row)[:, 0]
+
+    def insert_pages_body(self, chunk_cache, page_ids, at):
+        """Move chunk row ``at[0]`` (positions [0, max_len)) into the page
+        pool as whole pages: page i of the row to ``page_ids[i]`` in every
+        layer, where the pool's spare page takes the pages past the prompt
+        (the reference's dropped writes); seed ``len[at[1]] = at[2]``."""
+        ps = self.cache["k"].shape[2]
+        for name in ("k", "v"):
+            src = chunk_cache[name].index_select(1, at[:1])[:, 0]
+            self.cache[name].index_copy_(1, page_ids, src.reshape(
+                src.shape[0], -1, ps, *src.shape[2:]))
+        self.cache["len"].index_copy_(0, at[1:2], at[2:].int())
+
+    def reset_cache(self, cache=None):
+        """Empty a cache (the lane's by default) in place: positions and
+        block tables to -1, the rest to 0.  Its buffers keep their addresses,
+        so the graphs captured on them stay valid."""
+        for name, t in (self.cache if cache is None else cache).items():
+            t.fill_(-1 if name in ("kv_pos", "bt") else 0)
 
 
 @dataclasses.dataclass
@@ -301,7 +374,7 @@ class StreamPair:
         B = econf.max_batch
         self.slot_req: List[Optional[Request]] = [None] * B
         # device-resident pending next-token per slot (sampled, not ingested)
-        self.pending = self._i32(B)
+        self.pending = torch.zeros(B, dtype=torch.int32, device=device)
         self.histories: List[List[int]] = [[] for _ in range(B)]
         self.acceptance = 0.7  # optimistic prior
         self.gen = torch.Generator(device=device).manual_seed(worker_id)
@@ -326,11 +399,7 @@ class StreamPair:
         return max(self.econf.admit_batch, 1) if self._bucketed else 1
 
     def _to_dev(self, a):
-        return torch.from_numpy(a).to(self.device)
-
-    def _i32(self, *shape, fill=0):
-        """An int32 tensor of ``shape`` on the pair's device, filled."""
-        return torch.full(shape, fill, dtype=torch.int32, device=self.device)
+        return torch.from_numpy(a).to(self.device, non_blocking=True)
 
     def reserve_kv(self, req):
         """Reserve KV blocks ahead of the prefill: prompt + max_new on the
@@ -381,7 +450,9 @@ class StreamPair:
         """Push the host block tables to the device cache, in place (one
         copy per tick, only when a row changed)."""
         if self._bt_dirty:
-            self.lane.cache["bt"].copy_(torch.from_numpy(self._bt_host))
+            bt = self.lane.cache["bt"]
+            self.lane.run([("set_bt", (self.lane.model.cfg, *bt.shape))], bt.copy_,
+                          torch.from_numpy(self._bt_host))
             self._bt_dirty = False
 
     def admit(self, reqs, now):
@@ -423,15 +494,51 @@ class StreamPair:
         for i, req in enumerate(reqs):
             tokens[i, : len(req.prompt)] = req.prompt
             lengths[i] = len(req.prompt)
-        batch = {"tokens": self._to_dev(tokens)}
-        if self._bucketed:
-            batch["lengths"] = self._to_dev(lengths)
-        last_logits, small_cache = self.lane.prefill(batch)
-        for req in reqs:
             req.state = RequestState.TRANSFERRING
-        self.lane.insert_rows(slot_ids, small_cache)
+        batch = {"tokens": torch.from_numpy(tokens)}
+        if self._bucketed:
+            batch["lengths"] = torch.from_numpy(lengths)
+        first = self._prefill_step(batch, slot_ids)
         self.draft.on_admit(self, batch, slot_ids)
-        return sample(self.gen, last_logits[: len(reqs)], self.econf.temperature)
+        return first[: len(reqs)]
+
+    def _sampled(self, rows, programs, body, *inputs, ahead=False):
+        """A lane step whose ``body`` returns logits (rows, V), with a token
+        sampled from each row in the same graph: tokens (rows,) int32
+        (``ahead``: only captured, for warmup)."""
+        temperature = self.econf.temperature
+
+        def step(*args):
+            logits = body(*args)
+            return sample(self.gen, logits, temperature).to(torch.int32), logits
+
+        out = self.lane.run([*programs, _sample_program("sample", rows, self.lane, temperature)],
+                            step, *inputs, gen=self.gen, ahead=ahead)
+        return out and out[0]
+
+    def _prefill_step(self, batch, slot_ids):
+        """Prefill ``batch`` (CPU tensors), insert its rows into ``slot_ids``
+        and sample each row's first token: one graph on an attention stack;
+        an SSM stack prefills at the exact length, eagerly, then inserts and
+        samples in one graph."""
+        lane = self.lane
+        src, dst = lane.rows(slot_ids)
+        Bb, S = batch["tokens"].shape
+        if not lane.model.n_ssm:
+            return self._sampled(Bb, [("lane_prefill", (Bb, S)), lane.insert_program(Bb)],
+                                 lane.admit_body, src, dst, *batch.values())
+        return self._insert_sampled(src, dst, *lane.prefill(batch))
+
+    def _insert_sampled(self, src, dst, logits, small, ahead=False):
+        """Insert the rows of ``small`` (a prefill's cache, or the chunk
+        rows', copied in) and sample a first token from each row of
+        ``logits``: one graph (``ahead``: only captured, for warmup)."""
+        def body(src, dst, logits, *state):
+            self.lane.insert_body(src, dst, dict(zip(small, state)))
+            return logits
+
+        return self._sampled(len(logits), [self.lane.insert_program(len(src))], body, src, dst,
+                             logits, *small.values(), ahead=ahead)
 
     def _admit_paged(self, reqs, slots):
         """ONE bucketed suffix prefill over the whole decode batch, straight
@@ -453,10 +560,13 @@ class StreamPair:
             self._refresh_bt_row(slot, req.request_id)
             req.state = RequestState.TRANSFERRING
         self._sync_bt()
-        last = self.lane.paged_admit(self._to_dev(tokens), self._to_dev(lens),
-                                     self._to_dev(n_new))
-        first = sample(self.gen, last, self.econf.temperature)  # every row, as the reference
+        first = self._paged_step(tokens, lens, n_new)  # every row sampled, as the reference
         return first[self._to_dev(np.asarray(slots, np.int64))]
+
+    def _paged_step(self, tokens, lens, n_new):
+        """Paged admission and its first tokens, one graph (numpy inputs)."""
+        return self._sampled(len(lens), [("paged_admit", tokens.shape)], self.lane.paged_admit_body,
+                             *map(torch.from_numpy, (tokens, lens, n_new)))
 
     def _chunk_pull(self, scheduler, now):
         """Move queued requests into free chunk rows.  A row is granted only
@@ -504,36 +614,53 @@ class StreamPair:
             lens[r] = self.chunk_cursor[rq.request_id]
         n_new = np.zeros((R,), np.int32)
         n_new[row] = n
-        last = self.lane.chunk_step(self.chunk_cache, self._to_dev(tokens), self._to_dev(lens),
-                                    self._to_dev(n_new), row, n)
+        last = self._chunk_step(tokens, lens, n_new, row)
         self.chunk_cursor[req.request_id] = cur + n
         if cur + n >= len(req.prompt):
             self._chunk_complete(row, req, last, now)
 
+    def _chunk_step(self, tokens, lens, n_new, row):
+        """One chunk step over the staging rows (numpy inputs): row ``row``'s
+        logits (1, V) at its last new token."""
+        lane = self.lane
+        return lane.run([("chunk_prefill", tokens.shape)],
+                        lambda *a: lane.chunk_body(self.chunk_cache, *a),
+                        *map(torch.from_numpy, (tokens, lens, n_new)), torch.tensor([row]))
+
     def _chunk_complete(self, row, req, last_logits, now):
         """The last chunk is in: move the row's KV into a free decode slot
-        (dense: the admission insert; paged: whole pages into the pool) and
-        sample the first token (one host copy)."""
+        and sample the first token (one host copy)."""
         slot = self.free_slots()[0]  # guaranteed by _chunk_pull's budget
         req.state = RequestState.TRANSFERRING
+        n_pages = -(-len(req.prompt) // self.econf.kv_block_size)
+        bids = self.kv.seqs[req.request_id].block_ids[:n_pages] if self._paged else ()
+        first = self._complete_step(last_logits, row, slot, bids, len(req.prompt))
         if self._paged:
-            ps, econf = self.econf.kv_block_size, self.econf
-            bids = self.kv.seqs[req.request_id].block_ids
-            n_pages = -(-len(req.prompt) // ps)
-            page_ids = np.full((econf.max_len // ps,), econf.kv_blocks, np.int64)  # the spare
-            page_ids[:n_pages] = bids[:n_pages]
-            self.lane.insert_pages(self.chunk_cache, row, self._to_dev(page_ids), slot,
-                                   len(req.prompt))
             self._refresh_bt_row(slot, req.request_id)
-        else:
-            slot_ids = np.full((len(self.chunk_rows),), self.econf.max_batch, np.int32)
-            slot_ids[row] = slot
-            self.lane.insert_rows(slot_ids, self.chunk_cache)
-        first = sample(self.gen, last_logits, self.econf.temperature).to(torch.int32)
         self.pending[slot] = first[0]
         self._seat(slot, req, int(first[0]), now)
         self.chunk_rows[row] = None
         del self.chunk_cursor[req.request_id]
+
+    def _complete_step(self, last_logits, row, slot, block_ids, seq_len):
+        """Chunk row ``row`` into decode slot ``slot`` (dense: the admission
+        insert; paged: its pages ``block_ids`` into the pool, the rest of the
+        row to the spare page) and the first token sampled: one graph."""
+        lane, econf = self.lane, self.econf
+        if not self._paged:
+            slot_ids = np.full((len(self.chunk_rows),), econf.max_batch)
+            slot_ids[row] = slot
+            return self._insert_sampled(*lane.rows(slot_ids), last_logits, self.chunk_cache)
+        page_ids = np.full((econf.max_len // econf.kv_block_size,), econf.kv_blocks)
+        page_ids[:len(block_ids)] = block_ids
+
+        def body(logits, *args):
+            lane.insert_pages_body(self.chunk_cache, *args)
+            return logits
+
+        return self._sampled(1, [("insert_pages", (lane.model.cfg, *lane.cache["k"].shape))], body,
+                             last_logits, torch.from_numpy(page_ids),
+                             torch.tensor([row, slot, seq_len]))
 
     def release(self, request_id=None):
         """Take every request (or the one ``request_id``) out of its decode
@@ -587,9 +714,8 @@ class StreamPair:
         k = int(rows.max())
         active_dev = self._to_dev(active_mask)
 
-        if k == 0:  # plain autoregressive step (its commit would be a no-op)
-            logits = self.lane.decode(self.pending[:, None])
-            nxt = sample(self.gen, logits[:, 0], self.econf.temperature).to(torch.int32)
+        if k == 0:  # plain autoregressive step
+            nxt = self._plain_step(self.pending)
             self.pending = torch.where(active_dev, nxt, self.pending)
             nxt_h = nxt.tolist()  # the ONE decode round-trip
             return sum(self._emit(s, [nxt_h[s]], now) for s in active)
@@ -599,25 +725,18 @@ class StreamPair:
         # the model draft's stay on the device
         k_pad = pad_to_bucket(k, vb)
         draft, draft_q = self.draft.propose(self, k)
-        draft = torch.as_tensor(draft, device=self.device).to(torch.int32)
-        draft_q = torch.as_tensor(draft_q, device=self.device).float()
+        draft, draft_q = torch.as_tensor(draft).to(torch.int32), torch.as_tensor(draft_q).float()
         if k_pad > k:
             draft = torch.cat([draft, draft[:, -1:].expand(-1, k_pad - k)], 1)
             draft_q = torch.cat([draft_q, draft_q.new_ones((B, k_pad - k))], 1)
-        depth = (self._to_dev(rows.astype(np.int32)) if per_row  # heterogeneous, one shape
-                 else self._i32(B, fill=k) if vb else None)
+        depth = (torch.from_numpy(rows.astype(np.int32)) if per_row  # heterogeneous, one shape
+                 else torch.full((B,), k, dtype=torch.int32) if vb else None)
         for s in active:
             self.slot_req[s].spec_depths.append(int(rows[s]))
-        # target verify step over T = k_pad + 1 tokens
-        logits = self.lane.decode(torch.cat([self.pending[:, None], draft], 1))
-        res = verify_tokens(self.gen, draft, draft_q, logits, active=active_dev,
-                            temperature=self.econf.temperature, depth=depth)
-        self.lane.commit(k_pad + 1, res.accept_idx)
+        res, host = self._verify_step(self.pending, draft, draft_q, active_dev, depth)
         self.draft.on_commit(self, res.accept_idx, k)
         self.pending = torch.where(active_dev, res.next_token.to(torch.int32), self.pending)
-        # the ONE decode round-trip: everything host bookkeeping needs at once
-        host = torch.cat([res.n_accepted[:, None], res.next_token[:, None], draft.long()],
-                         1).tolist()
+        host = host.tolist()  # the ONE decode round-trip: all host bookkeeping needs
         n_acc = [h[0] for h in host]
         if per_row:
             # each slot's fraction of ITS OWN depth feeds the per-slot EMA;
@@ -631,6 +750,41 @@ class StreamPair:
             accepted = sum(n_acc[s] for s in active) / len(active) / max(k, 1)
         self.acceptance = 0.8 * self.acceptance + 0.2 * accepted
         return sum(self._emit(s, [*host[s][2:2 + n_acc[s]], host[s][1]], now) for s in active)
+
+    def _plain_step(self, pending):
+        """One token for every row: decode, the reference's no-op commit and
+        sampling, one graph.  Returns the tokens (B,) int32."""
+        lane = self.lane
+
+        def body(pending):
+            logits = lane.decode_body(pending[:, None])
+            lane.commit_body(1, torch.zeros_like(pending))
+            return logits[:, 0]
+
+        return self._sampled(len(pending), [("lane_decode", (1,)), lane.commit_program(1)], body,
+                             pending)
+
+    def _verify_step(self, pending, draft, draft_q, active, depth=None):
+        """The target's verify step over T = k + 1 tokens (pending, then the
+        k drafts): decode, accept/reject and rollback, one graph.  Returns the
+        VerifyResult and, for the one host copy, (B, 2 + k): accepted count,
+        next token, the drafts."""
+        lane, temperature = self.lane, self.econf.temperature
+        B, k = draft.shape
+
+        def step(pending, draft, draft_q, active, *depth):
+            logits = lane.decode_body(torch.cat([pending[:, None], draft], 1))
+            res = verify_tokens(self.gen, draft, draft_q, logits, active=active,
+                                temperature=temperature, depth=depth[0] if depth else None)
+            lane.commit_body(k + 1, res.accept_idx)
+            return res, torch.cat([res.n_accepted[:, None], res.next_token[:, None],
+                                   draft.long()], 1), logits
+
+        programs = [("lane_decode", (k + 1,)), ("verify_tokens", (B, k, lane.model.cfg.padded_vocab,
+                                                                 temperature, depth is None)),
+                    lane.commit_program(k + 1)]
+        return lane.run(programs, step, pending, draft, draft_q, active,
+                        *(() if depth is None else (depth,)), gen=self.gen)[:2]
 
     def _emit(self, slot, tokens, now):
         """Host bookkeeping for one slot's freshly decoded tokens (the device
@@ -718,9 +872,8 @@ class StreamPair:
         if self.active_slots() or self.prefill_in_flight():
             raise RuntimeError("warmup() resets the decode and chunk caches; call it "
                                "before serving")
-        econf, dev = self.econf, self.device
-        B = econf.max_batch
-        gen = torch.Generator(device=dev).manual_seed(0)  # must not perturb self.gen
+        econf, B = self.econf, self.econf.max_batch
+        state = self.gen.get_state()  # the steps draw from self.gen; put back below
         n, batches = 0, []  # batches: one a prefill shape, for the draft's warmup
         cap = min(max_prompt_len or self._max_context, self._max_context)
         if self._paged:  # all-(-1) tables: every page write goes to the spare page
@@ -728,44 +881,39 @@ class StreamPair:
             self._sync_bt()
         if self._chunk is not None:
             # ONE chunk-step shape covers every prompt length; the completion
-            # runs too, its pages all to the spare, its rows all dropped
+            # runs too, its pages all to the spare (dense: into slot 0)
             R = len(self.chunk_rows)
-            last = self.lane.chunk_step(self.chunk_cache, self._i32(R, self._chunk), self._i32(R),
-                                        self._i32(R), 0, 0)
-            if self._paged:
-                spare = torch.full((econf.max_len // econf.kv_block_size,), econf.kv_blocks,
-                                   dtype=torch.long, device=dev)
-                self.lane.insert_pages(self.chunk_cache, 0, spare, 0, 0)
-            else:
-                self.lane.insert_rows(np.full((R,), B, np.int32), self.chunk_cache)
-            sample(gen, last, econf.temperature)
-            self.chunk_cache = self.lane.model.init_cache(R, econf.max_len)
+            zeros = np.zeros(R, np.int32)
+            self._complete_step(self._chunk_step(np.zeros((R, self._chunk), np.int32), zeros,
+                                                 zeros, 0), 0, 0, (), 0)
+            self.lane.reset_cache(self.chunk_cache)
             n += 1
         elif self._paged:
             for S in (b for b in self._len_buckets if b <= _bucket(cap, self._len_buckets)):
-                sample(gen, self.lane.paged_admit(self._i32(B, S), self._i32(B), self._i32(B)),
-                       econf.temperature)
+                self._paged_step(np.zeros((B, S), np.int32), *np.zeros((2, B), np.int32))
                 n += 1
             n += 1  # the reference's block-table install program
+        elif self.lane.model.n_ssm:  # the exact-shape admission's insert, counted when served
+            self._insert_sampled(*self.lane.rows(np.full(1, B)),
+                                 torch.zeros((1, self.lane.model.cfg.padded_vocab)),
+                                 self.lane.model.init_cache(1, econf.max_len), ahead=True)
         elif self._bucketed:
             for S in (b for b in self._len_buckets if b <= _bucket(cap, self._len_buckets)):
                 for Bb in self._admit_buckets:
-                    batches.append({"tokens": self._i32(Bb, S), "lengths": self._i32(Bb, fill=S)})
-                    logits, small = self.lane.prefill(batches[-1])
-                    self.lane.insert_rows(np.full((Bb,), B, np.int32), small)  # all dropped
-                    sample(gen, logits, econf.temperature)
+                    batches.append({"tokens": torch.zeros((Bb, S), dtype=torch.int32),
+                                    "lengths": torch.full((Bb,), S, dtype=torch.int32)})
+                    self._prefill_step(batches[-1], np.full(Bb, B))  # every row dropped
                     n += 1
-        zeros = self._i32(B)
+        zeros = torch.zeros(B, dtype=torch.int32)
         for d in econf.verify_buckets or ():
-            logits = self.lane.decode(self._i32(B, d + 1))
-            verify_tokens(gen, self._i32(B, d), torch.ones((B, d), device=dev), logits,
-                          active=zeros.bool(), temperature=econf.temperature, depth=zeros + d)
-            self.lane.commit(d + 1, zeros)
+            self._verify_step(zeros, torch.zeros((B, d), dtype=torch.int32), torch.ones((B, d)),
+                              zeros.bool(), zeros + d)
             n += 1
-        sample(gen, self.lane.decode(zeros[:, None])[:, 0], econf.temperature)
+        self._plain_step(zeros)
         self.draft.warmup(self, batches)
         self.lane.reset_cache()
-        self.pending = zeros
+        self.pending = zeros.to(self.device)
+        self.gen.set_state(state)
         return n + 1
 
     def publish_metrics(self, queue_depth):
@@ -789,17 +937,29 @@ class ModelLaneDraft(EngineDraft):
         self.temperature = temperature
 
     def on_admit(self, pair, batch, slots):
-        self.lane.insert_rows(slots, self.lane.prefill(batch)[1])
+        lane = self.lane
+        lane.run([("lane_prefill", tuple(batch["tokens"].shape)),
+                  lane.insert_program(len(slots))], lane.admit_body, *lane.rows(slots),
+                 *batch.values())
 
     def propose(self, pair, k):
         """k single-token decodes from the pair's pending tokens, each
-        sampling the next from the draft's logits."""
-        out = [(pair.pending, None)]
-        for _ in range(k):
-            out.append(sample_probs(pair.gen, self.lane.decode(out[-1][0][:, None].int())[:, -1],
-                                    self.temperature))
-        toks, qs = zip(*out[1:], strict=True)
-        return torch.stack(toks, 1), torch.stack(qs, 1)
+        sampling the next from the draft's logits (one graph a token)."""
+        lane, B = self.lane, len(pair.pending)
+        toks = torch.empty((B, k), dtype=torch.long, device=pair.device)
+        qs = torch.empty((B, k), device=pair.device)
+        programs = [("lane_decode", (1,)),
+                    _sample_program("sample_probs", B, lane, self.temperature)]
+        cur = pair.pending
+        for i in range(k):
+            toks[:, i], qs[:, i], _ = lane.run(programs, lambda t: self._propose_one(pair.gen, t),
+                                               cur, gen=pair.gen)
+            cur = toks[:, i]
+        return toks, qs
+
+    def _propose_one(self, gen, tokens):
+        logits = self.lane.decode_body(tokens[:, None].int())
+        return (*sample_probs(gen, logits[:, -1], self.temperature), logits)
 
     def on_commit(self, pair, accept_idx, k):
         # the draft ingested [pending, d_1..d_{k-1}] during propose
@@ -808,8 +968,8 @@ class ModelLaneDraft(EngineDraft):
     def warmup(self, pair, prefill_batches):
         for batch in prefill_batches:  # every insert row dropped
             self.on_admit(pair, batch, np.full(len(batch["tokens"]), self.lane.max_batch))
-        sample_probs(torch.Generator(device=pair.device).manual_seed(0),
-                     self.lane.decode(pair.pending[:, None])[:, -1], self.temperature)
+        self.propose(pair, 1)
+        self.lane.commit(1, torch.zeros_like(pair.pending))
         self.lane.reset_cache()
 
 
@@ -853,6 +1013,9 @@ class PipeServeEngine:
         if router is None or isinstance(router, str):
             router = resolve_router(router or econf.router, config=econf.router_config)
         self._now = 0.0
+        # program counts are relative to construction, as the reference's
+        # (keys seen by earlier engines in the process do not count here)
+        self._programs_base = graphs.counts()
         self.monitor = PerformanceMonitor(n_pairs, clock=lambda: self._now)
         self.pairs = [StreamPair(i, cfg, params, econf, self.monitor, self.device, draft_cfg,
                                  draft_params) for i in range(n_pairs)]
@@ -965,5 +1128,16 @@ class PipeServeEngine:
         raise RuntimeError("engine did not drain within max_steps")
 
     def warmup(self, max_prompt_len=None):
-        """Run every shape bucket on every healthy pair ahead of traffic."""
+        """Run every shape bucket on every healthy pair ahead of traffic: on
+        the card this captures every fixed-shape step's graph."""
         return sum(pair.warmup(max_prompt_len) for pair in self.pairs if pair.healthy)
+
+    def jit_cache_sizes(self):
+        """The reference's programs this engine brought in, by the
+        reference's names (``repro.core.engine.PipeServeEngine.
+        jit_cache_sizes``): after warmup, serving adds none."""
+        base = self._programs_base
+        return {name: n - base[name] for name, n in graphs.counts().items()}
+
+    def jit_cache_total(self):
+        return sum(self.jit_cache_sizes().values())

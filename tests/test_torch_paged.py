@@ -86,75 +86,82 @@ def _split_walk(qs, n_tiles, n_split, seen, tile):
     return O / np.maximum(L, 1e-30)[:, None], M
 
 
-def _paged_walk(q, kp, vp, clen, bt, window, n_split=1):
-    """paged_wgmma_kernel's schedule: per (row, KV head), query tiles of 64
-    rows r = t*G + g (128 where T*G > 64: two warpgroups); each tile's rows
-    see positions [lo, hi] (hi clamped to P*ps - 1), and a split walks the
-    tiles of its range over P*ps that meet them, gathering each position's
-    slot from the table (clamped; -1 outside [lo, hi] or unset: masked and
-    read as zeros).  A row that saw nothing (M <= -1e30) gets the mean of V
-    over every table entry, an unset entry read as page 0."""
+def _walk(q, clen, K, n_tiles, n_split, rows, visit):
+    """The bf16 K1/K3 tile loop over (batch row b, KV head kh, query tile of
+    ``rows`` rows r = t*G + g); ``visit(b, kh, qp)`` gives the tile function
+    of _split_walk, the tiles the query tile walks and what a row that saw
+    nothing gets (None: what the walk gives)."""
     B, T, H, D = q.shape
-    n_pages, ps, K, _ = kp.shape
-    P, G, c = bt.shape[1], H // K, D ** -0.5 * np.log2(np.e)
-    rows = 64 if T * G <= 64 else 128
+    G, c = H // K, D ** -0.5 * np.log2(np.e)
     out = np.zeros(q.shape, np.float32)
     for b in range(B):
         for kh in range(K):
             for r0 in range(0, T * G, rows):
                 t, g = np.divmod(np.arange(r0, min(r0 + rows, T * G)), G)
-                qp = clen[b] - T + t
-                hi = min(qp[-1], P * ps - 1)
-                lo = 0 if window is None else max(0, qp[0] - window + 1)
-
-                def tile(i, qp=qp, lo=lo, hi=hi, b=b, kh=kh):
-                    p = 64 * i + np.arange(64)
-                    page = np.where((p >= lo) & (p <= hi), bt[b, np.minimum(p // ps, P - 1)], -1)
-                    slot = np.where(page >= 0, np.minimum(page, n_pages - 1) * ps + p % ps, -1)
-                    kt, vt = (np.where(slot[:, None] >= 0, x.reshape(-1, K, D)[slot, kh], 0)
-                              for x in (kp, vp))
-                    ok = (slot >= 0) & (p <= qp[:, None])
-                    if window is not None:
-                        ok &= p > qp[:, None] - window
-                    return kt, vt, ok, np.ones(64, bool)
-
-                seen = range(lo // 64, hi // 64 + 1) if hi >= lo else range(0)
-                res, M = _split_walk(q[b, t, kh * G + g] * c, -(-P * ps // 64), n_split, seen,
-                                     tile)
-                res[M <= -1e30] = vp[np.clip(bt[b], 0, n_pages - 1), :, kh].reshape(-1, D).mean(0)
+                tile, seen, empty = visit(b, kh, clen[b] - T + t)
+                res, M = _split_walk(q[b, t, kh * G + g] * c, n_tiles, n_split, seen, tile)
+                if empty is not None:
+                    res[M <= -1e30] = empty
                 out[b, t, kh * G + g] = res
     return _bf16(out)
 
 
-def _dense_walk(q, k, v, clen, pos, window, n_split):
-    """decode_wgmma_kernel's schedule: per (row, KV head) one tile of the T*G
-    rows; a split walks every slot of its range over S (a ring's slot order
-    is not position order), slot j visible iff 0 <= pos[j] <= q_pos (and >
-    q_pos - window), slots past S absent.  A row that sees nothing keeps
-    M = -1e30 in every split: equal weights, the mean of V over all S."""
-    B, T, H, D = q.shape
-    S, K = k.shape[1:3]
-    G, c = H // K, D ** -0.5 * np.log2(np.e)
-    t, g = np.divmod(np.arange(T * G), G)
-    out = np.zeros(q.shape, np.float32)
-    for b in range(B):
-        qp = clen[b] - T + t
-        for kh in range(K):
-            def tile(i, b=b, kh=kh, qp=qp):
-                p = 64 * i + np.arange(64)
-                exists = p < S
-                kv_pos = np.where(exists, pos[b, np.minimum(p, S - 1)], -1)
-                kt, vt = (np.where(exists[:, None], x[b, np.minimum(p, S - 1), kh], 0)
-                          for x in (k, v))
-                ok = (kv_pos >= 0) & (kv_pos <= qp[:, None])
-                if window is not None:
-                    ok &= kv_pos > qp[:, None] - window
-                return kt, vt, ok, exists
+def _paged_walk(q, kp, vp, clen, bt, window, n_split=1):
+    """paged_wgmma_kernel's schedule: query tiles of 64 rows (128 where
+    T*G > 64: two warpgroups); each tile's rows see positions [lo, hi] (hi
+    clamped to P*ps - 1), and a split walks the tiles of its range over P*ps
+    that meet them, gathering each position's slot from the table (clamped;
+    -1 outside [lo, hi] or unset: masked and read as zeros).  A row that saw
+    nothing (M <= -1e30) gets the mean of V over every table entry, an unset
+    entry read as page 0."""
+    T, H = q.shape[1:3]
+    n_pages, ps, K, D = kp.shape
+    P = bt.shape[1]
 
-            n_tiles = -(-S // 64)
-            out[b, t, kh * G + g] = _split_walk(q[b, t, kh * G + g] * c, n_tiles, n_split,
-                                                range(n_tiles), tile)[0]
-    return _bf16(out)
+    def visit(b, kh, qp):
+        hi, lo = min(qp[-1], P * ps - 1), 0 if window is None else max(0, qp[0] - window + 1)
+
+        def tile(i):
+            p = 64 * i + np.arange(64)
+            page = np.where((p >= lo) & (p <= hi), bt[b, np.minimum(p // ps, P - 1)], -1)
+            slot = np.where(page >= 0, np.minimum(page, n_pages - 1) * ps + p % ps, -1)
+            kt, vt = (np.where(slot[:, None] >= 0, x.reshape(-1, K, D)[slot, kh], 0)
+                      for x in (kp, vp))
+            ok = (slot >= 0) & (p <= qp[:, None])
+            if window is not None:
+                ok &= p > qp[:, None] - window
+            return kt, vt, ok, np.ones(64, bool)
+
+        return (tile, range(lo // 64, hi // 64 + 1) if hi >= lo else range(0),
+                vp[np.clip(bt[b], 0, n_pages - 1), :, kh].reshape(-1, D).mean(0))
+
+    rows = 64 if T * (H // K) <= 64 else 128
+    return _walk(q, clen, K, -(-P * ps // 64), n_split, rows, visit)
+
+
+def _dense_walk(q, k, v, clen, pos, window, n_split):
+    """decode_wgmma_kernel's schedule: one query tile of the T*G rows; a
+    split walks every slot of its range over S (a ring's slot order is not
+    position order), slot j visible iff 0 <= pos[j] <= q_pos (and > q_pos -
+    window), slots past S absent.  A row that sees nothing keeps M = -1e30
+    in every split: equal weights, the mean of V over all S."""
+    T, H = q.shape[1:3]
+    S, K = k.shape[1:3]
+
+    def visit(b, kh, qp):
+        def tile(i):
+            p = 64 * i + np.arange(64)
+            exists = p < S
+            kv_pos = np.where(exists, pos[b, np.minimum(p, S - 1)], -1)
+            kt, vt = (np.where(exists[:, None], x[b, np.minimum(p, S - 1), kh], 0) for x in (k, v))
+            ok = (kv_pos >= 0) & (kv_pos <= qp[:, None])
+            if window is not None:
+                ok &= kv_pos > qp[:, None] - window
+            return kt, vt, ok, exists
+
+        return tile, range(-(-S // 64)), None
+
+    return _walk(q, clen, K, -(-S // 64), n_split, T * H // K, visit)
 
 
 def _tables(rng, held, P, n_pages, ps=16):
