@@ -58,7 +58,16 @@ Phases, each fatal on failure:
      layers, d_model 2560), counting SSD-scan launches (every one on the
      tensor-core kernel), and profile a burst, splitting device time between
      prefill and decode;
-  9. print the kernel table as one JSON line, then the result line.
+  9. the serving front door at full width on the dense serve's weights:
+     ``StreamServe`` behind ``GatewayThread`` (trace on, warmed up): an
+     idle-gateway request against the same prompt served in process, a wave
+     of 24 concurrent SSE streams (client TTFT/TPOT, ms per engine step), a
+     wave of 40 with 429s, a dropped stream and ``/admin/fail_worker/1``;
+     no graph captured during HTTP serving; then the dense graphed serve
+     with StreamTrace off and on (equal tokens and launches, bookkeeping ms
+     a step each); then ``python -m repro_torch.launch.serve --no-reduced
+     --warmup`` with a cancel, a worker failure and a Chrome trace;
+ 10. print the kernel table as one JSON line, then the result line.
 Every serve of phases 4-8 runs twice on the same weights: eager (its lanes'
 graph caches cleared, so each step runs op by op), then on CUDA graphs
 (warmed up: every fixed-shape step captured), each profiled; the graphed
@@ -964,15 +973,16 @@ def read_counts() -> dict:
     return counts
 
 
-def serve_phase(report: dict, params=None, graphed=True, temperature=0.0):
-    """The default serve at full width (sampled, with ``temperature`` > 0)."""
+def serve_phase(report: dict, params=None, graphed=True, temperature=0.0, trace=None):
+    """The default serve at full width (sampled, with ``temperature`` > 0;
+    with ``trace``, StreamTrace set so and the report keyed by it)."""
     import numpy as np
     import torch
 
     from repro_torch.api import ServeConfig
 
     cfg = ServeConfig(reduced=False, n_pairs=2, max_batch=8, max_len=512, max_new_tokens=32,
-                      temperature=temperature)
+                      temperature=temperature, trace=trace or "off")
     t0 = time.perf_counter()
     serve = served(cfg, graphed, **({} if params is None else {"params": params}))
     torch.cuda.synchronize()
@@ -988,7 +998,7 @@ def serve_phase(report: dict, params=None, graphed=True, temperature=0.0):
     zero_counts()
     run = drive(serve, {0: prompts[:8], 3: prompts[8:]})  # a second wave joins mid-decode
     launches = read_counts()
-    tag = "sampled serve" if temperature else "serve"
+    tag = ("sampled serve" if temperature else "serve") + (f" trace {trace}" if trace else "")
     result = serve_stats(tag + ("" if graphed else " (eager)"), serve, bad, run, launches)
     L, calls = arch.n_layers, result
     if launches["flash_attention"] != L * calls["prefill_calls"] or not calls["prefill_calls"]:
@@ -1651,12 +1661,13 @@ def ssd_kernel_phase(report: dict) -> dict:
     return out
 
 
-def to_cpu(tree):
+def to_cpu(tree, device="cpu"):
+    """A copy of a weight tree on ``device`` (the CPU by default)."""
     if isinstance(tree, dict):
-        return {k: to_cpu(v) for k, v in tree.items()}
+        return {k: to_cpu(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [to_cpu(v) for v in tree]
-    return tree.cpu()
+        return [to_cpu(v, device) for v in tree]
+    return tree.to(device)
 
 
 def mamba_model_phase(report: dict) -> None:
@@ -1743,6 +1754,281 @@ def mamba_serve_phase(report: dict, params=None, graphed=True):
     return launches, serve
 
 
+def trace_cost_phase(params, report: dict) -> None:
+    """The dense graphed serve with StreamTrace off and on, on the same
+    weights and trace: the same tokens, kernel launches and captures after
+    warmup (every emit is host bookkeeping outside the captured steps); then
+    host_split's bursts on the two serves in turns (off, on, on, off, twice)
+    for the bookkeeping ms a step of each."""
+    serves, out = {}, {}
+    for mode in ("off", "on"):
+        serves[mode] = serve_phase(report, params, True, trace=mode)
+    off, on = report["serve_trace_off"], report["serve_trace_on"]
+    if on["tokens"] != off["tokens"] or serves["on"][0] != serves["off"][0]:
+        fail("trace cost: trace='on' changed the tokens or the kernel launches")
+    if on["captured_after_warmup"] or off["captured_after_warmup"]:
+        fail("trace cost: a graph was captured after warmup")
+    for i, mode in enumerate(("off", "on", "on", "off") * 2):
+        host_split(serves[mode][1], report, f"serve_trace_{mode}_{i}", PROFILE_LENS)
+        out.setdefault(mode, []).append(report["host_split"][f"serve_trace_{mode}_{i}"])
+    for mode in ("off", "on"):
+        engine = serves[mode][1].engine
+        out[mode] = {**{m: sum(r[m] for r in out[mode]) / len(out[mode])
+                        for m in ("wall", "dispatch", "device", "bookkeeping")},
+                     "bookkeeping_runs": [r["bookkeeping"] for r in out[mode]],
+                     "events": len(engine.trace_events()), "dropped": engine.trace.dropped}
+    if out["off"]["events"] or not out["on"]["events"] or out["on"]["dropped"]:
+        fail(f"trace cost: events off/on {out['off']['events']}/{out['on']['events']}, "
+             f"{out['on']['dropped']} dropped")
+    del serves
+    report["trace_cost"] = out
+    print(f"trace cost: tokens and launches equal with trace on ({out['on']['events']} events); "
+          + "; ".join(f"trace {m}: {r['wall']:.2f} ms a step = dispatch {r['dispatch']:.2f} + "
+                      f"device wait {r['device']:.2f} + bookkeeping {r['bookkeeping']:.3f} (runs "
+                      + ", ".join(f"{b:.3f}" for b in r["bookkeeping_runs"]) + ")"
+                      for m, r in out.items()))
+
+
+def sse_stream(addr, prompt, n, drop_after=None):
+    """One streaming completion over the gateway: its status, token frames,
+    terminal frames, whether ``[DONE]`` ended it, the send time and each
+    token frame's arrival (host clock); ``drop_after`` frames, then the
+    socket is dropped."""
+    from repro_torch.gateway.client import SSEClient, completion_body
+
+    t0 = time.perf_counter()
+    out = {"t0": t0, "tokens": [], "times": [], "terminals": [], "rid": None}
+    with SSEClient(*addr, "/v1/completions", completion_body(prompt, n), timeout=600) as sse:
+        out.update(status=sse.status, retry_after=sse.headers.get("retry-after"))
+        for frame in sse.events() if sse.status == 200 else ():
+            out["rid"] = frame["id"]
+            if "usage" in frame or "error" in frame:
+                out["terminals"].append(frame)
+            else:
+                out["tokens"].append(frame["choices"][0]["token"])
+                out["times"].append(time.perf_counter())
+            if len(out["tokens"]) == drop_after:
+                break
+        out["done"] = sse.done
+    return out
+
+
+def wait_for(what: str, cond, timeout: float = 300.0) -> None:
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            fail(f"gateway: timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def gateway_phase(params, report: dict) -> None:
+    """The serving front door on the card: ``StreamServe(ServeConfig(...))``
+    at full width (qwen3-1.7b, 2 pairs x 8 slots, max_len 512, trace on,
+    ``gateway_max_pending`` 24) on the dense serve's weights, warmed up (every
+    graph captured), then ``GatewayThread`` on port 0.  One prompt served in
+    process, then the same prompt over the idle gateway: equal tokens.  Wave
+    1: 24 concurrent SSE streams of 32 tokens, the prompts the port's
+    ``sample_mixed`` trace clipped to max_len: each stream's tokens equal its
+    request's output, its terminal ``usage`` agrees, ``[DONE]`` comes last;
+    client TTFT/TPOT, completions/s, tokens/s and wall ms per engine step.
+    Wave 2: 40 streams at once: 429s with Retry-After, one stream dropped
+    after 4 frames is cancelled, ``/admin/fail_worker/1`` mid-wave leaves
+    every client one terminal frame, a flight dump and pair 1 down.  After
+    both: no graph captured during HTTP serving, ``/metrics`` against the
+    monitor, a submit and one terminal event per request in the trace, every
+    slot and page free.  The main thread makes no CUDA call while the
+    gateway serves: every engine read goes through ``GatewayThread.call``."""
+    import concurrent.futures
+    import re
+
+    import numpy as np
+
+    from repro_torch.api import ServeConfig
+    from repro_torch.data.workloads import sample_mixed
+    from repro_torch.gateway import GatewayThread
+    from repro_torch.gateway.client import http_request
+    from repro_torch.obs.trace import EV_SUBMIT, TERMINAL_EVENTS
+
+    out_dir = ROOT / "chiprun_out" / "gateway"
+    trace_dir = out_dir / "flight"
+    cfg = ServeConfig(reduced=False, max_new_tokens=32, trace="on", trace_dir=str(trace_dir),
+                      gateway_max_pending=24)
+    serve = served(cfg, True, params=params)
+    n_new, clip = 32, cfg.max_len - 32  # the SUM prompts average ~620 tokens
+    wave1 = [s.request.prompt[:clip] for s in sample_mixed(6, seed=0, vocab_size=serve.arch.vocab_size)]
+    wave2 = [s.request.prompt[:clip] for s in sample_mixed(10, seed=1, vocab_size=serve.arch.vocab_size)]
+    want = serve.submit(wave1[0]).result()  # in process, before the gateway starts
+    spans, step = [], serve.step
+
+    def timed_step():  # the gateway thread's engine steps, on the host clock
+        t = time.perf_counter()
+        n = step()
+        spans.append((t, time.perf_counter()))
+        return n
+
+    serve.step = timed_step
+    thread = GatewayThread(serve, port=0)
+    addr = thread.start(timeout=120)
+    on_loop = lambda fn: thread.call(fn, timeout=300)  # noqa: E731
+    graphs_before = on_loop(lambda: captured(serve))
+    result = {"graphs_at_start": graphs_before, "warmup_s": serve.warm["warmup_s"]}
+    try:
+        idle = sse_stream(addr, wave1[0], n_new)
+        if idle["tokens"] != want:
+            fail("gateway: the idle gateway's SSE tokens differ from the in-process tokens")
+
+        zero_counts()
+        steps0 = on_loop(lambda: serve.engine._now)
+        first = on_loop(lambda: len(spans))
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(wave1)) as pool:
+            runs = list(pool.map(lambda p: sse_stream(addr, p, n_new), wave1))
+        wall = time.perf_counter() - t0
+        steps = on_loop(lambda: serve.engine._now) - steps0
+        ticks = on_loop(lambda: spans[first:])
+        launches = read_counts()
+        recs = on_loop(lambda: {r.request_id: r for r in serve.monitor.completed})
+        for prompt, r in zip(wave1, runs, strict=True):
+            if r["status"] != 200 or not r["done"] or len(r["terminals"]) != 1:
+                fail(f"gateway wave 1: status {r['status']}, [DONE] {r['done']}, "
+                     f"{len(r['terminals'])} terminal frames")
+            term = r["terminals"][0]
+            if (r["tokens"] != term["choices"][0]["token_ids"] or len(r["tokens"]) != n_new
+                    or recs[r["rid"]].generated != n_new):
+                fail(f"gateway wave 1: {r['rid']}'s frames differ from its request's output")
+            if term["usage"] != {"prompt_tokens": len(prompt), "completion_tokens": n_new,
+                                 "total_tokens": len(prompt) + n_new}:
+                fail(f"gateway wave 1: {r['rid']}'s usage {term['usage']} disagrees")
+        for name in ("decode_attention", "flash_attention"):
+            if not launches[name]:
+                fail(f"gateway wave 1: no {name} launch")
+        wgmma_only(launches, "gateway", "flash_attention", "decode_attention")
+        ttft = [r["times"][0] - r["t0"] for r in runs]
+        tpot = [(r["times"][-1] - r["times"][0]) / (len(r["times"]) - 1) for r in runs]
+        result["wave1"] = {
+            "streams": len(runs), "wall_s": wall, "engine_steps": steps,
+            "ms_per_step": wall / steps * 1e3, "completions_per_s": len(runs) / wall,
+            # between the first step's start and the last one's end: the engine's
+            # steps, and the loop's time between them (yield, token pump, SSE writes)
+            "step_ms": sum(b - a for a, b in ticks) / len(ticks) * 1e3,
+            "loop_ms_per_step": ((ticks[-1][1] - ticks[0][0]) - sum(b - a for a, b in ticks))
+            / len(ticks) * 1e3,
+            "tokens_per_s": len(runs) * n_new / wall, "launches": launches,
+            **{f"ttft_s_p{q}": float(np.percentile(ttft, q)) for q in (50, 99)},
+            **{f"tpot_ms_p{q}": float(np.percentile(tpot, q)) * 1e3 for q in (50, 99)}}
+
+        with concurrent.futures.ThreadPoolExecutor(len(wave2)) as pool:
+            dropped = pool.submit(sse_stream, addr, wave2[0], n_new, 4)
+            wait_for("the dropped stream's admission", lambda: on_loop(lambda: serve.pending))
+            rest = [pool.submit(sse_stream, addr, p, n_new) for p in wave2[1:]]
+            now = on_loop(lambda: serve.engine._now)
+            wait_for("wave 2 to run", lambda: on_loop(lambda: serve.engine._now) >= now + 3)
+            status, _, body = http_request(*addr, "POST", "/admin/fail_worker/1", timeout=300)
+            if status != 200:
+                fail(f"gateway: /admin/fail_worker/1 answered {status}")
+            rerouted = json.loads(body)["rerouted"]
+            dropped, rest = dropped.result(timeout=600), [f.result(timeout=600) for f in rest]
+        refused = [r for r in rest if r["status"] == 429]
+        if not refused or any(r["retry_after"] != "1" for r in refused):
+            fail(f"gateway wave 2: {len(refused)} 429s, Retry-After "
+                 f"{sorted({str(r['retry_after']) for r in refused})}")
+        served_ = [r for r in rest if r["status"] == 200]
+        if len(served_) + len(refused) != len(rest):
+            fail(f"gateway wave 2: statuses {sorted({r['status'] for r in rest})}")
+        if any(len(r["terminals"]) != 1 or not r["done"] for r in served_):
+            fail("gateway wave 2: a client did not get exactly one terminal frame and [DONE]")
+        wait_for("the dropped stream's cancel",
+                 lambda: on_loop(lambda: any(r.request_id == dropped["rid"] and r.cancelled
+                                             for r in serve.monitor.completed)))
+        wait_for("the engine to drain", lambda: on_loop(lambda: serve.pending) == 0)
+        dumps = sorted(p.name for p in trace_dir.glob("flight_fail_worker_*.json"))
+        status, _, body = http_request(*addr, "GET", "/healthz", timeout=300)
+        health = [w["healthy"] for w in json.loads(body)["workers"]]
+        if status != 200 or health != [True, False] or not dumps:
+            fail(f"gateway wave 2: /healthz {status} {health}, flight dumps {dumps}")
+        result["wave2"] = {"streams": len(wave2), "refused_429": len(refused),
+                           "served": len(served_) + 1, "rerouted": rerouted,
+                           "flight_dumps": dumps}
+
+        status, _, body = http_request(*addr, "GET", "/metrics", timeout=300)
+        text = body.decode()
+        sample = re.compile(r"^[A-Za-z_:][A-Za-z0-9_:]*(\{[^}]*\})? ([-+]?[0-9.e+-]+|[-+]?Inf)$")
+        bad = [ln for ln in text.splitlines() if ln and not ln.startswith("#")
+               and not sample.match(ln)]
+        recs = on_loop(lambda: list(serve.monitor.completed))
+        counts = {"finished": sum(not r.cancelled and not r.slo_infeasible for r in recs),
+                  "cancelled": sum(r.cancelled for r in recs),
+                  "shed": sum(r.slo_infeasible for r in recs)}
+        want_lines = [f'streamserve_requests_total{{state="{k}"}} {v}' for k, v in counts.items()]
+        want_lines.append(f"streamserve_tokens_generated_total {sum(r.generated for r in recs)}")
+        if status != 200 or bad or any(ln not in text.splitlines() for ln in want_lines):
+            fail(f"gateway /metrics: status {status}, unparsed {bad[:3]}, expected {want_lines}")
+        graphs_after = on_loop(lambda: captured(serve))
+        if graphs_after != graphs_before:
+            fail(f"gateway: {graphs_after - graphs_before} graphs captured during HTTP serving")
+        free = on_loop(lambda: [(len(p.free_slots()), p.kv.free_blocks) for p in
+                                serve.engine.pairs])
+        if free != [(cfg.max_batch, cfg.kv_blocks)] * cfg.n_pairs:
+            fail(f"gateway: slots and pages not all free after the waves: {free}")
+        doc = on_loop(lambda: serve.export_chrome_trace(str(out_dir / "gateway_trace.json")))
+        events = on_loop(serve.trace_events)
+        dropped_events = on_loop(lambda: serve.engine.trace.dropped)
+        json.loads((out_dir / "gateway_trace.json").read_text())
+        for r in recs:
+            mine = [e[3] for e in events if e[4] == r.request_id]
+            if EV_SUBMIT not in mine or sum(e in TERMINAL_EVENTS for e in mine) != 1:
+                fail(f"gateway trace: {r.request_id} events {mine}")
+        result.update(requests=len(recs), states=counts, trace_events=len(events),
+                      trace_dropped=dropped_events, chrome_events=len(doc["traceEvents"]),
+                      graphs_during_http=graphs_after - graphs_before)
+    finally:
+        thread.stop(timeout=120)
+    w1 = result["wave1"]
+    dense = report["serve"]["step_s_mean"] * 1e3
+    result["in_process_ms_per_step"] = dense
+    report["gateway"] = result
+    print(f"gateway wave 1: {w1['streams']} SSE streams of {n_new} tokens in {w1['wall_s']:.3f} s "
+          f"({w1['completions_per_s']:.2f} completions/s, {w1['tokens_per_s']:.1f} tokens/s), "
+          f"TTFT p50 {w1['ttft_s_p50']:.4f} s p99 {w1['ttft_s_p99']:.4f} s, TPOT p50 "
+          f"{w1['tpot_ms_p50']:.2f} ms p99 {w1['tpot_ms_p99']:.2f} ms; launches {w1['launches']}")
+    print(f"gateway: {w1['ms_per_step']:.2f} ms per engine step over HTTP "
+          f"({w1['engine_steps']:g} steps) against {dense:.2f} in process (graphed dense serve); "
+          f"the gateway's steps {w1['step_ms']:.2f} ms each, its loop {w1['loop_ms_per_step']:.2f} "
+          f"ms between two")
+    print(f"gateway wave 2: {len(wave2)} streams, {result['wave2']['refused_429']} refused with 429, "
+          f"pair 1 failed mid-wave ({result['wave2']['rerouted']} rerouted), flight dump "
+          f"{result['wave2']['flight_dumps']}; {result['requests']} requests, states "
+          f"{result['states']}, {result['trace_events']} trace events, "
+          f"{result['graphs_during_http']} graphs captured during HTTP serving")
+
+
+def cli_phase(report: dict) -> None:
+    """The serve CLI at full width on the card, as a user runs it: warmup,
+    8 requests, one cancelled at step 3, pair 1 killed at step 5, a Chrome
+    trace written.  It must exit 0, print its ``completed`` line and write a
+    trace that loads."""
+    import os
+
+    out = ROOT / "chiprun_out" / "cli"
+    out.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--no-reduced", "--warmup",
+           "--requests", "8", "--cancel-one", "--fail-worker", "1", "--trace-out",
+           str(out / "t.json")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    (out / "stdout.txt").write_text(proc.stdout + proc.stderr)
+    completed = [ln for ln in proc.stdout.splitlines() if ln.startswith("completed ")]
+    if proc.returncode != 0 or not completed:
+        fail(f"cli: exit {proc.returncode}; {(proc.stdout + proc.stderr)[-2000:]}")
+    doc = json.loads((out / "t.json").read_text())
+    report["cli"] = {"wall_s": wall, "completed": completed[0],
+                     "chrome_events": len(doc["traceEvents"])}
+    print(f"cli: exit 0 in {wall:.1f} s, '{completed[0]}', trace of "
+          f"{len(doc['traceEvents'])} Chrome events")
+
+
 def release() -> None:
     """Free a finished phase's device memory before the next one measures its
     peak: the instrumented lane methods form reference cycles (closures over
@@ -1815,6 +2101,7 @@ def main() -> None:
     release()
     _, serve, _ = twice(report, "paged_chunked_serve",
                         lambda g, **w: chunked_serve_phase(params, report, True, g))
+    dense_weights = to_cpu(params)  # the front door's phases serve them again, last
     del serve, params
     release()
     llama_timing = llama_kernel_phase(report)
@@ -1835,11 +2122,19 @@ def main() -> None:
     release()
     ssd_timing = ssd_kernel_phase(report)
     mamba_model_phase(report)
-    mamba_launches, serve, _ = twice(report, "mamba_serve",
+    mamba_launches, serve, w = twice(report, "mamba_serve",
                                      lambda g, **w: mamba_serve_phase(report, graphed=g, **w),
                                      profile={"key": "mamba_profile", "seed": 3, "split": True})
-    del serve
+    del serve, w  # the mamba2 weights too: the front door's serves measure their peaks
     release()
+    params = to_cpu(dense_weights, "cuda")
+    del dense_weights
+    gateway_phase(params, report)
+    release()
+    trace_cost_phase(params, report)
+    del params
+    release()
+    cli_phase(report)
 
     def entry(name, kernel, r, n, was):
         return {"name": name, "kernel": kernel, "route": "cuda",

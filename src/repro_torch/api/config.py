@@ -7,14 +7,15 @@
     econf = cfg.build_engine_config()            # -> EngineConfig
 
 Policy fields (``router``, ``draft``, ``spec_policy``) are registry names
-(:mod:`repro_torch.api.registry`).  Fields of features the port does not
-have yet (the gateway, StreamTrace) keep the reference's defaults and are
-not validated here: the engine refuses a non-default trace setting by name.  The paged fields are checked by the engine's
-paged gate.  YAML round trips are not ported yet.
+(:mod:`repro_torch.api.registry`).  The paged fields are checked by the
+engine's paged gate.  A config round-trips through plain dicts and YAML
+(``to_dict``/``from_dict``, ``to_yaml``/``from_yaml``; PyYAML is imported
+only there).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 from repro_torch.api.registry import DRAFTS, ROUTERS, SPEC_POLICIES
@@ -58,14 +59,14 @@ class ServeConfig:
     # ---- SLO control plane ------------------------------------------------
     per_row_depth: bool = True       # per-slot speculation depths
     slo_routing: bool = True         # TTFT-slack routing + EDF + shed guard
-    # ---- HTTP gateway (not ported yet) --------------------------------------
-    gateway_host: str = "127.0.0.1"
-    gateway_port: int = 8080
-    gateway_max_pending: int = 256
-    # ---- StreamTrace (recording not ported yet) -----------------------------
-    trace: str = "off"
-    trace_capacity: int = 4096
-    trace_dir: Optional[str] = None
+    # ---- HTTP gateway ------------------------------------------------------
+    gateway_host: str = "127.0.0.1"  # bind address
+    gateway_port: int = 8080         # TCP port (0 = ephemeral)
+    gateway_max_pending: int = 256   # pending requests past which submissions get 429
+    # ---- StreamTrace ------------------------------------------------------
+    trace: str = "off"               # "off", "on" or "flight"
+    trace_capacity: int = 4096       # retained events per worker (ring size)
+    trace_dir: Optional[str] = None  # also write flight dumps here as JSON
     # ---- workload defaults ------------------------------------------------
     max_new_tokens: int = 64         # default SamplingParams.max_new_tokens
     seed: int = 0
@@ -82,7 +83,8 @@ class ServeConfig:
             ("n_pairs", 1), ("max_batch", 1), ("max_len", 8), ("kv_blocks", 1),
             ("kv_block_size", 1), ("max_ngram", 1), ("draft_layers", 1),
             ("fixed_depth", 0), ("max_new_tokens", 1), ("prefill_bucket_min", 1),
-            ("admit_batch", 1),
+            ("admit_batch", 1), ("gateway_max_pending", 1), ("gateway_port", 0),
+            ("trace_capacity", 1),
         ]:
             v = getattr(self, field)
             if not isinstance(v, int) or v < lo:
@@ -110,13 +112,58 @@ class ServeConfig:
                          "max_new_tokens must leave prompt room under max_len"),
                         (not (self.paged_kv and self.draft == "model"),
                          "paged_kv does not support the 'model' draft (the draft lane keeps "
-                         "a dense cache with its own admission path)")):
+                         "a dense cache with its own admission path)"),
+                        (self.gateway_port <= 65535, "gateway_port must be 0..65535"),
+                        (isinstance(self.gateway_host, str) and self.gateway_host,
+                         "gateway_host must be a non-empty str"),
+                        (self.trace in ("off", "on", "flight"),
+                         "trace must be 'off', 'on' or 'flight'"),
+                        (self.trace_dir is None or isinstance(self.trace_dir, str),
+                         "trace_dir must be a str or None")):
             if not ok:
                 raise ValueError(msg)
 
     def replace(self, **updates):
         """Copy-update with re-validation (the builder step)."""
         return dataclasses.replace(self, **updates)
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d):
+        d = dict(d)
+        unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+        if unknown:
+            raise ValueError(f"unknown ServeConfig keys: {sorted(unknown)}")
+        for key, sub in (("flowguard", FlowGuardConfig), ("spec", SpecuStreamConfig)):
+            if isinstance(d.get(key), dict):
+                d[key] = sub(**d[key])
+        return cls(**d)
+
+    def to_yaml(self, path=None):
+        import yaml
+
+        text = yaml.safe_dump(self.to_dict(), sort_keys=False)
+        if path is not None:
+            with open(path, "w") as f:
+                f.write(text)
+        return text
+
+    @classmethod
+    def from_yaml(cls, path_or_text):
+        """From YAML text, or from a file: a one-line argument ending in
+        .yaml/.yml is a path (a missing file raises), as is any existing one."""
+        import yaml
+
+        if ("\n" not in path_or_text and path_or_text.strip().endswith((".yaml", ".yml"))
+                or os.path.exists(path_or_text)):
+            with open(path_or_text) as f:
+                path_or_text = f.read()
+        data = yaml.safe_load(path_or_text)
+        if not isinstance(data, dict):
+            raise ValueError("ServeConfig YAML must be a mapping")
+        return cls.from_dict(data)
 
     @classmethod
     def reduced_smoke(cls, arch="qwen3-1.7b", **overrides):

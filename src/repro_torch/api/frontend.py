@@ -45,6 +45,14 @@ class RequestHandle:
         self._cursor = 0
 
     @property
+    def slo_ttft(self):
+        return self.request.slo_ttft
+
+    @property
+    def slo_tpot(self):
+        return self.request.slo_tpot
+
+    @property
     def request_id(self):
         return self.request.request_id
 
@@ -184,9 +192,52 @@ class StreamServe:
     def fail_worker(self, worker_id):
         return self.engine.fail_worker(worker_id)
 
+    def trace_events(self):
+        """Raw StreamTrace events (empty when ``trace='off'``)."""
+        return self.engine.trace_events()
+
+    def export_chrome_trace(self, path=None):
+        """Chrome-trace/Perfetto JSON of the retained trace events."""
+        return self.engine.export_chrome_trace(path)
+
+    def prometheus_text(self):
+        """Prometheus text exposition of the engine's state (what the
+        gateway's ``/metrics`` serves)."""
+        return self.engine.prometheus_text()
+
+    @property
+    def flight_dumps(self):
+        """Flight-recorder dumps so far (engine exception or ``fail_worker``),
+        newest last."""
+        return self.engine.flight_dumps
+
     @property
     def monitor(self):
         return self.engine.monitor
 
     def summary(self):
         return self.engine.monitor.summary()
+
+    def worker_stats(self):
+        """Per-pair operational snapshot (routing and speculation signals).
+        A pair missing from the monitor degrades to a ``healthy: False`` row
+        instead of raising mid-scrape."""
+        out = []
+        for pair in self.engine.pairs:
+            m = self.engine.monitor.workers.get(pair.worker_id)
+            if m is None:
+                out.append({"worker_id": pair.worker_id, "healthy": False, "acceptance": 0.0,
+                            "cache_hit_rate": 0.0, "queue_depth": 0, "active_load": 0.0,
+                            "spec_depth": None, "slot_depths": [None] * len(pair.slot_req)})
+                continue
+            d = pair.spec.last_decision
+            out.append({
+                "worker_id": pair.worker_id, "healthy": pair.healthy,
+                "acceptance": pair.acceptance, "cache_hit_rate": m.cache_hit_rate,
+                "queue_depth": m.queue_depth, "active_load": pair.load,
+                "spec_depth": d.bucket_depth if d else None,
+                # each occupied slot's latest depth (the per-row control plane)
+                "slot_depths": [r.spec_depths[-1] if r is not None and r.spec_depths else None
+                                for r in pair.slot_req],
+            })
+        return out

@@ -30,14 +30,17 @@ call at its exact prompt length, since the SSM state would absorb padding,
 and is refused paged KV and chunking.  The small-transformer draft
 (``draft="model"``, :class:`ModelLaneDraft`) keeps its own dense
 ``ModelLane`` per pair, which mirrors the target's admissions, so it is
-refused paged KV and chunking too.  StreamTrace recording raises
-``NotImplementedError`` naming its ROADMAP item.  The engine is
-single-controller and deterministic given the request trace.
+refused paged KV and chunking too.  With ``trace`` on, StreamTrace records
+the reference's events from host bookkeeping only, outside every captured
+step: no copy or synchronisation is added.  The engine is single-controller
+and deterministic given the request trace.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
+import os
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
@@ -52,7 +55,13 @@ from repro_torch.core.scheduler import StreamScheduler, edf_deadline
 from repro_torch.core.specustream import VERIFY_BUCKETS, SlotSignals, pad_to_bucket
 from repro_torch.models import build_model
 from repro_torch.models.attention import SPEC_MARGIN, cache_capacity
+from repro_torch.obs.export import chrome_trace, engine_registry, save_chrome_trace
 from repro_torch.obs.spans import request_phases
+from repro_torch.obs.trace import (EV_ADMIT, EV_CANCEL, EV_COUNTERS, EV_DECODE_STEP, EV_FINISH,
+                                   EV_KV_ALLOC, EV_KV_EVICT, EV_KV_REQUEUE, EV_PREFILL_CHUNK,
+                                   EV_PREFILL_END, EV_PREFILL_PREEMPT, EV_PREFILL_RESUME,
+                                   EV_PREFILL_START, EV_VERIFY, EV_WORKER_FAIL, NullRecorder,
+                                   make_recorder)
 from repro_torch.serving.cost_model import H100_SXM, HardwareProfile, PrefillDelayEstimator
 from repro_torch.serving.draft import DraftContext, EngineDraft
 from repro_torch.serving.kv_cache import KVCacheManager
@@ -299,9 +308,9 @@ class EngineConfig:
     paged_kv: bool = False                # global page pool + radix prefix reuse
     max_context: Optional[int] = None     # per-sequence ceiling when paged; None = max_len
     kv_evict_policy: str = "requeue"      # pool dry mid-decode: "requeue" or "truncate"
-    trace: str = "off"                    # recording not ported yet (ROADMAP)
-    trace_capacity: int = 4096
-    trace_dir: Optional[str] = None
+    trace: str = "off"                    # StreamTrace: "off", "on" or "flight"
+    trace_capacity: int = 4096            # retained events per worker (ring size)
+    trace_dir: Optional[str] = None       # also write flight dumps here as JSON
 
     def resolved_spec_policy(self):
         if self.spec_policy is not None:
@@ -313,8 +322,9 @@ class StreamPair:
     """One disaggregated prefill+decode lane pair (paper Alg 3)."""
 
     def __init__(self, worker_id, cfg, params, econf,
-                 monitor, device, draft_cfg=None, draft_params=None):
+                 monitor, device, draft_cfg=None, draft_params=None, trace=None):
         self.worker_id, self.econf, self.monitor, self.device = worker_id, econf, monitor, device
+        self.trace = trace if trace is not None else NullRecorder()
         self._paged = paged = econf.paged_kv
         ps, vb = econf.kv_block_size, econf.verify_buckets
         # page headroom every row keeps ahead of its committed length: the
@@ -360,6 +370,7 @@ class StreamPair:
         self._chunk = None
         self.chunk_rows: List[Optional[Request]] = []
         self.chunk_cursor = {}  # request_id -> tokens ingested so far
+        self._chunk_last = None  # the request granted the last chunk (preempt/resume events)
         if econf.prefill_chunk and attention_only(cfg):
             cap = cache_capacity(cfg, econf.max_len)
             C = min(econf.prefill_chunk, cap)
@@ -401,7 +412,7 @@ class StreamPair:
     def _to_dev(self, a):
         return torch.from_numpy(a).to(self.device, non_blocking=True)
 
-    def reserve_kv(self, req):
+    def reserve_kv(self, req, now):
         """Reserve KV blocks ahead of the prefill: prompt + max_new on the
         dense path; prompt + page margin when paged (the sequence then grows
         page by page), sharing the resident prefix unless the prompt is
@@ -412,6 +423,9 @@ class StreamPair:
         if alloc is None:
             return False  # pool exhausted: stays queued
         req.cache_hit_tokens = alloc.shared_blocks * self.kv.block_size
+        if self.trace.enabled:
+            self.trace.emit(now, self.worker_id, EV_KV_ALLOC, req.request_id,
+                            (len(alloc.block_ids), alloc.shared_blocks, req.cache_hit_tokens))
         return True
 
     def prompt_fits(self, req):
@@ -432,7 +446,7 @@ class StreamPair:
         while (req := scheduler.next_for_prefill(self.worker_id, now)) is not None:
             if not self.prompt_fits(req):
                 scheduler.fail_request(req, now, "exceeds_max_context")
-            elif self.reserve_kv(req):
+            elif self.reserve_kv(req, now):
                 return req, False
             else:
                 scheduler.prefill_queues[self.worker_id].appendleft(req)
@@ -463,6 +477,8 @@ class StreamPair:
             raise RuntimeError("admit() requires a free slot per request")
         for req in reqs:
             req.state, req.t_prefill_start = RequestState.PREFILLING, now
+            self._trace(now, EV_PREFILL_START, req.request_id, req.prompt_len,
+                        req.cache_hit_tokens)
         if self._paged:
             first = self._admit_paged(reqs, slots)
         else:
@@ -470,6 +486,13 @@ class StreamPair:
         self.pending[self._to_dev(np.asarray(slots, np.int64))] = first.to(torch.int32)
         for slot, req, tok in zip(slots, reqs, first.tolist(), strict=True):  # ONE copy
             self._seat(slot, req, tok, now)
+            self._trace(now, EV_PREFILL_END, req.request_id, len(reqs))
+            self._trace(now, EV_ADMIT, req.request_id, slot)
+
+    def _trace(self, now, etype, request_id, *payload):
+        """Record one of this pair's events (host values only)."""
+        if self.trace.enabled:
+            self.trace.emit(now, self.worker_id, etype, request_id, payload)
 
     def _seat(self, slot, req, tok, now):
         """A prefilled request starts decoding in ``slot`` with its first token."""
@@ -587,6 +610,8 @@ class StreamPair:
             req.state, req.t_prefill_start = RequestState.PREFILLING, now
             self.chunk_rows[free[0]] = req
             self.chunk_cursor[req.request_id] = 0
+            self._trace(now, EV_PREFILL_START, req.request_id, req.prompt_len,
+                        req.cache_hit_tokens)
 
     def chunk_tick(self, scheduler, now):
         """One prefill-lane tick under chunked prefill: pull arrivals, serve
@@ -605,6 +630,14 @@ class StreamPair:
             row, req = occupied[0]
         C, R = self._chunk, len(self.chunk_rows)
         cur = self.chunk_cursor[req.request_id]
+        last = self._chunk_last
+        if last is not None and last != req.request_id and last in self.chunk_cursor:
+            # the lane's previous occupant still has chunks left but lost this
+            # tick's grant: EDF preempted it
+            self._trace(now, EV_PREFILL_PREEMPT, last, self.chunk_cursor[last], req.request_id)
+        if cur > 0 and last != req.request_id:
+            self._trace(now, EV_PREFILL_RESUME, req.request_id, cur)
+        self._chunk_last = req.request_id
         req.prefill_active_ticks += 1  # a lane turn granted
         n = min(C, len(req.prompt) - cur)
         tokens = np.zeros((R, C), np.int32)
@@ -616,6 +649,7 @@ class StreamPair:
         n_new[row] = n
         last = self._chunk_step(tokens, lens, n_new, row)
         self.chunk_cursor[req.request_id] = cur + n
+        self._trace(now, EV_PREFILL_CHUNK, req.request_id, cur + n, n)
         if cur + n >= len(req.prompt):
             self._chunk_complete(row, req, last, now)
 
@@ -641,6 +675,10 @@ class StreamPair:
         self._seat(slot, req, int(first[0]), now)
         self.chunk_rows[row] = None
         del self.chunk_cursor[req.request_id]
+        if self._chunk_last == req.request_id:
+            self._chunk_last = None
+        self._trace(now, EV_PREFILL_END, req.request_id, 1)
+        self._trace(now, EV_ADMIT, req.request_id, slot)
 
     def _complete_step(self, last_logits, row, slot, block_ids, seq_len):
         """Chunk row ``row`` into decode slot ``slot`` (dense: the admission
@@ -682,6 +720,8 @@ class StreamPair:
         req = self.chunk_rows[row]
         self.chunk_rows[row] = None
         self.chunk_cursor.pop(req.request_id, None)
+        if self._chunk_last == req.request_id:
+            self._chunk_last = None
         self.kv.free_sequence(req.request_id)
         return req
 
@@ -718,7 +758,10 @@ class StreamPair:
             nxt = self._plain_step(self.pending)
             self.pending = torch.where(active_dev, nxt, self.pending)
             nxt_h = nxt.tolist()  # the ONE decode round-trip
-            return sum(self._emit(s, [nxt_h[s]], now) for s in active)
+            emitted = sum(self._emit(s, [nxt_h[s]], now) for s in active)
+            self._trace(now, EV_DECODE_STEP, None, len(active), 0, 0, emitted,
+                        round(self.acceptance, 6), (), ())
+            return emitted
 
         # draft proposal at the real depth k, padded to a shape bucket (the
         # last token repeated, q = 1); n-gram proposals come from the host,
@@ -749,7 +792,13 @@ class StreamPair:
         else:
             accepted = sum(n_acc[s] for s in active) / len(active) / max(k, 1)
         self.acceptance = 0.8 * self.acceptance + 0.2 * accepted
-        return sum(self._emit(s, [*host[s][2:2 + n_acc[s]], host[s][1]], now) for s in active)
+        self._trace(now, EV_VERIFY, None, k, k_pad)
+        emitted = sum(self._emit(s, [*host[s][2:2 + n_acc[s]], host[s][1]], now) for s in active)
+        if self.trace.enabled:  # payloads are built only when recording
+            self._trace(now, EV_DECODE_STEP, None, len(active), k, k_pad, emitted,
+                        round(self.acceptance, 6), tuple(int(rows[s]) for s in active),
+                        tuple(n_acc[s] for s in active))
+        return emitted
 
     def _plain_step(self, pending):
         """One token for every row: decode, the reference's no-op commit and
@@ -840,10 +889,13 @@ class StreamPair:
             return False
         slot = max(cands, key=lambda s: (edf_deadline(self.slot_req[s]), s))
         req = self.slot_req[slot]
+        self._trace(now, EV_KV_EVICT, req.request_id, slot,
+                    len(self.kv.seqs[req.request_id].block_ids))
         self.kv.free_sequence(req.request_id)
         self.clear_slot(slot)
         _restart(req)
         req.kv_requeued += 1
+        self._trace(now, EV_KV_REQUEUE, req.request_id, req.kv_requeued)
         self.requeue(req, now)
         return True
 
@@ -851,8 +903,11 @@ class StreamPair:
         req = self.slot_req[slot]
         req.state, req.t_end = RequestState.FINISHED, now
         self.kv.free_sequence(req.request_id)
-        self.monitor.complete_request(_terminal_record(req, now, kv_evicted=kv_evicted))
+        rec = _terminal_record(req, now, kv_evicted=kv_evicted)
+        self.monitor.complete_request(rec)
         self.clear_slot(slot)
+        self._trace(now, EV_FINISH, req.request_id, rec.generated, kv_evicted, rec.phase_queued,
+                    rec.phase_prefill, rec.phase_decode, rec.phase_stall)
 
     def clear_slot(self, slot):
         """Release a slot's host bookkeeping (and its block-table row)."""
@@ -916,11 +971,16 @@ class StreamPair:
         self.gen.set_state(state)
         return n + 1
 
-    def publish_metrics(self, queue_depth):
+    def publish_metrics(self, queue_depth, now):
         self.monitor.update_worker(
             self.worker_id, cache_hit_rate=self.kv.hit_rate,
             memory_utilization=self.kv.memory_utilization, queue_depth=queue_depth,
             active_load=self.load, acceptance_rate=self.acceptance)
+        if self.trace.enabled:
+            depths = [r.spec_depths[-1] for r in self.slot_req if r is not None and r.spec_depths]
+            self._trace(now, EV_COUNTERS, None, queue_depth, self.kv.free_blocks, self.kv.used,
+                        round(self.acceptance, 6), round(self.load, 6),
+                        round(sum(depths) / len(depths), 4) if depths else 0.0)
 
 
 class ModelLaneDraft(EngineDraft):
@@ -996,8 +1056,6 @@ class PipeServeEngine:
                  hardware=H100_SXM):
         self.device = resolve_device(device)
         self.econf = econf = econf or EngineConfig()
-        if econf.trace != "off":
-            raise NotImplementedError("StreamTrace recording (ROADMAP) is not ported yet")
         if econf.paged_kv:  # the reference's paged gating (write-once pages: no window)
             for bad, what in (
                     (not attention_only(cfg), "an attention-only stack (SSM state is "
@@ -1017,8 +1075,10 @@ class PipeServeEngine:
         # (keys seen by earlier engines in the process do not count here)
         self._programs_base = graphs.counts()
         self.monitor = PerformanceMonitor(n_pairs, clock=lambda: self._now)
+        self.trace = make_recorder(econf.trace, econf.trace_capacity)
+        self.flight_dumps = []
         self.pairs = [StreamPair(i, cfg, params, econf, self.monitor, self.device, draft_cfg,
-                                 draft_params) for i in range(n_pairs)]
+                                 draft_params, self.trace) for i in range(n_pairs)]
         # SLO routing prices queued prefill work in engine ticks via the cost
         # model, so TTFT slack is comparable with slo_ttft deadlines; chunked,
         # at the pairs' effective chunk (clamped, or None for an SSM stack)
@@ -1027,7 +1087,7 @@ class PipeServeEngine:
             prefill_chunk=self.pairs[0]._chunk)
         self.scheduler = StreamScheduler(
             n_pairs, router, self.monitor, slo_routing=econf.slo_routing,
-            delay_estimator=estimator.ticks if econf.slo_routing else None)
+            delay_estimator=estimator.ticks if econf.slo_routing else None, trace=self.trace)
         if econf.paged_kv:
             # prefix-hit routing probes every pair's radix index per
             # submission; page pressure evicts through the scheduler
@@ -1064,7 +1124,12 @@ class PipeServeEngine:
         if req is None:
             return False
         req.state, req.t_end = RequestState.CANCELLED, self._now
-        self.monitor.complete_request(_terminal_record(req, self._now, cancelled=True))
+        rec = _terminal_record(req, self._now, cancelled=True)
+        self.monitor.complete_request(rec)
+        if self.trace.enabled:
+            self.trace.emit(self._now, -1 if req.worker_id is None else req.worker_id, EV_CANCEL,
+                            req.request_id, (rec.generated, rec.phase_queued, rec.phase_prefill,
+                                             rec.phase_decode, rec.phase_stall))
         return True
 
     def fail_worker(self, worker_id):
@@ -1079,10 +1144,22 @@ class PipeServeEngine:
             _restart(req)
             # FAILED with a terminal record when this was the last worker
             rerouted += self.scheduler.resubmit_or_fail(req, self._now)
+        if self.trace.enabled:
+            self.trace.emit(self._now, worker_id, EV_WORKER_FAIL, None, (rerouted,))
+            self._flight_dump("fail_worker")
         return rerouted
 
     def step(self):
-        """One engine tick: admit + decode on every healthy pair."""
+        """One engine tick: admit + decode on every healthy pair.  An
+        exception escaping the tick dumps the flight recorder first."""
+        try:
+            return self._step()
+        except Exception:
+            if self.trace.enabled:
+                self._flight_dump("engine_exception")
+            raise
+
+    def _step(self):
         self._now += 1.0  # logical time: one tick per step
         emitted = 0
         for pair in (p for p in self.pairs if p.healthy):
@@ -1107,8 +1184,34 @@ class PipeServeEngine:
             n = pair.decode_iteration(self._now)
             emitted += n
             self.monitor.record_tokens(wid, n, self._now)
-            pair.publish_metrics(self.scheduler.queue_depth(wid))
+            pair.publish_metrics(self.scheduler.queue_depth(wid), self._now)
         return emitted
+
+    def _flight_dump(self, reason):
+        """Snapshot the trace ring: kept on ``flight_dumps`` and, with
+        ``trace_dir``, written as JSON named by reason and engine tick."""
+        dump = self.trace.to_dump(reason, self._now)
+        self.flight_dumps.append(dump)
+        if self.econf.trace_dir:
+            os.makedirs(self.econf.trace_dir, exist_ok=True)
+            path = os.path.join(self.econf.trace_dir, f"flight_{reason}_tick{int(self._now)}.json")
+            with open(path, "w") as f:
+                json.dump(dump, f)
+        return dump
+
+    def trace_events(self):
+        """All retained trace events, merged across workers in emission order."""
+        return self.trace.events()
+
+    def export_chrome_trace(self, path=None):
+        """Chrome-trace/Perfetto JSON of the retained events (written to
+        ``path`` when given)."""
+        events = self.trace.events()
+        return chrome_trace(events) if path is None else save_chrome_trace(events, path)
+
+    def prometheus_text(self):
+        """Prometheus text exposition (v0.0.4) of the engine's current state."""
+        return engine_registry(self).render()
 
     def drained(self):
         """True when nothing is queued, mid-chunked-prefill or decoding."""

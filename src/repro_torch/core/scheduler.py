@@ -1,6 +1,5 @@
 """StreamScheduler — request orchestration (paper Alg 1); a copy of
-``repro.core.scheduler`` without its StreamTrace events (recording is not
-ported yet).
+``repro.core.scheduler``, its StreamTrace events included.
 
 Receives requests, consults the router for placement, enqueues to the
 selected stream pair's prefill queue, and tracks lifecycle transitions.
@@ -24,6 +23,8 @@ from typing import Deque, Dict, List, Protocol, Tuple
 from repro_torch.core.flowguard import FlowGuard
 from repro_torch.core.metrics import PerformanceMonitor, RequestRecord
 from repro_torch.obs.spans import request_phases
+from repro_torch.obs.trace import (EV_EDF_POP, EV_ENQUEUE, EV_FAIL, EV_METRICS_STALE, EV_ROUTE,
+                                   EV_SHED, EV_SUBMIT, NullRecorder)
 from repro_torch.serving.request import Request, RequestState
 
 
@@ -49,9 +50,10 @@ class StreamScheduler:
     def __init__(self, n_pairs, router=None,
                  monitor=None, *,
                  slo_routing=False,
-                 delay_estimator=None):
+                 delay_estimator=None, trace=None):
         self.router: Router = router or FlowGuard()
         self.monitor = monitor or PerformanceMonitor(n_pairs)
+        self.trace = trace if trace is not None else NullRecorder()
         self.prefill_queues: Dict[int, Deque[Request]] = {i: deque() for i in range(n_pairs)}
         self.healthy: Dict[int, bool] = {i: True for i in range(n_pairs)}
         self.routing_log: List[Tuple[str, int]] = []
@@ -78,10 +80,16 @@ class StreamScheduler:
         return delay
 
     def submit(self, req, now):
+        tr = self.trace
+        if tr.enabled:
+            tr.emit(now, -1, EV_SUBMIT, req.request_id, (req.prompt_len, req.slo_ttft, req.slo_tpot))
         healthy = [i for i, ok in self.healthy.items() if ok]
         # the router reads queue depth live — but a derived refresh must NOT
         # touch the staleness timestamp, or a silent worker looks fresh
         for i in healthy:
+            if tr.enabled and self.monitor.workers[i].is_stale(now):
+                tr.emit(now, i, EV_METRICS_STALE, None,
+                        (round(now - self.monitor.workers[i].timestamp, 6),))
             self.monitor.update_worker(i, queue_depth=self.queue_depth(i), touch=False)
         extra = {}
         if self.prefix_probe is not None:
@@ -95,6 +103,11 @@ class StreamScheduler:
             req.arrival_time = now
         self.prefill_queues[worker].append(req)
         self.routing_log.append((req.request_id, worker))
+        if tr.enabled:  # with FlowGuard's per-worker score terms
+            bd = getattr(self.router, "last_breakdown", None)
+            tr.emit(now, -1, EV_ROUTE, req.request_id,
+                    (worker, tuple((i, *terms) for i, terms in sorted(bd.items())) if bd else ()))
+            tr.emit(now, worker, EV_ENQUEUE, req.request_id, (len(self.prefill_queues[worker]),))
         return worker
 
     def next_for_prefill(self, worker_id, now=None):
@@ -108,8 +121,14 @@ class StreamScheduler:
             idx = min(range(len(q)), key=lambda i: edf_deadline(q[i]))
             req = q[idx]
             del q[idx]
+            if self.trace.enabled and idx != 0:  # the EDF pop jumped the FIFO head
+                self.trace.emit(now if now is not None else 0.0, worker_id, EV_EDF_POP,
+                                req.request_id, (idx, edf_deadline(req)))
             if now is not None and req.slo_ttft is not None and now > edf_deadline(req):
                 self.shed.append(req)
+                if self.trace.enabled:
+                    self.trace.emit(now, req.worker_id, EV_SHED, req.request_id,
+                                    (edf_deadline(req),))
                 self.fail_request(req, now, "slo_infeasible", slo_infeasible=True)
                 continue
             return req
@@ -129,6 +148,9 @@ class StreamScheduler:
             slo_ttft=req.slo_ttft, slo_tpot=req.slo_tpot, slo_infeasible=slo_infeasible,
             kv_requeued=req.kv_requeued, phase_queued=queued, phase_prefill=prefill,
             phase_decode=decode, phase_stall=stall))
+        if self.trace.enabled:
+            self.trace.emit(now, req.worker_id, EV_FAIL, req.request_id,
+                            (reason, queued, prefill, decode, stall))
 
     def queue_depth(self, worker_id):
         """Queued requests plus any parked mid-chunked-prefill on the pair."""

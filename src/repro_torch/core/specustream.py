@@ -199,6 +199,15 @@ class SpecuStream:
         self.last_decision = decision
         return decision
 
+    def snapshot(self):
+        """(depth, bucket_depth, flow_magnitude, projected_throughput) of the
+        last decision: flat host floats for the ``spec_depth`` gauge."""
+        d = self.last_decision
+        if d is None:
+            return (0.0, 0, 0.0, 0.0)
+        return (round(d.depth, 4), d.bucket_depth, round(d.flow_magnitude, 6),
+                round(d.projected_throughput, 3))
+
 
 class FixedSpeculation:
     """Ablation baseline: fixed depth d (paper Table 9) or d=0 (no spec,
@@ -213,6 +222,12 @@ class FixedSpeculation:
 
     def reset_slot(self, slot):
         pass
+
+    def snapshot(self):
+        d = self.last_decision
+        if d is None:
+            return (float(max(self.depth, 0)), 0, 0.0, 0.0)
+        return (d.depth, d.bucket_depth, 0.0, round(d.projected_throughput, 3))
 
     def select_depths(
         self,

@@ -18,6 +18,8 @@ wall time.
 """
 from __future__ import annotations
 
+from repro_torch.obs.trace import EV_COUNTERS, EV_DECODE_STEP
+
 
 def compute_phases(
     arrival,
@@ -83,3 +85,30 @@ def request_phases(req):
         req.t_end,
         getattr(req, "prefill_active_ticks", 0),
     )
+
+
+def worker_timelines(events):
+    """Per-worker utilisation summary from a trace event stream: occupancy
+    from ``decode_step`` events, queue depth from ``counters`` events.  One
+    dict a worker: ``{steps, busy_steps, mean_occupancy, tokens_emitted,
+    mean_queue_depth, first_tick, last_tick}``."""
+    out, occ, qd = {}, {}, {}
+    for _seq, tick, worker, etype, _rid, payload in events:
+        if worker < 0:
+            continue
+        w = out.setdefault(worker, {"steps": 0, "busy_steps": 0, "tokens_emitted": 0,
+                                    "first_tick": tick, "last_tick": tick})
+        w["first_tick"] = min(w["first_tick"], tick)
+        w["last_tick"] = max(w["last_tick"], tick)
+        if etype == EV_DECODE_STEP:
+            w["steps"] += 1
+            w["busy_steps"] += 1 if payload[0] > 0 else 0
+            w["tokens_emitted"] += payload[3]
+            occ.setdefault(worker, []).append(payload[0])
+        elif etype == EV_COUNTERS:
+            qd.setdefault(worker, []).append(payload[0])
+    for worker, w in out.items():
+        for key, vals in (("mean_occupancy", occ.get(worker)),
+                          ("mean_queue_depth", qd.get(worker))):
+            w[key] = round(sum(vals) / len(vals), 3) if vals else 0.0
+    return out

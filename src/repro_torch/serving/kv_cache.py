@@ -74,6 +74,10 @@ class KVCacheManager:
         # forever, or hit-rate-weighted routing herds traffic onto one worker
         self.hit_rate = 0.5
         self._hit_ema = hit_ema
+        # monotonic counters, exported via Prometheus: cached freed blocks
+        # revived by a prefix re-hit, and cached freed prefixes recycled
+        self.resurrections = 0
+        self.lazy_evictions = 0
 
     def _register(self, bid, h, parent):
         self.block_hash[bid] = h
@@ -92,6 +96,8 @@ class KVCacheManager:
         if not self.free:
             return None
         bid = self.free.popleft()
+        if self.block_hash[bid] is not None and self.ref[bid] == 0:
+            self.lazy_evictions += 1
         self._unregister(bid)
         self.ref[bid] = 1
         if h is not None and h not in self.hash_index:
@@ -104,6 +110,7 @@ class KVCacheManager:
         bid = self.hash_index[h]
         if self.ref[bid] == 0:
             self.free.remove(bid)
+            self.resurrections += 1
         self.ref[bid] += 1
         return bid
 
@@ -233,6 +240,10 @@ class KVCacheManager:
     @property
     def used(self):
         return self.n_blocks - len(self.free)
+
+    @property
+    def free_blocks(self):
+        return len(self.free)
 
     @property
     def memory_utilization(self):

@@ -164,12 +164,21 @@ PRESETS = {
     "ablation-0": lambda api: api.ServeConfig.ablation_fixed_depth(0, arch="llama2-7b"),
     "ablation-4-full": lambda api: api.ServeConfig.ablation_fixed_depth(
         4, reduced=False, router="roundrobin", per_row_depth=False, verify_buckets=None),
+    "default": lambda api: api.ServeConfig(),
+    "reduced-smoke": lambda api: api.ServeConfig.reduced_smoke(),
+    "ablation-4": lambda api: api.ServeConfig.ablation_fixed_depth(4),
+    # nested policy configs as plain dicts, as a YAML file holds them
+    "tuned": lambda api: api.ServeConfig.from_dict({
+        "flowguard": {"alpha_cache": 0.3, "alpha_queue": 0.4, "q_max": 8},
+        "spec": {"gamma": 2.0, "d_max": 8}, "trace": "on", "verify_buckets": [2, 6]}),
 }
 
 
 @pytest.mark.parametrize("name", list(PRESETS))
-def test_presets_match_the_reference(name):
-    """Each preset, and what it builds, equals the reference's."""
+def test_presets_match_the_reference(name, tmp_path):
+    """Each preset, what it builds, and its dict and YAML equal the
+    reference's; both load back to an equal config, and an unknown key or a
+    bad gateway or trace field is refused."""
     import repro_torch.api as api
 
     port, ref = PRESETS[name](api), PRESETS[name](jax_api)
@@ -177,6 +186,16 @@ def test_presets_match_the_reference(name):
     for build in ("build_arch_config", "build_draft_arch_config", "build_engine_config"):
         assert dataclasses.asdict(getattr(port, build)()) == dataclasses.asdict(
             getattr(ref, build)())
+    assert port.to_dict() == ref.to_dict() and port.to_yaml() == ref.to_yaml()
+    port.to_yaml(str(tmp_path / "c.yaml"))
+    for back in (api.ServeConfig.from_dict(port.to_dict()),
+                 api.ServeConfig.from_yaml(port.to_yaml()),
+                 api.ServeConfig.from_yaml(str(tmp_path / "c.yaml"))):
+        assert back == port
+    for bad in ({**port.to_dict(), "bogus": 1}, {"trace": "maybe"}, {"trace_capacity": 0},
+                {"gateway_port": 70000}, {"gateway_max_pending": 0}, {"gateway_host": ""}):
+        with pytest.raises(ValueError, match="unknown ServeConfig keys|trace|gateway"):
+            api.ServeConfig.from_dict(bad)
 
 
 def test_llama2_config_matches_the_reference():

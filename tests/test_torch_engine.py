@@ -100,11 +100,13 @@ def _records(engine):
     return [dataclasses.asdict(r) for r in engine.monitor.completed]
 
 
-def _serve(engine, reqs, max_steps=600, fail=None):
+def _serve(engine, reqs, max_steps=600, fail=None, cancel=None, drain=True):
     """Submit each request once the engine clock reaches its arrival time
-    (all at once for traces without one), then drain.  With ``fail`` = (pair,
-    tick) that pair fails once the clock reaches the tick; returns how many
-    requests it re-routed and how many were in its chunk rows."""
+    (all at once for traces without one), then drain (``drain=False``: take
+    ``max_steps`` steps).  With ``fail`` = (pair, tick) that pair fails once
+    the clock reaches the tick, and with ``cancel`` = (index, tick) that
+    request is cancelled then; returns how many requests the failure
+    re-routed and how many were in its chunk rows."""
     queue, failed = list(reqs), None
     for _ in range(max_steps):
         while queue and (queue[0].arrival_time if queue[0].arrival_time is not None
@@ -113,10 +115,14 @@ def _serve(engine, reqs, max_steps=600, fail=None):
         if fail and failed is None and engine._now >= fail[1]:
             in_flight = engine.pairs[fail[0]].prefill_in_flight()
             failed = engine.fail_worker(fail[0]), in_flight
-        if not queue and engine.drained():
+        if cancel and engine._now == cancel[1]:
+            assert engine.cancel(reqs[cancel[0]].request_id)
+        if drain and not queue and engine.drained():
             return failed
         engine.step()
-    raise AssertionError("engine did not drain")
+    if drain:
+        raise AssertionError("engine did not drain")
+    return failed
 
 
 def _serve_both(jeng, teng, jreqs, treqs, fail=None):
@@ -226,21 +232,24 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, fp32
         PipeServeEngine(*fp32_model[2:], n_pairs=1)
 
 
-@pytest.mark.parametrize("overrides, item", [({"trace": "on"}, "ROADMAP")])
+@pytest.mark.parametrize("overrides, item", [({"moe": "experts"}, "M9"),
+                                             ({"qkv_bias": True}, "M9")])
 def test_later_slices_refuse_by_name(fp32_model, overrides, item):
     """The features of later slices refuse, naming their ROADMAP item."""
     with pytest.raises(NotImplementedError, match=item):
-        PipeServeEngine(*fp32_model[2:], n_pairs=1, device="cpu",
-                        econf=EngineConfig(max_batch=2, max_len=96, **overrides))
+        PipeServeEngine(dataclasses.replace(fp32_model[2], **overrides), fp32_model[3],
+                        n_pairs=1, device="cpu", econf=EngineConfig(max_batch=2, max_len=96))
 
 
 def test_port_imports_neither_jax_nor_the_reference():
     """Every module of the port, chip_smoke.py and attention_variants.py import
-    in a fresh process without loading jax or any module of ``repro``."""
+    in a fresh process without loading jax, any module of ``repro`` or
+    ``tools``, or PyYAML (the card's machine has none)."""
     code = ("import importlib, pkgutil, sys, repro_torch, chip_smoke, attention_variants\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro', 'tools',\n"
+            "                                                  'yaml')]\n"
             "sys.exit(f'loaded {bad}' if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120,
