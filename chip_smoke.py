@@ -58,7 +58,17 @@ Phases, each fatal on failure:
      layers, d_model 2560), counting SSD-scan launches (every one on the
      tensor-core kernel), and profile a burst, splitting device time between
      prefill and decode;
-  9. the serving front door at full width on the dense serve's weights:
+  9. the dense M9 models: hold K1, K2 and K3 at G = 5 (qwen2.5-14b), 9
+     (starcoder2-7b) and, at head_dim 120, 4 (h2o-danube-3-4b) against their
+     plain versions (h2o's wrapped 4128-slot ring and 6000-token prompt under
+     window 4096), time each serve's shapes, and time the reference's padded
+     query heads against the port's at a decode step; check 2 full-width
+     layers of each on the card against the CPU (fp32, nonzero QKV biases);
+     serve qwen2.5-14b on the dense path (eager and graphed, a profiled
+     burst), starcoder2-7b paged (K3 at G = 9, prefix hits) and
+     h2o-danube-3-4b at max_len 8192 (long prompts wrap the ring, the window
+     binds; a profiled burst);
+ 10. the serving front door at full width on the dense serve's weights:
      ``StreamServe`` behind ``GatewayThread`` (trace on, warmed up): an
      idle-gateway request against the same prompt served in process, a wave
      of 24 concurrent SSE streams (client TTFT/TPOT, ms per engine step), a
@@ -67,8 +77,10 @@ Phases, each fatal on failure:
      with StreamTrace off and on (equal tokens and launches, bookkeeping ms
      a step each); then ``python -m repro_torch.launch.serve --no-reduced
      --warmup`` with a cancel, a worker failure and a Chrome trace;
- 10. print the kernel table as one JSON line, then the result line.
-Every serve of phases 4-8 runs twice on the same weights: eager (its lanes'
+ 11. print the kernel table as one JSON line, then the result line.
+Every serve of phases 4-8, and phase 9's qwen2.5-14b serve, runs twice on
+the same weights (phase 9 profiles only graphed serves and runs its other
+serves graphed only): eager (its lanes'
 graph caches cleared, so each step runs op by op), then on CUDA graphs
 (warmed up: every fixed-shape step captured), each profiled; the graphed
 serve must give the eager one's tokens and launch counts and capture
@@ -157,7 +169,9 @@ def tensor_core_sass(report: dict) -> None:
     """The bf16 kernels' products as compiled: the HGMMA (wgmma) instruction
     forms in the SASS of decode_wgmma_kernel, flash_wgmma_kernel and
     paged_wgmma_kernel at head_dim 128, and of ssd_wgmma_kernel (``cuobjdump
-    -sass`` of the built libraries).  Fails unless each attention kernel holds
+    -sass`` of the built libraries), the attention kernels also at head_dim
+    120 (a 128-wide tile, its last 8 columns zeros).  Fails unless each
+    attention kernel holds
     S = QK^T (64x64x16) and O += PV (64x128x16) on the tensor cores, and the
     SSD scan its scores, intra- and inter-chunk terms (64x64x16) and state
     update (64x128x16)."""
@@ -166,25 +180,29 @@ def tensor_core_sass(report: dict) -> None:
     from repro_torch.kernels import build
 
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
-    found = {}
-    for lib, kernel, tag in (("decode_attention", "decode_wgmma_kernel", "ILi128E"),
-                             ("flash_attention", "flash_wgmma_kernel", "ILi128E"),
-                             ("decode_attention_paged", "paged_wgmma_kernel", "ILi128E"),
-                             ("ssd_scan", "ssd_wgmma_kernel", "")):
-        sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(lib))],
-                              capture_output=True, text=True, timeout=120).stdout
-        fn, forms = "", set()
-        for line in sass.splitlines():
+    found, sass = {}, {}
+    for lib, kernel, D in (("decode_attention", "decode_wgmma_kernel", 128),
+                           ("flash_attention", "flash_wgmma_kernel", 128),
+                           ("decode_attention_paged", "paged_wgmma_kernel", 128),
+                           ("decode_attention", "decode_wgmma_kernel", 120),
+                           ("flash_attention", "flash_wgmma_kernel", 120),
+                           ("decode_attention_paged", "paged_wgmma_kernel", 120),
+                           ("ssd_scan", "ssd_wgmma_kernel", None)):
+        if lib not in sass:
+            sass[lib] = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(lib))],
+                                       capture_output=True, text=True, timeout=120).stdout
+        tag, fn, forms = f"ILi{D}E" if D else "", "", set()
+        for line in sass[lib].splitlines():
             if "Function :" in line:
                 fn = line
             elif "HGMMA" in line and kernel in fn and tag in fn:
                 forms.add(re.search(r"HGMMA\.(\S+)", line).group(1))
-        found[kernel] = sorted(forms)
-        print(f"{kernel}{' (head_dim 128)' if tag else ''} SASS: HGMMA "
-              f"{', '.join(found[kernel]) or 'none'}")
+        name = kernel + (f" (head_dim {D})" if D else "")
+        found[name] = sorted(forms)
+        print(f"{name} SASS: HGMMA {', '.join(found[name]) or 'none'}")
         if not all(any(f.startswith(shape) for f in forms) for shape in ("64x64x16.F32.BF16",
                                                                           "64x128x16.F32.BF16")):
-            fail(f"{kernel}: the SASS does not run its products on HGMMA")
+            fail(f"{name}: the SASS does not run its products on HGMMA")
     report["hgmma"] = found
 
 
@@ -218,29 +236,31 @@ def decode_case(g, B, T, S, H, K, D, dt, fill, poison=True, ring=False):
 
 def decode_cost(q, k, clen, pos, window=None):
     """(bytes, ops) the function needs for these inputs: q, out, kv_pos and
-    cache_len once, plus K and V of every slot some query row can see."""
+    cache_len once, plus K and V of every slot some query row can see (inside
+    its window, with one)."""
+    import torch
+
     B, T, H, D = q.shape
     K = k.shape[2]
     esz = q.element_size()
     nbytes = 2 * q.numel() * esz + pos.numel() * 4 + clen.numel() * 4
-    ops = 0
-    for b in range(B):
-        L = int(clen[b])
-        p = pos[b]
-        seen = (p >= 0) & (p <= L - 1)
-        nbytes += int(seen.sum()) * 2 * K * D * esz
-        for t in range(T):
-            vis = (p >= 0) & (p <= L - T + t)
-            ops += int(vis.sum()) * H * 4 * D
-    return nbytes, ops
+    q_pos = clen[:, None].long() - T + torch.arange(T, device=pos.device)[None]  # (B, T)
+    p = pos[:, None, :].long()
+    vis = (p >= 0) & (p <= q_pos[:, :, None])
+    if window is not None:
+        vis &= p > q_pos[:, :, None] - window
+    nbytes += int(vis.any(1).sum()) * 2 * K * D * esz
+    return nbytes, int(vis.sum()) * H * 4 * D
 
 
-def flash_cost(q, k, causal=True, q_offset=0):
+def flash_cost(q, k, causal=True, q_offset=0, window=None):
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     esz = q.element_size()
     nbytes = (2 * q.numel() + 2 * k.numel()) * esz
-    pairs = sum(min(Sk, q_offset + i + 1) for i in range(Sq)) if causal else Sq * Sk
+    pairs = (sum(min(Sk, q_offset + i + 1) - (0 if window is None else
+                                              max(0, q_offset + i + 1 - window))
+                 for i in range(Sq)) if causal else Sq * Sk)
     return nbytes, B * H * pairs * 4 * D
 
 
@@ -262,7 +282,7 @@ def sdpa(q, k, v, **kw):
             q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1), **kw)
 
 
-def sdpa_decode(q, k, v, clen, pos):
+def sdpa_decode(q, k, v, clen, pos, window=None):
     """The library yardstick for decode on the same inputs (layout changes
     and the mask are made before timing)."""
     import torch
@@ -271,6 +291,8 @@ def sdpa_decode(q, k, v, clen, pos):
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     q_pos = clen[:, None].long() - T + torch.arange(T, device=q.device)[None]
     mask = (pos[:, None, :] >= 0) & (pos[:, None, :].long() <= q_pos[:, :, None])
+    if window is not None:
+        mask &= pos[:, None, :].long() > q_pos[:, :, None] - window
     mask = mask[:, None]
     return lambda: sdpa(qh, kh, vh, attn_mask=mask)
 
@@ -358,7 +380,7 @@ def kernel_phase(report: dict) -> dict:
     return out
 
 
-def decode_timing(g, B: int, T: int, S: int, H: int, K: int, D: int) -> dict:
+def decode_timing(g, B: int, T: int, S: int, H: int, K: int, D: int, window=None) -> dict:
     """K1 (bf16) on a full cache at (B, T, S, H, K, D), on copies rotated past
     the L2: checked against its plain version, then kernel, plain version and
     SDPA timed, and the bound of this input."""
@@ -368,26 +390,29 @@ def decode_timing(g, B: int, T: int, S: int, H: int, K: int, D: int) -> dict:
     sets = copies(lambda: decode_case(g, B, T, S, H, K, D, "bfloat16", [S - T] * B,
                                       poison=False), 2 * B * S * K * D * 2)
     q, k, v, clen, pos = sets[0]
-    nbytes, ops = decode_cost(q, k, clen, pos)
-    e = check(f"decode timing set B={B} T={T} H={H} K={K}", decode_attention_cuda(
-        q, k, v, clen, kv_positions=pos), ref.decode_attention(q, k, v, clen, kv_positions=pos),
-        "bfloat16")
-    lib = [sdpa_decode(*s) for s in sets]
+    nbytes, ops = decode_cost(q, k, clen, pos, window)
+    e = check(f"decode timing set B={B} T={T} H={H} K={K} D={D}", decode_attention_cuda(
+        q, k, v, clen, kv_positions=pos, window=window),
+        ref.decode_attention(q, k, v, clen, kv_positions=pos, window=window), "bfloat16")
+    lib = [sdpa_decode(*s, window=window) for s in sets]
     return {
-        "shape": f"B={B} T={T} S={S} H={H} K={K} D={D} bf16",
+        "shape": f"B={B} T={T} S={S} H={H} K={K} D={D} bf16"
+                 + ("" if window is None else f" window={window}"),
         "ms": timed(lambda i: decode_attention_cuda(*sets[i % len(sets)][:4],
-                                                    kv_positions=sets[i % len(sets)][4]), 200),
+                                                    kv_positions=sets[i % len(sets)][4],
+                                                    window=window), 200),
         "plain_ms": timed(lambda i: ref.decode_attention(
-            *sets[i % len(sets)][:4], kv_positions=sets[i % len(sets)][4]), 20),
+            *sets[i % len(sets)][:4], kv_positions=sets[i % len(sets)][4], window=window), 20),
         "library_ms": timed(lambda i: lib[i % len(lib)](), 50),
         "bound": bound_ms(nbytes, ops, "bfloat16"), "err": e,
     }
 
 
-def flash_timing(g, B: int, Sq: int, H: int, K: int, D: int) -> dict:
-    """K2 (bf16, causal) at (B, Sq, H, K, D) on copies rotated past the L2:
-    checked against its plain version, then kernel, plain version and SDPA
-    timed, and the bound."""
+def flash_timing(g, B: int, Sq: int, H: int, K: int, D: int, window=None) -> dict:
+    """K2 (bf16, causal, with an optional window) at (B, Sq, H, K, D) on copies
+    rotated past the L2: checked against its plain version, then kernel,
+    plain version and SDPA timed (with a window, SDPA takes the mask, made
+    before timing), and the bound."""
     import torch
 
     from repro_torch.kernels import ref
@@ -396,15 +421,22 @@ def flash_timing(g, B: int, Sq: int, H: int, K: int, D: int) -> dict:
     fsets = copies(lambda: tuple(torch.randn(B, Sq, h, D, generator=g, device="cuda")
                                  .to(torch.bfloat16) for h in (H, K, K)),
                    2 * B * Sq * (H + 2 * K) * D)
-    nbytes, ops = flash_cost(fsets[0][0], fsets[0][1])
-    e = check(f"flash timing set B={B} S={Sq} H={H} K={K}", flash_attention_cuda(*fsets[0]),
-              ref.flash_attention(*fsets[0]), "bfloat16")
+    nbytes, ops = flash_cost(fsets[0][0], fsets[0][1], window=window)
+    e = check(f"flash timing set B={B} S={Sq} H={H} K={K} D={D} window={window}",
+              flash_attention_cuda(*fsets[0], window=window),
+              ref.flash_attention(*fsets[0], window=window), "bfloat16")
     tsets = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in fsets]
+    kw = {"is_causal": True}
+    if window is not None:
+        i = torch.arange(Sq, device="cuda")
+        kw = {"attn_mask": (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)}
     return {
-        "shape": f"B={B} Sq=Sk={Sq} H={H} K={K} D={D} causal bf16",
-        "ms": timed(lambda i: flash_attention_cuda(*fsets[i % len(fsets)]), 50),
-        "plain_ms": timed(lambda i: ref.flash_attention(*fsets[i % len(fsets)]), 10),
-        "library_ms": timed(lambda i: sdpa(*tsets[i % len(tsets)], is_causal=True), 50),
+        "shape": f"B={B} Sq=Sk={Sq} H={H} K={K} D={D} causal bf16"
+                 + ("" if window is None else f" window={window}"),
+        "ms": timed(lambda i: flash_attention_cuda(*fsets[i % len(fsets)], window=window), 50),
+        "plain_ms": timed(lambda i: ref.flash_attention(*fsets[i % len(fsets)], window=window),
+                          10),
+        "library_ms": timed(lambda i: sdpa(*tsets[i % len(tsets)], **kw), 50),
         "bound": bound_ms(nbytes, ops, "bfloat16"), "err": e,
     }
 
@@ -538,39 +570,54 @@ def paged_kernel_phase(report: dict) -> dict:
     for line in lines:
         print(line)
 
+    out = paged_timing(g, lines, err)
+    report["paged_kernel_checks"] = lines
+    return out
+
+
+def paged_timing(g, lines: list, err: list, H=16, K=8, D=128, tag="") -> dict:
+    """K3 (bf16) at the paged serve's largest decode shape (B=8, T=9 over 1024
+    positions a row) and admission shape (T=1024), on 8 disjoint page sets
+    rotated past the L2: each checked against its plain version (its error
+    added to ``err``: [decode, admission]), then kernel, plain version and a
+    gather plus SDPA timed, and the bound."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_paged_cuda as k3
+
     out = {}
-    pools = tuple(torch.randn(4096, 16, 8, 128, generator=g, device="cuda").to(torch.bfloat16)
+    pools = tuple(torch.randn(4096, 16, K, D, generator=g, device="cuda").to(torch.bfloat16)
                   for _ in range(2))
     perm = torch.randperm(4096, generator=g, device="cuda").tolist()
     for key, T, iters in (("decode", 9, (200, 20, 50)), ("admission", 1024, (20, 3, 10))):
-        # 8 disjoint page sets of 8 x 64 pages: every call reads 33.6 MB of
-        # the pool that the last call did not, past the 50 MB L2
-        sets = [paged_case(g, 8, T, "bfloat16", [1024] * 8, perm=perm[i * 512:(i + 1) * 512],
-                           pools=pools) for i in range(8)]
+        # 8 disjoint page sets of 8 x 64 pages: every call reads 8 x 1024
+        # positions of the pool that the last call did not, past the 50 MB L2
+        sets = [paged_case(g, 8, T, "bfloat16", [1024] * 8, H=H, K=K, D=D,
+                           perm=perm[i * 512:(i + 1) * 512], pools=pools) for i in range(8)]
         nbytes, ops = paged_cost(sets[0][0], sets[0][1], sets[0][4], sets[0][3])
         # the timed shape is the path's own (admission runs K3 at T=1024): check it too
-        e = check(f"paged {key} T={T} bfloat16", k3(*sets[0]),
+        e = check(f"paged {tag}{key} T={T} bfloat16", k3(*sets[0]),
                   ref.decode_attention_paged(*sets[0]), "bfloat16")
         err[key == "admission"] = max(err[key == "admission"], e)
-        lines.append(f"decode_attention_paged B=8 T={T} bfloat16 ({key} timing set): "
-                     f"max_abs_err={e:.3g}")
+        lines.append(f"decode_attention_paged {tag}B=8 T={T} H={H} K={K} D={D} bfloat16 "
+                     f"({key} timing set): max_abs_err={e:.3g}")
         print(lines[-1])
         lib = [gather_sdpa(*s) for s in sets]
         out[key] = {
-            "shape": f"B=8 T={T} positions=1024 ps=16 H=16 K=8 D=128 bf16",
+            "shape": f"B=8 T={T} positions=1024 ps=16 H={H} K={K} D={D} bf16",
             "ms": timed(lambda i: k3(*sets[i % 8]), iters[0]),
             "plain_ms": timed(lambda i: ref.decode_attention_paged(*sets[i % 8]), iters[1]),
             "library_ms": timed(lambda i: lib[i % 8](), iters[2]),
             "bound": bound_ms(nbytes, ops, "bfloat16"),
         }
         r = out[key]
-        was = f" (previous kernel {PREVIOUS_MS[key]} ms)" if key in PREVIOUS_MS else ""
-        print(f"decode_attention_paged {key} [{r['shape']}]: kernel {r['ms']:.4f} ms{was}, "
+        was = f" (previous kernel {PREVIOUS_MS[key]} ms)" if key in PREVIOUS_MS and not tag else ""
+        print(f"decode_attention_paged {tag}{key} [{r['shape']}]: kernel {r['ms']:.4f} ms{was}, "
               f"plain {r['plain_ms']:.4f} ms, gather+sdpa {r['library_ms']:.4f} ms, bound "
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
     for key, r in out.items():  # the largest bf16 error over the kernel's own checks
         r["max_abs_err"] = err[key == "admission"]
-    report["paged_kernel_checks"] = lines
     return out
 
 
@@ -582,7 +629,10 @@ def model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
     bucketed batch, a 5-token verify step, a rewind and a plain step.  Every
     float32 K1 and K3 launch must take the CUDA-core kernel (decode_kernel,
     paged_decode_kernel), none the bf16 tensor-core one.  qwen3-1.7b (two
-    query heads a KV head) and llama2-7b (one: MHA, an untied head)."""
+    query heads a KV head), llama2-7b (one: MHA, an untied head) and the M9
+    models: qwen2.5-14b (five, QKV biases), starcoder2-7b (nine, GELU) and
+    h2o-danube-3-4b (four, head_dim 120, window 4096).  QKV biases are set
+    to nonzero values (the seeded init leaves them zero)."""
     import dataclasses
 
     import torch
@@ -593,6 +643,10 @@ def model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
     cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
     gpu = build_model(cfg, "cuda")
     params = gpu.init(1)
+    for layer in params["layers"]:
+        for name in ("bq", "bk", "bv"):
+            if name in layer["attn"]:
+                layer["attn"][name].normal_(0.0, 0.5)
     cpu_params = to_cpu(params)
     cpu = build_model(cfg, "cpu")
     gen = torch.Generator().manual_seed(2)
@@ -853,6 +907,8 @@ def serve_stats(tag, serve, bad, run, launches: dict) -> dict:
               f"pool {warm['pool_gb']:.2f} GB, warmup peak {warm['warmup_peak_gb']:.2f} GB; after "
               f"warmup {result['captured_after_warmup']} captures, "
               f"{result['programs_after_warmup']} programs")
+        if result["captured_after_warmup"]:  # every serve held here is bucketed
+            fail(f"{tag}: {result['captured_after_warmup']} graphs captured after warmup")
     return result
 
 
@@ -973,16 +1029,18 @@ def read_counts() -> dict:
     return counts
 
 
-def serve_phase(report: dict, params=None, graphed=True, temperature=0.0, trace=None):
+def serve_phase(report: dict, params=None, graphed=True, temperature=0.0, trace=None,
+                arch="qwen3-1.7b"):
     """The default serve at full width (sampled, with ``temperature`` > 0;
-    with ``trace``, StreamTrace set so and the report keyed by it)."""
+    with ``trace``, StreamTrace set so and the report keyed by it; another
+    ``arch`` on the same path keys the report by its name)."""
     import numpy as np
     import torch
 
     from repro_torch.api import ServeConfig
 
-    cfg = ServeConfig(reduced=False, n_pairs=2, max_batch=8, max_len=512, max_new_tokens=32,
-                      temperature=temperature, trace=trace or "off")
+    cfg = ServeConfig(arch=arch, reduced=False, n_pairs=2, max_batch=8, max_len=512,
+                      max_new_tokens=32, temperature=temperature, trace=trace or "off")
     t0 = time.perf_counter()
     serve = served(cfg, graphed, **({} if params is None else {"params": params}))
     torch.cuda.synchronize()
@@ -999,6 +1057,7 @@ def serve_phase(report: dict, params=None, graphed=True, temperature=0.0, trace=
     run = drive(serve, {0: prompts[:8], 3: prompts[8:]})  # a second wave joins mid-decode
     launches = read_counts()
     tag = ("sampled serve" if temperature else "serve") + (f" trace {trace}" if trace else "")
+    tag = tag if cfg.arch == "qwen3-1.7b" else f"{cfg.arch} {tag}"
     result = serve_stats(tag + ("" if graphed else " (eager)"), serve, bad, run, launches)
     L, calls = arch.n_layers, result
     if launches["flash_attention"] != L * calls["prefill_calls"] or not calls["prefill_calls"]:
@@ -1013,12 +1072,13 @@ def serve_phase(report: dict, params=None, graphed=True, temperature=0.0, trace=
     return launches, serve
 
 
-def paged_serve_phase(params, report: dict, graphed=True):
+def paged_serve_phase(params, report: dict, graphed=True, arch="qwen3-1.7b"):
     """The paged path at full width: 16 requests of 32 new tokens on 2 pairs
     (max_len 512, max_context 1024, 4096 pages of 16 a pair).  8 share a
     256-token prefix and arrive once the first of them was admitted, so the
     rest hit the radix index; 4 prompts of 600-900 tokens exceed max_len; 4
-    are short and unique.  Every admission and decode step runs K3."""
+    are short and unique.  Every admission and decode step runs K3.  Another
+    ``arch`` (seeded weights with ``params`` None) keys the report by its name."""
     from collections import Counter
 
     import numpy as np
@@ -1026,9 +1086,9 @@ def paged_serve_phase(params, report: dict, graphed=True):
 
     from repro_torch.api import ServeConfig
 
-    cfg = ServeConfig(reduced=False, n_pairs=2, max_batch=8, max_len=512, max_new_tokens=32,
-                      paged_kv=True, kv_block_size=16, max_context=1024)
-    serve = served(cfg, graphed, params=params)
+    cfg = ServeConfig(arch=arch, reduced=False, n_pairs=2, max_batch=8, max_len=512,
+                      max_new_tokens=32, paged_kv=True, kv_block_size=16, max_context=1024)
+    serve = served(cfg, graphed, **({} if params is None else {"params": params}))
     arch = serve.arch
     bad = instrument(serve)
     rng = np.random.default_rng(5)
@@ -1041,28 +1101,28 @@ def paged_serve_phase(params, report: dict, graphed=True):
     zero_counts()
     run = drive(serve, {0: [shared[0], *long, *short], 1: shared[1:]})
     launches = read_counts()
-    result = serve_stats("paged serve" + ("" if graphed else " (eager)"), serve, bad, run,
-                         launches)
+    tag = "paged serve" if cfg.arch == "qwen3-1.7b" else f"{cfg.arch} paged serve"
+    result = serve_stats(tag + ("" if graphed else " (eager)"), serve, bad, run, launches)
     handles = run[0]
     hits = [h.request.cache_hit_tokens for h in handles]
     routing = Counter(h.request.worker_id for h in handles if list(h.request.prompt[:256]) == prefix)
     k3_calls = result["prefill_calls"] + result["decode_calls"]
-    print(f"paged serve: cache_hit_tokens {sum(hits)} (per request {hits}); shared-prefix "
+    print(f"{tag}: cache_hit_tokens {sum(hits)} (per request {hits}); shared-prefix "
           f"requests per pair {dict(sorted(routing.items()))}; K3 launches "
           f"{launches['decode_attention_paged']} = {arch.n_layers} x {k3_calls} calls")
     if sum(hits) <= 0:
-        fail("paged serve: no request hit the radix index")
+        fail(f"{tag}: no request hit the radix index")
     if launches["decode_attention_paged"] != arch.n_layers * k3_calls or not k3_calls:
-        fail(f"paged serve: K3 launches {launches['decode_attention_paged']} != "
+        fail(f"{tag}: K3 launches {launches['decode_attention_paged']} != "
              f"{arch.n_layers} x {k3_calls} admission and decode calls")
-    print(f"paged serve: K3 launches on paged_wgmma_kernel "
+    print(f"{tag}: K3 launches on paged_wgmma_kernel "
           f"{launches['decode_attention_paged.wgmma']} of {launches['decode_attention_paged']}")
-    wgmma_only(launches, "paged serve", "decode_attention_paged")
+    wgmma_only(launches, tag, "decode_attention_paged")
     if not any(len(h.request.prompt) > cfg.max_len for h in handles):
-        fail("paged serve: no prompt beyond max_len was served")
+        fail(f"{tag}: no prompt beyond max_len was served")
     result.update(cache_hit_tokens=hits, shared_prefix_routing=dict(routing),
                   prompt_lens=[len(h.request.prompt) for h in handles])
-    report["paged_serve" + ("" if graphed else "_eager")] = result
+    report[tag.replace(" ", "_") + ("" if graphed else "_eager")] = result
     return launches, serve
 
 
@@ -1287,7 +1347,7 @@ def profile_phase(serve, report: dict, key="profile", lens=PROFILE_LENS,
 # two steps later; the bucketed prefill reaches its 2048 bucket
 LLAMA_LENS = [16, 1500, 24, 900, 40, 600, 64, 300, 1200, 33, 100, 250, 700, 48, 1024, 200,
               128, 400, 80, 1400]
-PAPER_NEW_TOKENS = 64  # the paper preset's 512 new tokens cut to fit the time limit
+PAPER_NEW_TOKENS = 32  # the paper preset's 512 new tokens cut to fit the time limit
 
 
 def llama_kernel_phase(report: dict) -> dict:
@@ -1563,6 +1623,211 @@ def self_draft_phase(report: dict) -> None:
                             "acceptance_ingest_last": ingest_last, "tokens_equal": same}
 
 
+# ------------------------------------------ the dense M9 models (ROADMAP §1 item 3)
+
+# each M9 model's attention heads (H, K, D): G = 5, 9 and 4 query heads a KV
+# head; h2o-danube's head_dim 120 runs on a 128-wide tile
+M9_HEADS = {"qwen2.5-14b": (40, 8, 128), "starcoder2-7b": (36, 4, 128),
+            "h2o-danube-3-4b": (32, 8, 120)}
+H2O_LEN, H2O_CAP, H2O_WINDOW = 8192, 4128, 4096  # max_len, its ring (window + 32), window
+# the h2o serve's prompts: four past the window and the ring, four short
+H2O_LENS = (4500, 16, 5200, 40, 6000, 130, 4800, 300)
+
+
+def m9_kernel_phase(report: dict) -> dict:
+    """K1, K2 and K3 at the M9 models' heads, held against their plain
+    versions: K1 at the dense serve's cache (B=8, S=512) for G = 5 and 9, and
+    at D = 120 on h2o's ring of 4128 slots (rows wrapped and not, window
+    4096), for T = 1, 5, 9 and a chunk of 64 (G = 9: 576 rows, five 128-row
+    tiles) in bf16 and T = 5 in fp32; K2 at the 512 bucket, a ragged 100 and
+    fp32, and for h2o a 6000-token prompt under its window (S > 4096,
+    ragged), a continuation and fp32 with a window; K3 over shuffled pages
+    at T = 1, 9 (and with a window) and an admission of 128, bf16, and T = 9
+    fp32.  Every bf16 call must take the tensor-core kernel.  Then each
+    serve's shapes timed (kernel, plain version, SDPA, bound), and the
+    reference's padded heads against the port's at a decode step."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda as k1
+    from repro_torch.kernels.decode_attention import decode_attention_paged_cuda as k3
+    from repro_torch.kernels.flash_attention import flash_attention_cuda as k2
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    err, lines = {}, []
+
+    def held(tag, name, fn, args, kw, want, dt):
+        before = fn.wgmma_launches
+        got = fn(*args, **kw)
+        if fn.wgmma_launches - before != int(dt == "bfloat16"):
+            fail(f"{tag}: took the wrong kernel")
+        e = check(tag, got, want(), dt)
+        if dt == "bfloat16":
+            err[name] = max(err.get(name, 0.0), e)
+        lines.append(f"{tag}: max_abs_err={e:.3g}")
+        print(lines[-1])
+
+    for arch, (H, K, D) in M9_HEADS.items():
+        ring = arch.startswith("h2o")
+        S, window = (H2O_CAP, H2O_WINDOW) if ring else (512, None)
+        fills = ([6000, 4200, 100, 4127, 8000, 3000, 4096, 0] if ring
+                 else [20, 60, 140, 200, 290, 350, 420, 490])
+        for T, dt in ((1, "bfloat16"), (5, "bfloat16"), (9, "bfloat16"), (64, "bfloat16"),
+                      (5, "float32")):
+            q, k, v, clen, pos = decode_case(g, 8, T, S, H, K, D, dt, fills, ring=ring)
+            held(f"{arch} decode_attention B=8 T={T} S={S} H={H} K={K} D={D} {dt} "
+                 f"window={window}", "decode_attention", k1, (q, k, v, clen),
+                 {"kv_positions": pos, "window": window},
+                 lambda: ref.decode_attention(q, k, v, clen, kv_positions=pos, window=window), dt)
+        flash = [(2, 512, "bfloat16", {}), (2, 100, "bfloat16", {}), (1, 256, "float32", {})]
+        if ring:
+            flash += [(1, 6000, "bfloat16", {"window": H2O_WINDOW}),
+                      (1, 64, "bfloat16", {"q_offset": 4500, "window": H2O_WINDOW}),
+                      (1, 300, "float32", {"window": 100})]
+        for B, Sq, dt, kw in flash:
+            Sk, dtype = Sq + kw.get("q_offset", 0), getattr(torch, dt)
+            q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+            k, v = (torch.randn(B, Sk, K, D, generator=g, device="cuda").to(dtype)
+                    for _ in range(2))
+            held(f"{arch} flash_attention B={B} S={Sq} H={H} K={K} D={D} {dt} {kw}",
+                 "flash_attention", k2, (q, k, v), kw,
+                 lambda: ref.flash_attention(q, k, v, **kw), dt)
+        for T, dt, win in ((1, "bfloat16", None), (9, "bfloat16", None), (9, "bfloat16", 100),
+                           (128, "bfloat16", None), (9, "float32", None)):
+            args = paged_case(g, 8, T, dt, [T + 37, 1024, T + 300, 700, T + 5, 513, T + 130, 0],
+                              H=H, K=K, D=D)
+            held(f"{arch} decode_attention_paged B=8 T={T} H={H} K={K} D={D} {dt} window={win}",
+                 "decode_attention_paged", k3, args, {"window": win},
+                 lambda: ref.decode_attention_paged(*args, window=win), dt)
+
+    # ---- timing at each serve's shapes: qwen2.5's verify step at the depth-4
+    # bucket (B=8 T=5) and its 512 prefill bucket; h2o's verify on a full ring
+    # (B=4, its max_batch) and its 8192 prefill bucket, under the window;
+    # starcoder2's paged decode and admission
+    H, K, D = M9_HEADS["qwen2.5-14b"]
+    out = {"decode_attention (qwen2.5 verify)": decode_timing(g, 8, 5, 512, H, K, D),
+           "flash_attention (qwen2.5)": flash_timing(g, 4, 512, H, K, D)}
+    H, K, D = M9_HEADS["h2o-danube-3-4b"]
+    out["decode_attention (h2o verify)"] = decode_timing(g, 4, 5, H2O_CAP, H, K, D,
+                                                         window=H2O_WINDOW)
+    out["flash_attention (h2o)"] = flash_timing(g, 1, H2O_LEN, H, K, D, window=H2O_WINDOW)
+    for name, r in out.items():
+        r["max_abs_err"] = max(err[name.split()[0]], r.pop("err"))
+        show_timing(name, r)
+    H, K, D = M9_HEADS["starcoder2-7b"]
+    paged = paged_timing(g, lines, [err["decode_attention_paged"]] * 2, H, K, D, "starcoder2 ")
+    out.update({f"decode_attention_paged (starcoder2 {key})": r for key, r in paged.items()})
+    report["m9_kernel_checks"] = lines
+    report["padded_heads"] = {arch: padded_timing(g, arch)
+                              for arch in ("qwen2.5-14b", "starcoder2-7b")}
+    return out
+
+
+def padded_timing(g, arch: str) -> dict:
+    """What the reference's query-head padding would cost on this card: the
+    attention half of a decode step (q projection, K1, output projection) over
+    every layer, each with its own weights, at B=8 T=5 against a full
+    512-slot cache, with the port's H heads and with the reference's padded
+    heads (K1 at the padded G, the pad heads masked to zero before wo).  Each
+    variant is captured once as a CUDA graph (the host's launch rate would
+    otherwise bound a step of ~200 small launches) and replayed in turns:
+    unpadded, padded, padded, unpadded."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_cuda as k1
+
+    cfg = get_config(arch)
+    H, Hp, K, D, d, L = (cfg.n_heads, cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim,
+                         cfg.d_model, cfg.n_layers)
+    B, T, S = 8, 5, 512
+    _, k, v, clen, pos = decode_case(g, B, T, S, H, K, D, "bfloat16", [S - T] * B, poison=False)
+    x = torch.randn(B * T, d, generator=g, device="cuda").to(torch.bfloat16)
+    real = (torch.arange(Hp, device="cuda") % cfg.padded_group < H // K).to(torch.bfloat16)
+
+    def weights(heads):
+        return [tuple((torch.randn(*shape, generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+                      for shape in ((d, heads * D), (heads * D, d))) for _ in range(L)]
+
+    def step(ws, heads):
+        for wq, wo in ws:
+            o = k1((x @ wq).view(B, T, heads, D), k, v, clen, kv_positions=pos)
+            if heads != H:
+                o = o * real[:, None]
+            y = o.view(B * T, heads * D) @ wo
+        return y
+
+    side, graphs = torch.cuda.Stream(), {}
+    for name, heads in (("unpadded", H), ("padded", Hp)):
+        ws = weights(heads)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # cuBLAS makes its handle here, outside the capture
+            step(ws, heads)
+        torch.cuda.synchronize()
+        graphs[name] = (torch.cuda.CUDAGraph(), ws)
+        with torch.cuda.graph(graphs[name][0], stream=side):
+            step(ws, heads)
+    ms = {"unpadded": [], "padded": []}
+    for name in ("unpadded", "padded", "padded", "unpadded"):
+        ms[name].append(timed(lambda i: graphs[name][0].replay(), 20))
+    r = {"shape": f"{L} layers, B={B} T={T} S={S} K={K} D={D} d_model={d} bf16",
+         "heads": [H, Hp], "G": [H // K, Hp // K], "unpadded_ms": ms["unpadded"],
+         "padded_ms": ms["padded"], "pad_weight_gb": 2 * (Hp - H) * D * d * L * 2 / 1e9}
+    print(f"{arch} padded heads [{r['shape']}]: q projection + K1 + output projection over "
+          f"every layer, {H} heads (G={H // K}) {sum(ms['unpadded']) / 2:.4f} ms against the "
+          f"reference's {Hp} (G={Hp // K}) {sum(ms['padded']) / 2:.4f} ms (in turns: "
+          f"{ms['unpadded']}, {ms['padded']}); pad wq/wo {r['pad_weight_gb']:.3f} GB")
+    del graphs
+    return r
+
+
+def h2o_serve_phase(report: dict, graphed=True):
+    """h2o-danube-3-4b at full width (24 layers, d_model 3840, 32 heads over 8
+    KV heads of 120, window 4096) with max_len 8192, 2 pairs x 4 slots: each
+    slot's ring holds 4128 positions (the window and a 32-token speculative
+    margin), so the four prompts of 4500-6000 tokens wrap it and the window
+    binds on every step of theirs; four short prompts beside them.  K2 on
+    every prefill (the long ones at the 8192 bucket, under the window), K1 on
+    every decode and verify, all on the tensor-core kernels at D = 120."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ServeConfig
+
+    cfg = ServeConfig(arch="h2o-danube-3-4b", reduced=False, n_pairs=2, max_batch=4,
+                      max_len=H2O_LEN, max_new_tokens=32)
+    t0 = time.perf_counter()
+    serve = served(cfg, graphed)
+    arch = serve.arch
+    print(f"h2o serve: {arch.name} L={arch.n_layers} d_model={arch.d_model} heads "
+          f"{arch.n_heads}/{arch.n_kv_heads} head_dim {arch.head_dim} window "
+          f"{arch.sliding_window}, {cfg.n_pairs} pairs x {cfg.max_batch} slots, max_len "
+          f"{cfg.max_len}; init {time.perf_counter() - t0:.2f} s")
+    bad = instrument(serve)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, arch.vocab_size, n).tolist() for n in H2O_LENS]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    run = drive(serve, {0: prompts})
+    launches = read_counts()
+    result = serve_stats("h2o serve", serve, bad, run, launches)
+    L, cap = arch.n_layers, serve.engine.pairs[0].lane.cache["k"].shape[2]
+    kv_token = 2 * L * arch.n_kv_heads * arch.head_dim * 2
+    wrapped = [n for n in H2O_LENS if n > cap]
+    print(f"h2o serve: ring of {cap} slots, {len(wrapped)} prompts wrap it {wrapped}; KV "
+          f"{kv_token} B a token, {kv_token * cap / 1e6:.1f} MB a slot; K1 launches "
+          f"{launches['decode_attention']}, K2 {launches['flash_attention']}")
+    if cap != H2O_CAP or not wrapped:
+        fail(f"h2o serve: ring of {cap} slots, wrapped by {wrapped}")
+    for name, calls in (("flash_attention", "prefill_calls"), ("decode_attention", "decode_calls")):
+        if launches[name] != L * result[calls] or not result[calls]:
+            fail(f"h2o serve: {name} launches {launches[name]} != {L} x {result[calls]}")
+    wgmma_only(launches, "h2o serve", "flash_attention", "decode_attention")
+    result.update(prompt_lens=H2O_LENS, ring_capacity=cap, kv_bytes_per_token=kv_token)
+    report["h2o_serve"] = result
+    return launches, serve
+
+
 # --------------------------------------------------------------- SSM (mamba2)
 
 SSD_CHECKS = [  # B, S, H, P, G, N, dtype, initial state
@@ -1713,15 +1978,16 @@ def mamba_model_phase(report: dict) -> None:
 
 def mamba_serve_phase(report: dict, params=None, graphed=True):
     """mamba2-2.7b at full width on 2 pairs: the dense serve's 12 prompts of
-    16-400 tokens, 32 new tokens each.  Every admission is its own exact-shape
-    prefill call, which runs K4 once per layer."""
+    16-400 tokens, 16 new tokens each (the time limit: an eager mamba2 step
+    takes ~0.4 s).  Every admission is its own exact-shape prefill call, which
+    runs K4 once per layer."""
     import numpy as np
     import torch
 
     from repro_torch.api import ServeConfig
 
     cfg = ServeConfig(arch="mamba2-2.7b", reduced=False, n_pairs=2, max_batch=8, max_len=512,
-                      max_new_tokens=32)
+                      max_new_tokens=16)
     t0 = time.perf_counter()
     serve = served(cfg, graphed, **({} if params is None else {"params": params}))
     torch.cuda.synchronize()
@@ -2057,7 +2323,12 @@ def main() -> None:
     print(f"nvidia-smi: {smi}")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
-    report: dict = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0)}
+    report: dict = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0), "phase_end_s": {}}
+    start = time.perf_counter()
+
+    def stamp(name):  # seconds from the start to the end of each group of phases
+        report["phase_end_s"][name] = time.perf_counter() - start
+        print(f"[{report['phase_end_s'][name]:.1f} s] {name} done", flush=True)
 
     from repro_torch.kernels import build
 
@@ -2077,6 +2348,7 @@ def main() -> None:
     paged_timing = paged_kernel_phase(report)
     model_phase(report)
     chunked_model_phase(report)
+    stamp("build, kernels and model checks")
     launches, serve, w = twice(report, "serve", lambda g, **w: serve_phase(report, graphed=g, **w),
                                profile={"key": "profile"}, split=PROFILE_LENS)
     params = w["params"]  # the same weights serve the rest
@@ -2102,8 +2374,9 @@ def main() -> None:
     _, serve, _ = twice(report, "paged_chunked_serve",
                         lambda g, **w: chunked_serve_phase(params, report, True, g))
     dense_weights = to_cpu(params)  # the front door's phases serve them again, last
-    del serve, params
+    del serve, params, _  # _: the weights twice() returned, the same tensors
     release()
+    stamp("qwen3-1.7b serves")
     llama_timing = llama_kernel_phase(report)
     model_phase(report, "llama2-7b")
     release()
@@ -2120,6 +2393,7 @@ def main() -> None:
     release()
     self_draft_phase(report)
     release()
+    stamp("llama2-7b")
     ssd_timing = ssd_kernel_phase(report)
     mamba_model_phase(report)
     mamba_launches, serve, w = twice(report, "mamba_serve",
@@ -2127,6 +2401,26 @@ def main() -> None:
                                      profile={"key": "mamba_profile", "seed": 3, "split": True})
     del serve, w  # the mamba2 weights too: the front door's serves measure their peaks
     release()
+    stamp("mamba2-2.7b")
+    m9_timing = m9_kernel_phase(report)
+    release()
+    for arch in M9_HEADS:
+        model_phase(report, arch)
+        release()
+    qwen25_launches, serve, w = twice(
+        report, "qwen2.5-14b_serve",
+        lambda g, **w: serve_phase(report, graphed=g, arch="qwen2.5-14b", **w))
+    profile_phase(serve, report, key="qwen2.5-14b_profile")
+    del serve, w  # its 29.5 GB of weights: the next serves measure their peaks
+    release()
+    sc_launches, serve = paged_serve_phase(None, report, arch="starcoder2-7b")
+    del serve
+    release()
+    h2o_launches, serve = h2o_serve_phase(report)
+    profile_phase(serve, report, key="h2o_profile", lens=H2O_LENS, seed=14)
+    del serve
+    release()
+    stamp("M9 models")
     params = to_cpu(dense_weights, "cuda")
     del dense_weights
     gateway_phase(params, report)
@@ -2135,6 +2429,7 @@ def main() -> None:
     del params
     release()
     cli_phase(report)
+    stamp("front door")
 
     def entry(name, kernel, r, n, was):
         return {"name": name, "kernel": kernel, "route": "cuda",
@@ -2176,6 +2471,22 @@ def main() -> None:
                 entry("flash_attention (llama2)", "flash_wgmma_kernel",
                       llama_timing["flash_attention (llama2)"],
                       paper_launches["flash_attention"], None)]
+    # the M9 models: K1 and K2 from the qwen2.5 and h2o serves, K3 from the
+    # starcoder2 paged serve (decode/verify and admission apart)
+    sc = report["starcoder2-7b_paged_serve"]
+    sc_admit = sc_launches["decode_attention_paged"] * sc["prefill_calls"] // (
+        sc["prefill_calls"] + sc["decode_calls"])
+    for name, kernel, n in (
+            ("decode_attention (qwen2.5 verify)", "decode_wgmma_kernel",
+             qwen25_launches["decode_attention"]),
+            ("flash_attention (qwen2.5)", "flash_wgmma_kernel", qwen25_launches["flash_attention"]),
+            ("decode_attention_paged (starcoder2 decode)", "paged_wgmma_kernel",
+             sc_launches["decode_attention_paged"] - sc_admit),
+            ("decode_attention_paged (starcoder2 admission)", "paged_wgmma_kernel", sc_admit),
+            ("decode_attention (h2o verify)", "decode_wgmma_kernel",
+             h2o_launches["decode_attention"]),
+            ("flash_attention (h2o)", "flash_wgmma_kernel", h2o_launches["flash_attention"])):
+        kernels.append(entry(name, kernel, m9_timing[name], n, None))
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

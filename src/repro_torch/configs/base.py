@@ -61,6 +61,26 @@ class ArchConfig:
     notes: str = ""
 
     @property
+    def padded_heads(self):
+        """The reference's query heads padded for its 16-way model axis: G is
+        raised until ``K * G_pad`` is a multiple of 16 (40 -> 48 for
+        qwen2.5-14b, 36 -> 48 for starcoder2-7b).  The port runs the unpadded model; the weight
+        bridge drops the pad slots (``params.from_jax_tree``)."""
+        H, K = self.n_heads, self.n_kv_heads
+        if H == 0 or H < 16 or H % 16 == 0:
+            return H
+        G_pad = H // K
+        while (K * G_pad) % 16:
+            G_pad += 1
+        return K * G_pad
+
+    @property
+    def padded_group(self):
+        """Query slots per KV head in the padded, group-major layout: slot h
+        holds a real head iff ``h % padded_group < n_heads // n_kv_heads``."""
+        return self.padded_heads // self.n_kv_heads if self.n_kv_heads else 0
+
+    @property
     def padded_vocab(self):
         """Vocab rounded up to a multiple of 256 (padded logits are masked)."""
         return -(-self.vocab_size // 256) * 256

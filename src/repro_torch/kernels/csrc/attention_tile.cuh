@@ -39,8 +39,16 @@
 // zero, one launch a call, no atomics.  It caps n_split at the portable
 // cluster size, 8.
 //
-// Shared-memory layout of a (64 rows x D) bf16 tile (Q, K and V alike): D is
-// cut into panels of PW = SW / 2 elements (SW = 128 bytes, or 64 for
+// Head dims that are not a whole number of panels (h2o-danube's D = 120)
+// run at the padded width DP = tile_dim(D) (128), the columns past D zeros:
+// TMA fills them from outside the tensor (a 4-D map over (B, S, K, D), so
+// the last panel never reaches into the next KV head), the Q load and K3's
+// gather with cp.async's zero fill.  The zeros add nothing to Q K^T; P V
+// makes DP columns and only the first D are stored.  The softmax scale is
+// the caller's, from the real D.
+//
+// Shared-memory layout of a (64 rows x DP) bf16 tile (Q, K and V alike): DP
+// is cut into panels of PW = SW / 2 elements (SW = 128 bytes, or 64 for
 // D = 32); a panel holds all 64 rows, row r at r * SW bytes, with the
 // swizzle TMA's CU_TENSOR_MAP_SWIZZLE_{128,64}B writes (16-byte chunk c of
 // row r lands at chunk c ^ (r mod 8) for 128 B; ^ ((r / 2) mod 4) for 64 B).
@@ -66,8 +74,12 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
 __host__ __device__ constexpr int swizzle_bytes(int D) { return D >= 64 ? 128 : 64; }
-// bytes of one (64 x D) bf16 tile
-__host__ __device__ constexpr int tile_bytes(int D) { return BK * D * 2; }
+// D padded to a whole number of swizzle panels: the width of every tile
+__host__ __device__ constexpr int tile_dim(int D) {
+  return (D + swizzle_bytes(D) / 2 - 1) / (swizzle_bytes(D) / 2) * (swizzle_bytes(D) / 2);
+}
+// bytes of one (64 x DP) bf16 tile
+__host__ __device__ constexpr int tile_bytes(int D) { return BK * tile_dim(D) * 2; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -203,16 +215,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // A warpgroup's running attention state for its 64 rows.  Thread t of the
 // warpgroup holds rows row(0) = 16 * (t / 32) + (t % 32) / 4 and row(1) =
 // row(0) + 8; o[4j + e] is column 8j + 2 (t % 4) + (e & 1) of row(e >> 1),
-// as the wgmma accumulator lays it out (S has the same layout over 64 columns).
+// as the wgmma accumulator lays it out (S has the same layout over 64
+// columns).  O spans the padded width DP; columns D .. DP - 1 stay 0.
 template <int D>
 struct Tile {
-  float o[D / 2];
+  static constexpr int DP = tile_dim(D);
+  float o[DP / 2];
   float m[2];   // running row max (base-2 scaled scores)
   float l[2];   // this thread's part of the running row sum
 
   __device__ __forceinline__ void init() {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
     m[0] = m[1] = NEG_INF;
     l[0] = l[1] = 0.f;
   }
@@ -239,7 +253,7 @@ struct Tile {
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k) {
+    for (int k = 0; k < DP / 16; ++k) {
       const uint32_t off = (k * 16 / PW) * (BK * SW) + (k * 16 % PW) * 2;
       wgmma_ss_n64(s, desc_k_major<D>(sq + off), desc_k_major<D>(sk + off));
     }
@@ -275,7 +289,7 @@ struct Tile {
         l[e >> 1] += p;
       }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
 
@@ -288,15 +302,15 @@ struct Tile {
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) wgmma_rs<D>(o, pa[ks], desc_mn_major<D>(sv + ks * 16 * SW));
+    for (int ks = 0; ks < 4; ++ks) wgmma_rs<DP>(o, pa[ks], desc_mn_major<D>(sv + ks * 16 * SW));
     wgmma_commit();
     wgmma_wait0();
     fence_regs(o);
   }
 
   // Finish the row sums over the 4 lanes of each row; store(h, row(h), col,
-  // a, b) receives columns col and col + 1 of a row, normalised.  A row that never
-  // saw a position keeps m = -1e30 (the caller may replace its output).
+  // a, b) receives columns col and col + 1 < D of a row, normalised.  A row
+  // that never saw a position keeps m = -1e30 (the caller may replace its output).
   template <class Store>
   __device__ __forceinline__ void finish(Store store) {
 #pragma unroll
@@ -306,10 +320,11 @@ struct Tile {
       l[h] = 1.f / fmaxf(l[h], 1e-30f);
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        store(h, row(h), col(j, 0), o[4 * j + 2 * h] * l[h], o[4 * j + 2 * h + 1] * l[h]);
+        if (D == DP || col(j, 0) < D)
+          store(h, row(h), col(j, 0), o[4 * j + 2 * h] * l[h], o[4 * j + 2 * h + 1] * l[h]);
   }
 };
 
@@ -328,12 +343,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
                  "selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
 }
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
+// Box (column c, KV head kh, position s, batch row b) of a kv_map.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c, int kh, int s, int b) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(kh), "r"(s),
+         "r"(b)
       : "memory");
 }
 
@@ -360,17 +377,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map over k or v (B, S, K*D) bf16 whose box is one swizzle panel
-// (PW columns) of 64 positions; positions past S arrive as zeros.
+// A tensor map over k or v (B, S, K, D) bf16 whose box is one swizzle panel
+// (PW columns) of one KV head at 64 positions; positions past S, and columns
+// past D in the last panel of a padded tile, arrive as zeros.
 template <int D>
 bool kv_map(CUtensorMap* map, const void* ptr, int B, int S, int K) {
   constexpr int SW = swizzle_bytes(D);
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)K * D, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)K * D * 2, (cuuint64_t)S * K * D * 2};
-  const cuuint32_t box[3] = {SW / 2, BK, 1}, one[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)K, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)K * D * 2,
+                                 (cuuint64_t)S * K * D * 2};
+  const cuuint32_t box[4] = {SW / 2, 1, BK, 1}, one[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                 strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -458,17 +477,17 @@ cudaError_t launch_split(dim3 grid, int threads, size_t smem, int n_split, cudaS
 
 // Query rows r0 .. r0 + 64 * WGS - 1 of KV head kh into the WGS Q tiles at
 // sq: row r = t * G + g is query head kh * G + g of token t; rows past
-// n_tok * G are zeros.  One cp.async group.
+// n_tok * G, and columns past D, are zeros.  One cp.async group.
 template <int D, int WGS>
 __device__ __forceinline__ void load_q(uint32_t sq, const __nv_bfloat16* __restrict__ q, int b,
                                        int n_tok, int H, int G, int kh, int r0) {
-  constexpr int CH = D / 8;
+  constexpr int CH = tile_dim(D) / 8;
   const int TG = n_tok * G;
   for (int i = threadIdx.x; i < BQ * WGS * CH; i += 128 * WGS) {
     const int r = r0 + i / CH, c = i % CH * 8, rr = min(r, TG - 1);
     cp_async16(sq + (i / CH / BQ) * tile_bytes(D) + tile_offset<D>(i / CH % BQ, c),
-               q + (((size_t)b * n_tok + rr / G) * H + kh * G + rr % G) * D + c,
-               r < TG ? 16 : 0);
+               q + (((size_t)b * n_tok + rr / G) * H + kh * G + rr % G) * D + min(c, D - 8),
+               r < TG && c < D ? 16 : 0);
   }
   cp_async_commit();
 }
@@ -479,15 +498,15 @@ __device__ __forceinline__ void load_q(uint32_t sq, const __nv_bfloat16* __restr
 // slot[ring][tid] (-1: not read; zeros arrive instead), and whatever else its
 // mask needs; every thread then gathers the tile's K and V rows
 // (kp/vp + row * row_stride + head_off) with 16-byte cp.async copies into the
-// swizzled layout wgmma reads.  mask(i, ring, h, c, x) is Tile::step's mask
-// for column c of tile i.
+// swizzled layout wgmma reads (columns past D as zeros).  mask(i, ring, h, c,
+// x) is Tile::step's mask for column c of tile i.
 template <int D, int WGS, class Slots, class Mask>
 __device__ __forceinline__ void walk(Tile<D>& t, unsigned char* sm, int n,
                                      const __nv_bfloat16* __restrict__ kp,
                                      const __nv_bfloat16* __restrict__ vp, size_t row_stride,
                                      size_t head_off, float scale_log2, Slots slots, Mask mask) {
   using L = Layout<D, WGS>;
-  constexpr int TB = tile_bytes(D), NT = 128 * WGS, CH = D / 8;
+  constexpr int TB = tile_bytes(D), NT = 128 * WGS, CH = tile_dim(D) / 8;
   const int* sslot = reinterpret_cast<const int*>(sm + L::slot);
   const uint32_t sq = smem_u32(sm), skv = sq + L::kv;
   const int tid = threadIdx.x, wg = tid / 128;
@@ -495,11 +514,11 @@ __device__ __forceinline__ void walk(Tile<D>& t, unsigned char* sm, int n,
     const int* sl = sslot + (i % RING) * BK;
     const uint32_t st = skv + (i % STAGES) * 2 * TB;
     for (int e = tid; e < BK * CH; e += NT) {
-      const int j = e / CH, c = e % CH * 8, row = sl[j];
-      const size_t at = (size_t)max(row, 0) * row_stride + head_off + c;
+      const int j = e / CH, c = e % CH * 8, row = sl[j], nb = row >= 0 && c < D ? 16 : 0;
+      const size_t at = (size_t)max(row, 0) * row_stride + head_off + min(c, D - 8);
       const uint32_t off = tile_offset<D>(j, c);
-      cp_async16(st + off, kp + at, row >= 0 ? 16 : 0);
-      cp_async16(st + TB + off, vp + at, row >= 0 ? 16 : 0);
+      cp_async16(st + off, kp + at, nb);
+      cp_async16(st + TB + off, vp + at, nb);
     }
   };
   if (tid < BK)
@@ -535,7 +554,7 @@ template <int D, int WGS, class Nothing, class Store>
 __device__ __forceinline__ void finish_rows(Tile<D>& t, unsigned char* sm, int nr, int n_split,
                                             bool walked, Nothing nothing, Store store) {
   using L = Layout<D, WGS>;
-  constexpr int NT = 128 * WGS, N = WGS * BQ;
+  constexpr int NT = 128 * WGS, N = WGS * BQ, DP = tile_dim(D);
   const int tid = threadIdx.x, wg = tid / 128;
   if (n_split == 1) {
     bool none = false;
@@ -550,7 +569,7 @@ __device__ __forceinline__ void finish_rows(Tile<D>& t, unsigned char* sm, int n
     });
     return;
   }
-  float* po = reinterpret_cast<float*>(sm + L::kv);  // [N][D] unnormalised O
+  float* po = reinterpret_cast<float*>(sm + L::kv);  // [N][DP] unnormalised O
   float* pm = reinterpret_cast<float*>(sm + L::rows);
   float *pl = pm + N, *sM = pl + N, *sL = sM + N;
   __syncthreads();  // every warpgroup's last product has read the stages
@@ -560,8 +579,8 @@ __device__ __forceinline__ void finish_rows(Tile<D>& t, unsigned char* sm, int n
     t.l[h] += __shfl_xor_sync(0xffffffffu, t.l[h], 2);
     const int r = wg * BQ + Tile<D>::row(h);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(po + r * D + Tile<D>::col(j, 0)) =
+    for (int j = 0; j < DP / 8; ++j)
+      *reinterpret_cast<float2*>(po + r * DP + Tile<D>::col(j, 0)) =
           make_float2(t.o[4 * j + 2 * h], t.o[4 * j + 2 * h + 1]);
     if (tid % 4 == 0) {
       pm[r] = walked ? t.m[h] : -INFINITY;  // -inf: an empty split, skipped
@@ -592,7 +611,8 @@ __device__ __forceinline__ void finish_rows(Tile<D>& t, unsigned char* sm, int n
       const float mk = cluster.map_shared_rank(pm, k)[r];
       if (mk == -INFINITY) continue;
       const float w = exp2f(mk - M);
-      const float2 o = *reinterpret_cast<const float2*>(cluster.map_shared_rank(po, k) + r * D + c);
+      const float2 o =
+          *reinterpret_cast<const float2*>(cluster.map_shared_rank(po, k) + r * DP + c);
       x0 += w * o.x;
       x1 += w * o.y;
     }

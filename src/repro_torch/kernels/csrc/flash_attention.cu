@@ -19,7 +19,7 @@
 // first; one consumer warpgroup (two were no faster at S = 512:
 // attention_variants.py).  K and V tiles of 64 positions come by TMA
 // (one thread issues them, an mbarrier per stage counts the bytes) through
-// tensor maps over the (B, Sk, K*D) view with the 128-byte swizzle wgmma
+// tensor maps over the (B, Sk, K, D) tensors with the 128-byte swizzle wgmma
 // reads (64-byte at D = 32); rows past Sk are out of bounds and arrive as
 // zeros.  Two stages: tile i+1 is in flight while tile i is multiplied.
 // cuTensorMapEncodeTiled comes from the runtime's cudaGetDriverEntryPoint,
@@ -42,7 +42,11 @@
 // S = QK^T waits for the previous tile's softmax and PV), no persistent
 // grid (512 blocks make two uneven waves on 132 SMs), causal diagonal tiles
 // multiplied whole, and the G heads of a KV head in separate blocks (K/V
-// read G times, from L2).
+// read G times, from L2).  The M9 models (same script and card): G = 5
+// (qwen2.5-14b) B=4 S=512 0.0599 ms, 4.0x its bound and 1.6x SDPA's 0.0376
+// (the five heads of a KV head in five blocks); head_dim 120 (h2o-danube, a
+// 128-wide tile) B=1 S=8192 window 4096 1.6716 ms, 4.3x its bound, against
+// 3.9336 ms for SDPA given the window as a mask.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,7 +65,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ out, int Sq, int Sk, int H, int K, int causal, int window,
     int q_offset, float scale) {
-  constexpr int DC = D / 16;  // output columns per thread
+  constexpr int DC = (D + 15) / 16;  // output columns per thread (the last may lie past D)
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / (H / K);
   extern __shared__ float smem[];
@@ -152,7 +156,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     for (int j = 0; j < BK; ++j) {
       float vv[DC];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = sv[j * D + cg + 16 * c];
+      for (int c = 0; c < DC; ++c) vv[c] = cg + 16 * c < D ? sv[j * D + cg + 16 * c] : 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float p = sp[(rg * 8 + i) * (BK + 1) + j];
@@ -169,7 +173,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     float* o = out + (((size_t)b * Sq + qi) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) o[cg + 16 * c] = acc[i][c] * inv;
+    for (int c = 0; c < DC; ++c)
+      if (cg + 16 * c < D) o[cg + 16 * c] = acc[i][c] * inv;
   }
 }
 
@@ -224,9 +229,9 @@ __global__ void __launch_bounds__(128 * WGS) flash_wgmma_kernel(
     const uint32_t st = skv + (i & 1) * 2 * TB, bar = full + (i & 1) * 8;
     mbar_expect_tx(bar, 2 * TB);
 #pragma unroll
-    for (int p = 0; p < D / PW; ++p) {
-      tma_load_3d(st + p * BK * SW, &kmap, bar, kh * D + p * PW, k_begin + i * BK, b);
-      tma_load_3d(st + TB + p * BK * SW, &vmap, bar, kh * D + p * PW, k_begin + i * BK, b);
+    for (int p = 0; p < tile_dim(D) / PW; ++p) {
+      tma_load_4d(st + p * BK * SW, &kmap, bar, p * PW, kh, k_begin + i * BK, b);
+      tma_load_4d(st + TB + p * BK * SW, &vmap, bar, p * PW, kh, k_begin + i * BK, b);
     }
   };
   if (tid == 0) {
@@ -235,10 +240,12 @@ __global__ void __launch_bounds__(128 * WGS) flash_wgmma_kernel(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     if (n > 0) issue(0);
   }
-  for (int i = tid; i < ROWS * (D / 8); i += 128 * WGS) {
-    const int r = i / (D / 8), c = i % (D / 8) * 8, qi = q0 + r;
+  constexpr int CH = tile_dim(D) / 8;  // 16-byte chunks a row; those past D are zeros
+  for (int i = tid; i < ROWS * CH; i += 128 * WGS) {
+    const int r = i / CH, c = i % CH * 8, qi = q0 + r;
     cp_async16(sq + (r / BQ) * TB + tile_offset<D>(r % BQ, c),
-               q + (((size_t)b * Sq + min(qi, Sq - 1)) * H + h) * D + c, qi < Sq ? 16 : 0);
+               q + (((size_t)b * Sq + min(qi, Sq - 1)) * H + h) * D + min(c, D - 8),
+               qi < Sq && c < D ? 16 : 0);
   }
   cp_async_commit();
   cp_async_wait_all();
@@ -296,11 +303,13 @@ int dispatch(int D, int dtype, const void* q, const void* k, const void* v, void
   if (dtype == 0) switch (D) {
       case 32: return launch<32>(FLASH_ARGS);
       case 64: return launch<64>(FLASH_ARGS);
+      case 120: return launch<120>(FLASH_ARGS);
       case 128: return launch<128>(FLASH_ARGS);
     }
   if (dtype == 1) switch (D) {
       case 32: return launch_wgmma<32>(FLASH_ARGS);
       case 64: return launch_wgmma<64>(FLASH_ARGS);
+      case 120: return launch_wgmma<120>(FLASH_ARGS);
       case 128: return launch_wgmma<128>(FLASH_ARGS);
     }
   return (int)cudaErrorInvalidValue;

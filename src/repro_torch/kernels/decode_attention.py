@@ -57,10 +57,10 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len, *, kv_positions=None,
     dtype = build.check_inputs("decode_attention", q, (k_cache, v_cache),
                                (cache_len, kv_positions))
     if (k_cache.shape != v_cache.shape or k_cache.shape[::3] != (B, D) or H % K
-            or D not in (32, 64, 128) or cache_len.shape != (B,)
+            or D not in build.HEAD_DIMS or cache_len.shape != (B,)
             or kv_positions.shape != (B, S)):
         raise ValueError(f"decode_attention: unsupported shapes q{tuple(q.shape)} "
-                         f"kv{tuple(k_cache.shape)} (head_dim must be 32, 64 or 128)")
+                         f"kv{tuple(k_cache.shape)} (head_dim must be 32, 64, 120 or 128)")
     out = torch.empty_like(q)
     build.launch(decode_attention_cuda, "decode_attention", _ARGTYPES, dtype,
                  torch.cuda.current_stream(q.device).cuda_stream, q.data_ptr(),
@@ -87,10 +87,10 @@ def decode_attention_paged_cuda(q, k_pages, v_pages, cache_len, block_tables, *,
     dtype = build.check_inputs("decode_attention_paged", q, (k_pages, v_pages),
                                (cache_len, block_tables))
     if (k_pages.shape != v_pages.shape or k_pages.shape[3] != D or H % K
-            or D not in (32, 64, 128) or cache_len.shape != (B,)
+            or D not in build.HEAD_DIMS or cache_len.shape != (B,)
             or block_tables.shape[0] != B):
         raise ValueError(f"decode_attention_paged: unsupported shapes q{tuple(q.shape)} "
-                         f"pages{tuple(k_pages.shape)} (head_dim must be 32, 64 or 128)")
+                         f"pages{tuple(k_pages.shape)} (head_dim must be 32, 64, 120 or 128)")
     out = torch.empty_like(q)
     build.launch(decode_attention_paged_cuda, "decode_attention_paged", _PAGED_ARGTYPES, dtype,
                  torch.cuda.current_stream(q.device).cuda_stream, q.data_ptr(),

@@ -32,9 +32,9 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None,
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     dtype = build.check_inputs("flash_attention", q, (k, v))
-    if k.shape != v.shape or k.shape[::3] != (B, D) or H % K or D not in (32, 64, 128):
+    if k.shape != v.shape or k.shape[::3] != (B, D) or H % K or D not in build.HEAD_DIMS:
         raise ValueError(f"flash_attention: unsupported shapes q{tuple(q.shape)} "
-                         f"kv{tuple(k.shape)} (head_dim must be 32, 64 or 128)")
+                         f"kv{tuple(k.shape)} (head_dim must be 32, 64, 120 or 128)")
     out = torch.empty_like(q)
     build.launch(flash_attention_cuda, "flash_attention", _ARGTYPES, dtype,
                  torch.cuda.current_stream(q.device).cuda_stream, q.data_ptr(), k.data_ptr(),

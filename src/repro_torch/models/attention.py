@@ -1,6 +1,8 @@
-"""GQA attention with RoPE, qk-norm and a dense ring-buffer or paged KV
-cache (a port of ``repro.models.attention``; QKV bias and the reference's
-tensor-parallel head padding come with ROADMAP M9).
+"""GQA attention with RoPE, qk-norm, QKV bias and a dense ring-buffer or
+paged KV cache (a port of ``repro.models.attention``).  The reference pads
+query heads for its 16-way model axis and masks the pad heads before ``wo``;
+one card has no model axis, so the port runs the unpadded heads (the weight
+bridge drops the pad slots), which computes the same function.
 
 Dense cache per attention layer: ``k``/``v`` (B, cap, K, D) and ``kv_pos``
 (B, cap) int32, the absolute position written into each slot (-1 = empty).
@@ -38,6 +40,10 @@ def init_attention(gen, cfg, dtype, device):
         "wv": dense_init(gen, d, (K, D), dtype, device),
         "wo": dense_init(gen, H * D, d, dtype, device).view(H, D, d),
     }
+    if cfg.qkv_bias:  # zeros, as the reference's init
+        p["bq"] = torch.zeros(H, D, dtype=dtype, device=device)
+        p["bk"] = torch.zeros(K, D, dtype=dtype, device=device)
+        p["bv"] = torch.zeros(K, D, dtype=dtype, device=device)
     if cfg.qk_norm:
         p["q_norm"] = torch.ones(D, dtype=dtype, device=device)
         p["k_norm"] = torch.ones(D, dtype=dtype, device=device)
@@ -52,6 +58,8 @@ def _proj(x, w):
 
 def _project_q(p, cfg, x):
     q = _proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     return q
@@ -59,6 +67,8 @@ def _project_q(p, cfg, x):
 
 def _project_kv(p, cfg, x):
     k, v = _proj(x, p["wk"]), _proj(x, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
     if "k_norm" in p:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return k, v

@@ -19,13 +19,11 @@ from repro_torch.models.layers import apply_mlp, init_mlp, rms_norm
 def check_supported(cfg):
     """Raise for every layer kind this port does not run yet, naming its item."""
     if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet (ROADMAP M9)")
+        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet "
+                                  "(ROADMAP M9, §1 item 3.3)")
     if cfg.is_encdec or cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: enc-dec and frontend models are not "
-                                  "ported yet (ROADMAP M9)")
-    if cfg.qkv_bias or (cfg.n_heads >= 16 and cfg.n_heads % 16):
-        raise NotImplementedError(f"{cfg.name}: QKV bias and padded heads are not "
-                                  "ported yet (ROADMAP M9)")
+                                  "ported yet (ROADMAP M9, §1 item 3.5)")
 
 
 def init_layer(gen, cfg, kind, dtype, device):

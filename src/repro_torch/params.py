@@ -7,7 +7,11 @@ The JAX tree is ``unzip_params(model.init(key))`` with every leaf converted by
 ``b * scan_block + j`` is ``blocks[str(j)]`` at index ``b``).  bfloat16 leaves
 (``ml_dtypes``) are reinterpreted bit for bit.  A requested ``dtype`` casts
 every leaf except those the model keeps in float32 in any dtype (the Mamba2
-layer's ``A_log``, ``D`` and ``dt_bias``).
+layer's ``A_log``, ``D`` and ``dt_bias``).  Where the reference pads query
+heads (``ArchConfig.padded_heads``), the pad slots of ``wq``, ``bq`` and
+``wo`` are dropped: the reference masks those heads to zero before ``wo``,
+so the port's unpadded heads, in the order GQA's ``h // G`` expects, compute
+the same function.
 """
 from __future__ import annotations
 
@@ -45,5 +49,13 @@ def from_jax_tree(tree, cfg, device="cpu",
     sb = cfg.scan_block
     layers = [_map(tree["blocks"][str(j)], lambda a, name, b=b: conv(a[b], name))
               for b in range(cfg.n_layers // sb) for j in range(sb)]
+    if cfg.padded_heads != cfg.n_heads:
+        slot = torch.arange(cfg.padded_heads, device=device)
+        real = slot[slot % cfg.padded_group < cfg.n_heads // cfg.n_kv_heads]
+        for layer in layers:
+            p = layer["attn"]
+            p["wq"], p["wo"] = p["wq"].index_select(1, real), p["wo"].index_select(0, real)
+            if "bq" in p:
+                p["bq"] = p["bq"].index_select(0, real)
     return {"embedding": _map(tree["embedding"], conv), "layers": layers,
             "final_norm": conv(tree["final_norm"])}

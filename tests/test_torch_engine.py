@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.api as jax_serve
 import repro.api.config as jax_api
 import repro.core.engine as jax_engine
 from repro.configs import reduced_config as jax_reduced
@@ -47,15 +48,29 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def nonzero_biases(tree, seed=5):
+    """A numpy parameter tree with every QKV bias (``bq``, ``bk``, ``bv``;
+    zeros from the init, which would prove nothing) set to N(0, 0.5) values,
+    in place."""
+    rng = np.random.default_rng(seed)
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            nonzero_biases(v, rng)
+        elif k in ("bq", "bk", "bv"):
+            tree[k] = (0.5 * rng.normal(size=v.shape)).astype(v.dtype)
+    return tree
+
+
 def fp32_pair(arch, seed=0, **fields):
     """The reference's and the port's reduced ``arch``, 2 layers in float32
     (and any other ``fields``), with the same weights from the reference's
-    init at ``seed``: (jcfg, jparams, tcfg, tparams)."""
+    init at ``seed``, QKV biases nonzero: (jcfg, jparams, tcfg, tparams)."""
     fields = {"n_layers": 2, "dtype": "float32", **fields}
     jcfg = dataclasses.replace(jax_reduced(arch), **fields)
     tcfg = dataclasses.replace(reduced_config(arch), **fields)
     jparams, _ = unzip_params(jax_build(jcfg).init(jax.random.PRNGKey(seed)))
-    return jcfg, jparams, tcfg, from_jax_tree(jax.tree.map(np.asarray, jparams), tcfg)
+    tree = nonzero_biases(jax.tree.map(np.asarray, jparams))
+    return jcfg, jax.tree.map(jnp.asarray, tree), tcfg, from_jax_tree(tree, tcfg)
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +83,7 @@ def fp32_models(fp32_model):
     """fp32_pair by (arch, sliding window), each built once."""
     made = {("qwen3-1.7b", None): fp32_model}
 
-    def get(arch="qwen3-1.7b", window=None):
+    def get(arch="qwen3-1.7b", window=None):  # window None: the arch's own
         if (arch, window) not in made:
             made[arch, window] = fp32_pair(arch, **({"sliding_window": window} if window else {}))
         return made[arch, window]
@@ -179,6 +194,49 @@ def test_engine_matches_jax_engine(fp32_models, trace_factory, case):
         assert max(len(r.prompt) for r in treqs) > teng.pairs[0].lane.cache["k"].shape[2]
 
 
+# the M9 dense models, reduced: qwen2.5-14b (QKV bias), starcoder2-7b (GELU,
+# paged) and h2o-danube-3-4b (its window of 16, a ring of 48 slots that
+# prompts of 30-89 tokens wrap, one-shot and chunked): (arch, engine
+# overrides, trace, prompt lengths)
+M9_ENGINE_CASES = {
+    "qwen2.5-14b": ("qwen2.5-14b", {}, "mixed_slo", (6, 50)),
+    "starcoder2-7b-paged": ("starcoder2-7b", PAGED, "bursty", (6, 50)),
+    "h2o-danube-3-4b-ring": ("h2o-danube-3-4b", {}, "uniform", (30, 89)),
+    "h2o-danube-3-4b-ring-chunked": ("h2o-danube-3-4b", {"prefill_chunk": 16}, "bursty",
+                                     (30, 89)),
+}
+
+
+@pytest.mark.parametrize("case", list(M9_ENGINE_CASES))
+def test_m9_engine_matches_jax_engine(fp32_models, trace_factory, case):
+    arch, econf, trace, (lo, hi) = M9_ENGINE_CASES[case]
+    jreqs = trace_factory(trace, n=6, lo=lo, hi=hi)
+    treqs = _copy(jreqs)
+    pair = fp32_models(arch)
+    jeng, teng = _engines(pair, 2, **econf)
+    _serve_both(jeng, teng, jreqs, treqs)
+    assert len(teng.monitor.completed) == len(treqs)
+    if pair[2].sliding_window:  # the ring wrapped
+        assert max(len(r.prompt) for r in treqs) > teng.pairs[0].lane.cache["k"].shape[2]
+
+
+def test_padded_heads_through_streamserve_match_the_jax_engine(trace_factory):
+    """A config whose query heads the reference pads (qwen2.5's bias, 20
+    heads over 4 KV heads: G 5 -> 8) served through both packages'
+    StreamServe(arch_cfg=...), the port on the unpadded heads."""
+    jcfg, jparams, tcfg, tparams = fp32_pair("qwen2.5-14b", n_heads=20, n_kv_heads=4)
+    assert jcfg.padded_heads == 32
+    kw = {"arch": "qwen2.5-14b", "max_new_tokens": 8}
+    jserve = jax_serve.StreamServe(jax_serve.ServeConfig.reduced_smoke(**kw), params=jparams,
+                                   arch_cfg=jcfg)
+    tserve = StreamServe(ServeConfig.reduced_smoke(**kw), params=tparams, arch_cfg=tcfg,
+                         device="cpu")
+    jreqs = trace_factory("bursty", n=6)
+    treqs = _copy(jreqs)
+    _serve_both(jserve.engine, tserve.engine, jreqs, treqs)
+    assert len(tserve.monitor.completed) == len(treqs)
+
+
 def test_verify_tokens_matches_jax_greedy_per_row_depth():
     rng = np.random.default_rng(7)
     B, k, V = 5, 4, 64
@@ -232,8 +290,8 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, fp32
         PipeServeEngine(*fp32_model[2:], n_pairs=1)
 
 
-@pytest.mark.parametrize("overrides, item", [({"moe": "experts"}, "M9"),
-                                             ({"qkv_bias": True}, "M9")])
+@pytest.mark.parametrize("overrides, item", [({"moe": "experts"}, "M9, §1 item 3.3"),
+                                             ({"n_encoder_layers": 2}, "M9, §1 item 3.5")])
 def test_later_slices_refuse_by_name(fp32_model, overrides, item):
     """The features of later slices refuse, naming their ROADMAP item."""
     with pytest.raises(NotImplementedError, match=item):

@@ -34,9 +34,15 @@ def _close(got, want, dt, tols=TOL):
 
 
 # (case, q_offset): the reference's table, plus a continuation block whose
-# queries sit at the END of a longer KV
+# queries sit at the END of a longer KV; then head_dim 120 (h2o-danube) and
+# the M9 models' query heads a KV head, G = 5 (qwen2.5-14b) and 9
+# (starcoder2-7b), ragged, windowed and continued
 @pytest.mark.parametrize("case, q_offset", [(c, 0) for c in FLASH_CASES]
-                         + [((1, 32, 128, 4, 4, 64, True, None, jnp.float32), 96)])
+                         + [((1, 32, 128, 4, 4, 64, True, None, jnp.float32), 96),
+                            ((1, 80, 80, 5, 1, 120, True, None, jnp.float32), 0),
+                            ((1, 96, 96, 9, 1, 120, True, 40, jnp.float32), 0),
+                            ((1, 64, 64, 10, 2, 120, True, None, jnp.bfloat16), 0),
+                            ((1, 40, 136, 9, 1, 128, True, 48, jnp.float32), 96)])
 def test_flash_plain_matches_pallas(case, q_offset):
     B, Sq, Sk, H, K, D, causal, window, jdt = case
     dt, rng = jnp.dtype(jdt).name, np.random.default_rng(1)
@@ -61,6 +67,32 @@ def test_decode_plain_matches_pallas(case):
     got = ops.decode_attention(tq, tk, tv, torch.from_numpy(clen), window=window,
                                kv_positions=None if pos is None else torch.from_numpy(pos))
     _close(got, want, dt)
+
+
+# head_dim 120 and G = 4, 5 and 9 at decode and verify sizes: (B, T, S, H, K,
+# D, window, positions a row holds before its T new ones, dtype); a row whose
+# positions outnumber S has wrapped its ring
+M9_DECODE = {
+    "d120-g4-wrapped-window": (2, 3, 96, 8, 2, 120, 40, [150, 20], "float32"),
+    "g5-verify": (2, 9, 128, 5, 1, 128, None, [60, 100], "float32"),
+    "g9-verify-wrapped-window": (2, 9, 96, 9, 1, 128, 24, [200, 30], "float32"),
+    "d120-g9-bfloat16": (2, 5, 128, 18, 2, 120, None, [70, 10], "bfloat16"),
+    "d120-g5-wrapped-window-bfloat16": (1, 2, 64, 10, 2, 120, 16, [100], "bfloat16"),
+}
+
+
+@pytest.mark.parametrize("case", M9_DECODE)
+def test_decode_plain_matches_pallas_at_m9_shapes(case):
+    B, T, S, H, K, D, window, fill, dt = M9_DECODE[case]
+    rng = np.random.default_rng(6)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, s, dt) for s in
+                                    [(B, T, H, D), (B, S, K, D), (B, S, K, D)])
+    clen = np.array([f + T for f in fill], np.int32)
+    pos = np.array(_ring_positions(B, S, clen))
+    want = decode_attention_pallas(jq, jk, jv, jnp.asarray(clen), interpret=True, block_k=64,
+                                   window=window, kv_positions=pos)
+    _close(ops.decode_attention(tq, tk, tv, torch.from_numpy(clen), window=window,
+                                kv_positions=torch.from_numpy(pos)), want, dt)
 
 
 @pytest.mark.parametrize("idle_row", [False, True])

@@ -28,20 +28,29 @@ from repro_torch.serving import kv_cache
 @pytest.mark.parametrize("T, dt, window", [(1, "float32", None), (3, "float32", None),
                                            (9, "float32", 7), (32, "float32", None),
                                            (3, "bfloat16", None), (32, "bfloat16", None)])
-def test_paged_plain_matches_reference_and_pallas(T, dt, window):
+def test_paged_plain_matches_reference_and_pallas(T, dt, window, H=4, K=2, D=32):
     """Shuffled non-contiguous pages, ragged -1 tails, a cache_len that ends
     mid-page and a row whose table is all -1 (its output is finite)."""
     rng = np.random.default_rng(T)
-    B, P, ps, K, D, n_pages = 4, 4, 16, 2, 32, 24
+    B, P, ps, n_pages = 4, 4, 16, 24
     clen = np.array([T + 5, P * ps, T + 21, T + 2], np.int32)
     bt = _tables(rng, [*clen[:-1], 0], P, n_pages)
-    jx, tx = zip(*(_pair(rng, s, dt) for s in [(B, T, 2 * K, D), (n_pages, ps, K, D),
+    jx, tx = zip(*(_pair(rng, s, dt) for s in [(B, T, H, D), (n_pages, ps, K, D),
                                                 (n_pages, ps, K, D)]), strict=True)
     got = ops.decode_attention_paged(*tx, torch.from_numpy(clen), torch.from_numpy(bt),
                                      window=window)
     assert torch.isfinite(got).all()
     for want in _paged_refs(jx, clen, bt, window):
         _close(got, want, dt)
+
+
+# head_dim 120 (h2o-danube) and G = 5 and 9 (qwen2.5-14b, starcoder2-7b):
+# (H, K, D, T, dtype, window)
+@pytest.mark.parametrize("H, K, D, T, dt, window", [
+    (10, 2, 120, 9, "float32", None), (9, 1, 128, 9, "float32", 20),
+    (5, 1, 120, 32, "float32", None), (18, 2, 120, 3, "bfloat16", 11)])
+def test_paged_plain_matches_pallas_at_m9_shapes(H, K, D, T, dt, window):
+    test_paged_plain_matches_reference_and_pallas(T, dt, window, H, K, D)
 
 
 def test_paged_cuda_wrapper_refuses_cpu_tensors():
