@@ -68,7 +68,22 @@ Phases, each fatal on failure:
      burst), starcoder2-7b paged (K3 at G = 9, prefix hits) and
      h2o-danube-3-4b at max_len 8192 (long prompts wrap the ring, the window
      binds; a profiled burst);
- 10. the serving front door at full width on the dense serve's weights:
+ 10. the MoE models: hold K1, K2 and K3 at G = 8 (qwen3-moe-30b-a3b) and,
+     at D = 128 on mixtral-8x7b's wrapped 4128-slot ring under its window,
+     4 against their plain versions and time each serve's shapes (K3 at G =
+     8 too); check that a jamba config is refused by name on the card;
+     check 2 full-width qwen3-moe layers and 1 mixtral layer on the card
+     against the CPU (fp32: each token's chosen experts and its keep mask
+     at capacity identical, then the logits); with marker kernels and drop
+     counters in the MoE layer, serve qwen3-moe-30b-a3b at full width (48
+     layers, 128 experts top-8) on the dense serve's path, graphed, with
+     the share of assignments dropped at capacity and a profiled burst
+     split into expert products, dispatch and combine, the other GEMMs, K1,
+     K2 and the rest; a short sampled serve eager and graphed, token for
+     token; and mixtral-8x7b at full width and 16 of its 32 layers at
+     max_len 8192 (8 prompts of 4500-6000 tokens wrap the ring), graphed,
+     with the same numbers and a profiled burst;
+ 11. the serving front door at full width on the dense serve's weights:
      ``StreamServe`` behind ``GatewayThread`` (trace on, warmed up): an
      idle-gateway request against the same prompt served in process, a wave
      of 24 concurrent SSE streams (client TTFT/TPOT, ms per engine step), a
@@ -77,7 +92,7 @@ Phases, each fatal on failure:
      with StreamTrace off and on (equal tokens and launches, bookkeeping ms
      a step each); then ``python -m repro_torch.launch.serve --no-reduced
      --warmup`` with a cancel, a worker failure and a Chrome trace;
- 11. print the kernel table as one JSON line, then the result line.
+ 12. print the kernel table as one JSON line, then the result line.
 Every serve of phases 4-8, and phase 9's qwen2.5-14b serve, runs twice on
 the same weights (phase 9 profiles only graphed serves and runs its other
 serves graphed only): eager (its lanes'
@@ -623,7 +638,7 @@ def paged_timing(g, lines: list, err: list, H=16, K=8, D=128, tag="") -> dict:
 
 # -------------------------------------------------------------------- model
 
-def model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
+def model_phase(report: dict, arch: str = "qwen3-1.7b", n_layers: int = 2) -> None:
     """The full-width model's first 2 layers on the card (CUDA kernels) against
     the same weights on the CPU (plain versions), float32: prefill of a
     bucketed batch, a 5-token verify step, a rewind and a plain step.  Every
@@ -631,8 +646,11 @@ def model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
     paged_decode_kernel), none the bf16 tensor-core one.  qwen3-1.7b (two
     query heads a KV head), llama2-7b (one: MHA, an untied head) and the M9
     models: qwen2.5-14b (five, QKV biases), starcoder2-7b (nine, GELU) and
-    h2o-danube-3-4b (four, head_dim 120, window 4096).  QKV biases are set
-    to nonzero values (the seeded init leaves them zero)."""
+    h2o-danube-3-4b (four, head_dim 120, window 4096), and the MoE models,
+    qwen3-moe-30b-a3b (eight, 128 experts top-8) and mixtral-8x7b (four, 8
+    experts top-2, window 4096, ``n_layers`` 1), whose routing is compared
+    first (``same_routing``).  QKV biases are set to nonzero values (the
+    seeded init leaves them zero)."""
     import dataclasses
 
     import torch
@@ -640,7 +658,7 @@ def model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32")
     gpu = build_model(cfg, "cuda")
     params = gpu.init(1)
     for layer in params["layers"]:
@@ -654,6 +672,8 @@ def model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
     lengths = torch.tensor([64, 37], dtype=torch.int32)
     errs = []
     zero_counts()
+    routes = contextlib.ExitStack()
+    seen = routes.enter_context(routing_recorded()) if cfg.moe else None
     lg, cg = gpu.prefill(params, {"tokens": tokens.cuda(), "lengths": lengths.cuda()}, 128)
     lc, cc = cpu.prefill(cpu_params, {"tokens": tokens, "lengths": lengths}, 128)
     errs.append(max_err(lg.cpu(), lc))
@@ -678,8 +698,11 @@ def model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
     step = torch.randint(0, cfg.vocab_size, (2, 5), generator=gen, dtype=torch.int32)
     errs.append(max_err(gpu.decode_step(params, caches[0], step.cuda()).cpu(),
                         cpu.decode_step(cpu_params, caches[1], step)))
+    routes.close()
     launches = read_counts()
     tag = f"{arch} model check"
+    if seen is not None:
+        same_routing(tag, cfg, seen, report)
     print(f"{tag} (2 full-width layers, fp32, card vs CPU, dense and paged): "
           f"max_abs_err={max(errs):.3g}; launches {launches}")
     for name in ("decode_attention", "decode_attention_paged"):
@@ -1020,27 +1043,35 @@ def kernel_counters():
 def zero_counts() -> None:
     for fn in kernel_counters().values():
         fn.launches = fn.wgmma_launches = 0
+    for t in MOE_PROBE.values():
+        t.zero_()
 
 
 def read_counts() -> dict:
-    """Launches per kernel, and per bf16 tensor-core path ("<name>.wgmma")."""
+    """Launches per kernel, and per bf16 tensor-core path ("<name>.wgmma");
+    while moe_probes() is on, the MoE assignments made and dropped too."""
     counts = {name: fn.launches for name, fn in kernel_counters().items()}
     counts.update({f"{name}.wgmma": fn.wgmma_launches for name, fn in kernel_counters().items()})
+    counts.update({f"moe_{name}": int(t) for name, t in MOE_PROBE.items()})
     return counts
 
 
+SERVE_LENS = (16, 400, 24, 300, 40, 200, 64, 130, 350, 33, 100, 250)
+
+
 def serve_phase(report: dict, params=None, graphed=True, temperature=0.0, trace=None,
-                arch="qwen3-1.7b"):
+                arch="qwen3-1.7b", new_tokens=32, lens=SERVE_LENS):
     """The default serve at full width (sampled, with ``temperature`` > 0;
     with ``trace``, StreamTrace set so and the report keyed by it; another
-    ``arch`` on the same path keys the report by its name)."""
+    ``arch`` on the same path keys the report by its name): the first 8 of
+    ``lens`` at tick 0, the rest 3 steps later, ``new_tokens`` each."""
     import numpy as np
     import torch
 
     from repro_torch.api import ServeConfig
 
     cfg = ServeConfig(arch=arch, reduced=False, n_pairs=2, max_batch=8, max_len=512,
-                      max_new_tokens=32, temperature=temperature, trace=trace or "off")
+                      max_new_tokens=new_tokens, temperature=temperature, trace=trace or "off")
     t0 = time.perf_counter()
     serve = served(cfg, graphed, **({} if params is None else {"params": params}))
     torch.cuda.synchronize()
@@ -1050,7 +1081,6 @@ def serve_phase(report: dict, params=None, graphed=True, temperature=0.0, trace=
           f"init {time.perf_counter() - t0:.2f} s")
     bad = instrument(serve)
     rng = np.random.default_rng(0)
-    lens = [16, 400, 24, 300, 40, 200, 64, 130, 350, 33, 100, 250]
     prompts = [rng.integers(0, arch.vocab_size, n).tolist() for n in lens]
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -1067,7 +1097,7 @@ def serve_phase(report: dict, params=None, graphed=True, temperature=0.0, trace=
         fail(f"serve: decode launches {launches['decode_attention']} != {L} x "
              f"{calls['decode_calls']} decode calls")
     wgmma_only(launches, "serve", "flash_attention", "decode_attention")
-    result["prompt_lens"] = lens
+    result["prompt_lens"] = list(lens)
     report[tag.replace(" ", "_") + ("" if graphed else "_eager")] = result
     return launches, serve
 
@@ -1630,31 +1660,28 @@ def self_draft_phase(report: dict) -> None:
 M9_HEADS = {"qwen2.5-14b": (40, 8, 128), "starcoder2-7b": (36, 4, 128),
             "h2o-danube-3-4b": (32, 8, 120)}
 H2O_LEN, H2O_CAP, H2O_WINDOW = 8192, 4128, 4096  # max_len, its ring (window + 32), window
+RING_ARCHS = ("h2o-danube-3-4b", "mixtral-8x7b")  # window 4096: served on a 4128-slot ring
 # the h2o serve's prompts: four past the window and the ring, four short
 H2O_LENS = (4500, 16, 5200, 40, 6000, 130, 4800, 300)
 
 
-def m9_kernel_phase(report: dict) -> dict:
-    """K1, K2 and K3 at the M9 models' heads, held against their plain
-    versions: K1 at the dense serve's cache (B=8, S=512) for G = 5 and 9, and
-    at D = 120 on h2o's ring of 4128 slots (rows wrapped and not, window
-    4096), for T = 1, 5, 9 and a chunk of 64 (G = 9: 576 rows, five 128-row
-    tiles) in bf16 and T = 5 in fp32; K2 at the 512 bucket, a ragged 100 and
-    fp32, and for h2o a 6000-token prompt under its window (S > 4096,
-    ragged), a continuation and fp32 with a window; K3 over shuffled pages
-    at T = 1, 9 (and with a window) and an admission of 128, bf16, and T = 9
-    fp32.  Every bf16 call must take the tensor-core kernel.  Then each
-    serve's shapes timed (kernel, plain version, SDPA, bound), and the
-    reference's padded heads against the port's at a decode step."""
+def head_checks(g, heads: dict, err: dict, lines: list) -> None:
+    """K1, K2 and K3 at each model's heads (H, K, D), held against their plain
+    versions: K1 at the dense serve's cache (B=8, S=512), or for a model
+    with a window of 4096 on a ring of 4128 slots (rows wrapped and not), for
+    T = 1, 5, 9 and a chunk of 64 in bf16 and T = 5 in fp32; K2 at the 512
+    bucket, a ragged 100 and fp32, and under a window a 6000-token prompt (S
+    > 4096, ragged), a continuation and fp32 with a window; K3 over shuffled
+    pages at T = 1, 9 (and with a window) and an admission of 128, bf16, and
+    T = 9 fp32.  Every bf16 call must take the tensor-core kernel, every
+    fp32 call the CUDA-core one.  ``err`` gathers each kernel's largest bf16
+    error, ``lines`` the printed lines."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda as k1
     from repro_torch.kernels.decode_attention import decode_attention_paged_cuda as k3
     from repro_torch.kernels.flash_attention import flash_attention_cuda as k2
-
-    g = torch.Generator(device="cuda").manual_seed(21)
-    err, lines = {}, []
 
     def held(tag, name, fn, args, kw, want, dt):
         before = fn.wgmma_launches
@@ -1667,8 +1694,8 @@ def m9_kernel_phase(report: dict) -> dict:
         lines.append(f"{tag}: max_abs_err={e:.3g}")
         print(lines[-1])
 
-    for arch, (H, K, D) in M9_HEADS.items():
-        ring = arch.startswith("h2o")
+    for arch, (H, K, D) in heads.items():
+        ring = arch in RING_ARCHS
         S, window = (H2O_CAP, H2O_WINDOW) if ring else (512, None)
         fills = ([6000, 4200, 100, 4127, 8000, 3000, 4096, 0] if ring
                  else [20, 60, 140, 200, 290, 350, 420, 490])
@@ -1699,6 +1726,18 @@ def m9_kernel_phase(report: dict) -> dict:
             held(f"{arch} decode_attention_paged B=8 T={T} H={H} K={K} D={D} {dt} window={win}",
                  "decode_attention_paged", k3, args, {"window": win},
                  lambda: ref.decode_attention_paged(*args, window=win), dt)
+
+
+def m9_kernel_phase(report: dict) -> dict:
+    """K1, K2 and K3 at the M9 models' heads (``head_checks``): G = 5, 9 and,
+    at D = 120 on h2o's ring under its window, 4.  Then each serve's shapes
+    timed (kernel, plain version, SDPA, bound), and the reference's padded
+    heads against the port's at a decode step."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    err, lines = {}, []
+    head_checks(g, M9_HEADS, err, lines)
 
     # ---- timing at each serve's shapes: qwen2.5's verify step at the depth-4
     # bucket (B=8 T=5) and its 512 prefill bucket; h2o's verify on a full ring
@@ -1781,51 +1820,342 @@ def padded_timing(g, arch: str) -> dict:
     return r
 
 
-def h2o_serve_phase(report: dict, graphed=True):
-    """h2o-danube-3-4b at full width (24 layers, d_model 3840, 32 heads over 8
-    KV heads of 120, window 4096) with max_len 8192, 2 pairs x 4 slots: each
-    slot's ring holds 4128 positions (the window and a 32-token speculative
-    margin), so the four prompts of 4500-6000 tokens wrap it and the window
-    binds on every step of theirs; four short prompts beside them.  K2 on
-    every prefill (the long ones at the 8192 bucket, under the window), K1 on
-    every decode and verify, all on the tensor-core kernels at D = 120."""
+def ring_serve_phase(report: dict, arch="h2o-danube-3-4b", key="h2o", lens=H2O_LENS,
+                     max_batch=4, new_tokens=32, n_layers=None):
+    """A model with a window of 4096 at full width with max_len 8192, 2 pairs:
+    each slot's ring holds 4128 positions (the window and a 32-token
+    speculative margin), so prompts of 4500-6000 tokens wrap it and the
+    window binds on every step of theirs.  h2o-danube-3-4b (24 layers,
+    d_model 3840, 32 heads over 8 KV heads of 120; 4 slots a pair, four long
+    prompts and four short) and mixtral-8x7b (``n_layers`` 16 of 32, d_model
+    4096, 8 experts top-2; 8 slots a pair, eight long prompts).  K2 on every
+    prefill (the long ones at the 8192 bucket, under the window), K1 on every
+    decode and verify, all on the tensor-core kernels; graphed."""
     import numpy as np
     import torch
 
     from repro_torch.api import ServeConfig
 
-    cfg = ServeConfig(arch="h2o-danube-3-4b", reduced=False, n_pairs=2, max_batch=4,
-                      max_len=H2O_LEN, max_new_tokens=32)
+    cfg = ServeConfig(arch=arch, reduced=False, n_layers=n_layers, n_pairs=2,
+                      max_batch=max_batch, max_len=H2O_LEN, max_new_tokens=new_tokens)
     t0 = time.perf_counter()
-    serve = served(cfg, graphed)
-    arch = serve.arch
-    print(f"h2o serve: {arch.name} L={arch.n_layers} d_model={arch.d_model} heads "
+    serve = served(cfg, True)
+    arch, tag = serve.arch, f"{key} serve"
+    print(f"{tag}: {arch.name} L={arch.n_layers} d_model={arch.d_model} heads "
           f"{arch.n_heads}/{arch.n_kv_heads} head_dim {arch.head_dim} window "
           f"{arch.sliding_window}, {cfg.n_pairs} pairs x {cfg.max_batch} slots, max_len "
           f"{cfg.max_len}; init {time.perf_counter() - t0:.2f} s")
     bad = instrument(serve)
     rng = np.random.default_rng(13)
-    prompts = [rng.integers(0, arch.vocab_size, n).tolist() for n in H2O_LENS]
+    prompts = [rng.integers(0, arch.vocab_size, n).tolist() for n in lens]
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     run = drive(serve, {0: prompts})
     launches = read_counts()
-    result = serve_stats("h2o serve", serve, bad, run, launches)
+    result = serve_stats(tag, serve, bad, run, launches)
     L, cap = arch.n_layers, serve.engine.pairs[0].lane.cache["k"].shape[2]
     kv_token = 2 * L * arch.n_kv_heads * arch.head_dim * 2
-    wrapped = [n for n in H2O_LENS if n > cap]
-    print(f"h2o serve: ring of {cap} slots, {len(wrapped)} prompts wrap it {wrapped}; KV "
+    wrapped = [n for n in lens if n > cap]
+    print(f"{tag}: ring of {cap} slots, {len(wrapped)} prompts wrap it {wrapped}; KV "
           f"{kv_token} B a token, {kv_token * cap / 1e6:.1f} MB a slot; K1 launches "
           f"{launches['decode_attention']}, K2 {launches['flash_attention']}")
     if cap != H2O_CAP or not wrapped:
-        fail(f"h2o serve: ring of {cap} slots, wrapped by {wrapped}")
+        fail(f"{tag}: ring of {cap} slots, wrapped by {wrapped}")
     for name, calls in (("flash_attention", "prefill_calls"), ("decode_attention", "decode_calls")):
         if launches[name] != L * result[calls] or not result[calls]:
-            fail(f"h2o serve: {name} launches {launches[name]} != {L} x {result[calls]}")
-    wgmma_only(launches, "h2o serve", "flash_attention", "decode_attention")
-    result.update(prompt_lens=H2O_LENS, ring_capacity=cap, kv_bytes_per_token=kv_token)
-    report["h2o_serve"] = result
+            fail(f"{tag}: {name} launches {launches[name]} != {L} x {result[calls]}")
+    wgmma_only(launches, tag, "flash_attention", "decode_attention")
+    result.update(prompt_lens=list(lens), ring_capacity=cap, kv_bytes_per_token=kv_token)
+    report[tag.replace(" ", "_")] = result
     return launches, serve
+
+
+# ------------------------------------------------ the MoE models (ROADMAP §1 item 3.3)
+
+# each MoE model's attention heads (H, K, D): G = 8 (qwen3-moe) and 4
+# (mixtral, under its window of 4096 on the 4128-slot ring)
+MOE_HEADS = {"qwen3-moe-30b-a3b": (32, 4, 128), "mixtral-8x7b": (32, 8, 128)}
+MIXTRAL_LAYERS = 16  # of 32: 46.96 GB of bf16 weights; all 32 (93.4 GB) exceed one card
+MOE_NEW_TOKENS = 16
+# the mixtral serve's prompts: all eight past the window and the ring
+MIXTRAL_LENS = (4500, 5200, 6000, 4800, 5600, 4700, 5900, 5000)
+# jamba-1.5-large-398b's shape (the reference's config): Mamba2, attention and MoE
+JAMBA = {"name": "jamba-1.5-large-398b", "family": "hybrid", "n_layers": 72, "d_model": 8192,
+         "n_heads": 64, "n_kv_heads": 8, "d_ff": 24_576, "vocab_size": 65_536,
+         "attn_period": 8, "scan_block": 8}
+MOE_PROBE: dict = {}  # the MoE layer's device counters while moe_probes() is on
+# moe_probes()' marker kernels (a pattern of each one's name) and the part of
+# the MoE layer that follows each
+MOE_MARKERS = ((r"roll_cuda_kernel", "dispatch and combine"),
+               (r"flip_kernel", "expert products"),
+               (r"triu_tril_kernel<[^,]+, [^,]+, false", "dispatch and combine"),
+               (r"triu_tril_kernel<[^,]+, [^,]+, true", None))
+
+
+def moe_kernel_phase(report: dict) -> dict:
+    """K1, K2 and K3 at the MoE models' heads (``head_checks``): G = 8 at the
+    dense serve's 512-slot cache, and G = 4 at D = 128 on mixtral's wrapped
+    4128-slot ring under its window.  Then each serve's shapes timed (kernel,
+    plain version, SDPA, bound): qwen3-moe's verify at the depth-4 bucket
+    (B=8 T=5) and its 512 prefill bucket (4 rows), mixtral's verify on a full
+    ring (B=8) and its 8192 prefill bucket under the window; and K3 at G = 8
+    (the paged path's decode and admission shapes).  A jamba config (hybrid:
+    Mamba2, attention and MoE) must be refused by name on the card."""
+    import torch
+
+    from repro_torch.configs import ArchConfig, MoEConfig, SSMConfig
+    from repro_torch.models import build_model
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    err, lines = {}, []
+    head_checks(g, MOE_HEADS, err, lines)
+    H, K, D = MOE_HEADS["qwen3-moe-30b-a3b"]
+    out = {"decode_attention (qwen3-moe verify)": decode_timing(g, 8, 5, 512, H, K, D),
+           "flash_attention (qwen3-moe)": flash_timing(g, 4, 512, H, K, D)}
+    H, K, D = MOE_HEADS["mixtral-8x7b"]
+    out["decode_attention (mixtral verify)"] = decode_timing(g, 8, 5, H2O_CAP, H, K, D,
+                                                             window=H2O_WINDOW)
+    out["flash_attention (mixtral)"] = flash_timing(g, 1, H2O_LEN, H, K, D, window=H2O_WINDOW)
+    for name, r in out.items():
+        r["max_abs_err"] = max(err[name.split()[0]], r.pop("err"))
+        show_timing(name, r)
+    H, K, D = MOE_HEADS["qwen3-moe-30b-a3b"]
+    report["moe_paged_timing"] = paged_timing(g, lines, [err["decode_attention_paged"]] * 2,
+                                              H, K, D, "qwen3-moe ")
+    report["moe_kernel_checks"] = lines
+    jamba = ArchConfig(**JAMBA, moe=MoEConfig(16, 2, 24_576, every_n=2), ssm=SSMConfig())
+    try:
+        build_model(jamba, "cuda")
+        fail("a jamba config was not refused on the card")
+    except NotImplementedError as e:
+        if "§1 item 3.4" not in str(e):
+            fail(f"the jamba refusal names no ROADMAP item: {e}")
+        print(f"jamba refused on the card: {e}")
+    return out
+
+
+@contextlib.contextmanager
+def routing_recorded():
+    """Record every MoE routing call's router and input tokens, by device, in
+    call order."""
+    from repro_torch.models import moe
+
+    seen = {"cuda": [], "cpu": []}
+    route = moe.route
+
+    def recorded(p, cfg, tokens):
+        seen[tokens.device.type].append((p["router"], tokens.detach().clone()))
+        return route(p, cfg, tokens)
+
+    moe.route = recorded
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def same_routing(tag: str, cfg, seen: dict, report: dict) -> None:
+    """The card's routing against the CPU's, call by call (each layer of each
+    step): each token's chosen experts and which of them were kept at
+    capacity must be identical.  A flip is reported with the CPU's gap
+    between the k-th and (k+1)-th router probabilities at that token."""
+    import torch
+
+    from repro_torch.models import moe
+
+    if len(seen["cuda"]) != len(seen["cpu"]) or not seen["cuda"]:
+        fail(f"{tag}: {len(seen['cuda'])} MoE calls on the card, {len(seen['cpu'])} on the CPU")
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    flips, dropped, total = [], 0, 0
+    for call, pair in enumerate(zip(seen["cuda"], seen["cpu"], strict=True)):
+        marks = []
+        for router, x in pair:
+            T = x.shape[0]
+            _, top_e = moe.route({"router": router}, cfg, x)
+            order, _, _, keep = moe.sort_rank(top_e.reshape(-1), moe.capacity(T, cfg, 1.25))
+            kept = torch.empty_like(keep)
+            kept[order] = keep
+            mark = torch.zeros(T, E, dtype=torch.int8, device=x.device)  # 1 dropped, 2 kept
+            marks.append(mark.scatter_(1, top_e, 1 + kept.view(T, K).to(torch.int8)).cpu())
+        dropped += int((marks[1] == 1).sum())
+        total += pair[1][1].shape[0] * K
+        router, x = pair[1]
+        probs = torch.softmax(x.float() @ router, -1).sort(-1, descending=True).values
+        for t in (marks[0] != marks[1]).any(1).nonzero().flatten().tolist():
+            flips.append({"call": call, "token": t,
+                          "gap": float(probs[t, K - 1] - probs[t, K])})
+    report[tag.replace(" ", "_") + "_routing"] = {"calls": len(seen["cuda"]), "flips": flips,
+                                                  "dropped": dropped, "assignments": total}
+    print(f"{tag}: routing of {len(seen['cuda'])} MoE calls, {total} assignments: "
+          f"{len(flips)} tokens route apart {flips[:8]}; {dropped} assignments dropped at "
+          f"capacity on the CPU")
+    if flips:
+        fail(f"{tag}: the card's routing differs from the CPU's at {len(flips)} tokens")
+
+
+@contextlib.contextmanager
+def moe_probes():
+    """Instrument the port's MoE layer for the MoE serves: four marker
+    kernels, each an op on a 2 x 2 tensor that the serving path never runs
+    and so its own name on the device timeline (MOE_MARKERS: roll at the
+    start of every MoE layer, flip and tril around its expert products,
+    triu at its end), and device counters of the assignments made and those
+    dropped at capacity (two small adds a layer).  Installed before the
+    serves are built, so their CUDA graphs capture both; read_counts()
+    reports the counters as moe_assignments and moe_dropped."""
+    import torch
+
+    from repro_torch.models import moe
+
+    saved = moe.apply_moe, moe.expert_ffn, moe.sort_rank
+    t = torch.zeros(2, 2, device="cuda")
+    ops = {"roll": lambda: torch.roll(t, 1, 0), "flip": lambda: torch.flip(t, [0]),
+           "tril": t.tril, "triu": t.triu}
+
+    def bracketed(fn, before, after):
+        def call(*args, **kw):
+            ops[before]()
+            out = fn(*args, **kw)
+            ops[after]()
+            return out
+        return call
+
+    def counted(flat_e, C):
+        out = saved[2](flat_e, C)
+        MOE_PROBE["assignments"].add_(flat_e.numel())
+        MOE_PROBE["dropped"].add_((~out[3]).sum())
+        return out
+
+    MOE_PROBE.update({k: torch.zeros((), dtype=torch.int64, device="cuda")
+                      for k in ("assignments", "dropped")})
+    moe.apply_moe, moe.expert_ffn, moe.sort_rank = (bracketed(saved[0], "roll", "triu"),
+                                                    bracketed(saved[1], "flip", "tril"), counted)
+    try:
+        yield
+    finally:
+        moe.apply_moe, moe.expert_ffn, moe.sort_rank = saved
+        MOE_PROBE.clear()
+
+
+def dropped_share(tag: str, launches: dict, result: dict) -> None:
+    share = launches["moe_dropped"] / max(launches["moe_assignments"], 1)
+    result.update(moe_dropped=launches["moe_dropped"],
+                  moe_assignments=launches["moe_assignments"], moe_dropped_share=share)
+    print(f"{tag}: {launches['moe_dropped']} of {launches['moe_assignments']} expert "
+          f"assignments dropped at capacity ({share:.2%})")
+
+
+def moe_profile(serve, report: dict, key: str, lens, seed=1) -> None:
+    """Where a MoE serve's device time goes: a burst of ``lens`` prompts
+    timed plain, then the same burst under torch.profiler (CUDA activity
+    only, the raw device events; greedy, so the same device work).  In
+    stream order the
+    events fall between moe_probes()' markers: inside a MoE layer the
+    dispatch and combine ops (routing, sort, rank, the scatter into the
+    buffer, the gather and the sum over k, and the drop counters' adds) and
+    the expert products (three batched GEMMs over all E experts and the
+    activation); outside, K1, K2, the other GEMMs and the rest.  The
+    markers' own time and counts are reported apart (equal counts: none
+    was lost; a lost one misplaces the kernels up to the next), and the
+    expert products' time a
+    forward (MoE layer calls over the depth) beside the time to read every
+    expert's weights once at the data sheet's bandwidth."""
+    import re
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def burst(s):
+        rng = np.random.default_rng(s)
+        for n in lens:
+            serve.submit(rng.integers(0, serve.arch.vocab_size, n).tolist())
+        t0 = time.perf_counter()
+        serve.run_until_done()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall = burst(seed)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_profiled = burst(seed)
+    events = sorted((e.start_ns(), e.duration_ns(), e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA)
+    groups = ((r"decode_wgmma_kernel|decode_kernel", "K1"),
+              (r"flash_kernel|flash_wgmma_kernel", "K2"),
+              (r"gemm|nvjet|xmma|cutlass", "other GEMMs"))
+    ms, marks, region = Counter(), Counter(), None
+    for _, ns, name in events:
+        mark = next((i for i, (k, _) in enumerate(MOE_MARKERS) if re.search(k, name)), None)
+        if mark is not None:
+            marks[mark] += 1
+            ms["markers"] += ns / 1e6
+            region = MOE_MARKERS[mark][1]
+            continue
+        ms[region or next((g for k, g in groups if re.search(k, name.lower())), "rest")] += ns / 1e6
+    busy = sum(ms.values())
+    counts = [marks[i] for i in range(len(MOE_MARKERS))]
+    if not min(counts) or not ms["expert products"]:
+        fail(f"{key}: markers {counts}, {ms['expert products']:.1f} ms of expert products")
+    arch, moe = serve.arch, serve.arch.moe
+    forwards = max(counts) / arch.n_layers
+    mats = 3 if arch.mlp_type == "swiglu" else 2
+    expert_bytes = arch.n_layers * moe.n_experts * mats * arch.d_model * moe.d_ff_expert * 2
+    report[key] = {"burst_wall_ms": wall * 1e3, "burst_wall_profiled_ms": wall_profiled * 1e3,
+                   "device_busy_ms": busy, "busy_share": busy / (wall * 1e3),
+                   "device_ms_by_part": dict(ms.most_common()), "forwards": forwards,
+                   "markers": counts,
+                   "expert_ms_per_forward": ms["expert products"] / forwards,
+                   "expert_read_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+                   "profile_s": time.perf_counter() - t0, "lens": list(lens)}
+    print(f"{key}: burst of {len(lens)} requests {wall * 1e3:.1f} ms wall ({wall_profiled * 1e3:.1f}"
+          f" ms profiled), device busy {busy:.1f} ms = {busy / (wall * 1e3):.1%} of the wall; "
+          f"{forwards:g} forwards; markers {counts}")
+    print(f"{key}: device time " + ", ".join(f"{part} {t:.1f} ms ({t / busy:.1%})"
+                                             for part, t in ms.most_common()))
+    print(f"{key}: expert products {report[key]['expert_ms_per_forward']:.2f} ms a forward; "
+          f"every expert's weights ({expert_bytes / 1e9:.2f} GB) read once at 3.35 TB/s: "
+          f"{report[key]['expert_read_bound_ms']:.2f} ms")
+
+
+def moe_phase(report: dict) -> tuple:
+    """The MoE serves on the card, with moe_probes() on (each model alone on
+    the card, released before the next): qwen3-moe-30b-a3b at full width (48
+    layers, 128 experts top-8, 61.07 GB of bf16 weights) on the dense serve's
+    path (2 pairs x 8 slots, max_len 512, 12 requests, 16 new tokens),
+    graphed, and a profiled burst; a short sampled serve (4 requests, 8 new
+    tokens, temperature 1.0) eager and then graphed on the same weights,
+    token for token; mixtral-8x7b at full width and 16 of its 32 layers (8
+    experts top-2) on a wrapped 4128-slot ring (2 pairs x 8 slots, max_len
+    8192, 8 prompts of 4500-6000 tokens), graphed, and a profiled burst.
+    Returns both serves' launches."""
+    qwen = "qwen3-moe-30b-a3b"
+    with moe_probes():
+        launches, serve = serve_phase(report, arch=qwen, new_tokens=MOE_NEW_TOKENS)
+        dropped_share(f"{qwen} serve", launches, report[f"{qwen}_serve"])
+        moe_profile(serve, report, "qwen3-moe_profile", PROFILE_LENS)
+        params = serve.engine.pairs[0].lane.params
+        del serve
+        release()
+        for graphed in (False, True):
+            _, serve = serve_phase(report, params, graphed, temperature=1.0, arch=qwen,
+                                   new_tokens=8, lens=SERVE_LENS[:4])
+            del serve
+            release()
+        same_as_eager(report, f"{qwen}_sampled_serve")
+        del params
+        release()
+        mixtral_launches, serve = ring_serve_phase(
+            report, "mixtral-8x7b", "mixtral", MIXTRAL_LENS, max_batch=8,
+            new_tokens=MOE_NEW_TOKENS, n_layers=MIXTRAL_LAYERS)
+        dropped_share("mixtral serve", mixtral_launches, report["mixtral_serve"])
+        moe_profile(serve, report, "mixtral_profile", MIXTRAL_LENS[:4], seed=15)
+        del serve
+        release()
+    return launches, mixtral_launches
 
 
 # --------------------------------------------------------------- SSM (mamba2)
@@ -2416,11 +2746,18 @@ def main() -> None:
     sc_launches, serve = paged_serve_phase(None, report, arch="starcoder2-7b")
     del serve
     release()
-    h2o_launches, serve = h2o_serve_phase(report)
+    h2o_launches, serve = ring_serve_phase(report)
     profile_phase(serve, report, key="h2o_profile", lens=H2O_LENS, seed=14)
     del serve
     release()
     stamp("M9 models")
+    moe_timing = moe_kernel_phase(report)
+    release()
+    for arch, n_layers in (("qwen3-moe-30b-a3b", 2), ("mixtral-8x7b", 1)):
+        model_phase(report, arch, n_layers)
+        release()
+    qmoe_launches, mixtral_launches = moe_phase(report)
+    stamp("MoE models")
     params = to_cpu(dense_weights, "cuda")
     del dense_weights
     gateway_phase(params, report)
@@ -2487,6 +2824,13 @@ def main() -> None:
              h2o_launches["decode_attention"]),
             ("flash_attention (h2o)", "flash_wgmma_kernel", h2o_launches["flash_attention"])):
         kernels.append(entry(name, kernel, m9_timing[name], n, None))
+    # the MoE models: K1 and K2 from the qwen3-moe and mixtral serves
+    for name, n in (("decode_attention (qwen3-moe verify)", qmoe_launches["decode_attention"]),
+                    ("flash_attention (qwen3-moe)", qmoe_launches["flash_attention"]),
+                    ("decode_attention (mixtral verify)", mixtral_launches["decode_attention"]),
+                    ("flash_attention (mixtral)", mixtral_launches["flash_attention"])):
+        kernel = "decode_wgmma_kernel" if name.startswith("decode") else "flash_wgmma_kernel"
+        kernels.append(entry(name, kernel, moe_timing[name], n, None))
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -1,24 +1,27 @@
 """Config registry: ``get_config("<arch-id>")`` and reduced test variants.
 
 The dense decoders (qwen3-1.7b, llama2-7b, qwen2.5-14b, starcoder2-7b,
-h2o-danube-3-4b) and mamba2-2.7b (SSM) are ported so far; the other
-architectures of ``repro`` arrive with their model code (ROADMAP, M9).
+h2o-danube-3-4b), the MoE decoders (qwen3-moe-30b-a3b, mixtral-8x7b) and
+mamba2-2.7b (SSM) are ported so far; the other architectures of ``repro``
+arrive with their model code (ROADMAP, M9).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs.base import ArchConfig, SSMConfig
+from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig
 from repro_torch.configs.h2o_danube_3_4b import CONFIG as _danube
 from repro_torch.configs.llama2_7b import CONFIG as _llama2
 from repro_torch.configs.mamba2_2_7b import CONFIG as _mamba2
+from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral
 from repro_torch.configs.qwen2_5_14b import CONFIG as _qwen25
 from repro_torch.configs.qwen3_1_7b import CONFIG as _qwen3
+from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as _qwen3moe
 from repro_torch.configs.starcoder2_7b import CONFIG as _starcoder2
 
 ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [_mamba2, _qwen3, _qwen25, _starcoder2,
-                                                    _danube, _llama2]}
+                                                    _danube, _mixtral, _qwen3moe, _llama2]}
 
 
 def get_config(name):
@@ -29,8 +32,8 @@ def get_config(name):
 
 def reduced_config(name):
     """Tiny same-family variant for CPU tests (the rules of
-    ``repro.configs.reduced_config`` for a dense decoder, a sliding window
-    and an SSM stack)."""
+    ``repro.configs.reduced_config`` for a dense decoder, MoE, a sliding
+    window and an SSM stack)."""
     cfg = get_config(name)
     kw = {"n_layers": min(cfg.n_layers, 4), "d_model": 128, "vocab_size": 512,
           "head_dim": 32, "scan_block": 1}
@@ -41,9 +44,14 @@ def reduced_config(name):
                   d_ff=256)
     if cfg.ssm is not None:
         kw["ssm"] = SSMConfig(d_state=16, head_dim=32, expand=2, d_conv=4, chunk_size=32)
+    if cfg.moe is not None:
+        kw["moe"] = MoEConfig(n_experts=min(cfg.moe.n_experts, 4), top_k=min(cfg.moe.top_k, 2),
+                              d_ff_expert=256, every_n=cfg.moe.every_n)
+        if cfg.family == "moe":
+            kw["d_ff"] = 256
     if cfg.sliding_window is not None:
         kw["sliding_window"] = 16
     return dataclasses.replace(cfg, **kw)
 
 
-__all__ = ["ARCHS", "ArchConfig", "SSMConfig", "get_config", "reduced_config"]
+__all__ = ["ARCHS", "ArchConfig", "MoEConfig", "SSMConfig", "get_config", "reduced_config"]

@@ -1,15 +1,29 @@
-"""Architecture configuration (the dense and SSM parts of ``repro.configs.base``).
+"""Architecture configuration (the dense, MoE and SSM parts of ``repro.configs.base``).
 
 Every architecture is an :class:`ArchConfig`: pure frozen data with the same
 fields and defaults as the reference.  The port serves dense attention+MLP
-decoders and Mamba2 (SSD) stacks; the ``moe`` and ``frontend`` fields stay
-so that a config naming them is refused by name (``models.transformer.
-check_supported``) rather than misread.
+decoders, mixture-of-experts decoders and Mamba2 (SSD) stacks; the
+``frontend`` field stays so that a config naming it is refused by name
+(``models.transformer.check_supported``) rather than misread.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts configuration."""
+
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    # Apply MoE every `every_n` layers (1 = every layer).  Jamba uses 2.
+    every_n: int = 1
+    # Router jitter / z-loss co-efficients (training only).
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +61,7 @@ class ArchConfig:
     sliding_window: Optional[int] = None
     attn_period: int = 0
     mlp_type: str = "swiglu"  # swiglu | gelu
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     frontend: Optional[Any] = None
     n_encoder_layers: int = 0
@@ -98,9 +112,17 @@ class ArchConfig:
             return tuple("attn" if i % p == p - 1 else "ssm" for i in range(self.n_layers))
         return ("attn",) * self.n_layers
 
-    def n_active_params(self):
-        """Parameters per token (embedding, attention or SSM mixer, MLP and
-        norms), as ``repro``'s ``_count_params`` gives for a model without MoE."""
+    def moe_layer_mask(self):
+        """True for layers whose MLP is MoE."""
+        if self.moe is None:
+            return (False,) * self.n_layers
+        n = self.moe.every_n
+        return tuple(i % n == n - 1 for i in range(self.n_layers))
+
+    def _count_params(self, active_only):
+        """``repro``'s ``_count_params`` for a decoder-only stack: embedding,
+        attention or SSM mixer, MLP (MoE: the router and the experts, only
+        ``top_k`` of them when ``active_only``) and norms."""
         d, hd = self.d_model, self.head_dim
         attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
         ssm = 0
@@ -108,9 +130,21 @@ class ArchConfig:
             s = self.ssm
             d_in, nh, gn = s.d_inner(d), s.n_heads(d), 2 * s.n_groups * s.d_state
             ssm = d * (2 * d_in + gn + nh) + s.d_conv * (d_in + gn) + d_in * d + 3 * nh
-        mlp = (3 if self.mlp_type == "swiglu" else 2) * d * self.d_ff
-        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        mixers = sum(attn if kind == "attn" else ssm for kind in self.layer_kinds())
-        return embed + mixers + self.n_layers * (mlp + 2 * d)
+        per_ff = (3 if self.mlp_type == "swiglu" else 2) * d
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        for kind, is_moe in zip(self.layer_kinds(), self.moe_layer_mask(), strict=True):
+            total += (attn if kind == "attn" else ssm) + 2 * d
+            if is_moe:
+                m = self.moe
+                total += (m.top_k if active_only else m.n_experts) * per_ff * m.d_ff_expert
+                total += d * m.n_experts  # router
+            else:
+                total += per_ff * self.d_ff
+        return total
 
-    n_params = n_active_params  # without MoE every parameter is active
+    def n_params(self):
+        return self._count_params(active_only=False)
+
+    def n_active_params(self):
+        """Active parameters per token (MoE: only top_k experts count)."""
+        return self._count_params(active_only=True)

@@ -17,7 +17,11 @@ Every cache is preallocated once and updated in place where the JAX package
 donated it.  At mamba2-2.7b's full width with 8 slots a pair holds 1.34 GB
 (1.25 GiB) of fp32 ``state`` and 12.1 GB (11.3 GiB) of ``states_all`` for a
 9-token verify; two pairs beside the 5.4 GB of shared bf16 weights fit the
-80 GB of one H100 (sizes from the shapes, not measured).
+80 GB of one H100.  qwen3-moe-30b-a3b's bf16 weights are 61.06 GB, made on
+the device one tensor at a time (an expert stack's fp32 temporary is at
+most 805 MB), and its 512-slot caches 0.81 GB for 16 slots; mixtral-8x7b at
+16 of its 32 layers holds 46.96 GB (its fp32 temporary 1.88 GB) and 4.33 GB
+of 4128-slot rings for 16 slots (sizes from the shapes, not measured).
 """
 from __future__ import annotations
 
@@ -51,7 +55,8 @@ class Model:
         cfg, dt, dev = self.cfg, self.dtype, self.device
         return {
             "embedding": init_embedding(gen, cfg, dt, dev),
-            "layers": [tfm.init_layer(gen, cfg, kind, dt, dev) for kind in self.kinds],
+            "layers": [tfm.init_layer(gen, cfg, kind, is_moe, dt, dev)
+                       for kind, is_moe in zip(self.kinds, cfg.moe_layer_mask(), strict=True)],
             "final_norm": torch.ones(cfg.d_model, dtype=dt, device=dev),
         }
 

@@ -1,0 +1,113 @@
+"""Mixture-of-experts with sort-based dispatch (the serving half of
+``repro.models.moe``).
+
+Each token picks its ``top_k`` experts from an fp32 router.  The
+assignments are sorted by expert id (stably, so each expert's tokens keep
+their order), ranked within their expert, and written into a fixed-capacity
+buffer of ``C`` slots an expert; an assignment ranked past ``C`` is dropped.
+The expert FFNs run as one batched product over all E experts, and each
+token sums its kept results over its k choices.  This is the reference's
+single-capacity-space formulation (``apply_moe_global``), which is what its
+``apply_moe`` computes without a mesh.
+
+Capacity couples the rows of a call: ``C`` comes from every token of the
+call (idle decode rows, bucket padding and verify padding included), and
+whether a token keeps its expert depends on the tokens ranked before it.
+
+The capacity comes from shapes alone and every op keeps a fixed shape, so a
+MoE layer captures in a CUDA graph.  Each (expert, slot) of the buffer has
+one writer, and the combine is a gather and a sum over k in a fixed order
+(the reference's scatter-add, which ``index_add_`` would make atomic and
+unordered on the card), so a graphed step equals an eager one bit for bit.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init
+
+
+def _expert_stack(gen, E, in_dim, out_dim, dtype, device):
+    """(E, in_dim, out_dim) truncated normal with fan-in scale, one fp32
+    stack at a time (805 MB for qwen3-moe's (128, 2048, 768))."""
+    w = torch.empty((E, in_dim, out_dim), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w.mul_(1.0 / math.sqrt(in_dim)).to(dtype)
+
+
+def init_moe(gen, cfg, dtype, device):
+    """The router (d, E) in float32 in every model dtype, and the expert
+    stacks ``wi``, ``wg`` (swiglu) (E, d, f) and ``wo`` (E, f, d)."""
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_ff_expert, m.n_experts
+    p = {"router": dense_init(gen, d, E, torch.float32, device),
+         "wi": _expert_stack(gen, E, d, f, dtype, device)}
+    if cfg.mlp_type == "swiglu":
+        p["wg"] = _expert_stack(gen, E, d, f, dtype, device)
+    p["wo"] = _expert_stack(gen, E, f, d, dtype, device)
+    return p
+
+
+def capacity(n_tokens, cfg, capacity_factor):
+    """Slots an expert: ceil(T k cf / E), rounded up to a multiple of 8 and
+    bounded by T k."""
+    m = cfg.moe
+    c = int(math.ceil(n_tokens * m.top_k * capacity_factor / m.n_experts))
+    return min(max(8, -(-c // 8) * 8), n_tokens * m.top_k)
+
+
+def route(p, cfg, tokens):
+    """Top-k routing in fp32 on the upcast tokens (..., d): renormalised
+    weights and expert ids (..., k)."""
+    probs = torch.softmax(tokens.float() @ p["router"], dim=-1)
+    top_w, top_e = probs.topk(cfg.moe.top_k, dim=-1)
+    return top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9), top_e
+
+
+def sort_rank(flat_e, C):
+    """Sort the assignments by expert (stable), rank each within its expert
+    and mask those past capacity: (order, sorted experts, rank with dropped
+    assignments at C, keep)."""
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    rank = torch.arange(len(se), device=se.device) - torch.searchsorted(se, se, side="left")
+    keep = rank < C
+    return order, se, torch.where(keep, rank, C), keep
+
+
+def expert_ffn(p, cfg, buf):
+    """The batched expert FFNs over the (E, C, d) buffer, all E experts."""
+    h = torch.bmm(buf, p["wi"])
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(torch.bmm(buf, p["wg"])) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return torch.bmm(h, p["wo"])
+
+
+def apply_moe(p, cfg, x, capacity_factor=1.25):
+    """x (B, S, d) -> (B, S, d): route, dispatch into the (E, C, d) buffer,
+    the expert FFNs, combine."""
+    B, S, d = x.shape
+    T, E, K = B * S, cfg.moe.n_experts, cfg.moe.top_k
+    tokens = x.reshape(T, d)
+    top_w, top_e = route(p, cfg, tokens)
+    C = capacity(T, cfg, capacity_factor)
+    flat_e = top_e.reshape(-1)
+    order, se, rank_c, keep = sort_rank(flat_e, C)
+    # dispatch: a dropped assignment goes to the spare row E * C, past the
+    # buffer, never onto a kept token's slot
+    buf = x.new_zeros((E * C + 1, d))
+    buf[torch.where(keep, se * C + rank_c, E * C)] = tokens[order // K]
+    out_buf = expert_ffn(p, cfg, buf[:E * C].view(E, C, d)).view(E * C, d)
+    # combine: each assignment's rank back in token order, its result
+    # gathered (dropped ones weigh 0) and summed over the token's k choices
+    rank = torch.empty_like(rank_c)
+    rank[order] = rank_c
+    kept = rank < C
+    slot = torch.where(kept, flat_e * C + rank, 0)
+    w = (top_w.reshape(-1) * kept).to(x.dtype)
+    return (out_buf[slot] * w[:, None]).view(T, K, d).sum(1).reshape(B, S, d)

@@ -1,10 +1,10 @@
-"""Layer walkers for attention+MLP and Mamba2 stacks (a port of the dense
-and SSM paths of ``repro.models.transformer``).
+"""Layer walkers for attention+MLP, attention+MoE and Mamba2 stacks (a port
+of the dense, MoE and SSM paths of ``repro.models.transformer``).
 
 The JAX package stacks layer parameters and scans over them; here the stack
 is a Python list of per-layer parameter dicts and a loop.  A layer holds
-``attn`` or ``mamba`` (per ``cfg.layer_kinds()``) and, when ``d_ff > 0``,
-an MLP.
+``attn`` or ``mamba`` (per ``cfg.layer_kinds()``) and a MoE layer (per
+``cfg.moe_layer_mask()``) or, when ``d_ff > 0``, an MLP.
 """
 from __future__ import annotations
 
@@ -12,34 +12,40 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import apply_mlp, init_mlp, rms_norm
 
 
 def check_supported(cfg):
     """Raise for every layer kind this port does not run yet, naming its item."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet "
-                                  "(ROADMAP M9, §1 item 3.3)")
+    if cfg.family == "hybrid":
+        raise NotImplementedError(f"{cfg.name}: hybrid Mamba/attention/MoE stacks are not "
+                                  "ported yet (ROADMAP M9, §1 item 3.4)")
     if cfg.is_encdec or cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: enc-dec and frontend models are not "
                                   "ported yet (ROADMAP M9, §1 item 3.5)")
 
 
-def init_layer(gen, cfg, kind, dtype, device):
+def init_layer(gen, cfg, kind, is_moe, dtype, device):
     ones = torch.ones(cfg.d_model, dtype=dtype, device=device)
     layer = {"norm1": ones}
     if kind == "attn":
         layer["attn"] = attn.init_attention(gen, cfg, dtype, device)
     else:
         layer["mamba"] = ssm.init_mamba(gen, cfg, dtype, device)
-    if cfg.d_ff > 0:
+    if is_moe:
+        layer["norm2"] = ones.clone()
+        layer["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
+    elif cfg.d_ff > 0:
         layer["norm2"] = ones.clone()
         layer["mlp"] = init_mlp(gen, cfg, cfg.d_ff, dtype, device)
     return layer
 
 
 def _apply_ffn(layer, cfg, x):
+    if "moe" in layer:
+        return x + moe_mod.apply_moe(layer["moe"], cfg, rms_norm(x, layer["norm2"], cfg.norm_eps))
     if "mlp" in layer:
         return x + apply_mlp(layer["mlp"], cfg, rms_norm(x, layer["norm2"], cfg.norm_eps))
     return x

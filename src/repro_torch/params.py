@@ -7,7 +7,7 @@ The JAX tree is ``unzip_params(model.init(key))`` with every leaf converted by
 ``b * scan_block + j`` is ``blocks[str(j)]`` at index ``b``).  bfloat16 leaves
 (``ml_dtypes``) are reinterpreted bit for bit.  A requested ``dtype`` casts
 every leaf except those the model keeps in float32 in any dtype (the Mamba2
-layer's ``A_log``, ``D`` and ``dt_bias``).  Where the reference pads query
+layer's ``A_log``, ``D`` and ``dt_bias``, and the MoE ``router``).  Where the reference pads query
 heads (``ArchConfig.padded_heads``), the pad slots of ``wq``, ``bq`` and
 ``wo`` are dropped: the reference masks those heads to zero before ``wo``,
 so the port's unpadded heads, in the order GQA's ``h // G`` expects, compute
@@ -31,7 +31,7 @@ def to_tensor(a, device="cpu", dtype=None):
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-FP32_LEAVES = ("A_log", "D", "dt_bias")
+FP32_LEAVES = ("A_log", "D", "dt_bias", "router")
 
 
 def _map(tree, fn, name=""):

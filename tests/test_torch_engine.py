@@ -290,7 +290,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, fp32
         PipeServeEngine(*fp32_model[2:], n_pairs=1)
 
 
-@pytest.mark.parametrize("overrides, item", [({"moe": "experts"}, "M9, §1 item 3.3"),
+@pytest.mark.parametrize("overrides, item", [({"family": "hybrid"}, "M9, §1 item 3.4"),
                                              ({"n_encoder_layers": 2}, "M9, §1 item 3.5")])
 def test_later_slices_refuse_by_name(fp32_model, overrides, item):
     """The features of later slices refuse, naming their ROADMAP item."""
