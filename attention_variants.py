@@ -111,8 +111,8 @@ def call(name, fn, *args):
 def flash(fn, q, k, v):
     B, Sq, H, D = q.shape
     out = torch.empty_like(q)
-    call("flash_attention", fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-         k.shape[1], H, k.shape[2], D, 1, -1, 0, D ** -0.5, 1)
+    call("flash_attention", fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+         B, Sq, k.shape[1], H, k.shape[2], D, 1, -1, 0, D ** -0.5, 1)
     return out
 
 

@@ -92,7 +92,20 @@ Phases, each fatal on failure:
      with StreamTrace off and on (equal tokens and launches, bookkeeping ms
      a step each); then ``python -m repro_torch.launch.serve --no-reduced
      --warmup`` with a cancel, a worker failure and a Chrome trace;
- 12. print the kernel table as one JSON line, then the result line.
+ 12. training, qwen3-1.7b: hold K2's backward (``flash_attention_bwd.cu``)
+     against the plain version's autograd (dq, dk, dv; bf16 and fp32 at the
+     training shape B=4 S=2048 H=16 K=8 D=128, a ragged S = 1000, G = 1 at
+     H = K = 32, a window of 512, head_dim 64) and K2's log-sum-exp against
+     the plain scores' (serving's K2, without it, gives the same bits); time
+     the backward, the plain version's backward and SDPA's backward, and K2's
+     forward with lse; check 2 full-width fp32 layers' loss and every
+     gradient on the card against the CPU; run ``launch.train`` at full width
+     and depth, bf16 (8 steps of 4 x 2048 tokens, remat "minimal", its two
+     checkpoints: 28 K2 backward launches a step, the forward's counted, ms a
+     step, MFU, peak memory, a profiled step split by kernel group); and a
+     2-layer full-width run with ``--fail-at 6`` whose final loss equals the
+     uninterrupted run's, bit for bit;
+ 13. print the kernel table as one JSON line, then the result line.
 Every serve of phases 4-8, and phase 9's qwen2.5-14b serve, runs twice on
 the same weights (phase 9 profiles only graphed serves and runs its other
 serves graphed only): eager (its lanes'
@@ -126,6 +139,8 @@ PREVIOUS_MS = {"flash_attention": 0.2979, "admission": 5.2586, "decode_attention
 REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:113",
     "flash_attention": "src/repro/kernels/flash_attention.py:131",
+    # what JAX differentiates in training: the same TPU kernel's gradient
+    "flash_attention_bwd": "src/repro/kernels/flash_attention.py:131",
     "decode_attention_paged": "src/repro/kernels/decode_attention.py:257",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:122",
 }
@@ -1036,6 +1051,7 @@ def kernel_counters():
 
     return {"decode_attention": da.decode_attention_cuda,
             "flash_attention": fa.flash_attention_cuda,
+            "flash_attention_bwd": fa.flash_attention_bwd_cuda,
             "decode_attention_paged": da.decode_attention_paged_cuda,
             "ssd_scan": ssd.ssd_scan_cuda}
 
@@ -2625,6 +2641,297 @@ def cli_phase(report: dict) -> None:
           f"{len(doc['traceEvents'])} Chrome events")
 
 
+# ------------------------------------------------------- training (qwen3-1.7b)
+
+# (B, S, H, K, D, dtype, window): the training shape in both dtypes, a ragged
+# last tile, one query head a KV head (llama2-7b), a window, head_dim 64
+BWD_CASES = [(4, 2048, 16, 8, 128, "bfloat16", None), (4, 2048, 16, 8, 128, "float32", None),
+             (2, 1000, 16, 8, 128, "bfloat16", None), (1, 2048, 32, 32, 128, "bfloat16", None),
+             (2, 2048, 16, 8, 128, "bfloat16", 512), (2, 1024, 16, 8, 64, "bfloat16", None)]
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+TRAIN_STEPS, TRAIN_TOKENS = 8, (4, 2048)  # the full-depth run: steps, batch x sequence
+
+
+def plain_lse(q, k, window=None):
+    """Each row's log-sum-exp of the plain version's masked scaled scores,
+    (B, H, S) float32 (NEG_INF where masked, as ``ref`` masks)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    kk = k.float().repeat_interleave(G, 2)
+    i = torch.arange(S, device=q.device)
+    mask = ref._mask(i[:, None], i[None], True, window)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * D ** -0.5, kk)
+    return torch.logsumexp(torch.where(mask, s, ref.NEG_INF), -1)
+
+
+def bwd_cost(q, k):
+    """(bytes, ops) of the causal backward: q, k, v, out, dout and lse read
+    once, dq, dk, dv written once; five products over the causal half."""
+    nbytes, ops = flash_cost(q, k)
+    return nbytes * 2 + q.numel() * q.element_size() + q.shape[0] * q.shape[2] * q.shape[1] * 4, \
+        ops * 5 // 2
+
+
+def train_kernel_phase(report: dict) -> dict:
+    """(a) K2's backward against the plain version's autograd on the card
+    (dq, dk, dv elementwise within tol + tol*|b|: 1e-4 fp32, 2e-2 bf16) at
+    the training shape in both dtypes, a ragged length, G = 1, a window and
+    head_dim 64; the forward's lse against the plain scores' logsumexp; then
+    at the training shape (bf16) the backward, the plain version's backward
+    and SDPA's backward timed (forwards outside the timed region), and K2's
+    forward with and without lse beside the plain forward and SDPA's."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    errs, out = {"dq": 0.0, "dk": 0.0, "dv": 0.0, "lse": 0.0, "out": 0.0}, {}
+    for B, S, H, K, D, dt, window in BWD_CASES:
+        tag = f"K2 backward B={B} S={S} H={H} K={K} D={D} {dt} window={window}"
+        q, k, v, dout = (torch.randn(B, S, n, D, generator=g, device="cuda").to(getattr(torch, dt))
+                         for n in (H, K, K, H))
+        o, lse = flash_attention_cuda(q, k, v, window=window, lse=True)
+        errs["out"] = max(errs["out"], check(f"{tag}: out", o, flash_attention_cuda(
+            q, k, v, window=window), dt, {dt: 0.0}))  # serving's call (lse null): the same bits
+        errs["lse"] = max(errs["lse"], check(f"{tag}: lse", lse, plain_lse(q, k, window), dt,
+                                             BWD_TOL))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(ref.flash_attention(*leaves, window=window), leaves, dout)
+        got = flash_attention_bwd_cuda(q, k, v, o, dout, lse, window=window)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want, strict=True):
+            errs[name] = max(errs[name], check(f"{tag}: {name}", a, b, dt, BWD_TOL))
+        del want, leaves, got
+        print(f"{tag}: dq/dk/dv match the plain version's autograd")
+    torch.cuda.synchronize()
+    # timing at the training shape, bf16 (inputs 134 MB: past the L2 by themselves)
+    B, S, H, K, D = 4, 2048, 16, 8, 128
+    q, k, v, dout = (torch.randn(B, S, n, D, generator=g, device="cuda").to(torch.bfloat16)
+                     for n in (H, K, K, H))
+    o, lse = flash_attention_cuda(q, k, v, lse=True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_o = ref.flash_attention(*leaves)
+    th = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    sdpa_o, dout_h = sdpa(*th, is_causal=True), dout.transpose(1, 2).contiguous()
+    nbytes, ops = bwd_cost(q, k)
+    out["bwd"] = {
+        "shape": f"B={B} S={S} H={H} K={K} D={D} causal bf16",
+        "ms": timed(lambda i: flash_attention_bwd_cuda(q, k, v, o, dout, lse), 20),
+        "plain_ms": timed(lambda i: torch.autograd.grad(plain_o, leaves, dout,
+                                                        retain_graph=True), 3),
+        "library_ms": timed(lambda i: torch.autograd.grad(sdpa_o, th, dout_h,
+                                                          retain_graph=True), 20),
+        "bound": bound_ms(nbytes, ops, "bfloat16"), "max_abs_err": max(
+            errs["dq"], errs["dk"], errs["dv"])}
+    del plain_o, sdpa_o
+    nbytes, ops = flash_cost(q, k)
+    fwd = {"shape": out["bwd"]["shape"],
+           "ms": timed(lambda i: flash_attention_cuda(q, k, v, lse=True), 20),
+           "ms_no_lse": timed(lambda i: flash_attention_cuda(q, k, v), 20),
+           "plain_ms": timed(lambda i: ref.flash_attention(q, k, v), 3),
+           "library_ms": timed(lambda i: sdpa(*th, is_causal=True), 20),
+           "bound": bound_ms(nbytes + B * H * S * 4, ops, "bfloat16"),
+           "max_abs_err": max(errs["out"], errs["lse"])}
+    out["fwd"] = fwd
+    report["train_kernels"] = {"errs": errs, **{k: dict(v, bound=list(v["bound"]))
+                                                 for k, v in out.items()}}
+    for name, r in (("flash_attention_bwd", out["bwd"]), ("flash_attention (lse)", fwd)):
+        show_timing(name, r)
+    print(f"flash_attention without lse at the same shape: {fwd['ms_no_lse']:.4f} ms")
+    return out
+
+
+def train_model_phase(report: dict) -> None:
+    """(b) 2 full-width qwen3-1.7b layers, fp32, remat "minimal": the loss and
+    every gradient leaf on the card (K2 forward and backward on their
+    CUDA-core kernels) against the same weights on the CPU: the loss within
+    1e-5 relative, each leaf within 1e-3 x its max |g|."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.params import tree_items, tree_map
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=2, dtype="float32")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=torch.Generator().manual_seed(4),
+                           dtype=torch.int32)
+    params = build_model(cfg, "cuda").init(1)
+    results = {}
+    zero_counts()
+    for dev, p in (("cuda", params), ("cpu", to_cpu(params))):
+        live = tree_map(lambda t: t.detach().requires_grad_(), p)
+        leaves = [t for _, t in tree_items(live)]
+        loss, _ = build_model(cfg, dev).loss_fn(live, {"tokens": tokens.to(dev)})
+        results[dev] = (float(loss.detach()), [t.cpu() for t in torch.autograd.grad(loss, leaves)])
+        if dev == "cuda":
+            launches = read_counts()
+    names = [k for k, _ in tree_items(params)]
+    (lg, gg), (lc, gc) = results["cuda"], results["cpu"]
+    worst = max((max_err(a, b) / max(float(b.abs().max()), 1e-30), n)
+                for n, a, b in zip(names, gg, gc, strict=True))
+    print(f"train model check (2 full-width layers, fp32, card vs CPU): loss {lg:.6f} / "
+          f"{lc:.6f}; worst leaf {worst[1]} at {worst[0]:.3g} x its max |g|; launches "
+          f"{launches}")
+    no_wgmma(launches, "flash_attention", "train model check")
+    if launches["flash_attention_bwd"] != cfg.n_layers:
+        fail(f"train model check: {launches['flash_attention_bwd']} K2 backward launches")
+    if abs(lg - lc) > 1e-5 * abs(lc) or worst[0] > 1e-3:
+        fail(f"train model check: loss {lg} vs {lc}, gradient {worst}")
+    report["train_model_check"] = {"loss": [lg, lc], "worst_leaf": list(worst),
+                                   "launches": launches}
+
+
+@contextlib.contextmanager
+def train_probes(times: dict):
+    """Time each train step (synchronised on both sides) and each checkpoint
+    save of ``launch.train``; profile the step listed in ``times["profile"]``
+    (CUDA activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training import checkpoint, train_loop
+
+    make, save = train_loop.make_train_step, checkpoint.CheckpointManager.save
+    times.update(step=[], save=[], prof=None)
+
+    def timed_make(*a, **kw):
+        init, step = make(*a, **kw)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (profile(activities=[ProfilerActivity.CUDA]) if len(times["step"]) ==
+                  times.get("profile", -1) else contextlib.nullcontext()) as prof:
+                out = step(*args)
+                torch.cuda.synchronize()
+            times["step"].append(time.perf_counter() - t0)
+            times["prof"] = prof or times["prof"]
+            return out
+        return init, run
+
+    def timed_save(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = save(self, *a, **kw)
+        times["save"].append(time.perf_counter() - t0)
+        return out
+
+    train_loop.make_train_step, checkpoint.CheckpointManager.save = timed_make, timed_save
+    try:
+        yield times
+    finally:
+        train_loop.make_train_step, checkpoint.CheckpointManager.save = make, save
+
+
+def train_phase(report: dict) -> dict:
+    """(c) ``launch.train`` at full width and depth, bf16, remat "minimal":
+    qwen3-1.7b, 8 steps of 4 x 2048 tokens, the two checkpoints (step 0
+    and the end) in a temporary directory.  Every loss finite; 28 K2
+    backward launches a step; K2 forward launches a step counted (the
+    forward's 28 plus what remat recomputes); ms a step, tokens/s, MFU
+    against 989 TFLOP/s (6 N tokens plus the attention products), peak
+    memory, the device time of a profiled step split into GEMMs, K2 forward,
+    K2 backward and the rest, and the seconds of each save."""
+    import math
+    import re
+    import tempfile
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config("qwen3-1.7b")
+    B, S = TRAIN_TOKENS
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck, \
+            train_probes({"profile": 4}) as times:
+        t0 = time.perf_counter()
+        result = train.main(["--arch", "qwen3-1.7b", "--no-reduced", "--steps", str(TRAIN_STEPS),
+                             "--batch", str(B), "--seq-len", str(S), "--ckpt-dir", ck,
+                             "--log-every", "1"])
+        wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [result["losses"][i] for i in range(TRAIN_STEPS)]
+    per_step = {k: launches[k] / TRAIN_STEPS for k in ("flash_attention", "flash_attention_bwd")}
+    if not all(map(math.isfinite, losses)):
+        fail(f"train: a loss is not finite: {losses}")
+    if per_step["flash_attention_bwd"] != cfg.n_layers or \
+            launches["flash_attention.wgmma"] != launches["flash_attention"]:
+        fail(f"train: launches {launches}: expected {cfg.n_layers} K2 backward launches a step "
+             "and every K2 forward on flash_wgmma_kernel")
+    step_s = sorted(times["step"][1:])[len(times["step"][1:]) // 2]  # median, the first warm-up
+    _, attn_ops = flash_cost(torch.empty(B, S, cfg.n_heads, cfg.head_dim, device="meta"),
+                             torch.empty(B, S, cfg.n_kv_heads, cfg.head_dim, device="meta"))
+    flops = 6 * cfg.n_params() * B * S + 3 * attn_ops * cfg.n_layers
+    events = [(e.name(), e.duration_ns() / 1e6) for e in
+              times["prof"].profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    groups = ((r"dkdv_kernel|dq_kernel|delta_kernel", "K2 backward"),
+              (r"flash_wgmma_kernel|flash_kernel", "K2 forward"),
+              (r"gemm|nvjet|xmma|cutlass", "GEMMs"))
+    parts = Counter()
+    for name, ms in events:
+        parts[next((g for k, g in groups if re.search(k, name.lower())), "rest")] += ms
+    busy = sum(parts.values())
+    r = {"losses": losses, "wall_s": wall, "step_ms": step_s * 1e3, "step_ms_all":
+         [t * 1e3 for t in times["step"]], "tokens_per_s": B * S / step_s,
+         "mfu": flops / step_s / PEAK_OPS["bfloat16"], "model_flops_per_step": flops,
+         "peak_gb": peak, "launches_per_step": per_step, "save_s": times["save"],
+         "profiled_step_device_ms": busy,
+         "profiled_step_share": {g: ms / busy for g, ms in parts.most_common()}}
+    report["train"] = r
+    print(f"train (qwen3-1.7b full width, 28 layers, bf16, {B}x{S} tokens, remat minimal): "
+          f"losses {' '.join(f'{x:.4f}' for x in losses)}")
+    print(f"train: {r['step_ms']:.1f} ms a step (median of steps 2-{TRAIN_STEPS}), "
+          f"{r['tokens_per_s']:.0f} tokens/s, MFU {r['mfu']:.1%} of 989 TFLOP/s, peak "
+          f"{peak:.1f} GB; K2 launches a step: forward {per_step['flash_attention']:g}, "
+          f"backward {per_step['flash_attention_bwd']:g}; saves "
+          f"{', '.join(f'{s:.1f}' for s in times['save'])} s")
+    print(f"train: profiled step device time {busy:.1f} ms: " + ", ".join(
+        f"{g} {ms / busy:.1%}" for g, ms in parts.most_common()))
+    return launches
+
+
+def restart_phase(report: dict) -> None:
+    """(d) Restart determinism on the card: full width at 2 layers, sequence
+    512, 12 steps, a checkpoint every 4, uninterrupted and with a failure
+    injected at step 6; the final losses must be equal bit for bit."""
+    import dataclasses
+    import tempfile
+    from unittest import mock
+
+    from repro_torch import configs
+    from repro_torch.launch import train
+
+    two = dataclasses.replace(configs.get_config("qwen3-1.7b"), n_layers=2)
+    runs = []
+    with mock.patch.object(configs, "get_config", lambda name: two):
+        for fail_at in ("-1", "6"):
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck:
+                runs.append(train.main(["--no-reduced", "--steps", "12", "--seq-len", "512",
+                                        "--ckpt-every", "4", "--fail-at", fail_at,
+                                        "--ckpt-dir", ck, "--log-every", "100"]))
+    a, b = runs
+    report["restart"] = {"final_loss": [a["final_loss"], b["final_loss"]],
+                         "restarts": b["report"].restarts,
+                         "restore_steps": b["report"].restore_steps}
+    print(f"restart (2 full-width layers, 12 steps, fail at 6): final loss "
+          f"{a['final_loss']!r} uninterrupted, {b['final_loss']!r} restarted "
+          f"({b['report'].restarts} restart, from step {b['report'].restore_steps})")
+    if b["report"].restarts != 1 or a["final_loss"] != b["final_loss"] or \
+            a["losses"] != b["losses"]:
+        fail("restart: the restarted run's losses differ from the uninterrupted run's")
+
+
 def release() -> None:
     """Free a finished phase's device memory before the next one measures its
     peak: the instrumented lane methods form reference cycles (closures over
@@ -2767,6 +3074,15 @@ def main() -> None:
     release()
     cli_phase(report)
     stamp("front door")
+    release()
+    train_timing = train_kernel_phase(report)
+    release()
+    train_model_phase(report)
+    release()
+    train_launches = train_phase(report)
+    release()
+    restart_phase(report)
+    stamp("training")
 
     def entry(name, kernel, r, n, was):
         return {"name": name, "kernel": kernel, "route": "cuda",
@@ -2831,6 +3147,11 @@ def main() -> None:
                     ("flash_attention (mixtral)", mixtral_launches["flash_attention"])):
         kernel = "decode_wgmma_kernel" if name.startswith("decode") else "flash_wgmma_kernel"
         kernels.append(entry(name, kernel, moe_timing[name], n, None))
+    # training: K2 backward and forward (with lse) launches from the full-depth run
+    kernels += [entry("flash_attention_bwd (qwen3 training)", "dkdv_kernel, dq_kernel",
+                      train_timing["bwd"], train_launches["flash_attention_bwd"], None),
+                entry("flash_attention (qwen3 training, lse)", "flash_wgmma_kernel",
+                      train_timing["fwd"], train_launches["flash_attention"], None)]
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

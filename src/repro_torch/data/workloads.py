@@ -121,3 +121,37 @@ def sample_mixed(n_per_suite=20, *, seed=0, vocab_size=32_000, arrival_rate=None
         sim.arrival = float(t)
         sim.request.arrival_time = float(t)
     return all_reqs
+
+
+class TokenStream:
+    """Deterministic, checkpointable synthetic token stream for training: a
+    Markov bigram over the vocab with 10% random jumps, each step's batch
+    drawn from its own seeded generator (so a replay from a checkpoint draws
+    the same batches)."""
+
+    def __init__(self, vocab_size, seq_len, batch, seed=0, shard=0, n_shards=1):
+        self.vocab_size, self.seq_len, self.batch = vocab_size, seq_len, batch
+        self.seed, self.shard, self.n_shards = seed, shard, n_shards
+        self.step = 0
+        k = min(8, vocab_size)  # a low branching factor: the loss drops within tens of steps
+        self._next = np.random.default_rng(seed).integers(0, vocab_size, (vocab_size, k))
+
+    def state_dict(self):
+        return {"step": self.step, "seed": self.seed, "shard": self.shard}
+
+    def load_state_dict(self, d):
+        self.step = int(d["step"])
+
+    def __next__(self):
+        rng = np.random.default_rng((self.seed, self.step, self.shard, self.n_shards))
+        toks = np.empty((self.batch, self.seq_len), np.int32)
+        cur = rng.integers(0, self.vocab_size, self.batch)
+        k = self._next.shape[1]
+        for t in range(self.seq_len):
+            toks[:, t] = cur
+            choice = rng.integers(0, k, self.batch)
+            jump = rng.uniform(size=self.batch) < 0.1
+            cur = np.where(jump, rng.integers(0, self.vocab_size, self.batch),
+                           self._next[cur, choice])
+        self.step += 1
+        return toks

@@ -27,6 +27,10 @@
 // causal limit and starts at the window's first visible tile, with
 // per-element masks inside.
 //
+// Training: given a non-null lse, both kernels also write each row's
+// log-sum-exp of its scaled scores from the running max and sum they keep
+// anyway (flash_attention_bwd.cu recomputes P from it); serving passes null.
+//
 // float32: flash_kernel, on the CUDA cores (tensor cores in TF32 cannot
 // hold the 2e-5 float32 tolerance).  One block of 128 threads per (64-row q
 // tile, batch*head); q and 64-key K/V tiles staged in shared memory as fp32
@@ -63,8 +67,8 @@ constexpr int BQ = 64, BK = 64, THREADS = 128;
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, int Sq, int Sk, int H, int K, int causal, int window,
-    int q_offset, float scale) {
+    float* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H, int K,
+    int causal, int window, int q_offset, float scale) {
   constexpr int DC = (D + 15) / 16;  // output columns per thread (the last may lie past D)
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H, kh = h / (H / K);
@@ -171,6 +175,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
     const int qi = q0 + rg * 8 + i;
     if (qi >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && cg == 0) lse[((size_t)b * H + h) * Sq + qi] = m[i] - logf(inv);
     float* o = out + (((size_t)b * Sq + qi) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
@@ -179,7 +184,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
            int Sk, int H, int K, int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
@@ -191,8 +196,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   }
   kern<<<dim3((Sq + BQ - 1) / BQ, B * H), THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, H, K, causal, window,
-      q_offset, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Sk, H, K, causal,
+      window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -208,8 +213,9 @@ constexpr size_t wgmma_smem() {  // Q tiles, 2 stages of K and V, 2 mbarriers, a
 template <int D>
 __global__ void __launch_bounds__(128 * WGS) flash_wgmma_kernel(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-    int H, int K, int causal, int window, int q_offset, float scale_log2) {
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Sk, int H, int K, int causal, int window, int q_offset,
+    float scale_log2) {
   using namespace tile;
   constexpr int ROWS = BQ * WGS, TB = tile_bytes(D), SW = swizzle_bytes(D), PW = SW / 2;
   extern __shared__ unsigned char smem_raw[];
@@ -274,11 +280,19 @@ __global__ void __launch_bounds__(128 * WGS) flash_wgmma_kernel(
       *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * Sq + qi) * H + h) * D + c) =
           __floats2bfloat162_rn(x0, x1);
   });
+  // log-sum-exp of each row's scaled scores (the backward's): finish left
+  // the row max m (base 2) and 1 / the row sum in l, alike in a row's 4 lanes
+  if (lse != nullptr && tid % 4 == 0)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qi = q0 + wg * BQ + Tile<D>::row(half);
+      if (qi < Sq) lse[((size_t)b * H + h) * Sq + qi] = t.m[half] / LOG2E - logf(t.l[half]);
+    }
 }
 
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-                 int H, int K, int causal, int window, int q_offset, float scale,
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                 int Sq, int Sk, int H, int K, int causal, int window, int q_offset, float scale,
                  cudaStream_t stream) {
   CUtensorMap kmap, vmap;
   if (!tile::kv_map<D>(&kmap, k, B, Sk, K) || !tile::kv_map<D>(&vmap, v, B, Sk, K))
@@ -290,16 +304,16 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
   if (e != cudaSuccess) return (int)e;
   const int rows = tile::BQ * WGS;
   kern<<<dim3(B * H, (Sq + rows - 1) / rows), 128 * WGS, smem, stream>>>(
-      kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), Sq,
-      Sk, H, K, causal, window, q_offset, scale * tile::LOG2E);
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), lse,
+      Sq, Sk, H, K, causal, window, q_offset, scale * tile::LOG2E);
   return (int)cudaGetLastError();
 }
 
-#define FLASH_ARGS q, k, v, out, B, Sq, Sk, H, K, causal, window, q_offset, scale, st
+#define FLASH_ARGS q, k, v, out, lse, B, Sq, Sk, H, K, causal, window, q_offset, scale, st
 
-int dispatch(int D, int dtype, const void* q, const void* k, const void* v, void* out, int B,
-             int Sq, int Sk, int H, int K, int causal, int window, int q_offset, float scale,
-             cudaStream_t st) {
+int dispatch(int D, int dtype, const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int Sq, int Sk, int H, int K, int causal, int window,
+             int q_offset, float scale, cudaStream_t st) {
   if (dtype == 0) switch (D) {
       case 32: return launch<32>(FLASH_ARGS);
       case 64: return launch<64>(FLASH_ARGS);
@@ -324,13 +338,16 @@ int dispatch(int D, int dtype, const void* q, const void* k, const void* v, void
 extern "C" int flash_attention_route(int dtype) { return dtype == 1 ? 1 : 0; }
 
 // q (B, Sq, H, D); k, v (B, Sk, K, D); out (B, Sq, H, D).  All contiguous.
-// dtype: 0 = float32, 1 = bfloat16.  window < 0 means no sliding window.
+// lse, if not null: (B, H, Sq) float32, each row's log-sum-exp of its scaled
+// scores (what the backward, flash_attention_bwd.cu, recomputes P from);
+// serving passes null.  dtype: 0 = float32, 1 = bfloat16.  window < 0 means
+// no sliding window.
 // Returns cudaGetLastError() after the launch, or the error that refused it
 // (cudaErrorInvalidValue for a tensor map the driver does not encode).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
-                               int B, int Sq, int Sk, int H, int K, int D, int causal,
-                               int window, int q_offset, float scale, int dtype,
+                               float* lse, int B, int Sq, int Sk, int H, int K, int D,
+                               int causal, int window, int q_offset, float scale, int dtype,
                                void* stream) {
-  return dispatch(D, dtype, q, k, v, out, B, Sq, Sk, H, K, causal, window, q_offset, scale,
-                  static_cast<cudaStream_t>(stream));
+  return dispatch(D, dtype, q, k, v, out, lse, B, Sq, Sk, H, K, causal, window, q_offset,
+                  scale, static_cast<cudaStream_t>(stream));
 }

@@ -6,6 +6,7 @@ cannot take it.  There is no fallback and no switch.
 """
 from __future__ import annotations
 
+import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
@@ -15,10 +16,16 @@ from repro_torch.kernels import ssd_scan as ssd
 
 def flash_attention(q, k, v, *, causal=True, window=None,
                     q_offset=0, scale=None):
-    """Prefill attention; see ``ref.flash_attention`` for shapes."""
+    """Prefill and training attention; see ``ref.flash_attention`` for
+    shapes.  On a CUDA device, a call that autograd records (an input that
+    requires grad) runs ``FlashAttentionFn``: K2 forward, K2 backward."""
     if q.device.type == "cpu":
         return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                         q_offset=q_offset, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q_offset:
+            raise ValueError("flash_attention: a gradient needs q_offset 0")
+        return fa.FlashAttentionFn.apply(q, k, v, causal, window, scale)
     return fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, scale=scale)
 

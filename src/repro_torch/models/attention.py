@@ -79,6 +79,12 @@ def _project_out(p, out):
     return out.reshape(B, S, H * D) @ p["wo"].reshape(H * D, -1)
 
 
+def attention_full(p, cfg, x, positions):
+    """Training forward over a full sequence: prefill's causal attention
+    under the config's window, without seeding a cache."""
+    return attention_prefill(p, cfg, x, positions)[0]
+
+
 def attention_prefill(p, cfg, x, positions
                       ):
     """Causal prefill attention returning (output, (k, v)) to seed the cache."""

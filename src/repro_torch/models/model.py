@@ -1,5 +1,6 @@
 """Public model API: ``build_model(cfg, device)`` -> :class:`Model`
-(a port of the serving half of ``repro.models.model``).
+(a port of ``repro.models.model``: serving, and training's ``forward`` and
+``loss_fn`` for attention+MLP stacks).
 
 Parameters are a dict: ``{"embedding": {"table"[, "head"]}, "layers": [per-
 layer dict, ...], "final_norm"}``.  The decode cache holds ``len`` (B,)
@@ -97,6 +98,25 @@ class Model:
         cfg = self.cfg
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return unembed(params["embedding"], x, cfg.tie_embeddings, cfg.vocab_size).float()
+
+    def forward(self, params, batch):
+        """Full-sequence logits (B, S, V) fp32 of ``batch["tokens"]`` (B, S)
+        (training; layers under ``cfg.remat_policy``)."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = embed_tokens(params["embedding"], tokens)
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        x = tfm.scan_full(params["layers"], self.cfg, x, positions, self.cfg.remat_policy)
+        return self._logits(params, x)
+
+    def loss_fn(self, params, batch):
+        """Next-token cross-entropy, ``logsumexp - target logit`` averaged over
+        (B, S - 1); returns (loss, metrics ``ce``, ``ppl_log``, ``loss``)."""
+        logits = self.forward(params, batch)[:, :-1]
+        targets = batch["tokens"][:, 1:].long()
+        tgt = logits.gather(-1, targets[..., None])[..., 0]
+        ce = (torch.logsumexp(logits, -1) - tgt).mean()
+        return ce, {"ce": ce, "ppl_log": ce, "loss": ce}
 
     def prefill(self, params, batch, max_len):
         """Run the prompt; returns (last-token logits (B, V) fp32, cache).

@@ -2,14 +2,19 @@
 of the dense, MoE and SSM paths of ``repro.models.transformer``).
 
 The JAX package stacks layer parameters and scans over them; here the stack
-is a Python list of per-layer parameter dicts and a loop.  A layer holds
+is a Python list of per-layer parameter dicts and a loop.  Training
+(``scan_full``) runs attention+MLP layers under the reference's three remat
+policies.  A layer holds
 ``attn`` or ``mamba`` (per ``cfg.layer_kinds()``) and a MoE layer (per
 ``cfg.moe_layer_mask()``) or, when ``d_ff > 0``, an MLP.
 """
 from __future__ import annotations
 
+import functools
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -71,3 +76,41 @@ def block_decode(layer, cfg, x, cache,
     else:
         out = ssm.mamba_decode(layer["mamba"], cfg, h, cache)
     return _apply_ffn(layer, cfg, x + out)
+
+
+def block_full(layer, cfg, x, positions):
+    """One attention+MLP layer of the training forward."""
+    if "attn" not in layer or "moe" in layer:
+        raise NotImplementedError(f"{cfg.name}: training of MoE and Mamba2 layers is not "
+                                  "ported yet (ROADMAP §1 item 4)")
+    h = rms_norm(x, layer["norm1"], cfg.norm_eps)
+    return _apply_ffn(layer, cfg, x + attn.attention_full(layer["attn"], cfg, h, positions))
+
+
+# matrix products without batch dimensions (the projections and the MLP):
+# what the reference's dots_with_no_batch_dims_saveable keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy):
+    """``fn`` under a remat policy: "none" saves every activation, "full"
+    only the layer's input (the layer runs again in the backward), "minimal"
+    also the products of ``_DOTS``.  Remat changes no number."""
+    if policy == "none":
+        return fn
+    kw = {"context_fn": functools.partial(create_selective_checkpoint_contexts, _save_dots)
+          } if policy == "minimal" else {}
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+                             **kw)
+
+
+def scan_full(layers, cfg, x, positions, remat="none"):
+    """The training forward's layer loop, each layer under ``remat``."""
+    step = _remat(block_full, remat)
+    for layer in layers:
+        x = step(layer, cfg, x, positions)
+    return x

@@ -11,18 +11,36 @@ layer's ``A_log``, ``D`` and ``dt_bias``, and the MoE ``router``).  Where the re
 heads (``ArchConfig.padded_heads``), the pad slots of ``wq``, ``bq`` and
 ``wo`` are dropped: the reference masks those heads to zero before ``wo``,
 so the port's unpadded heads, in the order GQA's ``h // G`` expects, compute
-the same function.
+the same function.  ``from_reference_state`` takes the same path for a
+reference training checkpoint's parameters and AdamW moments.  ``tree_map``
+(PyTorch's pytree) and ``tree_items`` walk the port's trees (dicts, lists,
+NamedTuples).
 """
 from __future__ import annotations
 
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.configs.base import ArchConfig
 
 
+def tree_items(tree):
+    """(path, leaf) pairs of a dict / list / NamedTuple tree, in ``tree_map``'s
+    order; paths join dict keys, list indices and NamedTuple field names
+    with "/" (as the reference's checkpoints name leaves)."""
+    return [("/".join(str(getattr(k, "key", getattr(k, "idx", getattr(k, "name", k))))
+                      for k in path), leaf)
+            for path, leaf in pytree.tree_flatten_with_path(tree)[0]]
+
+
+tree_map = pytree.tree_map
+
+
 def to_tensor(a, device="cpu", dtype=None):
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype or a.dtype)
     a = np.array(a)  # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
@@ -59,3 +77,21 @@ def from_jax_tree(tree, cfg, device="cpu",
                 p["bq"] = p["bq"].index_select(0, real)
     return {"embedding": _map(tree["embedding"], conv), "layers": layers,
             "final_norm": conv(tree["final_norm"])}
+
+
+def from_reference_state(leaves, cfg, device="cpu", dtype=None):
+    """A reference training checkpoint's leaves ({"params/...", "opt/step",
+    "opt/mu/...", "opt/nu/..."}: arrays or tensors) as the port's
+    (parameters in ``dtype``, (step, mu, nu) in float32): the fields of the
+    reference's ``AdamWState``, leaf for leaf."""
+    tree = {}
+    for key, a in leaves.items():
+        *path, last = key.split("/")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[last] = a
+    opt = tree["opt"]
+    return (from_jax_tree(tree["params"], cfg, device, dtype),
+            (to_tensor(opt["step"]), from_jax_tree(opt["mu"], cfg, device),
+             from_jax_tree(opt["nu"], cfg, device)))

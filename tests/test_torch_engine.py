@@ -30,6 +30,7 @@ from repro.serving.speculative import verify_tokens as jax_verify
 from repro_torch.api import ServeConfig, StreamServe
 from repro_torch.configs import reduced_config
 from repro_torch.core.engine import EngineConfig, PipeServeEngine
+from repro_torch.launch.train import main as train_main
 from repro_torch.params import from_jax_tree
 from repro_torch.serving.cost_model import HardwareProfile
 from repro_torch.serving.request import Request, RequestState, SamplingParams
@@ -288,6 +289,8 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, fp32
             StreamServe(config)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PipeServeEngine(*fp32_model[2:], n_pairs=1)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_main(["--steps", "1"])
 
 
 @pytest.mark.parametrize("overrides, item", [({"family": "hybrid"}, "M9, §1 item 3.4"),

@@ -54,45 +54,35 @@ def test_flash_plain_matches_pallas(case, q_offset):
     _close(ref.flash_attention(tq, tk, tv, q_chunk=32, **kw), want, dt)  # chunked
 
 
-@pytest.mark.parametrize("case", DECODE_CASES)
-def test_decode_plain_matches_pallas(case):
-    B, T, S, H, K, D, window, ring, jdt = case
-    dt, rng = jnp.dtype(jdt).name, np.random.default_rng(3)
-    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, s, dt) for s in
-                                    [(B, T, H, D), (B, S, K, D), (B, S, K, D)])
-    clen = rng.integers(T, S, size=(B,)).astype(np.int32)
-    pos = np.array(_ring_positions(B, S, clen)) if ring else None
-    want = decode_attention_pallas(jq, jk, jv, jnp.asarray(clen), interpret=True, block_k=64,
-                                   window=window, kv_positions=None if pos is None else pos)
-    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(clen), window=window,
-                               kv_positions=None if pos is None else torch.from_numpy(pos))
-    _close(got, want, dt)
-
-
-# head_dim 120 and G = 4, 5 and 9 at decode and verify sizes: (B, T, S, H, K,
-# D, window, positions a row holds before its T new ones, dtype); a row whose
-# positions outnumber S has wrapped its ring
-M9_DECODE = {
-    "d120-g4-wrapped-window": (2, 3, 96, 8, 2, 120, 40, [150, 20], "float32"),
-    "g5-verify": (2, 9, 128, 5, 1, 128, None, [60, 100], "float32"),
-    "g9-verify-wrapped-window": (2, 9, 96, 9, 1, 128, 24, [200, 30], "float32"),
-    "d120-g9-bfloat16": (2, 5, 128, 18, 2, 120, None, [70, 10], "bfloat16"),
-    "d120-g5-wrapped-window-bfloat16": (1, 2, 64, 10, 2, 120, 16, [100], "bfloat16"),
+# the reference's table (B, T, S, H, K, D, window, ring, dtype: random
+# lengths, ring positions where it says ring); then head_dim 120 and G = 4, 5
+# and 9 at decode and verify sizes, with the positions each row holds before
+# its T new ones in place of ``ring`` (a row whose positions outnumber S has
+# wrapped its ring)
+DECODE = {f"case{i}": c for i, c in enumerate(DECODE_CASES)} | {
+    "d120-g4-wrapped-window": (2, 3, 96, 8, 2, 120, 40, [150, 20], jnp.float32),
+    "g5-verify": (2, 9, 128, 5, 1, 128, None, [60, 100], jnp.float32),
+    "g9-verify-wrapped-window": (2, 9, 96, 9, 1, 128, 24, [200, 30], jnp.float32),
+    "d120-g9-bfloat16": (2, 5, 128, 18, 2, 120, None, [70, 10], jnp.bfloat16),
+    "d120-g5-wrapped-window-bfloat16": (1, 2, 64, 10, 2, 120, 16, [100], jnp.bfloat16),
 }
 
 
-@pytest.mark.parametrize("case", M9_DECODE)
-def test_decode_plain_matches_pallas_at_m9_shapes(case):
-    B, T, S, H, K, D, window, fill, dt = M9_DECODE[case]
-    rng = np.random.default_rng(6)
+@pytest.mark.parametrize("case", DECODE)
+def test_decode_plain_matches_pallas(case):
+    B, T, S, H, K, D, window, ring, jdt = DECODE[case]
+    fill = ring if isinstance(ring, list) else None
+    dt, rng = jnp.dtype(jdt).name, np.random.default_rng(3 if fill is None else 6)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, s, dt) for s in
                                     [(B, T, H, D), (B, S, K, D), (B, S, K, D)])
-    clen = np.array([f + T for f in fill], np.int32)
-    pos = np.array(_ring_positions(B, S, clen))
+    clen = (np.array([f + T for f in fill], np.int32) if fill else
+            rng.integers(T, S, size=(B,)).astype(np.int32))
+    pos = np.array(_ring_positions(B, S, clen)) if ring else None
     want = decode_attention_pallas(jq, jk, jv, jnp.asarray(clen), interpret=True, block_k=64,
                                    window=window, kv_positions=pos)
-    _close(ops.decode_attention(tq, tk, tv, torch.from_numpy(clen), window=window,
-                                kv_positions=torch.from_numpy(pos)), want, dt)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(clen), window=window,
+                               kv_positions=None if pos is None else torch.from_numpy(pos))
+    _close(got, want, dt)
 
 
 @pytest.mark.parametrize("idle_row", [False, True])
