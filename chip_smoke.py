@@ -6,8 +6,9 @@ Phases, each fatal on failure:
   1. print the card (nvidia-smi name and power limit) and versions; build the
      CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc per source,
      all at once); show from the SASS that the bf16 attention kernels (K1,
-     K2, K3) run both products, and the bf16 SSD-scan kernel (K4) its four,
-     on HGMMA (wgmma);
+     K2, K3) run both products, the bf16 SSD-scan kernel (K4) its four and
+     K2's two bf16 backward passes theirs on HGMMA (wgmma), and from ptxas
+     that the backward passes spill nothing at head_dim 128;
   2. hold each kernel against its plain PyTorch version at the serving
      shapes (bf16, plus fp32, stale-slot poisoning, fully masked rows, and
      for the paged kernel shuffled pages, ragged -1 tails and a window; at
@@ -95,13 +96,21 @@ Phases, each fatal on failure:
  12. training, qwen3-1.7b: hold K2's backward (``flash_attention_bwd.cu``)
      against the plain version's autograd (dq, dk, dv; bf16 and fp32 at the
      training shape B=4 S=2048 H=16 K=8 D=128, a ragged S = 1000, G = 1 at
-     H = K = 32, a window of 512, head_dim 64) and K2's log-sum-exp against
-     the plain scores' (serving's K2, without it, gives the same bits); time
-     the backward, the plain version's backward and SDPA's backward, and K2's
+     H = K = 32, a window of 512, head_dim 64, and S = 1000 under a window of
+     130 at G = 4 and head_dim 64; bf16 on the tensor-core passes
+     ``dkdv_wgmma_kernel`` and ``dq_wgmma_kernel``, fp32 on the CUDA cores)
+     and K2's log-sum-exp against the plain scores' (serving's K2, without
+     it, gives the same bits); each gradient row against the backward's
+     plain arithmetic within 0.1 of its RMS (bf16), with a control that
+     drops one query tile; two backward calls at the training shape bit
+     for bit; time the backward, the plain version's backward and SDPA's
+     backward, and K2's
      forward with lse; check 2 full-width fp32 layers' loss and every
-     gradient on the card against the CPU; run ``launch.train`` at full width
+     gradient on the card against the CPU (the fp32 backward on the CUDA
+     cores); run ``launch.train`` at full width
      and depth, bf16 (8 steps of 4 x 2048 tokens, remat "minimal", its two
-     checkpoints: 28 K2 backward launches a step, the forward's counted, ms a
+     checkpoints: 28 K2 backward launches a step, all on the tensor-core
+     passes, the forward's counted, ms a
      step, MFU, peak memory, a profiled step split by kernel group); and a
      2-layer full-width run with ``--fail-at 6`` whose final loss equals the
      uninterrupted run's, bit for bit;
@@ -200,11 +209,13 @@ def tensor_core_sass(report: dict) -> None:
     forms in the SASS of decode_wgmma_kernel, flash_wgmma_kernel and
     paged_wgmma_kernel at head_dim 128, and of ssd_wgmma_kernel (``cuobjdump
     -sass`` of the built libraries), the attention kernels also at head_dim
-    120 (a 128-wide tile, its last 8 columns zeros).  Fails unless each
+    120 (a 128-wide tile, its last 8 columns zeros), and K2's backward passes
+    dkdv_wgmma_kernel and dq_wgmma_kernel at head_dim 128.  Fails unless each
     attention kernel holds
-    S = QK^T (64x64x16) and O += PV (64x128x16) on the tensor cores, and the
+    S = QK^T (64x64x16) and O += PV (64x128x16) on the tensor cores, the
     SSD scan its scores, intra- and inter-chunk terms (64x64x16) and state
-    update (64x128x16)."""
+    update (64x128x16), and each backward pass its recomputed S and dP
+    (64x64x16) and its gradient products (64x128x16)."""
     import re
 
     from repro_torch.kernels import build
@@ -217,7 +228,9 @@ def tensor_core_sass(report: dict) -> None:
                            ("decode_attention", "decode_wgmma_kernel", 120),
                            ("flash_attention", "flash_wgmma_kernel", 120),
                            ("decode_attention_paged", "paged_wgmma_kernel", 120),
-                           ("ssd_scan", "ssd_wgmma_kernel", None)):
+                           ("ssd_scan", "ssd_wgmma_kernel", None),
+                           ("flash_attention_bwd", "dkdv_wgmma_kernel", 128),
+                           ("flash_attention_bwd", "dq_wgmma_kernel", 128)):
         if lib not in sass:
             sass[lib] = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(lib))],
                                        capture_output=True, text=True, timeout=120).stdout
@@ -234,6 +247,35 @@ def tensor_core_sass(report: dict) -> None:
                                                                           "64x128x16.F32.BF16")):
             fail(f"{name}: the SASS does not run its products on HGMMA")
     report["hgmma"] = found
+
+
+def no_spills(report: dict, logs: dict) -> None:
+    """K2's backward passes at head_dim 128 as ptxas compiled them: their
+    registers and spill bytes from the build's ``-Xptxas -v`` log.  Fails on
+    any spill (a library built by an earlier run has no log: skipped)."""
+    import re
+
+    if "flash_attention_bwd" not in logs:
+        print("flash_attention_bwd was built before this run: no ptxas log to read")
+        return
+    fn, found = "", {}
+    for line in logs["flash_attention_bwd"].splitlines():
+        if "Compiling entry function" in line:
+            fn = next((k for k in ("dkdv_wgmma_kernel", "dq_wgmma_kernel")
+                       if f"{k}ILi128E" in line), "")
+        elif fn and "spill stores" in line:
+            found[fn] = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+        elif fn and "Used" in line and "registers" in line:
+            found[fn].append(int(re.search(r"Used (\d+) registers", line).group(1)))
+    report["bwd_ptxas"] = found
+    for name in ("dkdv_wgmma_kernel", "dq_wgmma_kernel"):
+        if len(found.get(name, ())) != 3:
+            fail(f"{name} (head_dim 128): not in the ptxas log")
+        stores, loads, regs = found[name]
+        print(f"{name} (head_dim 128): {regs} registers, spill stores {stores} B, "
+              f"loads {loads} B")
+        if stores or loads:
+            fail(f"{name} (head_dim 128) spills registers")
 
 
 def decode_case(g, B, T, S, H, K, D, dt, fill, poison=True, ring=False):
@@ -1313,7 +1355,10 @@ def profile_phase(serve, report: dict, key="profile", lens=PROFILE_LENS,
     the same prompts would hit the first burst's resident pages.  With
     ``split`` the burst's prefill calls are then profiled alone (same prompt
     lengths, new tokens; admission's insert and sampling left out): their
-    device time against the burst's is prefill's share, the rest decode's."""
+    device time against the burst's is prefill's share, the rest decode's.
+    Durations come from the profiler's raw records (``kineto_results``), as
+    moe_profile and the training phase read them: building the profiler's
+    event tree took longer than the bursts themselves."""
     import re
     from collections import Counter
 
@@ -1335,13 +1380,16 @@ def profile_phase(serve, report: dict, key="profile", lens=PROFILE_LENS,
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    def device_ms(prof):  # (name, ms) of each kernel and copy, from the raw records
+        return [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA]
+
     wall = burst(seed)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_profiled = burst(seed + paged)  # a paged repeat would hit the first's pages
     by_name: Counter = Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    for name, ms in device_ms(prof):
+        by_name[name] += ms
     if split:
         rng = np.random.default_rng(seed + 1)
         prompts = [torch.tensor(rng.integers(0, vocab, (1, n)), dtype=torch.int32, device="cuda")
@@ -1370,8 +1418,7 @@ def profile_phase(serve, report: dict, key="profile", lens=PROFILE_LENS,
         "device_ms_by_group": dict(by_group.most_common()),
         "top_kernels_ms": dict(by_name.most_common(12))}
     if split:
-        prefill_ms = sum(e.time_range.elapsed_us() for e in alone.events()
-                         if e.device_type == DeviceType.CUDA) / 1e3
+        prefill_ms = sum(ms for _, ms in device_ms(alone))
         report[key]["device_ms_by_phase"] = {"prefill": prefill_ms, "decode": busy - prefill_ms}
     if not busy:
         fail(f"{key}: the profiler recorded no device events")
@@ -2644,11 +2691,15 @@ def cli_phase(report: dict) -> None:
 # ------------------------------------------------------- training (qwen3-1.7b)
 
 # (B, S, H, K, D, dtype, window): the training shape in both dtypes, a ragged
-# last tile, one query head a KV head (llama2-7b), a window, head_dim 64
+# last tile, one query head a KV head (llama2-7b), a window, head_dim 64, and
+# a ragged length under a window that is not a multiple of 64 at G = 4, D = 64
 BWD_CASES = [(4, 2048, 16, 8, 128, "bfloat16", None), (4, 2048, 16, 8, 128, "float32", None),
              (2, 1000, 16, 8, 128, "bfloat16", None), (1, 2048, 32, 32, 128, "bfloat16", None),
-             (2, 2048, 16, 8, 128, "bfloat16", 512), (2, 1024, 16, 8, 64, "bfloat16", None)]
+             (2, 2048, 16, 8, 128, "bfloat16", 512), (2, 1024, 16, 8, 64, "bfloat16", None),
+             (1, 1000, 8, 2, 64, "bfloat16", 130)]
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# row_err's limit: each gradient row's largest error over that row's RMS
+BWD_ROW_TOL = {"bfloat16": 0.1, "float32": 1e-2}
 TRAIN_STEPS, TRAIN_TOKENS = 8, (4, 2048)  # the full-depth run: steps, batch x sequence
 
 
@@ -2668,6 +2719,81 @@ def plain_lse(q, k, window=None):
     return torch.logsumexp(torch.where(mask, s, ref.NEG_INF), -1)
 
 
+def row_err(got, want) -> float:
+    """The largest error in a gradient row (one position of one head) over
+    that row's RMS in ``want``.  Under a causal mask a row's size falls with
+    its position (~1/sqrt(row) on random inputs), so an absolute tolerance
+    that passes the large early rows cannot see an error in the small late
+    ones; this reading weighs every row alike.  A row whose RMS is under 1%
+    of the tensor's is held to that 1% (dq of the first query is 0)."""
+    want = want.float()
+    diff = (got.float() - want).abs().amax(-1)
+    rms = want.pow(2).mean(-1).sqrt()
+    return float((diff / rms.clamp_min(1e-2 * float(want.pow(2).mean().sqrt()))).max())
+
+
+def plain_bwd(q, k, v, out, dout, window=None):
+    """The backward's own arithmetic, plainly, in fp32 on the kernel's
+    inputs: P recomputed from the masked causal scores, delta = rowsum(dout
+    * out) from the output it is given (bf16 in training, as the kernel
+    reads it), dS = P (dP - delta); (dq, dk, dv) in q's dtype.  row_err
+    reads against this, not against the autograd of the plain forward,
+    whose delta comes from the output before its rounding: in a row whose
+    softmax sits on one key, that rounding alone moves dq by ~0.13 of the
+    row's RMS (SDPA's backward as much as the kernel)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    qf, of, df = q.float(), out.float(), dout.float()
+    kf, vf = (t.float().repeat_interleave(G, 2) for t in (k, v))
+    i = torch.arange(S, device=q.device)
+    mask = ref._mask(i[:, None], i[None], True, window)
+    p = torch.einsum("bqhd,bkhd->bhqk", qf * D ** -0.5, kf).masked_fill(~mask, float("-inf"))
+    p = p.softmax(-1)
+    delta = (df * of).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", df, vf) - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * D ** -0.5
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).unflatten(2, (-1, G)).sum(3) * D ** -0.5
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, df).unflatten(2, (-1, G)).sum(3)
+    return [t.to(q.dtype) for t in (dq, dk, dv)]
+
+
+def row_readings(q, k, v, out, dout, window, plain, got, want) -> dict:
+    """Beside row_err's limit, at one case: its control, the plain dk and dv
+    with the last 64-row query tile of head 0 left out (its dout zeroed),
+    read against the full ones as the kernel's are, over every key row and
+    over the first half of the keys alone, for which that tile is one far
+    tile of 16 or more; and the kernel's and (causal, no window) SDPA's
+    backward read against the plain forward's autograd.  Fails unless the
+    control's whole reading exceeds BWD_ROW_TOL: the check must see a
+    missing tile."""
+    import torch
+
+    cut = dout.clone()
+    cut[:, -64:, 0] = 0
+    drop = plain_bwd(q, k, v, out, cut, window)
+    half = q.shape[1] // 2
+    r = {f"control {name}{part}": row_err(a[:, rows], b[:, rows])
+         for name, a, b in (("dk", drop[1], plain[1]), ("dv", drop[2], plain[2]))
+         for part, rows in (("", slice(None)), (" first half", slice(0, half)))}
+    r.update({f"kernel vs autograd {n}": row_err(a, b)
+              for n, a, b in zip(("dq", "dk", "dv"), got, want, strict=True)})
+    if window is None:
+        th = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+        lib = torch.autograd.grad(sdpa(*th, is_causal=True), th, dout.transpose(1, 2).contiguous())
+        r.update({f"sdpa vs autograd {n}": row_err(a.transpose(1, 2), b)
+                  for n, a, b in zip(("dq", "dk", "dv"), lib, want, strict=True)})
+    tol = BWD_ROW_TOL[str(q.dtype).split(".")[-1]]
+    print("K2 backward row readings (limit " + f"{tol}): " + ", ".join(
+        f"{k} {x:.4g}" for k, x in r.items()))
+    if min(r["control dk"], r["control dv"]) <= tol:
+        fail("K2 backward: the row check cannot tell a dropped query tile")
+    return r
+
+
 def bwd_cost(q, k):
     """(bytes, ops) of the causal backward: q, k, v, out, dout and lse read
     once, dq, dk, dv written once; five products over the causal half."""
@@ -2678,12 +2804,17 @@ def bwd_cost(q, k):
 
 def train_kernel_phase(report: dict) -> dict:
     """(a) K2's backward against the plain version's autograd on the card
-    (dq, dk, dv elementwise within tol + tol*|b|: 1e-4 fp32, 2e-2 bf16) at
-    the training shape in both dtypes, a ragged length, G = 1, a window and
-    head_dim 64; the forward's lse against the plain scores' logsumexp; then
-    at the training shape (bf16) the backward, the plain version's backward
-    and SDPA's backward timed (forwards outside the timed region), and K2's
-    forward with and without lse beside the plain forward and SDPA's."""
+    (dq, dk, dv elementwise within tol + tol*|b|: 1e-4 fp32, 2e-2 bf16),
+    and each gradient row against plain_bwd within BWD_ROW_TOL of its RMS
+    (row_err; row_readings at the first case), at the training shape in
+    both dtypes, a ragged length, G = 1, a window, head_dim 64 and a ragged
+    G = 4 window at head_dim 64; every bf16 call on the tensor-core passes,
+    every fp32 call on the CUDA-core ones; the forward's lse against the
+    plain scores' logsumexp; then at the training
+    shape (bf16) two backward calls bit for bit, and the backward, the plain
+    version's backward and SDPA's backward timed (forwards outside the timed
+    region), and K2's forward with and without lse beside the plain forward
+    and SDPA's."""
     import torch
 
     from repro_torch.kernels import ref
@@ -2691,6 +2822,8 @@ def train_kernel_phase(report: dict) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(11)
     errs, out = {"dq": 0.0, "dk": 0.0, "dv": 0.0, "lse": 0.0, "out": 0.0}, {}
+    rows = {dt: {"dq": 0.0, "dk": 0.0, "dv": 0.0} for dt in BWD_TOL}
+    readings = None
     for B, S, H, K, D, dt, window in BWD_CASES:
         tag = f"K2 backward B={B} S={S} H={H} K={K} D={D} {dt} window={window}"
         q, k, v, dout = (torch.randn(B, S, n, D, generator=g, device="cuda").to(getattr(torch, dt))
@@ -2702,17 +2835,33 @@ def train_kernel_phase(report: dict) -> dict:
                                              BWD_TOL))
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         want = torch.autograd.grad(ref.flash_attention(*leaves, window=window), leaves, dout)
+        before = flash_attention_bwd_cuda.wgmma_launches
         got = flash_attention_bwd_cuda(q, k, v, o, dout, lse, window=window)
-        for name, a, b in zip(("dq", "dk", "dv"), got, want, strict=True):
+        if flash_attention_bwd_cuda.wgmma_launches - before != (dt == "bfloat16"):
+            fail(f"{tag}: the call did not take the {dt} backward's kernels")
+        plain, here = plain_bwd(q, k, v, o, dout, window), {}
+        for name, a, b, c in zip(("dq", "dk", "dv"), got, want, plain, strict=True):
             errs[name] = max(errs[name], check(f"{tag}: {name}", a, b, dt, BWD_TOL))
-        del want, leaves, got
-        print(f"{tag}: dq/dk/dv match the plain version's autograd")
+            here[name] = row_err(a, c)
+            rows[dt][name] = max(rows[dt][name], here[name])
+        print(f"{tag}: dq/dk/dv match the plain version's autograd; row errors against "
+              "plain_bwd " + ", ".join(f"{n} {x:.4g}" for n, x in here.items()))
+        if max(here.values()) > BWD_ROW_TOL[dt]:
+            fail(f"{tag}: a gradient row differs by more than {BWD_ROW_TOL[dt]} of its RMS")
+        if readings is None:
+            readings = row_readings(q, k, v, o, dout, window, plain, got, want)
+        del want, leaves, got, plain
     torch.cuda.synchronize()
     # timing at the training shape, bf16 (inputs 134 MB: past the L2 by themselves)
     B, S, H, K, D = 4, 2048, 16, 8, 128
     q, k, v, dout = (torch.randn(B, S, n, D, generator=g, device="cuda").to(torch.bfloat16)
                      for n in (H, K, K, H))
     o, lse = flash_attention_cuda(q, k, v, lse=True)
+    runs = [flash_attention_bwd_cuda(q, k, v, o, dout, lse) for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs, strict=True)):
+        fail("K2 backward: two calls on the same inputs gave different bits")
+    print("K2 backward at the training shape: two calls give dq, dk and dv bit for bit")
+    del runs
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     plain_o = ref.flash_attention(*leaves)
     th = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
@@ -2737,8 +2886,8 @@ def train_kernel_phase(report: dict) -> dict:
            "bound": bound_ms(nbytes + B * H * S * 4, ops, "bfloat16"),
            "max_abs_err": max(errs["out"], errs["lse"])}
     out["fwd"] = fwd
-    report["train_kernels"] = {"errs": errs, **{k: dict(v, bound=list(v["bound"]))
-                                                 for k, v in out.items()}}
+    report["train_kernels"] = {"errs": errs, "row_errs": rows, "row_readings": readings,
+                               **{k: dict(v, bound=list(v["bound"])) for k, v in out.items()}}
     for name, r in (("flash_attention_bwd", out["bwd"]), ("flash_attention (lse)", fwd)):
         show_timing(name, r)
     print(f"flash_attention without lse at the same shape: {fwd['ms_no_lse']:.4f} ms")
@@ -2779,6 +2928,7 @@ def train_model_phase(report: dict) -> None:
           f"{lc:.6f}; worst leaf {worst[1]} at {worst[0]:.3g} x its max |g|; launches "
           f"{launches}")
     no_wgmma(launches, "flash_attention", "train model check")
+    no_wgmma(launches, "flash_attention_bwd", "train model check")
     if launches["flash_attention_bwd"] != cfg.n_layers:
         fail(f"train model check: {launches['flash_attention_bwd']} K2 backward launches")
     if abs(lg - lc) > 1e-5 * abs(lc) or worst[0] > 1e-3:
@@ -2866,28 +3016,34 @@ def train_phase(report: dict) -> dict:
     if not all(map(math.isfinite, losses)):
         fail(f"train: a loss is not finite: {losses}")
     if per_step["flash_attention_bwd"] != cfg.n_layers or \
-            launches["flash_attention.wgmma"] != launches["flash_attention"]:
-        fail(f"train: launches {launches}: expected {cfg.n_layers} K2 backward launches a step "
-             "and every K2 forward on flash_wgmma_kernel")
+            launches["flash_attention.wgmma"] != launches["flash_attention"] or \
+            launches["flash_attention_bwd.wgmma"] != launches["flash_attention_bwd"]:
+        fail(f"train: launches {launches}: expected {cfg.n_layers} K2 backward launches a step, "
+             "every K2 forward on flash_wgmma_kernel and every backward on "
+             "dkdv_wgmma_kernel and dq_wgmma_kernel")
     step_s = sorted(times["step"][1:])[len(times["step"][1:]) // 2]  # median, the first warm-up
     _, attn_ops = flash_cost(torch.empty(B, S, cfg.n_heads, cfg.head_dim, device="meta"),
                              torch.empty(B, S, cfg.n_kv_heads, cfg.head_dim, device="meta"))
     flops = 6 * cfg.n_params() * B * S + 3 * attn_ops * cfg.n_layers
     events = [(e.name(), e.duration_ns() / 1e6) for e in
               times["prof"].profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
-    groups = ((r"dkdv_kernel|dq_kernel|delta_kernel", "K2 backward"),
+    groups = ((r"dkdv_(wgmma_)?kernel|dq_(wgmma_)?kernel|delta_kernel", "K2 backward"),
               (r"flash_wgmma_kernel|flash_kernel", "K2 forward"),
               (r"gemm|nvjet|xmma|cutlass", "GEMMs"))
-    parts = Counter()
+    parts, bwd = Counter(), Counter()
     for name, ms in events:
         parts[next((g for k, g in groups if re.search(k, name.lower())), "rest")] += ms
+        found = re.search(groups[0][0], name)
+        if found:
+            bwd[found.group(0)] += ms
     busy = sum(parts.values())
     r = {"losses": losses, "wall_s": wall, "step_ms": step_s * 1e3, "step_ms_all":
          [t * 1e3 for t in times["step"]], "tokens_per_s": B * S / step_s,
          "mfu": flops / step_s / PEAK_OPS["bfloat16"], "model_flops_per_step": flops,
          "peak_gb": peak, "launches_per_step": per_step, "save_s": times["save"],
          "profiled_step_device_ms": busy,
-         "profiled_step_share": {g: ms / busy for g, ms in parts.most_common()}}
+         "profiled_step_share": {g: ms / busy for g, ms in parts.most_common()},
+         "profiled_step_bwd_ms": dict(bwd.most_common())}
     report["train"] = r
     print(f"train (qwen3-1.7b full width, 28 layers, bf16, {B}x{S} tokens, remat minimal): "
           f"losses {' '.join(f'{x:.4f}' for x in losses)}")
@@ -2898,6 +3054,8 @@ def train_phase(report: dict) -> dict:
           f"{', '.join(f'{s:.1f}' for s in times['save'])} s")
     print(f"train: profiled step device time {busy:.1f} ms: " + ", ".join(
         f"{g} {ms / busy:.1%}" for g, ms in parts.most_common()))
+    print("train: K2 backward in the profiled step: " + ", ".join(
+        f"{k} {ms:.2f} ms" for k, ms in bwd.most_common()))
     return launches
 
 
@@ -2980,6 +3138,7 @@ def main() -> None:
             if "Used" in ln:
                 print(f"  {name}: {ln.split('ptxas info    :')[-1].strip()}")
 
+    no_spills(report, logs)
     tensor_core_sass(report)
     timing = kernel_phase(report)
     paged_timing = paged_kernel_phase(report)
@@ -3084,14 +3243,13 @@ def main() -> None:
     restart_phase(report)
     stamp("training")
 
-    def entry(name, kernel, r, n, was):
+    def entry(name, kernel, r, n):  # every number measured in this run, or computed (bound)
         return {"name": name, "kernel": kernel, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name.split()[0]}.cu",
                 "replaces": REPLACES[name.split()[0]], "launches": n,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-                "library_ms": r["library_ms"], "shape": r["shape"],
-                "previous_ms": PREVIOUS_MS.get(was)}
+                "library_ms": r["library_ms"], "shape": r["shape"]}
 
     # launches: K1 and K2 from the dense serve, K1 at the chunk shape from the
     # chunked serve's chunk steps, K3 from the paged serve (its decode/verify
@@ -3102,28 +3260,27 @@ def main() -> None:
     k3_admit = paged_launches["decode_attention_paged"] * ps_calls["prefill_calls"] // (
         ps_calls["prefill_calls"] + ps_calls["decode_calls"])
     kernels = [entry("decode_attention", "decode_wgmma_kernel", timing["decode_attention"],
-                     launches["decode_attention"], "decode_attention"),
+                     launches["decode_attention"]),
                entry("decode_attention (chunk)", "decode_wgmma_kernel",
                      timing["decode_attention (chunk)"],
-                     report["chunked_serve"]["chunk_step_k1_launches"], None),
+                     report["chunked_serve"]["chunk_step_k1_launches"]),
                entry("flash_attention", "flash_wgmma_kernel", timing["flash_attention"],
-                     launches["flash_attention"], "flash_attention"),
+                     launches["flash_attention"]),
                entry("decode_attention_paged", "paged_wgmma_kernel", paged_timing["decode"],
-                     paged_launches["decode_attention_paged"] - k3_admit, "decode"),
+                     paged_launches["decode_attention_paged"] - k3_admit),
                entry("decode_attention_paged (admission)", "paged_wgmma_kernel",
-                     paged_timing["admission"], k3_admit, "admission"),
-               entry("ssd_scan", "ssd_wgmma_kernel", ssd_timing, mamba_launches["ssd_scan"],
-                     "ssd_scan")]
+                     paged_timing["admission"], k3_admit),
+               entry("ssd_scan", "ssd_wgmma_kernel", ssd_timing, mamba_launches["ssd_scan"])]
     split = report["paper_serve"]["launch_split"]
     kernels += [entry("decode_attention (llama2 verify)", "decode_wgmma_kernel",
                       llama_timing["decode_attention (llama2 verify)"],
-                      split["decode_attention.target"], None),
+                      split["decode_attention.target"]),
                 entry("decode_attention (llama2 draft)", "decode_wgmma_kernel",
                       llama_timing["decode_attention (llama2 draft)"],
-                      split["decode_attention.draft"], None),
+                      split["decode_attention.draft"]),
                 entry("flash_attention (llama2)", "flash_wgmma_kernel",
                       llama_timing["flash_attention (llama2)"],
-                      paper_launches["flash_attention"], None)]
+                      paper_launches["flash_attention"])]
     # the M9 models: K1 and K2 from the qwen2.5 and h2o serves, K3 from the
     # starcoder2 paged serve (decode/verify and admission apart)
     sc = report["starcoder2-7b_paged_serve"]
@@ -3139,19 +3296,19 @@ def main() -> None:
             ("decode_attention (h2o verify)", "decode_wgmma_kernel",
              h2o_launches["decode_attention"]),
             ("flash_attention (h2o)", "flash_wgmma_kernel", h2o_launches["flash_attention"])):
-        kernels.append(entry(name, kernel, m9_timing[name], n, None))
+        kernels.append(entry(name, kernel, m9_timing[name], n))
     # the MoE models: K1 and K2 from the qwen3-moe and mixtral serves
     for name, n in (("decode_attention (qwen3-moe verify)", qmoe_launches["decode_attention"]),
                     ("flash_attention (qwen3-moe)", qmoe_launches["flash_attention"]),
                     ("decode_attention (mixtral verify)", mixtral_launches["decode_attention"]),
                     ("flash_attention (mixtral)", mixtral_launches["flash_attention"])):
         kernel = "decode_wgmma_kernel" if name.startswith("decode") else "flash_wgmma_kernel"
-        kernels.append(entry(name, kernel, moe_timing[name], n, None))
+        kernels.append(entry(name, kernel, moe_timing[name], n))
     # training: K2 backward and forward (with lse) launches from the full-depth run
-    kernels += [entry("flash_attention_bwd (qwen3 training)", "dkdv_kernel, dq_kernel",
-                      train_timing["bwd"], train_launches["flash_attention_bwd"], None),
+    kernels += [entry("flash_attention_bwd (qwen3 training)", "dkdv_wgmma_kernel, dq_wgmma_kernel",
+                      train_timing["bwd"], train_launches["flash_attention_bwd"]),
                 entry("flash_attention (qwen3 training, lse)", "flash_wgmma_kernel",
-                      train_timing["fwd"], train_launches["flash_attention"], None)]
+                      train_timing["fwd"], train_launches["flash_attention"])]
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -137,9 +137,11 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+template <int N>  // at most N of this warpgroup's newest wgmma groups still in flight
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+__device__ __forceinline__ void wgmma_wait0() { wgmma_wait<0>(); }
 // Keep the compiler from moving register reads or writes across a wgmma.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
@@ -212,6 +214,39 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Issue s (64 x 64, fp32) += A B^T over the DP columns of two (64 x DP)
+// tiles at shared addresses a and b, both K-major (S = Q K^T).  The caller
+// fences, commits and waits.
+template <int D>
+__device__ __forceinline__ void ss_product(float (&s)[32], uint32_t a, uint32_t b) {
+  constexpr int SW = swizzle_bytes(D), PW = SW / 2;
+#pragma unroll
+  for (int k = 0; k < tile_dim(D) / 16; ++k) {
+    const uint32_t off = (k * 16 / PW) * (BK * SW) + (k * 16 % PW) * 2;
+    wgmma_ss_n64(s, desc_k_major<D>(a + off), desc_k_major<D>(b + off));
+  }
+}
+
+// A 64 x 64 fp32 accumulator (Tile's layout) as bf16 A fragments, one for
+// each k16 step over its columns: step ks covers columns 16 ks .. 16 ks + 15.
+__device__ __forceinline__ void pack_frags(uint32_t (&f)[4][4], const float (&a)[32]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[ks][i] = pack_bf16(a[8 * ks + 2 * i], a[8 * ks + 2 * i + 1]);
+}
+
+// Issue o (64 x DP, fp32) += F B: F the A fragments of four k16 steps, B the
+// (64 x DP) tile at shared address b, read MN-major (O += P V).  The caller
+// fences, commits and waits.
+template <int D>
+__device__ __forceinline__ void rs_product(float (&o)[tile_dim(D) / 2], const uint32_t (&f)[4][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_rs<tile_dim(D)>(o, f[ks], desc_mn_major<D>(b + ks * 16 * swizzle_bytes(D)));
+}
+
 // A warpgroup's running attention state for its 64 rows.  Thread t of the
 // warpgroup holds rows row(0) = 16 * (t / 32) + (t % 32) / 4 and row(1) =
 // row(0) + 8; o[4j + e] is column 8j + 2 (t % 4) + (e & 1) of row(e >> 1),
@@ -245,18 +280,13 @@ struct Tile {
   template <class Mask>
   __device__ __forceinline__ void step(uint32_t sq, uint32_t sk, uint32_t sv, float scale_log2,
                                        Mask mask) {
-    constexpr int SW = swizzle_bytes(D), PW = SW / 2;
     __syncwarp();  // wgmma is .aligned: the warp's threads issue it together
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     fence_regs(s);
     wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < DP / 16; ++k) {
-      const uint32_t off = (k * 16 / PW) * (BK * SW) + (k * 16 % PW) * 2;
-      wgmma_ss_n64(s, desc_k_major<D>(sq + off), desc_k_major<D>(sk + off));
-    }
+    ss_product<D>(s, sq, sk);
     wgmma_commit();
     wgmma_wait0();
     fence_regs(s);
@@ -293,16 +323,11 @@ struct Tile {
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
 
-    // P as the A operand: k16 step ks covers S columns 16 ks .. 16 ks + 15
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[ks][i] = pack_bf16(s[8 * ks + 2 * i], s[8 * ks + 2 * i + 1]);
+    uint32_t pa[4][4];  // P as the A operand
+    pack_frags(pa, s);
     fence_regs(o);
     wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) wgmma_rs<DP>(o, pa[ks], desc_mn_major<D>(sv + ks * 16 * SW));
+    rs_product<D>(o, pa, sv);
     wgmma_commit();
     wgmma_wait0();
     fence_regs(o);

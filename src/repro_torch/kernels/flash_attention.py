@@ -7,8 +7,10 @@ attention with GQA, an optional sliding window and a ``q_offset``
 continuation.  bfloat16 runs ``flash_wgmma_kernel`` on the tensor cores,
 float32 ``flash_kernel`` on the CUDA cores; the C entry point decides.  The
 backward (``csrc/flash_attention_bwd.cu``) is the port's counterpart of JAX
-differentiating that kernel in training; ``FlashAttentionFn`` joins the two
-for autograd.  The source notes give the bounds and the designs.
+differentiating that kernel in training: bfloat16 runs ``dkdv_wgmma_kernel``
+and ``dq_wgmma_kernel`` on the tensor cores, float32 ``dkdv_kernel`` and
+``dq_kernel`` on the CUDA cores.  ``FlashAttentionFn`` joins the two for
+autograd.  The source notes give the bounds and the designs.
 """
 from __future__ import annotations
 
@@ -96,6 +98,6 @@ class FlashAttentionFn(torch.autograd.Function):
                 None, None, None)
 
 
-# every launch, and those that took a tensor-core kernel (the backward: none)
+# every launch, and those that took a tensor-core kernel (bf16 forward and backward)
 flash_attention_cuda.launches = flash_attention_cuda.wgmma_launches = 0
 flash_attention_bwd_cuda.launches = flash_attention_bwd_cuda.wgmma_launches = 0
