@@ -84,7 +84,20 @@ Phases, each fatal on failure:
      token; and mixtral-8x7b at full width and 16 of its 32 layers at
      max_len 8192 (8 prompts of 4500-6000 tokens wrap the ring), graphed,
      with the same numbers and a profiled burst;
- 11. the serving front door at full width on the dense serve's weights:
+ 11. the encoder-decoder and the vision-prefix model: hold K1 not causal
+     (cross attention, bf16 and fp32) at seamless-m4t-large-v2's heads (H =
+     K = 16, D = 64) over 1,024 memory slots for T = 1, 5 and 300, rows that
+     see 1,024 down to 0 slots, the slots past each row's memory poisoned;
+     K2 not causal (the encoder) at 1,024 and 100 frames; K1-K3 at
+     internvl2-1b's G = 7 (``head_checks``); time each call of both models'
+     runs; check each model at full width and 2 layers (seamless also 2
+     encoder layers) on the card against the CPU (fp32); run each at full
+     width and depth in bf16 through ``build_model`` (4 rows of 1,024 stub
+     frames and 64-token prompts, or of 256 stub patches and 256-token
+     prompts; a prefill and 32 greedy tokens), counting K1 and K2 calls by
+     mask per prefill and per step, with a rollback check; and check that
+     cross attention under autograd raises on the card;
+ 12. the serving front door at full width on the dense serve's weights:
      ``StreamServe`` behind ``GatewayThread`` (trace on, warmed up): an
      idle-gateway request against the same prompt served in process, a wave
      of 24 concurrent SSE streams (client TTFT/TPOT, ms per engine step), a
@@ -93,7 +106,7 @@ Phases, each fatal on failure:
      with StreamTrace off and on (equal tokens and launches, bookkeeping ms
      a step each); then ``python -m repro_torch.launch.serve --no-reduced
      --warmup`` with a cancel, a worker failure and a Chrome trace;
- 12. training, qwen3-1.7b: hold K2's backward (``flash_attention_bwd.cu``)
+ 13. training, qwen3-1.7b: hold K2's backward (``flash_attention_bwd.cu``)
      against the plain version's autograd (dq, dk, dv; bf16 and fp32 at the
      training shape B=4 S=2048 H=16 K=8 D=128, a ragged S = 1000, G = 1 at
      H = K = 32, a window of 512, head_dim 64, and S = 1000 under a window of
@@ -114,7 +127,7 @@ Phases, each fatal on failure:
      step, MFU, peak memory, a profiled step split by kernel group); and a
      2-layer full-width run with ``--fail-at 6`` whose final loss equals the
      uninterrupted run's, bit for bit;
- 13. print the kernel table as one JSON line, then the result line.
+ 14. print the kernel table as one JSON line, then the result line.
 Every serve of phases 4-8, and phase 9's qwen2.5-14b serve, runs twice on
 the same weights (phase 9 profiles only graphed serves and runs its other
 serves graphed only): eager (its lanes'
@@ -306,10 +319,10 @@ def decode_case(g, B, T, S, H, K, D, dt, fill, poison=True, ring=False):
     return q, k, v, clen, pos
 
 
-def decode_cost(q, k, clen, pos, window=None):
+def decode_cost(q, k, clen, pos, window=None, causal=True):
     """(bytes, ops) the function needs for these inputs: q, out, kv_pos and
     cache_len once, plus K and V of every slot some query row can see (inside
-    its window, with one)."""
+    its window, with one; every valid slot, not causal)."""
     import torch
 
     B, T, H, D = q.shape
@@ -318,7 +331,7 @@ def decode_cost(q, k, clen, pos, window=None):
     nbytes = 2 * q.numel() * esz + pos.numel() * 4 + clen.numel() * 4
     q_pos = clen[:, None].long() - T + torch.arange(T, device=pos.device)[None]  # (B, T)
     p = pos[:, None, :].long()
-    vis = (p >= 0) & (p <= q_pos[:, :, None])
+    vis = (p >= 0) & ((p <= q_pos[:, :, None]) | (not causal))
     if window is not None:
         vis &= p > q_pos[:, :, None] - window
     nbytes += int(vis.any(1).sum()) * 2 * K * D * esz
@@ -354,15 +367,15 @@ def sdpa(q, k, v, **kw):
             q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1), **kw)
 
 
-def sdpa_decode(q, k, v, clen, pos, window=None):
+def sdpa_decode(q, k, v, clen, pos, window=None, causal=True):
     """The library yardstick for decode on the same inputs (layout changes
-    and the mask are made before timing)."""
+    and the mask are made before timing; not causal, a key-length mask)."""
     import torch
 
     T = q.shape[1]
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     q_pos = clen[:, None].long() - T + torch.arange(T, device=q.device)[None]
-    mask = (pos[:, None, :] >= 0) & (pos[:, None, :].long() <= q_pos[:, :, None])
+    mask = (pos[:, None, :] >= 0) & ((pos[:, None, :].long() <= q_pos[:, :, None]) | (not causal))
     if window is not None:
         mask &= pos[:, None, :].long() > q_pos[:, :, None] - window
     mask = mask[:, None]
@@ -452,39 +465,44 @@ def kernel_phase(report: dict) -> dict:
     return out
 
 
-def decode_timing(g, B: int, T: int, S: int, H: int, K: int, D: int, window=None) -> dict:
+def decode_timing(g, B: int, T: int, S: int, H: int, K: int, D: int, window=None,
+                  causal=True) -> dict:
     """K1 (bf16) on a full cache at (B, T, S, H, K, D), on copies rotated past
     the L2: checked against its plain version, then kernel, plain version and
-    SDPA timed, and the bound of this input."""
+    SDPA timed, and the bound of this input.  Not ``causal``: cross
+    attention over S memory slots, all valid."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
 
     sets = copies(lambda: decode_case(g, B, T, S, H, K, D, "bfloat16", [S - T] * B,
                                       poison=False), 2 * B * S * K * D * 2)
     q, k, v, clen, pos = sets[0]
-    nbytes, ops = decode_cost(q, k, clen, pos, window)
-    e = check(f"decode timing set B={B} T={T} H={H} K={K} D={D}", decode_attention_cuda(
-        q, k, v, clen, kv_positions=pos, window=window),
-        ref.decode_attention(q, k, v, clen, kv_positions=pos, window=window), "bfloat16")
-    lib = [sdpa_decode(*s, window=window) for s in sets]
+    nbytes, ops = decode_cost(q, k, clen, pos, window, causal)
+    kw = {"window": window, "causal": causal}
+    e = check(f"decode timing set B={B} T={T} H={H} K={K} D={D} causal={causal}",
+              decode_attention_cuda(q, k, v, clen, kv_positions=pos, **kw),
+              ref.decode_attention(q, k, v, clen, kv_positions=pos, **kw), "bfloat16")
+    lib = [sdpa_decode(*s, **kw) for s in sets]
     return {
         "shape": f"B={B} T={T} S={S} H={H} K={K} D={D} bf16"
-                 + ("" if window is None else f" window={window}"),
+                 + ("" if window is None else f" window={window}")
+                 + ("" if causal else " not causal"),
         "ms": timed(lambda i: decode_attention_cuda(*sets[i % len(sets)][:4],
                                                     kv_positions=sets[i % len(sets)][4],
-                                                    window=window), 200),
+                                                    **kw), 200),
         "plain_ms": timed(lambda i: ref.decode_attention(
-            *sets[i % len(sets)][:4], kv_positions=sets[i % len(sets)][4], window=window), 20),
+            *sets[i % len(sets)][:4], kv_positions=sets[i % len(sets)][4], **kw), 20),
         "library_ms": timed(lambda i: lib[i % len(lib)](), 50),
         "bound": bound_ms(nbytes, ops, "bfloat16"), "err": e,
     }
 
 
-def flash_timing(g, B: int, Sq: int, H: int, K: int, D: int, window=None) -> dict:
-    """K2 (bf16, causal, with an optional window) at (B, Sq, H, K, D) on copies
-    rotated past the L2: checked against its plain version, then kernel,
-    plain version and SDPA timed (with a window, SDPA takes the mask, made
-    before timing), and the bound."""
+def flash_timing(g, B: int, Sq: int, H: int, K: int, D: int, window=None,
+                 causal=True) -> dict:
+    """K2 (bf16, causal with an optional window, or not causal) at (B, Sq, H,
+    K, D) on copies rotated past the L2: checked against its plain version,
+    then kernel, plain version and SDPA timed (with a window, SDPA takes the
+    mask, made before timing), and the bound."""
     import torch
 
     from repro_torch.kernels import ref
@@ -493,21 +511,21 @@ def flash_timing(g, B: int, Sq: int, H: int, K: int, D: int, window=None) -> dic
     fsets = copies(lambda: tuple(torch.randn(B, Sq, h, D, generator=g, device="cuda")
                                  .to(torch.bfloat16) for h in (H, K, K)),
                    2 * B * Sq * (H + 2 * K) * D)
-    nbytes, ops = flash_cost(fsets[0][0], fsets[0][1], window=window)
-    e = check(f"flash timing set B={B} S={Sq} H={H} K={K} D={D} window={window}",
-              flash_attention_cuda(*fsets[0], window=window),
-              ref.flash_attention(*fsets[0], window=window), "bfloat16")
+    nbytes, ops = flash_cost(fsets[0][0], fsets[0][1], causal, window=window)
+    fkw = {"window": window, "causal": causal}
+    e = check(f"flash timing set B={B} S={Sq} H={H} K={K} D={D} {fkw}",
+              flash_attention_cuda(*fsets[0], **fkw), ref.flash_attention(*fsets[0], **fkw),
+              "bfloat16")
     tsets = [tuple(x.transpose(1, 2).contiguous() for x in s) for s in fsets]
-    kw = {"is_causal": True}
+    kw = {"is_causal": causal}
     if window is not None:
         i = torch.arange(Sq, device="cuda")
         kw = {"attn_mask": (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)}
     return {
-        "shape": f"B={B} Sq=Sk={Sq} H={H} K={K} D={D} causal bf16"
-                 + ("" if window is None else f" window={window}"),
-        "ms": timed(lambda i: flash_attention_cuda(*fsets[i % len(fsets)], window=window), 50),
-        "plain_ms": timed(lambda i: ref.flash_attention(*fsets[i % len(fsets)], window=window),
-                          10),
+        "shape": f"B={B} Sq=Sk={Sq} H={H} K={K} D={D} {'causal' if causal else 'not causal'} "
+                 "bf16" + ("" if window is None else f" window={window}"),
+        "ms": timed(lambda i: flash_attention_cuda(*fsets[i % len(fsets)], **fkw), 50),
+        "plain_ms": timed(lambda i: ref.flash_attention(*fsets[i % len(fsets)], **fkw), 10),
         "library_ms": timed(lambda i: sdpa(*tsets[i % len(tsets)], **kw), 50),
         "bound": bound_ms(nbytes, ops, "bfloat16"), "err": e,
     }
@@ -2221,6 +2239,359 @@ def moe_phase(report: dict) -> tuple:
     return launches, mixtral_launches
 
 
+# ------------------------------------------- encoder-decoder and vision prefix
+
+ENCDEC_HEADS = {"seamless-m4t-large-v2": (16, 16, 64), "internvl2-1b": (14, 2, 64)}
+SEAMLESS_FRAMES, SEAMLESS_PROMPT, SEAMLESS_MAX_LEN = 1024, 64, 512
+INTERNVL_PATCHES, INTERNVL_PROMPT, INTERNVL_MAX_LEN = 256, 256, 1024
+ENCDEC_B, ENCDEC_NEW_TOKENS = 4, 32
+# memory lengths of the K1 cross checks: full, ragged, one, none
+MEM_LENS = [1024, 1000, 513, 64, 1, 0, 700, 257]
+
+
+def encdec_kernel_phase(report: dict) -> dict:
+    """K1 and K2 as the encoder-decoder and the vision-prefix model call them:
+    K1 not causal (cross attention; bf16 and fp32) at seamless's heads (B=8,
+    H = K = 16, D = 64) over 1,024 memory slots for T = 1, 5 and 300, rows
+    whose memory holds 1,024 down to 0 valid slots, the K/V past each row's
+    length poisoned (an unmasked slot would show); K2 not causal (the
+    encoder; bf16 and fp32) at B=2 over 1,024 and a ragged 100 frames; then
+    K1-K3 at internvl2's G = 7, D = 64 (``head_checks``).  Each serve shape
+    timed (kernel, plain version, SDPA, bound).  Every bf16 call on the
+    tensor-core kernel, every fp32 call on the CUDA-core one."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda as k1
+    from repro_torch.kernels.decode_attention import dense_positions
+    from repro_torch.kernels.flash_attention import flash_attention_cuda as k2
+
+    g = torch.Generator(device="cuda").manual_seed(25)
+    err, lines = {}, []
+    H, K, D = ENCDEC_HEADS["seamless-m4t-large-v2"]
+    S = SEAMLESS_FRAMES
+    mem_len = torch.tensor(MEM_LENS, dtype=torch.int32, device="cuda")
+    pos = dense_positions(mem_len, S)
+    for T in (1, 5, 300):
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            q = torch.randn(8, T, H, D, generator=g, device="cuda").to(dtype)
+            k, v = (torch.randn(8, S, K, D, generator=g, device="cuda").to(dtype)
+                    for _ in range(2))
+            for b, n in enumerate(MEM_LENS):  # past the memory: poison
+                k[b, n:], v[b, n:] = 60.0, -60.0
+            before = k1.wgmma_launches
+            got = k1(q, k, v, mem_len, kv_positions=pos, causal=False)
+            if k1.wgmma_launches - before != int(dt == "bfloat16"):
+                fail(f"cross decode_attention T={T} {dt}: took the wrong kernel")
+            e = check(f"cross decode_attention T={T} {dt}", got,
+                      ref.decode_attention(q, k, v, mem_len, kv_positions=pos, causal=False), dt)
+            if dt == "bfloat16":
+                err["decode_attention"] = max(err.get("decode_attention", 0.0), e)
+            lines.append(f"decode_attention not causal B=8 T={T} S={S} H={H} K={K} D={D} {dt} "
+                         f"mem_len {MEM_LENS}: max_abs_err={e:.3g}")
+    for B, Sq, dt in ((2, 1024, "bfloat16"), (2, 100, "bfloat16"), (2, 1024, "float32"),
+                      (2, 100, "float32")):
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn(B, Sq, n, D, generator=g, device="cuda").to(dtype)
+                   for n in (H, K, K))
+        before = k2.wgmma_launches
+        got = k2(q, k, v, causal=False)
+        if k2.wgmma_launches - before != int(dt == "bfloat16"):
+            fail(f"encoder flash_attention S={Sq} {dt}: took the wrong kernel")
+        e = check(f"encoder flash_attention S={Sq} {dt}", got,
+                  ref.flash_attention(q, k, v, causal=False), dt)
+        if dt == "bfloat16":
+            err["flash_attention"] = max(err.get("flash_attention", 0.0), e)
+        lines.append(f"flash_attention not causal B={B} S={Sq} H={H} K={K} D={D} {dt}: "
+                     f"max_abs_err={e:.3g}")
+    for line in lines:
+        print(line)
+    head_checks(g, {"internvl2-1b": ENCDEC_HEADS["internvl2-1b"]}, err, lines)
+
+    # ---- timing at the serves' shapes: seamless's encoder, decoder prefill
+    # and its cross call, a decode step's self and cross calls; internvl2's
+    # prefill (256 patches + 256 tokens) and decode step
+    B, F, P = ENCDEC_B, SEAMLESS_FRAMES, SEAMLESS_PROMPT
+    out = {"flash_attention (seamless encoder)": flash_timing(g, B, F, H, K, D, causal=False),
+           "flash_attention (seamless decoder prefill)": flash_timing(g, B, P, H, K, D),
+           "decode_attention (seamless cross prefill)": decode_timing(g, B, P, F, H, K, D,
+                                                                      causal=False),
+           "decode_attention (seamless cross decode)": decode_timing(g, B, 1, F, H, K, D,
+                                                                     causal=False),
+           "decode_attention (seamless self decode)": decode_timing(g, B, 1, SEAMLESS_MAX_LEN,
+                                                                    H, K, D)}
+    H, K, D = ENCDEC_HEADS["internvl2-1b"]
+    out["flash_attention (internvl2 prefill)"] = flash_timing(
+        g, B, INTERNVL_PATCHES + INTERNVL_PROMPT, H, K, D)
+    out["decode_attention (internvl2 decode)"] = decode_timing(g, B, 1, INTERNVL_MAX_LEN, H, K, D)
+    for name, r in out.items():
+        r["max_abs_err"] = max(err[name.split()[0]], r.pop("err"))
+        show_timing(name, r)
+    report["encdec_kernel_checks"] = lines
+    return out
+
+
+@contextlib.contextmanager
+def calls_by_mask():
+    """Count the model's attention calls on the card by kernel and mask
+    (``decode_attention``/``flash_attention``, causal or not) while on."""
+    from repro_torch.kernels import ops
+
+    seen = {}
+    wrapped = {name: getattr(ops, name) for name in ("decode_attention", "flash_attention")}
+
+    def counting(name):
+        def call(*args, causal=True, **kw):
+            key = f"{name}.{'causal' if causal else 'not_causal'}"
+            seen[key] = seen.get(key, 0) + 1
+            return wrapped[name](*args, causal=causal, **kw)
+        return call
+
+    for name in wrapped:
+        setattr(ops, name, counting(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in wrapped.items():
+            setattr(ops, name, fn)
+
+
+def encdec_inputs(cfg, B, n_text, gen, device, n_front=None):
+    """A batch of seeded stub inputs: n_text tokens a row, and the
+    frontend's frames (encoder-decoder) or patches, n_front a row (default
+    ``cfg.frontend.n_tokens``), N(0, 1) in the model's dtype."""
+    import torch
+
+    n_front = n_front or cfg.frontend.n_tokens
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, n_text), generator=gen,
+                                     dtype=torch.int32)}
+    stub = torch.randn(B, n_front, cfg.d_model, generator=gen).to(getattr(torch, cfg.dtype))
+    batch["frames" if cfg.is_encdec else "patches"] = stub
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def encdec_model_phase(report: dict, arch: str) -> None:
+    """The model at full width and 2 layers (seamless also 2 encoder layers)
+    on the card against the same weights on the CPU, float32: a prefill (2
+    rows of 64 tokens behind 1,024 frames, or 256 patches), a 5-token verify,
+    a commit at per-row accept indices and a plain step.  Logits within
+    1e-3, kv_pos equal, the cross memory within 1e-3; every K1 and K2 launch
+    on the CUDA-core kernels."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32",
+                              n_encoder_layers=min(get_config(arch).n_encoder_layers, 2))
+    gpu, cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
+    params = gpu.init(1)
+    for layer in params["layers"]:  # the seeded init leaves QKV biases zero
+        for name in ("bq", "bk", "bv"):
+            if name in layer["attn"]:
+                layer["attn"][name].normal_(0.0, 0.5)
+    cpu_params = to_cpu(params)
+    gen = torch.Generator().manual_seed(5)
+    batch = encdec_inputs(cfg, 2, 64, gen, "cpu", SEAMLESS_FRAMES if cfg.is_encdec else None)
+    zero_counts()
+    lg, cg = gpu.prefill(params, {k: v.cuda() for k, v in batch.items()}, 512)
+    lc, cc = cpu.prefill(cpu_params, batch, 512)
+    errs = [max_err(lg.cpu(), lc)]
+    names = ("cross_k", "cross_v") if cfg.is_encdec else ()
+    errs += [max_err(cg[n].cpu(), cc[n]) for n in names]
+    for T, accept in ((5, torch.tensor([1, 4], dtype=torch.int32)), (1, None)):
+        step = torch.randint(0, cfg.vocab_size, (2, T), generator=gen, dtype=torch.int32)
+        errs.append(max_err(gpu.decode_step(params, cg, step.cuda()).cpu(),
+                            cpu.decode_step(cpu_params, cc, step)))
+        if not torch.equal(cg["kv_pos"].cpu(), cc["kv_pos"]):
+            fail(f"{arch} model check: kv_pos differs between the card and the CPU")
+        if accept is not None:
+            gpu.commit_cache(cg, cg["len"] - T, accept.cuda())
+            cpu.commit_cache(cc, cc["len"] - T, accept)
+    launches = read_counts()
+    tag = f"{arch} model check"
+    print(f"{tag} (full width, 2 layers{', 2 encoder layers' if cfg.is_encdec else ''}, fp32, "
+          f"card vs CPU): max_abs_err={max(errs):.3g}; launches {launches}")
+    for name in ("decode_attention", "flash_attention"):
+        no_wgmma(launches, name, tag)
+    if max(errs) > 1e-3:
+        fail(f"{tag}: logits or cross memory differ by {max(errs):.3g} > 1e-3")
+    report[f"{arch}_model_check_max_abs_err"] = max(errs)
+
+
+def device_busy_ms(fn) -> float:
+    """Device time (kernels and copies, from the profiler's raw records) of
+    one call of fn, synchronised."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+
+
+def greedy(model, params, cache, logits, n):
+    """n greedy tokens a row from the prefill's last logits (B, V), one
+    decode step each; returns the (B, n) tokens and the mean ms a step."""
+    import torch
+
+    tok, out = logits.argmax(-1).to(torch.int32), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out.append(tok)
+        tok = model.decode_step(params, cache, tok[:, None])[:, 0].argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    return torch.stack(out, 1), (time.perf_counter() - t0) / n * 1e3
+
+
+def encdec_phase(report: dict, arch: str) -> dict:
+    """The model at full width and depth in bf16 on the card, through
+    ``build_model`` (no engine serves it: no request carries frames or
+    patches): 4 rows of seeded stub frames (seamless: 1,024 a row, 64-token
+    prompts) or patches (internvl2: 256 a row, 256-token prompts), a
+    prefill and 32 greedy tokens.  K1 and K2 launches per prefill and per
+    decode step, split by mask (seamless: 24 + 24 K2 and 24 cross K1 a
+    prefill, 24 self + 24 cross K1 a step), every one on the tensor-core
+    kernels; tokens in the vocabulary and finite logits; ms per prefill and
+    per step (host clock), and the device time of one more of each under the
+    profiler (their busy share), the encoder's part of seamless's prefill;
+    peak memory.  Then
+    the rollback check: a 5-token verify committed to k = 2 and a probe step
+    against a second copy of the prefill's cache that decodes only the first
+    k + 1 tokens before the same probe: logits within 2e-2.  Returns the
+    launches of the prefill and of the 32 steps."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    L = cfg.n_layers
+    model = build_model(cfg, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(7)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    seamless = cfg.is_encdec
+    n_text, max_len = ((SEAMLESS_PROMPT, SEAMLESS_MAX_LEN) if seamless
+                       else (INTERNVL_PROMPT, INTERNVL_MAX_LEN))
+    batch = encdec_inputs(cfg, ENCDEC_B, n_text, torch.Generator().manual_seed(6), "cuda",
+                          SEAMLESS_FRAMES if seamless else INTERNVL_PATCHES)
+    with torch.no_grad():
+        model.prefill(params, batch, max_len)  # warm: cuBLAS handles, kernels loaded
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with calls_by_mask() as pre_calls:
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, batch, max_len)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        pre = read_counts()
+        enc_ms = None
+        if seamless:
+            t0 = time.perf_counter()
+            model._encode(params, batch["frames"])
+            torch.cuda.synchronize()
+            enc_ms = (time.perf_counter() - t0) * 1e3
+        saved = {name: t.clone() for name, t in cache.items()}
+        zero_counts()
+        with calls_by_mask() as step_calls:
+            tokens, step_ms = greedy(model, params, cache, logits, ENCDEC_NEW_TOKENS)
+        steps = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        dev = {"prefill": device_busy_ms(lambda: model.prefill(params, batch, max_len)),
+               "step": device_busy_ms(lambda: model.decode_step(params, cache, tokens[:, -1:]))}
+        if seamless:
+            dev["encoder"] = device_busy_ms(lambda: model._encode(params, batch["frames"]))
+        # rollback: verify 5, keep k + 1, probe; against decoding only k + 1
+        k, gen = 2, torch.Generator().manual_seed(8)
+        toks = torch.randint(0, cfg.vocab_size, (ENCDEC_B, 6), generator=gen,
+                             dtype=torch.int32).cuda()
+        a, b = saved, {name: t.clone() for name, t in saved.items()}
+        model.decode_step(params, a, toks[:, :5])
+        model.commit_cache(a, a["len"] - 5, torch.full((ENCDEC_B,), k, dtype=torch.int32,
+                                                        device="cuda"))
+        model.decode_step(params, b, toks[:, :k + 1])
+        rollback = max_err(model.decode_step(params, a, toks[:, 5:]),
+                           model.decode_step(params, b, toks[:, 5:]))
+    tag = f"{arch} (full width, {L} layers" + (f" + {cfg.n_encoder_layers} encoder layers"
+                                               if seamless else "") + ", bf16)"
+    want_pre = {"flash_attention.causal": L} | (
+        {"flash_attention.not_causal": cfg.n_encoder_layers, "decode_attention.not_causal": L}
+        if seamless else {})
+    want_step = {"decode_attention.causal": L} | (
+        {"decode_attention.not_causal": L} if seamless else {})
+    want_step = {key: n * ENCDEC_NEW_TOKENS for key, n in want_step.items()}
+    if pre_calls != want_pre or step_calls != want_step:
+        fail(f"{tag}: attention calls {pre_calls} a prefill (want {want_pre}), {step_calls} in "
+             f"{ENCDEC_NEW_TOKENS} steps (want {want_step})")
+    for launches, when in ((pre, "prefill"), (steps, "decode")):
+        wgmma_only(launches, f"{tag} {when}", "flash_attention", "decode_attention")
+        for name in ("flash_attention", "decode_attention"):
+            if launches[name] != sum(n for key, n in (pre_calls if when == "prefill"
+                                                      else step_calls).items()
+                                     if key.startswith(name)):
+                fail(f"{tag} {when}: {launches[name]} {name} launches")
+    if not bool(torch.isfinite(logits).all()) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        fail(f"{tag}: non-finite logits or a token outside the vocabulary")
+    if rollback > 2e-2:
+        fail(f"{tag}: a verify committed to k = {k} differs from decoding k + 1 tokens "
+             f"by {rollback:.3g} > 2e-2")
+    result = {"init_s": init_s, "prefill_ms": prefill_ms, "encoder_ms": enc_ms,
+              "step_ms": step_ms, "device_ms": dev, "step_busy_share": dev["step"] / step_ms,
+              "prefill_busy_share": dev["prefill"] / prefill_ms, "peak_gb": peak,
+              "rollback_max_abs_err": rollback,
+              "calls_per_prefill": pre_calls,
+              "calls_per_step": {key: n // ENCDEC_NEW_TOKENS for key, n in step_calls.items()},
+              "n_params": cfg.n_params(), "rows": ENCDEC_B, "prompt": n_text,
+              "frontend_tokens": batch.get("frames", batch.get("patches")).shape[1],
+              "new_tokens": ENCDEC_NEW_TOKENS, "max_len": max_len,
+              "tokens": tokens.tolist()}
+    report[f"{arch}_run"] = result
+    print(f"{tag}: {ENCDEC_B} rows x ({result['frontend_tokens']} "
+          f"{'frames' if seamless else 'patches'} + {n_text} tokens), init {init_s:.2f} s; "
+          f"prefill {prefill_ms:.2f} ms" + (f" (the encoder alone {enc_ms:.2f} ms)" if seamless
+                                            else "")
+          + f", {ENCDEC_NEW_TOKENS} greedy steps {step_ms:.2f} ms each; device time a prefill "
+          f"{dev['prefill']:.2f} ms ({result['prefill_busy_share']:.1%} busy"
+          + (f"; the encoder {dev['encoder']:.2f} ms, {dev['encoder'] / dev['prefill']:.1%} of "
+             "it" if seamless else "")
+          + f"), a step {dev['step']:.2f} ms ({result['step_busy_share']:.1%} busy); attention "
+          f"calls a prefill {pre_calls}, a step {result['calls_per_step']}; peak {peak:.2f} GB; "
+          f"rollback max_abs_err={rollback:.3g}")
+    return {"prefill": pre, "decode": steps, "pre_calls": pre_calls, "step_calls": step_calls}
+
+
+def cross_grad_refused() -> None:
+    """Cross attention on CUDA tensors under autograd raises (K1 has no
+    backward) and launches nothing."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    q = torch.zeros(1, 2, 16, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    k = torch.zeros(1, 64, 16, 64, device="cuda", dtype=torch.bfloat16)
+    zero_counts()
+    try:
+        ops.decode_attention(q, k, k, torch.full((1,), 64, dtype=torch.int32, device="cuda"),
+                             causal=False)
+        fail("cross attention under autograd on the card did not raise")
+    except NotImplementedError as e:
+        if read_counts()["decode_attention"]:
+            fail("a refused cross-attention call launched K1")
+        print(f"cross attention under autograd refused on the card: {e}")
+
+
 # --------------------------------------------------------------- SSM (mamba2)
 
 SSD_CHECKS = [  # B, S, H, P, G, N, dtype, initial state
@@ -3224,6 +3595,18 @@ def main() -> None:
         release()
     qmoe_launches, mixtral_launches = moe_phase(report)
     stamp("MoE models")
+    encdec_timing = encdec_kernel_phase(report)
+    release()
+    for arch in ENCDEC_HEADS:
+        encdec_model_phase(report, arch)
+        release()
+    encdec = {}
+    for arch in ENCDEC_HEADS:
+        encdec[arch] = encdec_phase(report, arch)
+        release()
+    cross_grad_refused()
+    release()
+    stamp("encoder-decoder and vision-prefix models")
     params = to_cpu(dense_weights, "cuda")
     del dense_weights
     gateway_phase(params, report)
@@ -3304,6 +3687,23 @@ def main() -> None:
                     ("flash_attention (mixtral)", mixtral_launches["flash_attention"])):
         kernel = "decode_wgmma_kernel" if name.startswith("decode") else "flash_wgmma_kernel"
         kernels.append(entry(name, kernel, moe_timing[name], n))
+    # the encoder-decoder and the vision-prefix model: each call's launches
+    # from its full-depth run (a prefill, then 32 decode steps), by mask
+    sm, iv = encdec["seamless-m4t-large-v2"], encdec["internvl2-1b"]
+    for name, n in (
+            ("flash_attention (seamless encoder)", sm["pre_calls"]["flash_attention.not_causal"]),
+            ("flash_attention (seamless decoder prefill)",
+             sm["pre_calls"]["flash_attention.causal"]),
+            ("decode_attention (seamless cross prefill)",
+             sm["pre_calls"]["decode_attention.not_causal"]),
+            ("decode_attention (seamless cross decode)",
+             sm["step_calls"]["decode_attention.not_causal"]),
+            ("decode_attention (seamless self decode)",
+             sm["step_calls"]["decode_attention.causal"]),
+            ("flash_attention (internvl2 prefill)", iv["pre_calls"]["flash_attention.causal"]),
+            ("decode_attention (internvl2 decode)", iv["step_calls"]["decode_attention.causal"])):
+        kernel = "decode_wgmma_kernel" if name.startswith("decode") else "flash_wgmma_kernel"
+        kernels.append(entry(name, kernel, encdec_timing[name], n))
     # training: K2 backward and forward (with lse) launches from the full-depth run
     kernels += [entry("flash_attention_bwd (qwen3 training)", "dkdv_wgmma_kernel, dq_wgmma_kernel",
                       train_timing["bwd"], train_launches["flash_attention_bwd"]),

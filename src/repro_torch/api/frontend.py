@@ -133,13 +133,14 @@ class StreamServe:
 
     def __init__(self, config=None, *, params=None, draft_params=None,
                  arch_cfg=None, device=None, **overrides):
-        from repro_torch.core.engine import PipeServeEngine, resolve_device
+        from repro_torch.core.engine import PipeServeEngine, check_servable, resolve_device
         from repro_torch.models import build_model
 
         config = config or ServeConfig()
         self.config = config = config.replace(**overrides) if overrides else config
         self.device = resolve_device(device)
         self.arch = arch_cfg if arch_cfg is not None else config.build_arch_config()
+        check_servable(self.arch)  # before any weights are made
         if params is None:  # no checkpoint: seeded random weights on the device
             params = build_model(self.arch, self.device).init(config.seed)
         draft_cfg = None

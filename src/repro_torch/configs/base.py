@@ -1,15 +1,15 @@
-"""Architecture configuration (the dense, MoE and SSM parts of ``repro.configs.base``).
+"""Architecture configuration (a port of ``repro.configs.base`` without its
+dry-run shapes).
 
 Every architecture is an :class:`ArchConfig`: pure frozen data with the same
-fields and defaults as the reference.  The port serves dense attention+MLP
-decoders, mixture-of-experts decoders and Mamba2 (SSD) stacks; the
-``frontend`` field stays so that a config naming it is refused by name
-(``models.transformer.check_supported``) rather than misread.
+fields and defaults as the reference: dense attention+MLP decoders,
+mixture-of-experts decoders, Mamba2 (SSD) stacks, a decoder behind a vision
+frontend stub and an encoder-decoder behind an audio frontend stub.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +45,16 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class FrontendConfig:
+    """Modality frontend STUB: the caller gives ``n_tokens`` precomputed
+    embeddings a row, already projected to ``d_model`` (vision: patches
+    prepended to the text; audio: the encoder's frames)."""
+
+    kind: str  # "vision" | "audio"
+    n_tokens: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str  # dense | ssm | moe | hybrid | vlm | audio
@@ -63,7 +73,7 @@ class ArchConfig:
     mlp_type: str = "swiglu"  # swiglu | gelu
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    frontend: Optional[Any] = None
+    frontend: Optional[FrontendConfig] = None
     n_encoder_layers: int = 0
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
@@ -120,9 +130,10 @@ class ArchConfig:
         return tuple(i % n == n - 1 for i in range(self.n_layers))
 
     def _count_params(self, active_only):
-        """``repro``'s ``_count_params`` for a decoder-only stack: embedding,
-        attention or SSM mixer, MLP (MoE: the router and the experts, only
-        ``top_k`` of them when ``active_only``) and norms."""
+        """``repro``'s ``_count_params``: embedding, attention or SSM mixer,
+        MLP (MoE: the router and the experts, only ``top_k`` of them when
+        ``active_only``) and norms; an encoder-decoder adds its encoder
+        layers and each decoder layer's cross attention and its norm."""
         d, hd = self.d_model, self.head_dim
         attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
         ssm = 0
@@ -140,6 +151,9 @@ class ArchConfig:
                 total += d * m.n_experts  # router
             else:
                 total += per_ff * self.d_ff
+        if self.is_encdec:
+            total += self.n_encoder_layers * (attn + per_ff * self.d_ff + 2 * d)
+            total += self.n_layers * (attn + d)
         return total
 
     def n_params(self):

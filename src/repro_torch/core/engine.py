@@ -53,7 +53,7 @@ from repro_torch.core import graphs
 from repro_torch.core.metrics import PerformanceMonitor, RequestRecord
 from repro_torch.core.scheduler import StreamScheduler, edf_deadline
 from repro_torch.core.specustream import VERIFY_BUCKETS, SlotSignals, pad_to_bucket
-from repro_torch.models import build_model
+from repro_torch.models.model import build_model, resolve_device
 from repro_torch.models.attention import SPEC_MARGIN, cache_capacity
 from repro_torch.obs.export import chrome_trace, engine_registry, save_chrome_trace
 from repro_torch.obs.spans import request_phases
@@ -68,16 +68,6 @@ from repro_torch.serving.kv_cache import KVCacheManager
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import sample, sample_probs
 from repro_torch.serving.speculative import verify_tokens
-
-
-def resolve_device(device=None):
-    """``None`` means the card.  Without CUDA that raises: the CPU is chosen
-    explicitly (``device="cpu"``), never fallen back to."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available on this machine; pass "
-                           "device='cpu' to run the port on the CPU")
-    return dev
 
 
 def _terminal_record(req, now, kv_evicted=False,
@@ -105,6 +95,17 @@ def _restart(req):
     req.spec_depths.clear()
     req.prefill_active_ticks = 0
     req.state = RequestState.QUEUED
+
+
+def check_servable(cfg):
+    """Refuse, by name, a model whose prefill needs more than tokens: an
+    encoder-decoder (frames) or a vision frontend (patches).  No request
+    carries either, as in the reference, whose engine would fail at the
+    first admission; ``build_model`` runs both."""
+    if cfg.is_encdec or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the engine serves token prompts, and no request carries frames or "
+            "patches; drive it through build_model (ROADMAP M9, §1 item 3.5)")
 
 
 def attention_only(cfg):
@@ -1054,6 +1055,7 @@ class PipeServeEngine:
     def __init__(self, cfg, params, n_pairs=2,
                  econf=None, router=None, draft_cfg=None, draft_params=None, device=None,
                  hardware=H100_SXM):
+        check_servable(cfg)
         self.device = resolve_device(device)
         self.econf = econf = econf or EngineConfig()
         if econf.paged_kv:  # the reference's paged gating (write-once pages: no window)

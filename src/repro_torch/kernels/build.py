@@ -102,12 +102,13 @@ def route(name, dtype):
     return load(name, [ctypes.c_int], f"{name}_route")(dtype)
 
 
-def launch(wrapper, name, argtypes, dtype, stream, *args):
-    """Call the C entry point of ``csrc/<name>.cu`` on ``args``, the dtype
-    code and the stream; raise if it returns a CUDA error, else count the
-    launch on ``wrapper`` (``launches``, and ``wgmma_launches`` where the
-    dtype goes to the bf16 tensor-core kernel)."""
-    err = load(name, argtypes)(*args, dtype, stream)
+def launch(wrapper, name, argtypes, dtype, stream, *args, symbol=None):
+    """Call the C entry point ``symbol`` (default ``name``) of
+    ``csrc/<name>.cu`` on ``args``, the dtype code and the stream; raise if
+    it returns a CUDA error, else count the launch on ``wrapper``
+    (``launches``, and ``wgmma_launches`` where the dtype goes to the bf16
+    tensor-core kernel)."""
+    err = load(name, argtypes, symbol)(*args, dtype, stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1

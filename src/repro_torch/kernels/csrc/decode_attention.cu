@@ -10,6 +10,13 @@
 // Masked scores are -1e30 (not -inf): a fully masked row averages V over all
 // S slots and stays finite, like the plain version.
 //
+// Not causal (causal = 0: an encoder-decoder's cross attention, which the
+// reference sends to its plain version, src/repro/kernels/ops.py:68): slot j
+// is visible iff kv_pos[j] >= 0, to every query row; no window.  The memory
+// comes from the encoder, so cache_len is its valid length and q_pos (which
+// goes negative when T passes it, as in a prefill's cross call) is never read.
+// A row with no valid slot gets the mean of V over all S, as above.
+//
 // Bound on this card: bytes.  Each launch must read the K and V cache once
 // (main path, B=8 T=5 S=512, 8 KV heads of 128, bf16: 2 * 8 * 512 * 8 * 128
 // * 2 B = 16.8 MB), 5.0 us at 3.35 TB/s, against ~0.2 GFLOP of products.
@@ -80,7 +87,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS) decode_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ cache_len, const int* __restrict__ kv_pos,
-    float* __restrict__ out, int n_tok, int H, int K, int S, int window, float scale) {
+    float* __restrict__ out, int n_tok, int H, int K, int S, int window, int causal,
+    float scale) {
   const int kh = blockIdx.x, b = blockIdx.y;
   const int G = H / K, r0 = blockIdx.z * QT, nr = min(QT, n_tok * G - r0);
   extern __shared__ float smem[];
@@ -130,7 +138,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(
 #pragma unroll 16
       for (int d = 0; d < D; ++d) dot += qr[d] * kj[d];
       const int p = spos[j], q_pos = clen - n_tok + (r0 + r) / G;
-      const bool ok = p >= 0 && p <= q_pos && (window < 0 || p > q_pos - window);
+      const bool ok = p >= 0 && (!causal || (p <= q_pos && (window < 0 || p > q_pos - window)));
       // slots past S do not exist at all (-inf); masked slots are -1e30
       ss[i] = s0 + j >= S ? -INFINITY : (ok ? dot : NEG_INF);
     }
@@ -179,7 +187,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(
 template <int D>
 int launch(const void* q, const void* k, const void* v, const int* cache_len,
            const int* kv_pos, void* out, int B, int n_tok, int H, int K, int S,
-           int window, float scale, cudaStream_t stream) {
+           int window, int causal, float scale, cudaStream_t stream) {
   const int TG = n_tok * (H / K), QR = TG < QT ? TG : QT;  // rows of the largest tile
   const size_t smem = sizeof(float) * (2 * QR * D + BK * (D + 1) + BK * D + QR * BK + 3 * QR)
                       + sizeof(int) * BK;
@@ -191,13 +199,16 @@ int launch(const void* q, const void* k, const void* v, const int* cache_len,
   }
   kern<<<dim3(K, B, (TG + QT - 1) / QT), THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      cache_len, kv_pos, static_cast<float*>(out), n_tok, H, K, S, window, scale);
+      cache_len, kv_pos, static_cast<float*>(out), n_tok, H, K, S, window, causal, scale);
   return (int)cudaGetLastError();
 }
 
 // --------------------------------------------- bf16, wgmma, split-KV
 
-template <int D, int WGS>
+// CAUSAL is a template parameter, so the causal kernel is the one it was
+// before cross attention came: a runtime flag in the per-element mask made
+// every causal call slower (PERF.md §6, PR 25).
+template <int D, int WGS, bool CAUSAL>
 __global__ void __launch_bounds__(128 * WGS) decode_wgmma_kernel(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
     const __nv_bfloat16* __restrict__ q, const int* __restrict__ cache_len,
@@ -214,7 +225,7 @@ __global__ void __launch_bounds__(128 * WGS) decode_wgmma_kernel(
   const int kh = blockIdx.x / n_split, split = blockIdx.x % n_split, b = blockIdx.y;
   const int G = H / K, TG = n_tok * G;
   const int r0 = blockIdx.z * BQ * WGS, nr = min(BQ * WGS, TG - r0);
-  const int q0 = cache_len[b] - n_tok;  // position of token 0
+  const int q0 = cache_len[b] - n_tok;  // position of token 0 (read by a causal mask only)
   // a ring's slot order is not position order: a split walks every slot of
   // its static range of the S slots
   const int n_tiles = (S + BK - 1) / BK, span = split_span(n_tiles, n_split);
@@ -264,7 +275,7 @@ __global__ void __launch_bounds__(128 * WGS) decode_wgmma_kernel(
     t.step(sq + wg * TB, kv, kv + TB, scale_log2, [&](int h, int, int c, float x) {
       if (s0 + c >= S) return -INFINITY;  // slots past S do not exist
       const int p = spos[st * BK + c];
-      const bool ok = p >= 0 && p <= qp[h] && (window < 0 || p > qp[h] - window);
+      const bool ok = p >= 0 && (!CAUSAL || (p <= qp[h] && (window < 0 || p > qp[h] - window)));
       return ok ? x : NEG_INF;
     });
   }
@@ -280,23 +291,26 @@ __global__ void __launch_bounds__(128 * WGS) decode_wgmma_kernel(
 template <int D, int WGS>
 int launch_wgmma(const void* q, const void* k, const void* v, const int* cache_len,
                  const int* kv_pos, void* out, int B, int n_tok, int H, int K, int S,
-                 int window, float scale, cudaStream_t stream) {
+                 int window, int causal, float scale, cudaStream_t stream) {
   CUtensorMap kmap, vmap;
   if (!tile::kv_map<D>(&kmap, k, B, S, K) || !tile::kv_map<D>(&vmap, v, B, S, K))
     return (int)cudaErrorInvalidValue;
   const int TG = n_tok * (H / K), q_tiles = (TG + tile::BQ * WGS - 1) / (tile::BQ * WGS);
   const int n_split = tile::split_count(K * B * q_tiles, (S + BK - 1) / BK);
-  return (int)tile::launch_split<decode_wgmma_kernel<D, WGS>>(
-      dim3(K * n_split, B, q_tiles), 128 * WGS, tile::Layout<D, WGS>::bytes, n_split, stream,
-      kmap, vmap, static_cast<const __nv_bfloat16*>(q), cache_len, kv_pos,
-      static_cast<__nv_bfloat16*>(out), n_tok, H, K, S, window, scale * tile::LOG2E, n_split);
+#define DECODE_LAUNCH(C)                                                                     \
+  tile::launch_split<decode_wgmma_kernel<D, WGS, C>>(                                        \
+      dim3(K * n_split, B, q_tiles), 128 * WGS, tile::Layout<D, WGS>::bytes, n_split, stream, \
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q), cache_len, kv_pos,                   \
+      static_cast<__nv_bfloat16*>(out), n_tok, H, K, S, window, scale * tile::LOG2E, n_split)
+  return (int)(causal ? DECODE_LAUNCH(true) : DECODE_LAUNCH(false));
+#undef DECODE_LAUNCH
 }
 
-#define DECODE_ARGS q, k, v, cl, pos, out, B, n_tok, H, K, S, window, scale, st
+#define DECODE_ARGS q, k, v, cl, pos, out, B, n_tok, H, K, S, window, causal, scale, st
 
 int dispatch(int D, int dtype, const void* q, const void* k, const void* v, const int* cl,
              const int* pos, void* out, int B, int n_tok, int H, int K, int S, int window,
-             float scale, cudaStream_t st) {
+             int causal, float scale, cudaStream_t st) {
   // one warpgroup where one 64-row tile holds a KV head's rows, two above
   const bool one = n_tok * (H / K) <= tile::BQ;
   if (dtype == 1) switch (D) {
@@ -326,12 +340,24 @@ extern "C" int decode_attention_route(int dtype) { return dtype == 1; }
 
 // q (B, T, H, D); k, v (B, S, K, D); cache_len (B,) int32; kv_pos (B, S) int32;
 // out (B, T, H, D).  All contiguous.  dtype: 0 = float32, 1 = bfloat16.
-// window < 0 means no sliding window.  Returns cudaGetLastError() after the
-// launch, or the error that refused it.
+// window < 0 means no sliding window; causal = 0 masks by kv_pos >= 0 alone
+// (cross attention; the window is not read).  Returns cudaGetLastError()
+// after the launch, or the error that refused it.
+extern "C" int decode_attention_masked(const void* q, const void* k, const void* v,
+                                       const int* cache_len, const int* kv_pos, void* out,
+                                       int B, int n_tok, int H, int K, int D, int S,
+                                       int window, int causal, float scale, int dtype,
+                                       void* stream) {
+  return dispatch(D, dtype, q, k, v, cache_len, kv_pos, out, B, n_tok, H, K, S, window, causal,
+                  scale, static_cast<cudaStream_t>(stream));
+}
+
+// decode_attention_masked with causal = 1: the entry point of earlier builds,
+// whose signature attention_variants.py calls.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const int* cache_len, const int* kv_pos, void* out,
                                 int B, int n_tok, int H, int K, int D, int S,
                                 int window, float scale, int dtype, void* stream) {
-  return dispatch(D, dtype, q, k, v, cache_len, kv_pos, out, B, n_tok, H, K, S, window, scale,
-                  static_cast<cudaStream_t>(stream));
+  return decode_attention_masked(q, k, v, cache_len, kv_pos, out, B, n_tok, H, K, D, S, window, 1,
+                                 scale, dtype, stream);
 }

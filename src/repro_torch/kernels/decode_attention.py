@@ -3,7 +3,9 @@
 ``csrc/decode_attention.cu`` replaces the TPU kernel
 ``repro.kernels.decode_attention.decode_attention_pallas``: flash-decode of
 T new tokens (1 for decode, depth+1 for verify) against a dense or ring KV
-cache with positional masking from ``kv_positions``.
+cache with positional masking from ``kv_positions``, and (not ``causal``)
+an encoder-decoder's cross attention, which the reference runs in its plain
+version.
 ``csrc/decode_attention_paged.cu`` replaces ``decode_attention_paged_pallas``:
 the same over a global page pool through per-row block tables, at decode
 sizes and at paged admission's T up to max_context.  In both, the C entry
@@ -20,8 +22,11 @@ import torch
 
 from repro_torch.kernels import build, ref
 
+# the C entry point decode_attention_masked; decode_attention, the same with
+# causal = 1, takes _ARGTYPES (attention_variants.py calls it)
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
                                                          ctypes.c_void_p]
+_MASKED_ARGTYPES = _ARGTYPES[:13] + [ctypes.c_int] + _ARGTYPES[13:]
 _PAGED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
                                                                ctypes.c_void_p]
 
@@ -39,16 +44,17 @@ def dense_positions(cache_len, S):
 
 
 def decode_attention_cuda(q, k_cache, v_cache, cache_len, *, kv_positions=None,
-                          window=None,
-                          scale=None):
+                          window=None, scale=None, causal=True):
     """Launch the kernel on the current stream; returns (B, T, H, D) in q's dtype.
 
     q (B, T, H, D); k/v_cache (B, S, K, D) of q's dtype; cache_len (B,) int32
-    (the T new tokens included); kv_positions (B, S) int32, or None for a
-    dense cache whose slot i holds position i while i < cache_len.  None
-    builds those positions on the device on every call; the serving path
-    passes the cache's own ``kv_pos``, and that is how the kernel is timed
-    and served.
+    (the T new tokens included; not ``causal``: the memory's valid length);
+    kv_positions (B, S) int32, or None for a dense cache whose slot i holds
+    position i while i < cache_len.  None builds those positions on the
+    device on every call; the serving path passes the cache's own
+    ``kv_pos`` (cross attention the ``mem_pos`` built once at prefill), and
+    that is how the kernel is timed and served.  Not ``causal``, every query
+    sees every slot with a position >= 0; a window is then refused.
     """
     B, T, H, D = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
@@ -61,12 +67,15 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len, *, kv_positions=None,
             or kv_positions.shape != (B, S)):
         raise ValueError(f"decode_attention: unsupported shapes q{tuple(q.shape)} "
                          f"kv{tuple(k_cache.shape)} (head_dim must be 32, 64, 120 or 128)")
+    if window is not None and not causal:
+        raise ValueError("decode_attention: cross attention (causal=False) takes no window")
     out = torch.empty_like(q)
-    build.launch(decode_attention_cuda, "decode_attention", _ARGTYPES, dtype,
+    build.launch(decode_attention_cuda, "decode_attention", _MASKED_ARGTYPES, dtype,
                  torch.cuda.current_stream(q.device).cuda_stream, q.data_ptr(),
                  k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
                  kv_positions.data_ptr(), out.data_ptr(), B, T, H, K, D, S,
-                 -1 if window is None else window, D ** -0.5 if scale is None else scale)
+                 -1 if window is None else window, int(causal),
+                 D ** -0.5 if scale is None else scale, symbol="decode_attention_masked")
     return out
 
 

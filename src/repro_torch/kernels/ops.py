@@ -33,16 +33,19 @@ def flash_attention(q, k, v, *, causal=True, window=None,
 def decode_attention(q, k_cache, v_cache, cache_len, *, kv_positions=None,
                      window=None, scale=None,
                      causal=True):
-    """Decode-step attention of T new tokens against a KV cache."""
+    """Decode-step attention of T new tokens against a KV cache, or (not
+    ``causal``) cross attention against an encoder's memory.  K1 has no
+    backward: on a CUDA device a call that autograd would record raises."""
     if q.device.type == "cpu":
         return da.decode_attention_plain(q, k_cache, v_cache, cache_len,
                                          kv_positions=kv_positions, window=window,
                                          scale=scale, causal=causal)
-    if not causal:
-        raise NotImplementedError("cross attention has no CUDA kernel yet "
-                                  "(ROADMAP M9, enc-dec)")
-    return da.decode_attention_cuda(q, k_cache, v_cache, cache_len,
-                                    kv_positions=kv_positions, window=window, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k_cache, v_cache)):
+        raise NotImplementedError("decode_attention: K1 has no backward kernel, so a gradient "
+                                  "through decode or cross attention cannot run on the card "
+                                  "(ROADMAP §1 item 4)")
+    return da.decode_attention_cuda(q, k_cache, v_cache, cache_len, kv_positions=kv_positions,
+                                    window=window, scale=scale, causal=causal)
 
 
 def decode_attention_paged(q, k_pages, v_pages, cache_len, block_tables, *, window=None,

@@ -1,5 +1,6 @@
 """GQA attention with RoPE, qk-norm, QKV bias and a dense ring-buffer or
-paged KV cache (a port of ``repro.models.attention``).  The reference pads
+paged KV cache, and cross attention against an encoder's memory (a port of
+``repro.models.attention``).  The reference pads
 query heads for its 16-way model axis and masks the pad heads before ``wo``;
 one card has no model axis, so the port runs the unpadded heads (the weight
 bridge drops the pad slots), which computes the same function.
@@ -32,7 +33,9 @@ def cache_capacity(cfg, max_len):
     return max_len
 
 
-def init_attention(gen, cfg, dtype, device):
+def init_attention(gen, cfg, dtype, device, cross=False):
+    """A cross-attention layer (``cross``) has no QKV bias and no qk-norm,
+    whatever the config says."""
     d, H, K, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
         "wq": dense_init(gen, d, (H, D), dtype, device),
@@ -40,11 +43,11 @@ def init_attention(gen, cfg, dtype, device):
         "wv": dense_init(gen, d, (K, D), dtype, device),
         "wo": dense_init(gen, H * D, d, dtype, device).view(H, D, d),
     }
-    if cfg.qkv_bias:  # zeros, as the reference's init
+    if cfg.qkv_bias and not cross:  # zeros, as the reference's init
         p["bq"] = torch.zeros(H, D, dtype=dtype, device=device)
         p["bk"] = torch.zeros(K, D, dtype=dtype, device=device)
         p["bv"] = torch.zeros(K, D, dtype=dtype, device=device)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones(D, dtype=dtype, device=device)
         p["k_norm"] = torch.ones(D, dtype=dtype, device=device)
     return p
@@ -79,20 +82,36 @@ def _project_out(p, out):
     return out.reshape(B, S, H * D) @ p["wo"].reshape(H * D, -1)
 
 
-def attention_full(p, cfg, x, positions):
-    """Training forward over a full sequence: prefill's causal attention
-    under the config's window, without seeding a cache."""
-    return attention_prefill(p, cfg, x, positions)[0]
+def attention_full(p, cfg, x, positions, causal=True):
+    """Training or encoder forward over a full sequence: prefill's
+    attention without seeding a cache."""
+    return attention_prefill(p, cfg, x, positions, causal)[0]
 
 
-def attention_prefill(p, cfg, x, positions
-                      ):
-    """Causal prefill attention returning (output, (k, v)) to seed the cache."""
+def attention_prefill(p, cfg, x, positions, causal=True):
+    """Prefill attention returning (output, (k, v)) to seed the cache:
+    causal under the config's window, or (an encoder) neither."""
     q = rope(_project_q(p, cfg, x), positions, cfg.rope_theta)
     k, v = _project_kv(p, cfg, x)
     k = rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    out = ops.flash_attention(q, k, v, causal=causal,
+                              window=cfg.sliding_window if causal else None)
     return _project_out(p, out), (k, v)
+
+
+def cross_memory(p, cfg, enc_out):
+    """A decoder layer's cross-attention K and V of the encoder output
+    (B, M, d): (B, M, K, D) each, computed once at prefill."""
+    return _project_kv(p, cfg, enc_out)
+
+
+def attention_cross(p, cfg, x, mem_k, mem_v, mem_len, mem_pos):
+    """Cross attention of x (B, T, d) against the encoder memory mem_k/mem_v
+    (B, M, K, D): no RoPE, every query sees the slots that ``mem_pos`` (B, M)
+    marks valid (``dense_positions(mem_len, M)``, built once by the caller)."""
+    out = ops.decode_attention(_project_q(p, cfg, x), mem_k, mem_v, mem_len,
+                               kv_positions=mem_pos, causal=False)
+    return _project_out(p, out)
 
 
 def write_cache(cache_k, cache_v, kv_pos, k_new, v_new, start_pos):

@@ -1,18 +1,25 @@
-"""Public model API: ``build_model(cfg, device)`` -> :class:`Model`
+"""Public model API: ``build_model(cfg, device="cuda")`` -> :class:`Model`
 (a port of ``repro.models.model``: serving, and training's ``forward`` and
 ``loss_fn`` for attention+MLP stacks).
 
 Parameters are a dict: ``{"embedding": {"table"[, "head"]}, "layers": [per-
-layer dict, ...], "final_norm"}``.  The decode cache holds ``len`` (B,)
-int32 and the stacked tensors of the layer kinds present, each stacked over
-the layers of its kind:
+layer dict, ...], "final_norm"}``, and for an encoder-decoder also
+``"encoder"`` (its own layer list) and ``"enc_norm"``.  Batches are
+``{"tokens": (B, S)}``, plus ``"patches"`` (B, n_patches, d_model) for a
+vision frontend (prepended to the text; logits cover the text only) or
+``"frames"`` (B, M, d_model) for an encoder-decoder (the encoder's input).
+The decode cache holds ``len`` (B,) int32 and the stacked tensors of the
+layer kinds present, each stacked over the layers of its kind:
 
 * attention, dense: ``k``, ``v`` (L, B, cap, K, D) and ``kv_pos`` (L, B,
   cap) int32; paged: ``k``, ``v`` (L, n_pages + 1, ps, K, D) and ``bt`` (B,
   P) int32 (see ``models.attention``);
 * Mamba2: ``conv`` (L, B, d_conv-1, C_ch) in the model dtype and ``state``
   (L, B, H, P, N) fp32, plus the per-token ``conv_all`` and ``states_all``
-  (L, B, T, ...) that speculative rollback selects from (``models.ssm``).
+  (L, B, T, ...) that speculative rollback selects from (``models.ssm``);
+* an encoder-decoder's cross memory, written once at prefill: ``cross_k``,
+  ``cross_v`` (L, B, M, K, D), ``mem_len`` (B,) int32 and ``mem_pos`` (B, M)
+  int32, the positions cross attention reads (-1 past ``mem_len``).
 
 Every cache is preallocated once and updated in place where the JAX package
 donated it.  At mamba2-2.7b's full width with 8 slots a pair holds 1.34 GB
@@ -29,12 +36,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attention import dense_positions
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embed_tokens, init_embedding, rms_norm, unembed
 
 _ATTN_KEYS = ("k", "v", "kv_pos")
+_CROSS_KEYS = ("cross_k", "cross_v")
 
 
 class Model:
@@ -54,12 +63,17 @@ class Model:
         the distributions of ``repro``'s init (the numbers differ)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         cfg, dt, dev = self.cfg, self.dtype, self.device
-        return {
+        params = {
             "embedding": init_embedding(gen, cfg, dt, dev),
-            "layers": [tfm.init_layer(gen, cfg, kind, is_moe, dt, dev)
+            "layers": [tfm.init_layer(gen, cfg, kind, is_moe, dt, dev, cfg.is_encdec)
                        for kind, is_moe in zip(self.kinds, cfg.moe_layer_mask(), strict=True)],
             "final_norm": torch.ones(cfg.d_model, dtype=dt, device=dev),
         }
+        if cfg.is_encdec:
+            params["encoder"] = [tfm.init_layer(gen, cfg, "attn", False, dt, dev)
+                                 for _ in range(cfg.n_encoder_layers)]
+            params["enc_norm"] = torch.ones(cfg.d_model, dtype=dt, device=dev)
+        return params
 
     def _attn_cache(self, batch, cap, fill):
         cfg, dev = self.cfg, self.device
@@ -70,12 +84,25 @@ class Model:
                 "kv_pos": (torch.full(shape[:3], -1, dtype=torch.int32, device=dev) if fill
                            else torch.empty(shape[:3], dtype=torch.int32, device=dev))}
 
-    def init_cache(self, batch, max_len, steps=0):
+    def _cross_cache(self, batch, mem, fill):
+        cfg, dev = self.cfg, self.device
+        make = torch.zeros if fill else torch.empty
+        shape = (cfg.n_layers, batch, mem, cfg.n_kv_heads, cfg.head_dim)
+        return {"cross_k": make(shape, dtype=self.dtype, device=dev),
+                "cross_v": make(shape, dtype=self.dtype, device=dev)}
+
+    def init_cache(self, batch, max_len, steps=0, cross_len=None):
         """Zeroed decode cache; ``steps`` preallocates the SSM layers'
-        per-token states for verify steps of up to that many tokens."""
+        per-token states for verify steps of up to that many tokens; an
+        encoder-decoder's holds ``cross_len`` (default 1) memory slots, all
+        invalid."""
         cache = {"len": torch.zeros(batch, dtype=torch.int32, device=self.device)}
         if self.n_attn:
             cache.update(self._attn_cache(batch, attn.cache_capacity(self.cfg, max_len), True))
+        if self.cfg.is_encdec:
+            cache.update(self._cross_cache(batch, cross_len or 1, True))
+            cache["mem_len"] = torch.zeros(batch, dtype=torch.int32, device=self.device)
+            cache["mem_pos"] = dense_positions(cache["mem_len"], cross_len or 1)
         if self.n_ssm:
             cache.update(ssm.init_mamba_cache(self.cfg, self.n_ssm, batch, self.dtype,
                                               self.device, steps))
@@ -99,15 +126,46 @@ class Model:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return unembed(params["embedding"], x, cfg.tie_embeddings, cfg.vocab_size).float()
 
+    def _embed_inputs(self, params, batch):
+        """(x, n_prefix): the tokens' embeddings, behind a vision frontend's
+        ``patches`` (n_prefix of them)."""
+        x = embed_tokens(params["embedding"], batch["tokens"])
+        front = self.cfg.frontend
+        if front is None or front.kind != "vision":
+            return x, 0
+        return torch.cat([batch["patches"].to(x.dtype), x], 1), batch["patches"].shape[1]
+
+    def _encode(self, params, frames, remat="none"):
+        """The encoder over ``frames`` (B, M, d): no causal mask, RoPE at
+        positions 0 .. M - 1; then ``enc_norm``."""
+        cfg = self.cfg
+        x = frames.to(self.dtype)
+        B, M = x.shape[:2]
+        positions = torch.arange(M, device=x.device)[None].expand(B, M)
+        x = tfm.scan_full(params["encoder"], cfg, x, positions, remat, causal=False)
+        return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    @staticmethod
+    def _memory(enc_out):
+        """(mem_len (B,) int32, mem_pos (B, M) int32) of a whole encoder output."""
+        B, M = enc_out.shape[:2]
+        mem_len = torch.full((B,), M, dtype=torch.int32, device=enc_out.device)
+        return mem_len, dense_positions(mem_len, M)
+
     def forward(self, params, batch):
         """Full-sequence logits (B, S, V) fp32 of ``batch["tokens"]`` (B, S)
         (training; layers under ``cfg.remat_policy``)."""
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = embed_tokens(params["embedding"], tokens)
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-        x = tfm.scan_full(params["layers"], self.cfg, x, positions, self.cfg.remat_policy)
-        return self._logits(params, x)
+        cfg = self.cfg
+        cross_mem = None
+        if cfg.is_encdec:
+            enc_out = self._encode(params, batch["frames"], cfg.remat_policy)
+            cross_mem = (enc_out, *self._memory(enc_out))
+        x, n_prefix = self._embed_inputs(params, batch)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        x = tfm.scan_full(params["layers"], cfg, x, positions, cfg.remat_policy,
+                          cross_mem=cross_mem)
+        return self._logits(params, x[:, n_prefix:])
 
     def loss_fn(self, params, batch):
         """Next-token cross-entropy, ``logsumexp - target logit`` averaged over
@@ -125,14 +183,21 @@ class Model:
         each row's real length in a right-padded bucket (default S).  The
         attention cache is seeded by the gather of ``prefill_fill_cache``, so
         padding stays invisible to decode.  A stack with SSM layers takes
-        unpadded rows only: the SSM state would absorb the padding.
+        unpadded rows only: the SSM state would absorb the padding.  A
+        frontend's patches count in S (decode goes on after them); an
+        encoder-decoder runs its encoder over ``batch["frames"]`` and stores
+        each decoder layer's cross K/V of it.  Neither takes ``lengths``, as
+        in the reference.
         """
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
         lengths = batch.get("lengths")
+        if lengths is not None and (cfg.is_encdec or cfg.frontend is not None):
+            raise NotImplementedError("bucketed prefill: enc-dec and frontend-prefix "
+                                      "models take unpadded rows")
+        x, _ = self._embed_inputs(params, batch)
+        B, S = x.shape[:2]
         if lengths is None:
-            lengths = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+            lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
         elif self.n_ssm and set(lengths.tolist()) != {S}:
             raise ValueError("prefill of a stack with SSM layers needs every row "
                              "unpadded (lengths == S): the SSM state would absorb padding")
@@ -143,10 +208,18 @@ class Model:
             cache.update(self._attn_cache(B, cap, False))
         if self.n_ssm:
             cache.update(ssm.init_mamba_cache(cfg, self.n_ssm, B, self.dtype, self.device))
-        x = embed_tokens(params["embedding"], tokens)
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        if cfg.is_encdec:
+            enc_out = self._encode(params, batch["frames"])
+            cache.update(self._cross_cache(B, enc_out.shape[1], False))
+            cache["mem_len"], cache["mem_pos"] = self._memory(enc_out)
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
         for layer, j in zip(params["layers"], self._slot, strict=True):
-            x, new = tfm.block_prefill(layer, cfg, x, positions)
+            mem = None
+            if "cross" in layer:
+                cache["cross_k"][j], cache["cross_v"][j] = attn.cross_memory(layer["cross"], cfg,
+                                                                             enc_out)
+                mem = self._mem_view(cache, j)
+            x, new = tfm.block_prefill(layer, cfg, x, positions, mem)
             if "attn" in layer:
                 cache["k"][j], cache["v"][j], cache["kv_pos"][j] = attn.prefill_fill_cache(
                     *new, lengths, cap, self.dtype)
@@ -172,7 +245,8 @@ class Model:
         for layer, j in zip(params["layers"], self._slot, strict=True):
             names = _ATTN_KEYS if "attn" in layer else ssm.CACHE_KEYS + ssm.STEP_KEYS
             view = {name: cache[name][j] for name in names if name in cache}
-            x = tfm.block_decode(layer, self.cfg, x, view, cache["len"], cache.get("bt"))
+            mem = self._mem_view(cache, j) if "cross" in layer else None
+            x = tfm.block_decode(layer, self.cfg, x, view, cache["len"], cache.get("bt"), mem)
         cache["len"] += T
         if last is not None:
             x = x[torch.arange(x.shape[0], device=x.device), last][:, None]
@@ -190,10 +264,16 @@ class Model:
         return logits
 
     @staticmethod
+    def _mem_view(cache, j):
+        """Layer j's cross memory as ``attention_cross`` takes it."""
+        return (*(cache[name][j] for name in _CROSS_KEYS), cache["mem_len"], cache["mem_pos"])
+
+    @staticmethod
     def commit_cache(cache, old_len, accept_idx):
         """Roll back to old_len + accept_idx + 1 committed tokens, in place.
         Attention caches rewind by pointer (stale slots stay masked); SSM
-        layers take the state and conv window at ``accept_idx`` per row."""
+        layers take the state and conv window at ``accept_idx`` per row; the
+        cross memory stays as it is."""
         if "states_all" in cache:
             rows = torch.arange(accept_idx.shape[0], device=accept_idx.device)
             idx = accept_idx.long()
@@ -202,5 +282,16 @@ class Model:
         cache["len"].copy_(old_len + accept_idx + 1)
 
 
-def build_model(cfg, device="cpu"):
-    return Model(cfg, device)
+def resolve_device(device=None):
+    """``None`` means the card.  Without CUDA that raises: the CPU is chosen
+    explicitly (``device="cpu"``), never fallen back to."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available on this machine; pass "
+                           "device='cpu' to run the port on the CPU")
+    return dev
+
+
+def build_model(cfg, device="cuda"):
+    """The model on ``device``, the card by default (``resolve_device``)."""
+    return Model(cfg, resolve_device(device))

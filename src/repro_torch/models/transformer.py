@@ -1,12 +1,15 @@
-"""Layer walkers for attention+MLP, attention+MoE and Mamba2 stacks (a port
-of the dense, MoE and SSM paths of ``repro.models.transformer``).
+"""Layer walkers for attention+MLP, attention+MoE and Mamba2 stacks and for
+an encoder-decoder's two stacks (a port of ``repro.models.transformer``
+without the hybrid family).
 
 The JAX package stacks layer parameters and scans over them; here the stack
 is a Python list of per-layer parameter dicts and a loop.  Training
 (``scan_full``) runs attention+MLP layers under the reference's three remat
 policies.  A layer holds
-``attn`` or ``mamba`` (per ``cfg.layer_kinds()``) and a MoE layer (per
-``cfg.moe_layer_mask()``) or, when ``d_ff > 0``, an MLP.
+``attn`` or ``mamba`` (per ``cfg.layer_kinds()``), in a decoder layer of an
+encoder-decoder also ``cross`` (cross attention over the encoder's memory
+``mem`` = (K, V, mem_len, mem_pos), after the self attention), and a MoE
+layer (per ``cfg.moe_layer_mask()``) or, when ``d_ff > 0``, an MLP.
 """
 from __future__ import annotations
 
@@ -27,18 +30,18 @@ def check_supported(cfg):
     if cfg.family == "hybrid":
         raise NotImplementedError(f"{cfg.name}: hybrid Mamba/attention/MoE stacks are not "
                                   "ported yet (ROADMAP M9, §1 item 3.4)")
-    if cfg.is_encdec or cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: enc-dec and frontend models are not "
-                                  "ported yet (ROADMAP M9, §1 item 3.5)")
 
 
-def init_layer(gen, cfg, kind, is_moe, dtype, device):
+def init_layer(gen, cfg, kind, is_moe, dtype, device, cross=False):
     ones = torch.ones(cfg.d_model, dtype=dtype, device=device)
     layer = {"norm1": ones}
     if kind == "attn":
         layer["attn"] = attn.init_attention(gen, cfg, dtype, device)
     else:
         layer["mamba"] = ssm.init_mamba(gen, cfg, dtype, device)
+    if cross:  # a decoder layer of an encoder-decoder
+        layer["norm_cross"] = ones.clone()
+        layer["cross"] = attn.init_attention(gen, cfg, dtype, device, cross=True)
     if is_moe:
         layer["norm2"] = ones.clone()
         layer["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
@@ -46,6 +49,13 @@ def init_layer(gen, cfg, kind, is_moe, dtype, device):
         layer["norm2"] = ones.clone()
         layer["mlp"] = init_mlp(gen, cfg, cfg.d_ff, dtype, device)
     return layer
+
+
+def _apply_cross(layer, cfg, x, mem):
+    if "cross" not in layer:
+        return x
+    h = rms_norm(x, layer["norm_cross"], cfg.norm_eps)
+    return x + attn.attention_cross(layer["cross"], cfg, h, *mem)
 
 
 def _apply_ffn(layer, cfg, x):
@@ -56,7 +66,7 @@ def _apply_ffn(layer, cfg, x):
     return x
 
 
-def block_prefill(layer, cfg, x, positions):
+def block_prefill(layer, cfg, x, positions, mem=None):
     """One layer of prefill: returns (x, what seeds its cache): (k, v) for
     attention, (conv, state) for a Mamba2 layer."""
     h = rms_norm(x, layer["norm1"], cfg.norm_eps)
@@ -64,27 +74,33 @@ def block_prefill(layer, cfg, x, positions):
         out, new = attn.attention_prefill(layer["attn"], cfg, h, positions)
     else:
         out, new = ssm.mamba_prefill(layer["mamba"], cfg, h)
-    return _apply_ffn(layer, cfg, x + out), new
+    return _apply_ffn(layer, cfg, _apply_cross(layer, cfg, x + out, mem)), new
 
 
 def block_decode(layer, cfg, x, cache,
-                 cache_len, block_tables=None):
+                 cache_len, block_tables=None, mem=None):
     """One layer of a T-token decode step; its cache views update in place."""
     h = rms_norm(x, layer["norm1"], cfg.norm_eps)
     if "attn" in layer:
         out = attn.attention_decode(layer["attn"], cfg, h, cache, cache_len, block_tables)
     else:
         out = ssm.mamba_decode(layer["mamba"], cfg, h, cache)
-    return _apply_ffn(layer, cfg, x + out)
+    return _apply_ffn(layer, cfg, _apply_cross(layer, cfg, x + out, mem))
 
 
-def block_full(layer, cfg, x, positions):
-    """One attention+MLP layer of the training forward."""
+def block_full(layer, cfg, x, positions, causal=True, cross_mem=None):
+    """One attention+MLP layer of the training forward, or of an encoder
+    (not ``causal``).  ``cross_mem`` = (enc_out, mem_len, mem_pos): the layer
+    projects the encoder output through its own cross K/V weights."""
     if "attn" not in layer or "moe" in layer:
         raise NotImplementedError(f"{cfg.name}: training of MoE and Mamba2 layers is not "
                                   "ported yet (ROADMAP §1 item 4)")
     h = rms_norm(x, layer["norm1"], cfg.norm_eps)
-    return _apply_ffn(layer, cfg, x + attn.attention_full(layer["attn"], cfg, h, positions))
+    x = x + attn.attention_full(layer["attn"], cfg, h, positions, causal)
+    if cross_mem is not None:
+        enc_out, *rest = cross_mem
+        x = _apply_cross(layer, cfg, x, (*attn.cross_memory(layer["cross"], cfg, enc_out), *rest))
+    return _apply_ffn(layer, cfg, x)
 
 
 # matrix products without batch dimensions (the projections and the MLP):
@@ -108,9 +124,9 @@ def _remat(fn, policy):
                              **kw)
 
 
-def scan_full(layers, cfg, x, positions, remat="none"):
-    """The training forward's layer loop, each layer under ``remat``."""
+def scan_full(layers, cfg, x, positions, remat="none", causal=True, cross_mem=None):
+    """The training (or encoder) forward's layer loop, each layer under ``remat``."""
     step = _remat(block_full, remat)
     for layer in layers:
-        x = step(layer, cfg, x, positions)
+        x = step(layer, cfg, x, positions, causal, cross_mem)
     return x

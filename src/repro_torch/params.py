@@ -3,13 +3,14 @@ port's parameter dict on a given device and dtype.
 
 The JAX tree is ``unzip_params(model.init(key))`` with every leaf converted by
 ``np.asarray``: ``{"embedding": {...}, "blocks": {"0": {...}, ...},
-"final_norm"}``, whose block leaves carry a leading ``n_blocks`` axis (layer
+"final_norm"}`` (an encoder-decoder's also ``"encoder"``, stacked alike, and
+``"enc_norm"``), whose block leaves carry a leading ``n_blocks`` axis (layer
 ``b * scan_block + j`` is ``blocks[str(j)]`` at index ``b``).  bfloat16 leaves
 (``ml_dtypes``) are reinterpreted bit for bit.  A requested ``dtype`` casts
 every leaf except those the model keeps in float32 in any dtype (the Mamba2
 layer's ``A_log``, ``D`` and ``dt_bias``, and the MoE ``router``).  Where the reference pads query
 heads (``ArchConfig.padded_heads``), the pad slots of ``wq``, ``bq`` and
-``wo`` are dropped: the reference masks those heads to zero before ``wo``,
+``wo`` (self and cross attention) are dropped: the reference masks those heads to zero before ``wo``,
 so the port's unpadded heads, in the order GQA's ``h // G`` expects, compute
 the same function.  ``from_reference_state`` takes the same path for a
 reference training checkpoint's parameters and AdamW moments.  ``tree_map``
@@ -64,19 +65,25 @@ def from_jax_tree(tree, cfg, device="cpu",
     def conv(a, name=""):
         return to_tensor(a, device, None if name in FP32_LEAVES else dtype)
 
-    sb = cfg.scan_block
-    layers = [_map(tree["blocks"][str(j)], lambda a, name, b=b: conv(a[b], name))
-              for b in range(cfg.n_layers // sb) for j in range(sb)]
+    def stack(blocks, n_layers):
+        sb = cfg.scan_block
+        return [_map(blocks[str(j)], lambda a, name, b=b: conv(a[b], name))
+                for b in range(n_layers // sb) for j in range(sb)]
+
+    out = {"embedding": _map(tree["embedding"], conv),
+           "layers": stack(tree["blocks"], cfg.n_layers), "final_norm": conv(tree["final_norm"])}
+    if "encoder" in tree:  # an encoder-decoder's encoder stack
+        out["encoder"] = stack(tree["encoder"], cfg.n_encoder_layers)
+        out["enc_norm"] = conv(tree["enc_norm"])
     if cfg.padded_heads != cfg.n_heads:
         slot = torch.arange(cfg.padded_heads, device=device)
         real = slot[slot % cfg.padded_group < cfg.n_heads // cfg.n_kv_heads]
-        for layer in layers:
-            p = layer["attn"]
-            p["wq"], p["wo"] = p["wq"].index_select(1, real), p["wo"].index_select(0, real)
-            if "bq" in p:
-                p["bq"] = p["bq"].index_select(0, real)
-    return {"embedding": _map(tree["embedding"], conv), "layers": layers,
-            "final_norm": conv(tree["final_norm"])}
+        for layer in out["layers"] + out.get("encoder", []):
+            for p in (layer[k] for k in ("attn", "cross") if k in layer):
+                p["wq"], p["wo"] = p["wq"].index_select(1, real), p["wo"].index_select(0, real)
+                if "bq" in p:
+                    p["bq"] = p["bq"].index_select(0, real)
+    return out
 
 
 def from_reference_state(leaves, cfg, device="cpu", dtype=None):

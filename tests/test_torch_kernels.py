@@ -13,6 +13,7 @@ import torch
 from test_kernels import DECODE_CASES, FLASH_CASES, _ring_positions
 from test_torch_engine import _one_torch_thread, _refused  # noqa: F401
 
+from repro.kernels import ref as jax_ref
 from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import build, ops, ref
@@ -36,13 +37,17 @@ def _close(got, want, dt, tols=TOL):
 # (case, q_offset): the reference's table, plus a continuation block whose
 # queries sit at the END of a longer KV; then head_dim 120 (h2o-danube) and
 # the M9 models' query heads a KV head, G = 5 (qwen2.5-14b) and 9
-# (starcoder2-7b), ragged, windowed and continued
+# (starcoder2-7b), ragged, windowed and continued; then not causal at
+# head_dim 64 (seamless's encoder, G = 1) and G = 7 (internvl2's heads)
 @pytest.mark.parametrize("case, q_offset", [(c, 0) for c in FLASH_CASES]
                          + [((1, 32, 128, 4, 4, 64, True, None, jnp.float32), 96),
                             ((1, 80, 80, 5, 1, 120, True, None, jnp.float32), 0),
                             ((1, 96, 96, 9, 1, 120, True, 40, jnp.float32), 0),
                             ((1, 64, 64, 10, 2, 120, True, None, jnp.bfloat16), 0),
-                            ((1, 40, 136, 9, 1, 128, True, 48, jnp.float32), 96)])
+                            ((1, 40, 136, 9, 1, 128, True, 48, jnp.float32), 96),
+                            ((1, 100, 100, 4, 4, 64, False, None, jnp.float32), 0),
+                            ((2, 70, 70, 14, 2, 64, False, None, jnp.float32), 0),
+                            ((1, 64, 64, 7, 1, 64, False, None, jnp.bfloat16), 0)])
 def test_flash_plain_matches_pallas(case, q_offset):
     B, Sq, Sk, H, K, D, causal, window, jdt = case
     dt, rng = jnp.dtype(jdt).name, np.random.default_rng(1)
@@ -58,23 +63,36 @@ def test_flash_plain_matches_pallas(case, q_offset):
 # lengths, ring positions where it says ring); then head_dim 120 and G = 4, 5
 # and 9 at decode and verify sizes, with the positions each row holds before
 # its T new ones in place of ``ring`` (a row whose positions outnumber S has
-# wrapped its ring)
+# wrapped its ring); then cross attention (a last field, causal False) at
+# head_dim 64, G = 1 and 7, each row's memory length in place of ``ring`` (0
+# included: every slot invalid), T past it as in a prefill's cross call
 DECODE = {f"case{i}": c for i, c in enumerate(DECODE_CASES)} | {
     "d120-g4-wrapped-window": (2, 3, 96, 8, 2, 120, 40, [150, 20], jnp.float32),
     "g5-verify": (2, 9, 128, 5, 1, 128, None, [60, 100], jnp.float32),
     "g9-verify-wrapped-window": (2, 9, 96, 9, 1, 128, 24, [200, 30], jnp.float32),
     "d120-g9-bfloat16": (2, 5, 128, 18, 2, 120, None, [70, 10], jnp.bfloat16),
     "d120-g5-wrapped-window-bfloat16": (1, 2, 64, 10, 2, 120, 16, [100], jnp.bfloat16),
+    "cross-g1": (3, 5, 96, 4, 4, 64, None, [96, 37, 0], jnp.float32, False),
+    "cross-g7-bfloat16": (2, 9, 80, 14, 2, 64, None, [1, 80], jnp.bfloat16, False),
+    "cross-t-past-memory": (2, 40, 24, 2, 2, 64, None, [24, 5], jnp.float32, False),
 }
 
 
 @pytest.mark.parametrize("case", DECODE)
 def test_decode_plain_matches_pallas(case):
-    B, T, S, H, K, D, window, ring, jdt = DECODE[case]
+    B, T, S, H, K, D, window, ring, jdt, *cross = DECODE[case]
     fill = ring if isinstance(ring, list) else None
     dt, rng = jnp.dtype(jdt).name, np.random.default_rng(3 if fill is None else 6)
     (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, s, dt) for s in
                                     [(B, T, H, D), (B, S, K, D), (B, S, K, D)])
+    if cross:  # the reference runs cross attention in its plain version only
+        mem_len = np.array(fill, np.int32)
+        want = jax_ref.decode_attention(jq, jk, jv, jnp.asarray(mem_len), causal=False)
+        tlen = torch.from_numpy(mem_len)
+        for pos in (None, dense_positions(tlen, S)):  # what the model passes: mem_pos
+            _close(ops.decode_attention(tq, tk, tv, tlen, kv_positions=pos, causal=False),
+                   want, dt)
+        return
     clen = (np.array([f + T for f in fill], np.int32) if fill else
             rng.integers(T, S, size=(B,)).astype(np.int32))
     pos = np.array(_ring_positions(B, S, clen)) if ring else None

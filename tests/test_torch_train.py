@@ -49,10 +49,11 @@ def _close_leaves(got, want, tol, what, rel=True):
         assert err <= tol * (float(w.abs().max()) if rel else 1), f"{what}: {path} off by {err:.3g}"
 
 
-def _loss_grads(cfg, params, tokens):
+def _loss_grads(cfg, params, batch):
+    """(loss, metrics, each parameter's gradient by path) of a batch of numpy arrays."""
     live = tree_map(lambda t: t.detach().requires_grad_(), params)
     items = tree_items(live)
-    loss, metrics = Model(cfg, "cpu").loss_fn(live, {"tokens": torch.from_numpy(tokens)})
+    loss, metrics = Model(cfg, "cpu").loss_fn(live, tree_map(torch.from_numpy, batch))
     grads = torch.autograd.grad(loss, [t for _, t in items])
     return float(loss.detach()), metrics, dict(zip([k for k, _ in items], grads, strict=True))
 
@@ -63,7 +64,7 @@ def test_loss_and_gradients_match_jax_under_every_remat_policy(dt):
     tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 40)).astype(np.int32)
     (jl, jmet), jg = jax.value_and_grad(jm.loss_fn, has_aux=True)(
         jp, {"tokens": jnp.asarray(tokens)})
-    runs = [_loss_grads(dataclasses.replace(tm.cfg, remat_policy=r), tp, tokens)
+    runs = [_loss_grads(dataclasses.replace(tm.cfg, remat_policy=r), tp, {"tokens": tokens})
             for r in ("none", "minimal", "full")]
     for loss, metrics, grads in runs:
         assert loss == runs[0][0] and set(metrics) == set(jmet) == {"ce", "ppl_log", "loss"}
