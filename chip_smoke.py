@@ -127,6 +127,20 @@ Phases, each fatal on failure:
      step, MFU, peak memory, a profiled step split by kernel group); and a
      2-layer full-width run with ``--fail-at 6`` whose final loss equals the
      uninterrupted run's, bit for bit;
+     Mamba2 and MoE training: K2's backward also at qwen3-moe's G = 8 (B=4
+     S=2048 H=32 K=4, both dtypes, timed against SDPA's backward), K4's
+     forward at the training shape (B=4 S=2048) among the SSD checks and
+     timed there; K4's backward (``ssd_scan_bwd.cu``) against the plain
+     scan's autograd (every gradient: fp32 within 1e-4 of the plain version
+     run in float64, bf16 within 2e-2 and each row within 0.1 of its RMS,
+     with a control that drops a chunk), bit for bit on repeat, timed;
+     2 fp32 full-width layers of mamba2-2.7b and qwen3-moe-30b-a3b (routing
+     and keep masks identical) against the CPU; ``launch.train`` on
+     mamba2-2.7b at full width and depth and qwen3-moe-30b-a3b at full
+     width and 4 of its 48 layers (8 bf16 steps of 4 x 2048 tokens each,
+     no saves: K4 forward and backward or K2 forward and backward launches
+     a step, the router's losses, ms a step, MFU, peak memory, a profiled
+     step split into GEMMs, expert products, K4, K2 and the rest);
  14. print the kernel table as one JSON line, then the result line.
 Every serve of phases 4-8, and phase 9's qwen2.5-14b serve, runs twice on
 the same weights (phase 9 profiles only graphed serves and runs its other
@@ -165,6 +179,8 @@ REPLACES = {
     "flash_attention_bwd": "src/repro/kernels/flash_attention.py:131",
     "decode_attention_paged": "src/repro/kernels/decode_attention.py:257",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:122",
+    # what JAX differentiates in training: the plain scan of the same TPU kernel
+    "ssd_scan_bwd": "src/repro/kernels/ssd_scan.py:122",
 }
 
 
@@ -1113,7 +1129,8 @@ def kernel_counters():
             "flash_attention": fa.flash_attention_cuda,
             "flash_attention_bwd": fa.flash_attention_bwd_cuda,
             "decode_attention_paged": da.decode_attention_paged_cuda,
-            "ssd_scan": ssd.ssd_scan_cuda}
+            "ssd_scan": ssd.ssd_scan_cuda,
+            "ssd_scan_bwd": ssd.ssd_scan_bwd_cuda}
 
 
 def zero_counts() -> None:
@@ -2009,7 +2026,7 @@ def moe_kernel_phase(report: dict) -> dict:
         build_model(jamba, "cuda")
         fail("a jamba config was not refused on the card")
     except NotImplementedError as e:
-        if "§1 item 3.4" not in str(e):
+        if "§1 item 3)" not in str(e):
             fail(f"the jamba refusal names no ROADMAP item: {e}")
         print(f"jamba refused on the card: {e}")
     return out
@@ -2024,9 +2041,9 @@ def routing_recorded():
     seen = {"cuda": [], "cpu": []}
     route = moe.route
 
-    def recorded(p, cfg, tokens):
+    def recorded(p, cfg, tokens, *losses):
         seen[tokens.device.type].append((p["router"], tokens.detach().clone()))
-        return route(p, cfg, tokens)
+        return route(p, cfg, tokens, *losses)
 
     moe.route = recorded
     try:
@@ -2607,6 +2624,7 @@ SSD_CHECKS = [  # B, S, H, P, G, N, dtype, initial state
     (1, 65, 80, 64, 1, 128, "bfloat16", False),    # one chunk and one row: 2 blocks
     (1, 2048, 80, 64, 1, 128, "bfloat16", False),  # 32 chunks: 4 a block
     (2, 300, 16, 64, 4, 128, "bfloat16", True),    # 4 groups of 4 heads
+    (4, 2048, 80, 64, 1, 128, "bfloat16", False),  # mamba2-2.7b's training shape
 ]
 
 
@@ -2649,7 +2667,9 @@ def ssd_cost(x, Bm, s0, chunk=64):
 def ssd_kernel_phase(report: dict) -> dict:
     """K4 against its plain version on SSD_CHECKS (y and final state; bf16 on
     ssd_wgmma_kernel, fp32 on ssd_kernel), then checked and timed at the
-    serve shape on views rotated past the L2."""
+    serve shape and at mamba2-2.7b's training shape (B = 4, S = 2048) on
+    views rotated past the L2; returns both timings by "serve" and
+    "train"."""
     import torch
 
     from repro_torch.kernels import ref
@@ -2671,22 +2691,163 @@ def ssd_kernel_phase(report: dict) -> dict:
             err = max(err, e)
         lines.append(f"{tag}: max_abs_err={e:.3g}")
         print(lines[-1])
-    make = lambda: ssd_case(g, 1, 400, 80, 64, 1, 128, "bfloat16")  # noqa: E731
-    sets = copies(make, 400 * (80 * 64 * 2 + 256 * 2 + 80 * 4))
-    nbytes, ops = ssd_cost(sets[0][0], sets[0][3], None)
-    wy, ws = ref.ssd_scan(*sets[0][:5], chunk=256)
-    y, sf = ssd_scan_cuda(*sets[0][:5])
-    e = max(check("ssd_scan timing set", y, wy, "bfloat16", SSD_TOL),
-            check("ssd_scan timing set state", sf, ws, "bfloat16", SSD_TOL))
-    err = max(err, e)
-    out = {"shape": "B=1 S=400 H=80 P=64 G=1 N=128 bf16 (strided views)",
-           "ms": timed(lambda i: ssd_scan_cuda(*sets[i % len(sets)][:5]), 200),
-           "plain_ms": timed(lambda i: ref.ssd_scan(*sets[i % len(sets)][:5], chunk=256), 20),
-           "library_ms": None, "bound": bound_ms(nbytes, ops, "bfloat16"), "max_abs_err": err}
-    print(f"ssd_scan [{out['shape']}]: kernel {out['ms']:.4f} ms (previous kernel "
-          f"{PREVIOUS_MS['ssd_scan']} ms), plain {out['plain_ms']:.4f} ms, no single PyTorch "
-          f"call, bound {out['bound'][0]:.4f} ms ({out['bound'][1]})")
+    out = {}
+    for key, B, S in (("serve", 1, 400), ("train", 4, 2048)):  # the serve's and training's shapes
+        sets = copies(lambda: ssd_case(g, B, S, 80, 64, 1, 128, "bfloat16"),  # noqa: B023
+                      B * S * (80 * 64 * 2 + 256 * 2 + 80 * 4))
+        nbytes, ops = ssd_cost(sets[0][0], sets[0][3], None)
+        wy, ws = ref.ssd_scan(*sets[0][:5], chunk=256)
+        y, sf = ssd_scan_cuda(*sets[0][:5])
+        e = max(check(f"ssd_scan timing set {key}", y, wy, "bfloat16", SSD_TOL),
+                check(f"ssd_scan timing set {key} state", sf, ws, "bfloat16", SSD_TOL))
+
+        def scan(i, plain=False, sets=sets):
+            args = sets[i % len(sets)][:5]
+            return ref.ssd_scan(*args, chunk=256) if plain else ssd_scan_cuda(*args)
+
+        r = out[key] = {
+            "shape": f"B={B} S={S} H=80 P=64 G=1 N=128 bf16 (strided views)",
+            "ms": timed(scan, 200),
+            "plain_ms": timed(lambda i, f=scan: f(i, plain=True), 20 if key == "serve" else 3),
+            "library_ms": None, "bound": bound_ms(nbytes, ops, "bfloat16"),
+            "max_abs_err": max(err, e)}
+        was = f" (previous kernel {PREVIOUS_MS['ssd_scan']} ms)" if key == "serve" else ""
+        print(f"ssd_scan [{r['shape']}]: kernel {r['ms']:.4f} ms{was}, plain {r['plain_ms']:.4f} "
+              f"ms, no single PyTorch call, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+        del sets, wy, ws, y, sf
     report["ssd_kernel_checks"] = lines
+    return out
+
+
+# (B, S, H, P, G, N, dtype): mamba2-2.7b's training shape in both dtypes, 2
+# groups with a ragged tail, a prompt shorter than 8, 4 groups of 4 heads,
+# and the reduced config's heads (P = 32, N = 16)
+SSD_BWD_CHECKS = [(4, 2048, 80, 64, 1, 128, "bfloat16"), (4, 2048, 80, 64, 1, 128, "float32"),
+                  (2, 300, 16, 64, 2, 128, "bfloat16"), (2, 300, 16, 64, 2, 128, "float32"),
+                  (1, 5, 80, 64, 1, 128, "bfloat16"), (1, 5, 80, 64, 1, 128, "float32"),
+                  (1, 48, 16, 32, 4, 16, "float32"), (2, 40, 8, 32, 1, 16, "float32")]
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def ssd_bwd_cost(x, Bm, chunk=64):
+    """(bytes, ops) of the backward: x, dt, A, B, C and dy read once, dx, ddt,
+    dA, dB and dC written once; the products at the kernel's 64-row chunks:
+    C.B a group, and a head's dy.x over the causal half, the transposed
+    intra-chunk forms of dx, dB and dC over it, their three terms through
+    the state or its gradient, the gradient's step back and the forward's
+    state update, recomputed."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    esz = x.element_size()
+    nbytes = 3 * x.numel() * esz + 4 * Bm.numel() * esz + 2 * B * S * H * 4 + 2 * H * 4
+    ops = 0
+    for c0 in range(0, S, chunk):
+        c = min(chunk, S - c0)
+        ops += 2 * c * c * N * G + H * (2 * c * (c + 1) * P + 2 * c * (c + 1) * N + 10 * c * P * N)
+    return nbytes, B * ops
+
+
+def plain_ssd_grads(x, dtv, A, Bm, C, dy, dtype=None):
+    """The plain scan's gradients by autograd (y's; the final state takes
+    none), in x's dtype widened to float32 as the plain version computes,
+    or in ``dtype`` (float64: the exact oracle of the fp32 kernel)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    leaves = [t.detach().to(dtype or t.dtype).requires_grad_() for t in (x, dtv, A, Bm, C)]
+    y, _ = ref.ssd_scan(*leaves, chunk=256)
+    return torch.autograd.grad(y, leaves, dy.to(dtype or dy.dtype))
+
+
+def ssd_bwd_phase(report: dict) -> dict:
+    """K4's backward (``ssd_scan_bwd.cu``) against the plain scan's autograd
+    on SSD_BWD_CHECKS, every gradient (dx, ddt, dA, dB, dC), on the model's
+    strided views: fp32 elementwise within SSD_TOL (tol + tol*|b|) of the
+    plain version run in float64, but ddt within tol * (1 + max |b|) (its
+    elementwise reading reported: at the training shape ddt reaches ~900
+    from terms that cancel, and the fp32 plain version itself reads 3x the
+    elementwise bound against float64; the kernel 1.3x); bf16 elementwise
+    within SSD_TOL of the
+    plain version's autograd (fp32 arithmetic on the bf16 inputs) and each
+    gradient row within BWD_ROW_TOL of its RMS, with a control that must
+    fail that check (the plain gradients with the last chunk's dy of head 0
+    zeroed); every launch on the CUDA cores (no tensor-core kernel).  At the
+    training shape (bf16): two calls bit for bit, then the backward and the
+    plain version's backward timed on inputs rotated past the L2."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    errs, rows, lines, control = {}, {}, [], None
+    for B, S, H, P, G, N, dt in SSD_BWD_CHECKS:
+        tag = f"ssd_scan_bwd B={B} S={S} H={H} P={P} G={G} N={N} {dt}"
+        x, dtv, A, Bm, C, _ = ssd_case(g, B, S, H, P, G, N, dt)
+        dy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+        before = ssd_scan_bwd_cuda.wgmma_launches
+        got = ssd_scan_bwd_cuda(x, dtv, A, Bm, C, dy)
+        if ssd_scan_bwd_cuda.wgmma_launches != before:
+            fail(f"{tag}: counted a tensor-core launch")
+        want = plain_ssd_grads(x, dtv, A, Bm, C, dy, torch.float64 if dt == "float32" else None)
+        here = {}
+        for name, a, b in zip(SSD_GRADS, got, want, strict=True):
+            if dt == "float32" and name == "ddt":
+                e, tol = max_err(a, b), SSD_TOL[dt]
+                here["ddt elementwise"] = float(((a - b).abs() / (tol + tol * b.abs())).max())
+                if not torch.isfinite(a).all() or e > tol * (1 + float(b.abs().max())):
+                    fail(f"{tag}: ddt off by {e:.3g} (max |ddt| {float(b.abs().max()):.3g})")
+            else:
+                e = check(f"{tag}: {name}", a, b, dt, SSD_TOL)
+            errs[dt] = max(errs.get(dt, 0.0), e)
+            if dt == "bfloat16":
+                here[name] = row_err(a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1]))
+                rows[name] = max(rows.get(name, 0.0), here[name])
+        lines.append(f"{tag}: every gradient within {SSD_TOL[dt]} of the plain version" + (
+            f" in float64 (ddt's elementwise reading {here.pop('ddt elementwise'):.3g} of tol + "
+            "tol*|b|)" if dt == "float32" else "; row errors " + ", ".join(
+                f"{n} {v:.4g}" for n, v in here.items())))
+        print(lines[-1])
+        if here and max(here.values()) > BWD_ROW_TOL[dt]:
+            fail(f"{tag}: a gradient row differs by more than {BWD_ROW_TOL[dt]} of its RMS")
+        if here and control is None:
+            cut = dy.clone()
+            cut[:, (-(-S // 64) - 1) * 64:, 0] = 0
+            drop = plain_ssd_grads(x, dtv, A, Bm, C, cut)
+            control = {f"{SSD_GRADS[i]}{part}": row_err(drop[i][:, r].flatten(0, -2),
+                                                         want[i][:, r].flatten(0, -2))
+                       for i in (0, 3, 4)
+                       for part, r in (("", slice(None)), (" first half", slice(0, S // 2)))}
+            print("K4 backward row check's control (the last chunk's dy of head 0 zeroed): "
+                  + ", ".join(f"{k} {v:.4g}" for k, v in control.items()))
+            if max(control["dx"], control["dB"], control["dC"]) <= BWD_ROW_TOL[dt]:
+                fail("K4 backward: the row check cannot tell a dropped chunk")
+        del got, want
+    torch.cuda.synchronize()
+    shape = (4, 2048, 80, 64, 1, 128)
+
+    def make():
+        x, dtv, A, Bm, C, _ = ssd_case(g, *shape, "bfloat16")
+        return x, dtv, A, Bm, C, torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+
+    sets = copies(make, 2048 * 4 * (80 * 64 * 2 * 2 + 256 * 2 + 80 * 4))
+    runs = [ssd_scan_bwd_cuda(*sets[0]) for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs, strict=True)):
+        fail("K4 backward: two calls on the same inputs gave different bits")
+    print("K4 backward at the training shape: two calls give every gradient bit for bit")
+    del runs
+    nbytes, ops = ssd_bwd_cost(sets[0][0], sets[0][3])
+    out = {"shape": "B=4 S=2048 H=80 P=64 G=1 N=128 bf16 (strided views)",
+           "ms": timed(lambda i: ssd_scan_bwd_cuda(*sets[i % len(sets)]), 10),
+           "plain_ms": timed(lambda i: plain_ssd_grads(*sets[i % len(sets)]), 3),
+           "library_ms": None, "bound": bound_ms(nbytes, ops, "bfloat16"),
+           "max_abs_err": errs["bfloat16"]}
+    print(f"ssd_scan_bwd [{out['shape']}]: kernel {out['ms']:.4f} ms, plain (autograd) "
+          f"{out['plain_ms']:.4f} ms, library none: no single PyTorch call, bound "
+          f"{out['bound'][0]:.4f} ms ({out['bound'][1]})")
+    report["ssd_bwd"] = {"checks": lines, "errs": errs, "row_errs": rows, "control": control,
+                         **{k: v for k, v in out.items() if k != "bound"},
+                         "bound": list(out["bound"])}
     return out
 
 
@@ -3063,15 +3224,27 @@ def cli_phase(report: dict) -> None:
 
 # (B, S, H, K, D, dtype, window): the training shape in both dtypes, a ragged
 # last tile, one query head a KV head (llama2-7b), a window, head_dim 64, and
-# a ragged length under a window that is not a multiple of 64 at G = 4, D = 64
+# a ragged length under a window that is not a multiple of 64 at G = 4, D = 64;
+# qwen3-moe-30b-a3b's training shape (G = 8) in both dtypes
 BWD_CASES = [(4, 2048, 16, 8, 128, "bfloat16", None), (4, 2048, 16, 8, 128, "float32", None),
+             (4, 2048, 32, 4, 128, "bfloat16", None), (4, 2048, 32, 4, 128, "float32", None),
              (2, 1000, 16, 8, 128, "bfloat16", None), (1, 2048, 32, 32, 128, "bfloat16", None),
              (2, 2048, 16, 8, 128, "bfloat16", 512), (2, 1024, 16, 8, 64, "bfloat16", None),
              (1, 1000, 8, 2, 64, "bfloat16", 130)]
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # row_err's limit: each gradient row's largest error over that row's RMS
 BWD_ROW_TOL = {"bfloat16": 0.1, "float32": 1e-2}
-TRAIN_STEPS, TRAIN_TOKENS = 8, (4, 2048)  # the full-depth run: steps, batch x sequence
+TRAIN_STEPS, TRAIN_TOKENS = 8, (4, 2048)  # the full-width runs: steps, batch x sequence
+# the training runs: arch -> layers kept (None: full depth).  qwen3-moe at 4
+# of 48 layers: each layer is 0.62B parameters, 7.5 GB with AdamW's moments,
+# so all 48 would need ~366 GB
+TRAIN_RUNS = {"qwen3-1.7b": None, "mamba2-2.7b": None, "qwen3-moe-30b-a3b": 4}
+# expert_marks()' marker kernels and the part of a training step that
+# follows each: the expert products' forward (flip ... roll) and backward
+# (tril ... triu)
+TRAIN_MARKERS = ((r"flip_kernel", "expert products"), (r"roll_cuda_kernel", None),
+                 (r"triu_tril_kernel<[^,]+, [^,]+, false", "expert products"),
+                 (r"triu_tril_kernel<[^,]+, [^,]+, true", None))
 
 
 def plain_lse(q, k, window=None):
@@ -3223,53 +3396,59 @@ def train_kernel_phase(report: dict) -> dict:
             readings = row_readings(q, k, v, o, dout, window, plain, got, want)
         del want, leaves, got, plain
     torch.cuda.synchronize()
-    # timing at the training shape, bf16 (inputs 134 MB: past the L2 by themselves)
-    B, S, H, K, D = 4, 2048, 16, 8, 128
-    q, k, v, dout = (torch.randn(B, S, n, D, generator=g, device="cuda").to(torch.bfloat16)
-                     for n in (H, K, K, H))
-    o, lse = flash_attention_cuda(q, k, v, lse=True)
-    runs = [flash_attention_bwd_cuda(q, k, v, o, dout, lse) for _ in range(2)]
-    if not all(torch.equal(a, b) for a, b in zip(*runs, strict=True)):
-        fail("K2 backward: two calls on the same inputs gave different bits")
-    print("K2 backward at the training shape: two calls give dq, dk and dv bit for bit")
-    del runs
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    plain_o = ref.flash_attention(*leaves)
-    th = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
-    sdpa_o, dout_h = sdpa(*th, is_causal=True), dout.transpose(1, 2).contiguous()
-    nbytes, ops = bwd_cost(q, k)
-    out["bwd"] = {
-        "shape": f"B={B} S={S} H={H} K={K} D={D} causal bf16",
-        "ms": timed(lambda i: flash_attention_bwd_cuda(q, k, v, o, dout, lse), 20),
-        "plain_ms": timed(lambda i: torch.autograd.grad(plain_o, leaves, dout,
-                                                        retain_graph=True), 3),
-        "library_ms": timed(lambda i: torch.autograd.grad(sdpa_o, th, dout_h,
-                                                          retain_graph=True), 20),
-        "bound": bound_ms(nbytes, ops, "bfloat16"), "max_abs_err": max(
-            errs["dq"], errs["dk"], errs["dv"])}
-    del plain_o, sdpa_o
-    nbytes, ops = flash_cost(q, k)
-    fwd = {"shape": out["bwd"]["shape"],
-           "ms": timed(lambda i: flash_attention_cuda(q, k, v, lse=True), 20),
-           "ms_no_lse": timed(lambda i: flash_attention_cuda(q, k, v), 20),
-           "plain_ms": timed(lambda i: ref.flash_attention(q, k, v), 3),
-           "library_ms": timed(lambda i: sdpa(*th, is_causal=True), 20),
-           "bound": bound_ms(nbytes + B * H * S * 4, ops, "bfloat16"),
-           "max_abs_err": max(errs["out"], errs["lse"])}
-    out["fwd"] = fwd
+    # timing at the training shapes, bf16 (inputs 134 and 168 MB: past the L2
+    # by themselves): qwen3-1.7b's (G = 2) and qwen3-moe-30b-a3b's (G = 8)
+    for key, H, K in (("", 16, 8), (" g8", 32, 4)):
+        B, S, D = 4, 2048, 128
+        q, k, v, dout = (torch.randn(B, S, n, D, generator=g, device="cuda").to(torch.bfloat16)
+                         for n in (H, K, K, H))
+        o, lse = flash_attention_cuda(q, k, v, lse=True)
+        runs = [flash_attention_bwd_cuda(q, k, v, o, dout, lse) for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs, strict=True)):
+            fail(f"K2 backward (H={H} K={K}): two calls on the same inputs gave different bits")
+        print(f"K2 backward at B={B} S={S} H={H} K={K}: two calls give dq, dk and dv bit for bit")
+        del runs
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        plain_o = ref.flash_attention(*leaves)
+        th = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+        sdpa_o, dout_h = sdpa(*th, is_causal=True), dout.transpose(1, 2).contiguous()
+        nbytes, ops = bwd_cost(q, k)
+        out["bwd" + key] = {
+            "shape": f"B={B} S={S} H={H} K={K} D={D} causal bf16",
+            "ms": timed(lambda i: flash_attention_bwd_cuda(q, k, v, o, dout, lse), 20),
+            "plain_ms": timed(lambda i: torch.autograd.grad(plain_o, leaves, dout,
+                                                            retain_graph=True), 3),
+            "library_ms": timed(lambda i: torch.autograd.grad(sdpa_o, th, dout_h,
+                                                              retain_graph=True), 20),
+            "bound": bound_ms(nbytes, ops, "bfloat16"), "max_abs_err": max(
+                errs["dq"], errs["dk"], errs["dv"])}
+        del plain_o, sdpa_o
+        nbytes, ops = flash_cost(q, k)
+        out["fwd" + key] = {
+            "shape": out["bwd" + key]["shape"],
+            "ms": timed(lambda i: flash_attention_cuda(q, k, v, lse=True), 20),
+            "ms_no_lse": timed(lambda i: flash_attention_cuda(q, k, v), 20),
+            "plain_ms": timed(lambda i: ref.flash_attention(q, k, v), 3),
+            "library_ms": timed(lambda i: sdpa(*th, is_causal=True), 20),
+            "bound": bound_ms(nbytes + B * H * S * 4, ops, "bfloat16"),
+            "max_abs_err": max(errs["out"], errs["lse"])}
+        del q, k, v, dout, o, lse, leaves, th
     report["train_kernels"] = {"errs": errs, "row_errs": rows, "row_readings": readings,
                                **{k: dict(v, bound=list(v["bound"])) for k, v in out.items()}}
-    for name, r in (("flash_attention_bwd", out["bwd"]), ("flash_attention (lse)", fwd)):
-        show_timing(name, r)
-    print(f"flash_attention without lse at the same shape: {fwd['ms_no_lse']:.4f} ms")
+    for key, r in out.items():
+        show_timing("flash_attention_bwd" if key.startswith("bwd") else "flash_attention (lse)", r)
+        if "ms_no_lse" in r:
+            print(f"flash_attention without lse at the same shape: {r['ms_no_lse']:.4f} ms")
     return out
 
 
-def train_model_phase(report: dict) -> None:
-    """(b) 2 full-width qwen3-1.7b layers, fp32, remat "minimal": the loss and
-    every gradient leaf on the card (K2 forward and backward on their
-    CUDA-core kernels) against the same weights on the CPU: the loss within
-    1e-5 relative, each leaf within 1e-3 x its max |g|."""
+def train_model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
+    """(b) 2 full-width layers of ``arch``, fp32, remat "minimal": the loss
+    (with a MoE model's router losses) and every gradient leaf on the card
+    (K2's or K4's forward and backward on their CUDA-core kernels) against
+    the same weights on the CPU: the loss within 1e-5 relative, each leaf
+    within 1e-3 x its max |g|; for MoE first each token's chosen experts
+    and its keep mask at capacity, call by call, identical."""
     import dataclasses
 
     import torch
@@ -3278,48 +3457,57 @@ def train_model_phase(report: dict) -> None:
     from repro_torch.models import build_model
     from repro_torch.params import tree_items, tree_map
 
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
     tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=torch.Generator().manual_seed(4),
                            dtype=torch.int32)
     params = build_model(cfg, "cuda").init(1)
     results = {}
     zero_counts()
-    for dev, p in (("cuda", params), ("cpu", to_cpu(params))):
-        live = tree_map(lambda t: t.detach().requires_grad_(), p)
-        leaves = [t for _, t in tree_items(live)]
-        loss, _ = build_model(cfg, dev).loss_fn(live, {"tokens": tokens.to(dev)})
-        results[dev] = (float(loss.detach()), [t.cpu() for t in torch.autograd.grad(loss, leaves)])
-        if dev == "cuda":
-            launches = read_counts()
+    with (routing_recorded() if cfg.moe else contextlib.nullcontext()) as seen:
+        for dev, p in (("cuda", params), ("cpu", to_cpu(params))):
+            live = tree_map(lambda t: t.detach().requires_grad_(), p)
+            leaves = [t for _, t in tree_items(live)]
+            loss, _ = build_model(cfg, dev).loss_fn(live, {"tokens": tokens.to(dev)})
+            results[dev] = (float(loss.detach()),
+                            [t.cpu() for t in torch.autograd.grad(loss, leaves)])
+            if dev == "cuda":
+                launches = read_counts()
+    tag = f"train model check {arch}"
+    if cfg.moe:
+        same_routing(tag, cfg, seen, report)
     names = [k for k, _ in tree_items(params)]
     (lg, gg), (lc, gc) = results["cuda"], results["cpu"]
     worst = max((max_err(a, b) / max(float(b.abs().max()), 1e-30), n)
                 for n, a, b in zip(names, gg, gc, strict=True))
-    print(f"train model check (2 full-width layers, fp32, card vs CPU): loss {lg:.6f} / "
-          f"{lc:.6f}; worst leaf {worst[1]} at {worst[0]:.3g} x its max |g|; launches "
-          f"{launches}")
-    no_wgmma(launches, "flash_attention", "train model check")
-    no_wgmma(launches, "flash_attention_bwd", "train model check")
-    if launches["flash_attention_bwd"] != cfg.n_layers:
-        fail(f"train model check: {launches['flash_attention_bwd']} K2 backward launches")
+    print(f"{tag} (2 full-width layers, fp32, card vs CPU): loss {lg:.6f} / {lc:.6f}; worst "
+          f"leaf {worst[1]} at {worst[0]:.3g} x its max |g|; launches {launches}")
+    bwd = "ssd_scan_bwd" if cfg.family == "ssm" else "flash_attention_bwd"
+    for name in ("ssd_scan", "ssd_scan_bwd") if cfg.family == "ssm" else (
+            "flash_attention", "flash_attention_bwd"):
+        no_wgmma(launches, name, tag)
+    if launches[bwd] != cfg.n_layers:
+        fail(f"{tag}: {launches[bwd]} {bwd} launches")
     if abs(lg - lc) > 1e-5 * abs(lc) or worst[0] > 1e-3:
-        fail(f"train model check: loss {lg} vs {lc}, gradient {worst}")
-    report["train_model_check"] = {"loss": [lg, lc], "worst_leaf": list(worst),
-                                   "launches": launches}
+        fail(f"{tag}: loss {lg} vs {lc}, gradient {worst}")
+    report["train_model_check" + ("" if arch == "qwen3-1.7b" else f"_{arch}")] = {
+        "loss": [lg, lc], "worst_leaf": list(worst), "launches": launches}
 
 
 @contextlib.contextmanager
 def train_probes(times: dict):
     """Time each train step (synchronised on both sides) and each checkpoint
-    save of ``launch.train``; profile the step listed in ``times["profile"]``
-    (CUDA activity only)."""
+    save of ``launch.train``, and keep each step's metrics; profile the step
+    listed in ``times["profile"]`` (CUDA activity only); with
+    ``times["no_saves"]``, skip the saves (the full-width family runs: a
+    save of their 27-31 GB would take most of their time, and the qwen3 run
+    and the restart check hold the checkpoint path)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.training import checkpoint, train_loop
 
     make, save = train_loop.make_train_step, checkpoint.CheckpointManager.save
-    times.update(step=[], save=[], prof=None)
+    times.update(step=[], save=[], prof=None, metrics=[])
 
     def timed_make(*a, **kw):
         init, step = make(*a, **kw)
@@ -3333,10 +3521,13 @@ def train_probes(times: dict):
                 torch.cuda.synchronize()
             times["step"].append(time.perf_counter() - t0)
             times["prof"] = prof or times["prof"]
+            times["metrics"].append({k: float(v) for k, v in out[2].items()})
             return out
         return init, run
 
     def timed_save(self, *a, **kw):
+        if times.get("no_saves"):
+            return None
         t0 = time.perf_counter()
         out = save(self, *a, **kw)
         times["save"].append(time.perf_counter() - t0)
@@ -3349,84 +3540,159 @@ def train_probes(times: dict):
         train_loop.make_train_step, checkpoint.CheckpointManager.save = make, save
 
 
-def train_phase(report: dict) -> dict:
-    """(c) ``launch.train`` at full width and depth, bf16, remat "minimal":
-    qwen3-1.7b, 8 steps of 4 x 2048 tokens, the two checkpoints (step 0
-    and the end) in a temporary directory.  Every loss finite; 28 K2
-    backward launches a step; K2 forward launches a step counted (the
-    forward's 28 plus what remat recomputes); ms a step, tokens/s, MFU
-    against 989 TFLOP/s (6 N tokens plus the attention products), peak
-    memory, the device time of a profiled step split into GEMMs, K2 forward,
-    K2 backward and the rest, and the seconds of each save."""
+@contextlib.contextmanager
+def expert_marks():
+    """Bracket every call of the MoE layer's expert products with marker
+    kernels on a 2 x 2 tensor (TRAIN_MARKERS), through an autograd Function
+    that launches one in the forward and one in the backward: flip before
+    and roll after the forward's products (remat's recomputation too), tril
+    before and triu after their backward, so that a profiled training
+    step's device timeline tells the expert products from the rest."""
+    import torch
+
+    from repro_torch.models import moe
+
+    t = torch.zeros(2, 2, device="cuda")
+    ops = {"flip": lambda: torch.flip(t, [0]), "roll": lambda: torch.roll(t, 1, 0),
+           "tril": t.tril, "triu": t.triu}
+
+    class Mark(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, fwd, bwd):
+            ops[fwd]()
+            ctx.bwd = bwd
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, grad):
+            ops[ctx.bwd]()
+            return grad, None, None
+
+    ffn = moe.expert_ffn
+    moe.expert_ffn = lambda p, cfg, buf: Mark.apply(ffn(p, cfg, Mark.apply(buf, "flip", "triu")),
+                                                    "roll", "tril")
+    try:
+        yield
+    finally:
+        moe.expert_ffn = ffn
+
+
+def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
+    """(c) ``launch.train`` at full width, bf16, remat "minimal", 8 steps of
+    4 x 2048 tokens, at the depth of TRAIN_RUNS (the config cut as
+    restart_phase cuts it).  Every loss finite (a MoE model's router losses
+    too); a step's launches: K2 backward one a layer and every K2 launch on
+    its wgmma kernels (attention), K4 backward one a layer and every K4
+    forward on ssd_wgmma_kernel (Mamba2), the forwards counted (remat
+    recomputes them); ms a step, tokens/s, MFU against 989 TFLOP/s (6 N
+    tokens, N the active parameters, plus three times the attention's or
+    the SSD scan's forward products), peak memory, the device time of a
+    profiled step split into GEMMs, expert products (expert_marks), K4
+    forward and backward, K2 forward and backward and the rest.  qwen3-1.7b
+    also saves its two checkpoints (step 0 and the end) and times them."""
+    import dataclasses
     import math
     import re
     import tempfile
     from collections import Counter
+    from unittest import mock
 
     import torch
     from torch.autograd import DeviceType
 
-    from repro_torch.configs import get_config
+    from repro_torch import configs
     from repro_torch.launch import train
 
-    cfg = get_config("qwen3-1.7b")
+    cfg = configs.get_config(arch)
+    if TRAIN_RUNS[arch]:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_RUNS[arch])
     B, S = TRAIN_TOKENS
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck, \
-            train_probes({"profile": 4}) as times:
+            train_probes({"profile": 4, "no_saves": arch != "qwen3-1.7b"}) as times, \
+            mock.patch.object(configs, "get_config", lambda name: cfg), \
+            (expert_marks() if cfg.moe else contextlib.nullcontext()):
         t0 = time.perf_counter()
-        result = train.main(["--arch", "qwen3-1.7b", "--no-reduced", "--steps", str(TRAIN_STEPS),
+        result = train.main(["--arch", arch, "--no-reduced", "--steps", str(TRAIN_STEPS),
                              "--batch", str(B), "--seq-len", str(S), "--ckpt-dir", ck,
                              "--log-every", "1"])
         wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = [result["losses"][i] for i in range(TRAIN_STEPS)]
-    per_step = {k: launches[k] / TRAIN_STEPS for k in ("flash_attention", "flash_attention_bwd")}
-    if not all(map(math.isfinite, losses)):
-        fail(f"train: a loss is not finite: {losses}")
-    if per_step["flash_attention_bwd"] != cfg.n_layers or \
-            launches["flash_attention.wgmma"] != launches["flash_attention"] or \
-            launches["flash_attention_bwd.wgmma"] != launches["flash_attention_bwd"]:
-        fail(f"train: launches {launches}: expected {cfg.n_layers} K2 backward launches a step, "
-             "every K2 forward on flash_wgmma_kernel and every backward on "
-             "dkdv_wgmma_kernel and dq_wgmma_kernel")
+    router = {k: [m[k] for m in times["metrics"]] for k in ("load_balance", "router_z")
+              if cfg.moe}
+    if not all(map(math.isfinite, losses + sum(router.values(), []))):
+        fail(f"train {arch}: a loss is not finite: {losses} {router}")
+    ssm = cfg.family == "ssm"
+    fwd, bwd = ("ssd_scan", "ssd_scan_bwd") if ssm else ("flash_attention", "flash_attention_bwd")
+    per_step = {k: launches[k] / TRAIN_STEPS for k in (fwd, bwd)}
+    on_wgmma = (launches["ssd_scan.wgmma"] == launches["ssd_scan"] if ssm else
+                launches["flash_attention.wgmma"] == launches["flash_attention"]
+                and launches["flash_attention_bwd.wgmma"] == launches["flash_attention_bwd"])
+    if per_step[bwd] != cfg.n_layers or not on_wgmma:
+        fail(f"train {arch}: launches {launches}: expected {cfg.n_layers} {bwd} launches a step "
+             + ("and every K4 forward on ssd_wgmma_kernel" if ssm else "and every K2 forward on "
+                "flash_wgmma_kernel and every backward on dkdv_wgmma_kernel and dq_wgmma_kernel"))
     step_s = sorted(times["step"][1:])[len(times["step"][1:]) // 2]  # median, the first warm-up
-    _, attn_ops = flash_cost(torch.empty(B, S, cfg.n_heads, cfg.head_dim, device="meta"),
-                             torch.empty(B, S, cfg.n_kv_heads, cfg.head_dim, device="meta"))
-    flops = 6 * cfg.n_params() * B * S + 3 * attn_ops * cfg.n_layers
-    events = [(e.name(), e.duration_ns() / 1e6) for e in
-              times["prof"].profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
-    groups = ((r"dkdv_(wgmma_)?kernel|dq_(wgmma_)?kernel|delta_kernel", "K2 backward"),
+    if ssm:
+        s = cfg.ssm
+        _, fwd_ops = ssd_cost(torch.empty(B, S, s.n_heads(cfg.d_model), s.head_dim, device="meta"),
+                              torch.empty(B, S, s.n_groups, s.d_state, device="meta"), None)
+    else:
+        _, fwd_ops = flash_cost(torch.empty(B, S, cfg.n_heads, cfg.head_dim, device="meta"),
+                                torch.empty(B, S, cfg.n_kv_heads, cfg.head_dim, device="meta"))
+    flops = 6 * cfg.n_active_params() * B * S + 3 * fwd_ops * cfg.n_layers
+    events = sorted((e.start_ns(), e.name(), e.duration_ns() / 1e6) for e in
+                    times["prof"].profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA)
+    groups = ((r"ssd_bwd_kernel|ssd_bwd_reduce_kernel", "K4 backward"),
+              (r"ssd_wgmma_kernel|ssd_kernel", "K4 forward"),
+              (r"dkdv_(wgmma_)?kernel|dq_(wgmma_)?kernel|delta_kernel", "K2 backward"),
               (r"flash_wgmma_kernel|flash_kernel", "K2 forward"),
               (r"gemm|nvjet|xmma|cutlass", "GEMMs"))
-    parts, bwd = Counter(), Counter()
-    for name, ms in events:
-        parts[next((g for k, g in groups if re.search(k, name.lower())), "rest")] += ms
-        found = re.search(groups[0][0], name)
-        if found:
-            bwd[found.group(0)] += ms
+    parts, kernels, rest, region = Counter(), Counter(), Counter(), None
+    for _, name, ms in events:
+        mark = next((m for m in TRAIN_MARKERS if re.search(m[0], name)), None) if cfg.moe else None
+        if mark is not None:
+            region = mark[1]
+            parts["markers"] += ms
+            continue
+        part = next((g for k, g in groups if re.search(k, name.lower())), "rest")
+        parts[region or part] += ms
+        if part.startswith(("K2", "K4")):
+            kernels[re.search(r"\w*kernel", name).group(0)] += ms
+        elif (region or part) == "rest":  # the bucket's largest kernels, by name
+            rest[name.removeprefix("void ")[:110]] += ms
     busy = sum(parts.values())
-    r = {"losses": losses, "wall_s": wall, "step_ms": step_s * 1e3, "step_ms_all":
-         [t * 1e3 for t in times["step"]], "tokens_per_s": B * S / step_s,
-         "mfu": flops / step_s / PEAK_OPS["bfloat16"], "model_flops_per_step": flops,
-         "peak_gb": peak, "launches_per_step": per_step, "save_s": times["save"],
+    r = {"arch": arch, "n_layers": cfg.n_layers, "losses": losses, "router_losses": router,
+         "wall_s": wall, "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times["step"]],
+         "tokens_per_s": B * S / step_s, "mfu": flops / step_s / PEAK_OPS["bfloat16"],
+         "model_flops_per_step": flops, "active_params": cfg.n_active_params(), "peak_gb": peak,
+         "launches_per_step": per_step, "save_s": times["save"],
          "profiled_step_device_ms": busy,
          "profiled_step_share": {g: ms / busy for g, ms in parts.most_common()},
-         "profiled_step_bwd_ms": dict(bwd.most_common())}
-    report["train"] = r
-    print(f"train (qwen3-1.7b full width, 28 layers, bf16, {B}x{S} tokens, remat minimal): "
+         "profiled_step_kernel_ms": dict(kernels.most_common()),
+         "profiled_step_rest_ms": dict(rest.most_common(12))}
+    report["train" + ("" if arch == "qwen3-1.7b" else f"_{arch}")] = r
+    depth = f"{cfg.n_layers} layers" + (f" of {configs.get_config(arch).n_layers}"
+                                        if TRAIN_RUNS[arch] else "")
+    print(f"train ({arch} full width, {depth}, bf16, {B}x{S} tokens, remat minimal): "
           f"losses {' '.join(f'{x:.4f}' for x in losses)}")
-    print(f"train: {r['step_ms']:.1f} ms a step (median of steps 2-{TRAIN_STEPS}), "
+    for k, v in router.items():
+        print(f"train {arch}: {k} {' '.join(f'{x:.4f}' for x in v)}")
+    print(f"train {arch}: {r['step_ms']:.1f} ms a step (median of steps 2-{TRAIN_STEPS}), "
           f"{r['tokens_per_s']:.0f} tokens/s, MFU {r['mfu']:.1%} of 989 TFLOP/s, peak "
-          f"{peak:.1f} GB; K2 launches a step: forward {per_step['flash_attention']:g}, "
-          f"backward {per_step['flash_attention_bwd']:g}; saves "
-          f"{', '.join(f'{s:.1f}' for s in times['save'])} s")
-    print(f"train: profiled step device time {busy:.1f} ms: " + ", ".join(
+          f"{peak:.1f} GB; launches a step: {fwd} {per_step[fwd]:g}, {bwd} {per_step[bwd]:g}"
+          + (f"; saves {', '.join(f'{x:.1f}' for x in times['save'])} s" if times["save"] else
+             " (no saves)"))
+    print(f"train {arch}: profiled step device time {busy:.1f} ms: " + ", ".join(
         f"{g} {ms / busy:.1%}" for g, ms in parts.most_common()))
-    print("train: K2 backward in the profiled step: " + ", ".join(
-        f"{k} {ms:.2f} ms" for k, ms in bwd.most_common()))
+    print(f"train {arch}: kernels in the profiled step: " + ", ".join(
+        f"{k} {ms:.2f} ms" for k, ms in kernels.most_common()))
+    print(f"train {arch}: the rest's largest kernels: " + "; ".join(
+        f"{k} {ms:.2f} ms" for k, ms in rest.most_common(6)))
     return launches
 
 
@@ -3619,10 +3885,15 @@ def main() -> None:
     release()
     train_timing = train_kernel_phase(report)
     release()
-    train_model_phase(report)
+    ssd_bwd_timing = ssd_bwd_phase(report)
     release()
-    train_launches = train_phase(report)
-    release()
+    for arch in TRAIN_RUNS:
+        train_model_phase(report, arch)
+        release()
+    train_launches = {}
+    for arch in TRAIN_RUNS:
+        train_launches[arch] = train_phase(report, arch)
+        release()
     restart_phase(report)
     stamp("training")
 
@@ -3653,7 +3924,8 @@ def main() -> None:
                      paged_launches["decode_attention_paged"] - k3_admit),
                entry("decode_attention_paged (admission)", "paged_wgmma_kernel",
                      paged_timing["admission"], k3_admit),
-               entry("ssd_scan", "ssd_wgmma_kernel", ssd_timing, mamba_launches["ssd_scan"])]
+               entry("ssd_scan", "ssd_wgmma_kernel", ssd_timing["serve"],
+                     mamba_launches["ssd_scan"])]
     split = report["paper_serve"]["launch_split"]
     kernels += [entry("decode_attention (llama2 verify)", "decode_wgmma_kernel",
                       llama_timing["decode_attention (llama2 verify)"],
@@ -3704,11 +3976,22 @@ def main() -> None:
             ("decode_attention (internvl2 decode)", iv["step_calls"]["decode_attention.causal"])):
         kernel = "decode_wgmma_kernel" if name.startswith("decode") else "flash_wgmma_kernel"
         kernels.append(entry(name, kernel, encdec_timing[name], n))
-    # training: K2 backward and forward (with lse) launches from the full-depth run
+    # training: K2 backward and forward (with lse) launches from the qwen3 and
+    # qwen3-moe runs, K4 backward and forward from the mamba2 run
+    tq, tm, tmoe = (train_launches[a] for a in TRAIN_RUNS)
     kernels += [entry("flash_attention_bwd (qwen3 training)", "dkdv_wgmma_kernel, dq_wgmma_kernel",
-                      train_timing["bwd"], train_launches["flash_attention_bwd"]),
+                      train_timing["bwd"], tq["flash_attention_bwd"]),
                 entry("flash_attention (qwen3 training, lse)", "flash_wgmma_kernel",
-                      train_timing["fwd"], train_launches["flash_attention"])]
+                      train_timing["fwd"], tq["flash_attention"]),
+                entry("ssd_scan_bwd (mamba2 training)", "ssd_bwd_kernel", ssd_bwd_timing,
+                      tm["ssd_scan_bwd"]),
+                entry("ssd_scan (mamba2 training)", "ssd_wgmma_kernel", ssd_timing["train"],
+                      tm["ssd_scan"]),
+                entry("flash_attention_bwd (qwen3-moe training, G = 8)",
+                      "dkdv_wgmma_kernel, dq_wgmma_kernel", train_timing["bwd g8"],
+                      tmoe["flash_attention_bwd"]),
+                entry("flash_attention (qwen3-moe training, lse)", "flash_wgmma_kernel",
+                      train_timing["fwd g8"], tmoe["flash_attention"])]
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

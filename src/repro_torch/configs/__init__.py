@@ -1,7 +1,7 @@
 """Config registry: ``get_config("<arch-id>")`` and reduced test variants.
 
 Every architecture of ``repro`` but jamba-1.5-large-398b (hybrid: ROADMAP
-M9, §1 item 3.4): the dense decoders (qwen3-1.7b, llama2-7b, qwen2.5-14b,
+M9, §1 item 3): the dense decoders (qwen3-1.7b, llama2-7b, qwen2.5-14b,
 starcoder2-7b, h2o-danube-3-4b), the MoE decoders (qwen3-moe-30b-a3b,
 mixtral-8x7b), mamba2-2.7b (SSM), internvl2-1b (a vision frontend stub) and
 seamless-m4t-large-v2 (encoder-decoder, an audio frontend stub).

@@ -105,7 +105,7 @@ def check_servable(cfg):
     if cfg.is_encdec or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the engine serves token prompts, and no request carries frames or "
-            "patches; drive it through build_model (ROADMAP M9, §1 item 3.5)")
+            "patches; drive it through build_model (ROADMAP §3 item 10)")
 
 
 def attention_only(cfg):

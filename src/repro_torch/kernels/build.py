@@ -22,7 +22,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("decode_attention", "decode_attention_paged", "flash_attention",
-           "flash_attention_bwd", "ssd_scan")
+           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 # head dims the attention kernels (K1-K3) are instantiated at; 120 runs at a
 # tile width of 128 (csrc/attention_tile.cuh)
 HEAD_DIMS = (32, 64, 120, 128)

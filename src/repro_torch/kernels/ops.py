@@ -43,7 +43,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, kv_positions=None,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k_cache, v_cache)):
         raise NotImplementedError("decode_attention: K1 has no backward kernel, so a gradient "
                                   "through decode or cross attention cannot run on the card "
-                                  "(ROADMAP §1 item 4)")
+                                  "(ROADMAP §1 item 2.3)")
     return da.decode_attention_cuda(q, k_cache, v_cache, cache_len, kv_positions=kv_positions,
                                     window=window, scale=scale, causal=causal)
 
@@ -57,9 +57,17 @@ def decode_attention_paged(q, k_pages, v_pages, cache_len, block_tables, *, wind
 
 
 def ssd_scan(x, dt, A, Bm, C, *, chunk=256, initial_state=None):
-    """Mamba2 SSD scan; see ``ref.ssd_scan``.  Returns (y, final state)."""
+    """Mamba2 SSD scan; see ``ref.ssd_scan``.  Returns (y, final state).  On
+    a CUDA device, a call that autograd records runs ``SsdScanFn``: K4
+    forward, K4 backward; neither state takes a gradient there."""
     if x.device.type == "cpu":
         return ssd.ssd_scan_plain(x, dt, A, Bm, C, chunk=chunk, initial_state=initial_state)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, dt, A, Bm, C, initial_state)):
+        if initial_state is not None and initial_state.requires_grad:
+            raise NotImplementedError("ssd_scan: no gradient for the initial state on the card: "
+                                      "K4's backward kernel has no term for it")
+        return ssd.SsdScanFn.apply(x, dt, A, Bm, C, initial_state)
     return ssd.ssd_scan_cuda(x, dt, A, Bm, C, initial_state=initial_state)
 
 

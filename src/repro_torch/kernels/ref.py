@@ -109,13 +109,16 @@ def decode_attention_paged(q, k_pages, v_pages, cache_len, block_tables, *,
 
 
 def ssd_scan(x, dt, A, Bm, C, *, chunk=256, initial_state=None):
-    """Chunked SSD forward (Mamba-2, arXiv:2405.21060 §6), all in float32.
+    """Chunked SSD forward (Mamba-2, arXiv:2405.21060 §6), all in float32
+    (float64 when x is: an exact oracle for the kernels' gradients).
 
     x (B, S, H, P); dt (B, S, H), already softplus'ed; A (H,) negative;
     Bm, C (B, S, G, N); initial_state (B, H, P, N) or None (zeros).
-    Returns y (B, S, H, P) in x's dtype and the final state (B, H, P, N) fp32.
-    The last chunk is padded with dt = 0 rows, which leave the state as is.
+    Returns y (B, S, H, P) in x's dtype and the final state (B, H, P, N) fp32
+    (float64 with x).  The last chunk is padded with dt = 0 rows, which leave
+    the state as is.
     """
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2:]
     rep = H // G
@@ -123,12 +126,12 @@ def ssd_scan(x, dt, A, Bm, C, *, chunk=256, initial_state=None):
     pad = (-S) % chunk
     nc = (S + pad) // chunk
 
-    def split(t):  # (B, S, ...) -> (B, nc, chunk, ...) fp32, zero-padded
-        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+    def split(t):  # (B, S, ...) -> (B, nc, chunk, ...) in f, zero-padded
+        t = torch.nn.functional.pad(t.to(f), (0, 0) * (t.dim() - 2) + (0, pad))
         return t.reshape(Bsz, nc, chunk, *t.shape[2:])
 
     xf, dtf, Bf, Cf = split(x), split(dt), split(Bm), split(C)
-    dA_cs = torch.cumsum(dtf * A.float(), dim=2)                      # (B,nc,c,H)
+    dA_cs = torch.cumsum(dtf * A.to(f), dim=2)                        # (B,nc,c,H)
     # intra-chunk: decay exp(cs_i - cs_j) for j <= i, computed directly
     seg = dA_cs.transpose(2, 3)[..., :, None] - dA_cs.transpose(2, 3)[..., None, :]
     causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
@@ -141,8 +144,8 @@ def ssd_scan(x, dt, A, Bm, C, *, chunk=256, initial_state=None):
     states = torch.einsum("bushn,bushp->buhpn", Bf.repeat_interleave(rep, dim=3),
                           xf * (dtf * decay_to_end)[..., None])
     chunk_decay = torch.exp(dA_cs[:, :, -1])                          # (B,nc,H)
-    s = (torch.zeros(Bsz, H, P, N, device=x.device) if initial_state is None
-         else initial_state.float())
+    s = (torch.zeros(Bsz, H, P, N, dtype=f, device=x.device) if initial_state is None
+         else initial_state.to(f))
     before = []
     for u in range(nc):
         before.append(s)

@@ -1,6 +1,6 @@
 """Public model API: ``build_model(cfg, device="cuda")`` -> :class:`Model`
 (a port of ``repro.models.model``: serving, and training's ``forward`` and
-``loss_fn`` for attention+MLP stacks).
+``loss_fn``, with a MoE model's router losses).
 
 Parameters are a dict: ``{"embedding": {"table"[, "head"]}, "layers": [per-
 layer dict, ...], "final_norm"}``, and for an encoder-decoder also
@@ -142,7 +142,7 @@ class Model:
         x = frames.to(self.dtype)
         B, M = x.shape[:2]
         positions = torch.arange(M, device=x.device)[None].expand(B, M)
-        x = tfm.scan_full(params["encoder"], cfg, x, positions, remat, causal=False)
+        x = tfm.scan_full(params["encoder"], cfg, x, positions, remat, causal=False)[0]
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     @staticmethod
@@ -152,9 +152,8 @@ class Model:
         mem_len = torch.full((B,), M, dtype=torch.int32, device=enc_out.device)
         return mem_len, dense_positions(mem_len, M)
 
-    def forward(self, params, batch):
-        """Full-sequence logits (B, S, V) fp32 of ``batch["tokens"]`` (B, S)
-        (training; layers under ``cfg.remat_policy``)."""
+    def _forward(self, params, batch):
+        """(logits (B, S, V) fp32, the router's losses summed over the layers)."""
         cfg = self.cfg
         cross_mem = None
         if cfg.is_encdec:
@@ -163,18 +162,33 @@ class Model:
         x, n_prefix = self._embed_inputs(params, batch)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        x = tfm.scan_full(params["layers"], cfg, x, positions, cfg.remat_policy,
-                          cross_mem=cross_mem)
-        return self._logits(params, x[:, n_prefix:])
+        x, aux = tfm.scan_full(params["layers"], cfg, x, positions, cfg.remat_policy,
+                               cross_mem=cross_mem)
+        return self._logits(params, x[:, n_prefix:]), aux
+
+    def forward(self, params, batch):
+        """Full-sequence logits (B, S, V) fp32 of ``batch["tokens"]`` (B, S)
+        (training; layers under ``cfg.remat_policy``)."""
+        return self._forward(params, batch)[0]
 
     def loss_fn(self, params, batch):
         """Next-token cross-entropy, ``logsumexp - target logit`` averaged over
-        (B, S - 1); returns (loss, metrics ``ce``, ``ppl_log``, ``loss``)."""
-        logits = self.forward(params, batch)[:, :-1]
+        (B, S - 1), plus for a MoE model its router losses weighted by
+        ``cfg.moe``; returns (loss, metrics ``ce``, ``ppl_log``, ``loss`` and
+        for MoE ``load_balance`` and ``router_z``)."""
+        logits, aux = self._forward(params, batch)
+        logits = logits[:, :-1]
         targets = batch["tokens"][:, 1:].long()
         tgt = logits.gather(-1, targets[..., None])[..., 0]
         ce = (torch.logsumexp(logits, -1) - tgt).mean()
-        return ce, {"ce": ce, "ppl_log": ce, "loss": ce}
+        loss, metrics = ce, {"ce": ce, "ppl_log": ce}
+        m = self.cfg.moe
+        if m is not None:
+            loss = (ce + m.load_balance_loss * aux["load_balance"]
+                    + m.router_z_loss * aux["router_z"])
+            metrics.update(aux)
+        metrics["loss"] = loss
+        return loss, metrics
 
     def prefill(self, params, batch, max_len):
         """Run the prompt; returns (last-token logits (B, V) fp32, cache).

@@ -1,5 +1,5 @@
-"""Mixture-of-experts with sort-based dispatch (the serving half of
-``repro.models.moe``).
+"""Mixture-of-experts with sort-based dispatch (a port of
+``repro.models.moe``; training adds the router's two auxiliary losses).
 
 Each token picks its ``top_k`` experts from an fp32 router.  The
 assignments are sorted by expert id (stably, so each expert's tokens keep
@@ -59,12 +59,23 @@ def capacity(n_tokens, cfg, capacity_factor):
     return min(max(8, -(-c // 8) * 8), n_tokens * m.top_k)
 
 
-def route(p, cfg, tokens):
+def route(p, cfg, tokens, losses=False):
     """Top-k routing in fp32 on the upcast tokens (..., d): renormalised
-    weights and expert ids (..., k)."""
-    probs = torch.softmax(tokens.float() @ p["router"], dim=-1)
+    weights and expert ids (..., k); with ``losses`` (training) also the
+    router's auxiliary losses: ``load_balance`` = E sum_e density_e / k
+    mean_prob_e (the density, from the top-k ids, takes no gradient) and
+    ``router_z`` = mean(logsumexp(logits)^2)."""
+    logits = tokens.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
     top_w, top_e = probs.topk(cfg.moe.top_k, dim=-1)
-    return top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9), top_e
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    if not losses:
+        return top_w, top_e
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    density = F.one_hot(top_e, E).sum(-2).reshape(-1, E).float().mean(0)
+    mean_prob = probs.reshape(-1, E).mean(0)
+    return top_w, top_e, {"load_balance": E * (density / K * mean_prob).sum(),
+                          "router_z": torch.logsumexp(logits, -1).square().mean()}
 
 
 def sort_rank(flat_e, C):
@@ -78,6 +89,21 @@ def sort_rank(flat_e, C):
     return order, se, torch.where(keep, rank, C), keep
 
 
+def _distinct_slots(se, rank_c, keep, E, C):
+    """Training's dispatch and combine rows, in sorted order and no two
+    alike: a kept assignment its (expert, rank) slot, a dropped one a slot
+    that no kept assignment fills (a capacity factor of at least 1 leaves
+    E C >= T k slots).  A repeated index makes CUDA's index backward, and
+    index_put under deterministic algorithms, walk its duplicates one after
+    another, and serving's layout puts every dropped assignment on one row
+    (PERF.md §6, PR 26)."""
+    experts = torch.arange(E, device=se.device)
+    filled = torch.searchsorted(se, experts, side="right") - torch.searchsorted(se, experts)
+    used = torch.arange(C, device=se.device) < filled.clamp(max=C)[:, None]
+    free = torch.argsort(used.flatten().int(), stable=True)  # the unfilled slots first
+    return torch.where(keep, se * C + rank_c, free[(torch.cumsum(~keep, 0) - 1).clamp_min(0)])
+
+
 def expert_ffn(p, cfg, buf):
     """The batched expert FFNs over the (E, C, d) buffer, all E experts."""
     h = torch.bmm(buf, p["wi"])
@@ -88,26 +114,40 @@ def expert_ffn(p, cfg, buf):
     return torch.bmm(h, p["wo"])
 
 
-def apply_moe(p, cfg, x, capacity_factor=1.25):
+def apply_moe(p, cfg, x, capacity_factor=1.25, losses=False):
     """x (B, S, d) -> (B, S, d): route, dispatch into the (E, C, d) buffer,
-    the expert FFNs, combine."""
+    the expert FFNs, combine; with ``losses`` (training) returns (out, the
+    router's losses).  The gradient reaches the router through the kept
+    assignments' weights and the experts through dispatch and combine; a
+    dropped assignment gets none."""
     B, S, d = x.shape
     T, E, K = B * S, cfg.moe.n_experts, cfg.moe.top_k
     tokens = x.reshape(T, d)
-    top_w, top_e = route(p, cfg, tokens)
+    top_w, top_e, *aux = route(p, cfg, tokens, losses)
     C = capacity(T, cfg, capacity_factor)
     flat_e = top_e.reshape(-1)
     order, se, rank_c, keep = sort_rank(flat_e, C)
-    # dispatch: a dropped assignment goes to the spare row E * C, past the
-    # buffer, never onto a kept token's slot
-    buf = x.new_zeros((E * C + 1, d))
-    buf[torch.where(keep, se * C + rank_c, E * C)] = tokens[order // K]
+    # dispatch: serving sends a dropped assignment to the spare row E * C,
+    # past the buffer, never onto a kept token's slot; training to a slot of
+    # its own that no kept assignment fills (its result weighs 0)
+    if losses:
+        dest = _distinct_slots(se, rank_c, keep, E, C)
+        buf = x.new_zeros((E * C, d))
+    else:
+        dest = torch.where(keep, se * C + rank_c, E * C)
+        buf = x.new_zeros((E * C + 1, d))
+    buf[dest] = tokens[order // K]
     out_buf = expert_ffn(p, cfg, buf[:E * C].view(E, C, d)).view(E * C, d)
     # combine: each assignment's rank back in token order, its result
     # gathered (dropped ones weigh 0) and summed over the token's k choices
     rank = torch.empty_like(rank_c)
     rank[order] = rank_c
     kept = rank < C
-    slot = torch.where(kept, flat_e * C + rank, 0)
+    if losses:
+        slot = torch.empty_like(dest)
+        slot[order] = dest
+    else:
+        slot = torch.where(kept, flat_e * C + rank, 0)
     w = (top_w.reshape(-1) * kept).to(x.dtype)
-    return (out_buf[slot] * w[:, None]).view(T, K, d).sum(1).reshape(B, S, d)
+    out = (out_buf[slot] * w[:, None]).view(T, K, d).sum(1).reshape(B, S, d)
+    return (out, *aux) if losses else out

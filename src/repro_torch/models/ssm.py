@@ -1,6 +1,5 @@
-"""Mamba2 (SSD) layer for serving: prefill, cached multi-token decode and
-speculative rollback (a port of the serving half of ``repro.models.ssm``;
-the full-sequence training pass comes with ROADMAP M10).
+"""Mamba2 (SSD) layer: the full-sequence training pass, prefill, cached
+multi-token decode and speculative rollback (a port of ``repro.models.ssm``).
 
 An SSM cannot roll back by rewinding a length pointer: the recurrent state
 at the accepted position must be recovered.  ``mamba_decode`` therefore
@@ -76,18 +75,30 @@ def _out(p, cfg, y, x, z):
     return y @ p["out_proj"]
 
 
+def _full(p, cfg, h):
+    """The layer over whole rows (B, S, d_model): (out, the padded raw conv
+    input, the final SSD state fp32).  Every call runs the SSD scan once."""
+    s = cfg.ssm
+    z, xBC, dt_raw = _project_in(p, h)
+    padded = F.pad(xBC, (0, 0, s.d_conv - 1, 0))
+    x, dt, A, Bm, C = _ssd_inputs(cfg, _conv(padded, p["conv_w"], p["conv_b"], h.shape[1]),
+                                  dt_raw, p["A_log"], p["dt_bias"])
+    y, state = ops.ssd_scan(x, dt, A, Bm, C, chunk=s.chunk_size)
+    return _out(p, cfg, y, x, z), padded, state
+
+
+def mamba_full(p, cfg, h):
+    """Full-sequence forward (training): (B, S, d_model) -> (B, S, d_model).
+    On the card under autograd the scan runs K4's forward and backward."""
+    return _full(p, cfg, h)[0]
+
+
 def mamba_prefill(p, cfg, h):
     """Prefill of unpadded rows (B, S, d_model).  Returns (out, (conv, state)):
     the last d_conv - 1 raw conv inputs (zeros before the prompt) and the
-    final SSD state, fp32.  Every call runs the SSD-scan kernel once."""
-    s = cfg.ssm
-    S = h.shape[1]
-    z, xBC, dt_raw = _project_in(p, h)
-    padded = F.pad(xBC, (0, 0, s.d_conv - 1, 0))
-    x, dt, A, Bm, C = _ssd_inputs(cfg, _conv(padded, p["conv_w"], p["conv_b"], S), dt_raw,
-                                  p["A_log"], p["dt_bias"])
-    y, state = ops.ssd_scan(x, dt, A, Bm, C, chunk=s.chunk_size)
-    return _out(p, cfg, y, x, z), (padded[:, -(s.d_conv - 1):], state)
+    final SSD state, fp32."""
+    out, padded, state = _full(p, cfg, h)
+    return out, (padded[:, -(cfg.ssm.d_conv - 1):], state)
 
 
 def mamba_decode(p, cfg, h, cache):

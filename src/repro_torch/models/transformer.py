@@ -4,8 +4,9 @@ without the hybrid family).
 
 The JAX package stacks layer parameters and scans over them; here the stack
 is a Python list of per-layer parameter dicts and a loop.  Training
-(``scan_full``) runs attention+MLP layers under the reference's three remat
-policies.  A layer holds
+(``scan_full``) runs every layer kind under the reference's three remat
+policies and carries the MoE router's two losses, summed over the MoE
+layers from zero.  A layer holds
 ``attn`` or ``mamba`` (per ``cfg.layer_kinds()``), in a decoder layer of an
 encoder-decoder also ``cross`` (cross attention over the encoder's memory
 ``mem`` = (K, V, mem_len, mem_pos), after the self attention), and a MoE
@@ -29,7 +30,7 @@ def check_supported(cfg):
     """Raise for every layer kind this port does not run yet, naming its item."""
     if cfg.family == "hybrid":
         raise NotImplementedError(f"{cfg.name}: hybrid Mamba/attention/MoE stacks are not "
-                                  "ported yet (ROADMAP M9, §1 item 3.4)")
+                                  "ported yet (ROADMAP M9, §1 item 3)")
 
 
 def init_layer(gen, cfg, kind, is_moe, dtype, device, cross=False):
@@ -58,12 +59,18 @@ def _apply_cross(layer, cfg, x, mem):
     return x + attn.attention_cross(layer["cross"], cfg, h, *mem)
 
 
-def _apply_ffn(layer, cfg, x):
+def _apply_ffn(layer, cfg, x, aux=None):
+    """The layer's MoE or MLP half.  With ``aux`` (training) returns (x, aux
+    plus a MoE layer's router losses); serving computes no losses."""
     if "moe" in layer:
-        return x + moe_mod.apply_moe(layer["moe"], cfg, rms_norm(x, layer["norm2"], cfg.norm_eps))
+        h = rms_norm(x, layer["norm2"], cfg.norm_eps)
+        if aux is None:
+            return x + moe_mod.apply_moe(layer["moe"], cfg, h)
+        out, losses = moe_mod.apply_moe(layer["moe"], cfg, h, losses=True)
+        return x + out, {k: v + losses[k] for k, v in aux.items()}
     if "mlp" in layer:
-        return x + apply_mlp(layer["mlp"], cfg, rms_norm(x, layer["norm2"], cfg.norm_eps))
-    return x
+        x = x + apply_mlp(layer["mlp"], cfg, rms_norm(x, layer["norm2"], cfg.norm_eps))
+    return x if aux is None else (x, aux)
 
 
 def block_prefill(layer, cfg, x, positions, mem=None):
@@ -88,19 +95,21 @@ def block_decode(layer, cfg, x, cache,
     return _apply_ffn(layer, cfg, _apply_cross(layer, cfg, x + out, mem))
 
 
-def block_full(layer, cfg, x, positions, causal=True, cross_mem=None):
-    """One attention+MLP layer of the training forward, or of an encoder
-    (not ``causal``).  ``cross_mem`` = (enc_out, mem_len, mem_pos): the layer
-    projects the encoder output through its own cross K/V weights."""
-    if "attn" not in layer or "moe" in layer:
-        raise NotImplementedError(f"{cfg.name}: training of MoE and Mamba2 layers is not "
-                                  "ported yet (ROADMAP §1 item 4)")
+def block_full(layer, cfg, x, positions, aux, causal=True, cross_mem=None):
+    """One layer of the training forward, or of an encoder (not ``causal``):
+    attention or Mamba2, then the MoE or MLP half; returns (x, aux plus a MoE
+    layer's router losses).  ``cross_mem`` = (enc_out, mem_len, mem_pos):
+    the layer projects the encoder output through its own cross K/V
+    weights."""
     h = rms_norm(x, layer["norm1"], cfg.norm_eps)
-    x = x + attn.attention_full(layer["attn"], cfg, h, positions, causal)
+    if "attn" in layer:
+        x = x + attn.attention_full(layer["attn"], cfg, h, positions, causal)
+    else:
+        x = x + ssm.mamba_full(layer["mamba"], cfg, h)
     if cross_mem is not None:
         enc_out, *rest = cross_mem
         x = _apply_cross(layer, cfg, x, (*attn.cross_memory(layer["cross"], cfg, enc_out), *rest))
-    return _apply_ffn(layer, cfg, x)
+    return _apply_ffn(layer, cfg, x, aux)
 
 
 # matrix products without batch dimensions (the projections and the MLP):
@@ -125,8 +134,11 @@ def _remat(fn, policy):
 
 
 def scan_full(layers, cfg, x, positions, remat="none", causal=True, cross_mem=None):
-    """The training (or encoder) forward's layer loop, each layer under ``remat``."""
+    """The training (or encoder) forward's layer loop, each layer under
+    ``remat``: (x, the router's losses summed over the MoE layers, fp32
+    scalars from zero)."""
     step = _remat(block_full, remat)
+    aux = {k: torch.zeros((), device=x.device) for k in ("load_balance", "router_z")}
     for layer in layers:
-        x = step(layer, cfg, x, positions, causal, cross_mem)
-    return x
+        x, aux = step(layer, cfg, x, positions, aux, causal, cross_mem)
+    return x, aux

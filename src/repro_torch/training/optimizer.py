@@ -6,7 +6,9 @@ contract: ``state = init(params)``; ``updates, state, metrics = update(grads,
 state, params)``; ``params = apply_updates(params, updates)``.  The moments
 are float32 whatever the parameters' dtype; each update is cast to its
 parameter's dtype.  The scalars (step, learning rate, norm) are float32 as in
-JAX; the moments of a leaf are made in one pass over it.
+JAX.  Unlike JAX, ``update`` steps the moments in place, with the same
+arithmetic: the state it returns holds the same tensors, so the old and new
+moments (8 bytes a parameter each) are never alive together.
 """
 from __future__ import annotations
 
@@ -78,21 +80,16 @@ def adamw(cfg):
         lr = lr_schedule(cfg, step)
         b1, b2 = cfg.beta1, cfg.beta2
         c1, c2 = (1 - torch.tensor(b, dtype=torch.float32) ** step.float() for b in (b1, b2))
-        moments = []
 
         def leaf(p, g, m, v):
             g = g.float() * scale
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g.square()
-            moments.append((m, v))
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g.square())
             u = (m / c1) / (torch.sqrt(v / c2) + cfg.eps) + cfg.weight_decay * p.float()
             return (-lr * u).to(p.dtype)
 
         updates = tree_map(leaf, params, grads, state.mu, state.nu)
-        mu, nu = (iter(x) for x in zip(*moments, strict=True))
-        state = AdamWState(step, tree_map(lambda _: next(mu), params),
-                           tree_map(lambda _: next(nu), params))
-        return updates, state, {"grad_norm": norm, "lr": lr}
+        return updates, AdamWState(step, state.mu, state.nu), {"grad_norm": norm, "lr": lr}
 
     return init, update
 
@@ -102,7 +99,7 @@ def make_optimizer(name, cfg=None):
         return adamw(cfg or OptConfig())
     if name == "adafloor":
         raise NotImplementedError("adafloor (jamba-398b's optimizer) is not ported yet "
-                                  "(ROADMAP §1 item 4)")
+                                  "(ROADMAP §1 item 3, with jamba)")
     raise ValueError(f"unknown optimizer {name!r}")
 
 

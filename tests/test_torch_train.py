@@ -132,7 +132,7 @@ def test_optimizer_pieces_match_jax():
                                rtol=1e-6)
     p, g, m, v = ({"a": rng.normal(size=(3, 5)).astype(np.float32),
                    "b": [np.abs(rng.normal(size=7)).astype(np.float32)]} for _ in range(4))
-    t = tree_map(torch.from_numpy, [p, g, m, v])
+    t = tree_map(torch.tensor, [p, g, m, v])  # copies: the port steps the moments in place
     got = [*opt.clip_by_global_norm(t[1], 0.5), *opt.clip_by_global_norm(t[1], 100.0),
            *opt.adamw(cfg)[1](t[1], opt.AdamWState(torch.tensor(3, dtype=torch.int32), *t[2:]),
                               t[0])[:2]]

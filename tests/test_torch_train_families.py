@@ -1,0 +1,169 @@
+"""Training of the Mamba2 and MoE families against the JAX package, on 2
+layers of the reduced mamba2-2.7b and qwen3-moe-30b-a3b: the same weights
+(through the weight bridge), the same numpy tokens, the MoE layers in the
+reference's default dispatch without a mesh (``apply_moe``, as
+``tests/test_torch_moe.py`` holds the forward).  float32 unless a case says
+bfloat16: the loss and the router's two losses within 1e-5 relative, every
+gradient leaf within 1e-4 x its max |g|, the metric keys the reference's;
+bfloat16 within 2e-2.  Remat changes no number.  The SSD scan's gradient
+alone is held to ``jax.grad`` through ``repro.kernels.ops.ssd_scan`` within
+1e-4 x max |g|, and the MoE layer's, at a capacity that drops assignments,
+to ``jax.grad`` through the reference's layer the same way."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_engine import _one_torch_thread  # noqa: F401
+from test_torch_model import model_pair
+from test_torch_moe import _layer
+from test_torch_train import OPT, _as_port, _close_leaves, _jax_steps, _loss_grads
+
+import repro.kernels.ops as jax_ops
+from repro.data.workloads import TokenStream as JaxTokenStream
+from repro.models import moe as jax_moe
+from repro_torch.data.workloads import TokenStream
+from repro_torch.kernels import ops
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+from repro_torch.models import moe
+from repro_torch.params import tree_items
+from repro_torch.training import optimizer as opt
+from repro_torch.training.train_loop import make_train_step
+
+FAMILIES = ("mamba2-2.7b", "qwen3-moe-30b-a3b")
+ROUTER = ("load_balance", "router_z")
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_loss_gradients_and_router_losses_match_jax(arch, dt):
+    _, jcfg, jm, jp, tm, tp = model_pair(arch, dt)
+    tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 40)).astype(np.int32)
+    (jl, jmet), jg = jax.value_and_grad(jm.loss_fn, has_aux=True)(
+        jp, {"tokens": jnp.asarray(tokens)})
+    runs = [_loss_grads(dataclasses.replace(tm.cfg, remat_policy=r), tp, {"tokens": tokens})
+            for r in ("none", "minimal", "full")]
+    keys = {"ce", "ppl_log", "loss", *(ROUTER if jcfg.moe else ())}
+    for loss, metrics, grads in runs:
+        assert loss == runs[0][0] and set(metrics) == set(jmet) == keys
+        assert all(torch.equal(m, runs[0][1][k]) for k, m in metrics.items())
+        assert all(torch.equal(g, runs[0][2][k]) for k, g in grads.items())
+    tol = 1e-5 if dt == "float32" else 2e-2
+    for name in ("loss", *(ROUTER if jcfg.moe else ())):
+        want = float(jmet[name])
+        assert abs(float(runs[0][1][name].detach()) - want) <= tol * abs(want), name
+    if dt == "float32":
+        _close_leaves(runs[0][2], _as_port(jg, tm.cfg), 1e-4, "gradient")
+
+
+# the parameters after 5 steps, absolute: AdamW's first steps turn the two
+# frameworks' differences in gradient entries near its eps into parameter
+# differences of a share of lr (ROADMAP §3 item 9); in qwen3-moe a wk entry
+# whose step-1 gradient was ~3e-8 moves 0.08 lr (1.2e-4) and an embedding
+# entry with sqrt(nu) ~ eps 1.4e-4, where every entry with sqrt(nu) > 100 eps
+# agrees within 1.1e-5
+PARAM_TOL = {"mamba2-2.7b": 1e-4, "qwen3-moe-30b-a3b": 2e-4}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_five_training_steps_match_jax(arch):
+    _, jcfg, jm, jp, tm, tp = model_pair(arch, "float32")
+    stream = JaxTokenStream(jcfg.vocab_size, 32, 8, seed=0)
+    jp, _, jmet = _jax_steps(jm, jp, [next(stream) for _ in range(5)])
+    init, step = make_train_step(tm, opt.OptConfig(**OPT))
+    state, stream = init(tp), TokenStream(jcfg.vocab_size, 32, 8, seed=0)
+    names = (("loss", 1e-5), ("grad_norm", 1e-5), ("lr", 1e-6),
+             *((k, 1e-5) for k in (ROUTER if jcfg.moe else ())))
+    for want in jmet:
+        tp, state, metrics = step(tp, state, {"tokens": torch.from_numpy(next(stream))})
+        for name, tol in names:
+            np.testing.assert_allclose(float(metrics[name]), float(want[name]), rtol=tol)
+    assert int(state.step) == 5
+    _close_leaves(dict(tree_items(tp)), _as_port(jp, tm.cfg), PARAM_TOL[arch], "after 5 steps",
+                  rel=False)
+
+
+# (B, S, H, G, P, N, chunk): a ragged tail, 2 and 4 groups, chunks that do
+# not divide S, one chunk past a single row
+SSD_CASES = [(2, 37, 4, 1, 8, 16, 16), (1, 50, 4, 2, 8, 16, 32), (2, 24, 8, 4, 4, 8, 7),
+             (1, 65, 8, 2, 16, 16, 64)]
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_gradient_matches_jax(case):
+    """Every input's gradient through the plain scan (what the card holds
+    K4's backward to) against jax.grad through the reference's op, in
+    float32 and, as the card's oracle, float64."""
+    B, S, H, G, P, N, chunk = case
+    rng = np.random.default_rng(S)
+    bias = np.log(np.expm1(np.linspace(1e-3, 0.1, H)))
+    arrays = [rng.normal(size=(B, S, H, P)) * 0.5, np.log1p(np.exp(rng.normal(size=(B, S, H))
+                                                                   * 0.5 + bias)),
+              -np.linspace(1.0, 16.0, H), rng.normal(size=(B, S, G, N)) * 0.5,
+              rng.normal(size=(B, S, G, N)) * 0.5]
+    arrays = [a.astype(np.float32) for a in arrays]
+    dy = rng.normal(size=(B, S, H, P)).astype(np.float32)
+    want = jax.grad(lambda *a: (jax_ops.ssd_scan(*a, chunk=chunk) * dy).sum(),
+                    argnums=tuple(range(5)))(*arrays)
+    for dtype in (torch.float32, torch.float64):
+        leaves = [torch.from_numpy(a).to(dtype).requires_grad_() for a in arrays]
+        got = torch.autograd.grad(ops.ssd_scan(*leaves, chunk=chunk)[0], leaves,
+                                  torch.from_numpy(dy).to(dtype))
+        for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want, strict=True):
+            w = np.asarray(w)
+            err = float(np.abs(g.double().numpy() - w).max())
+            assert err <= 1e-4 * float(np.abs(w).max()), f"{dtype} {name} off by {err:.3g}"
+
+
+# (losses, capacity factor): serving's dispatch (dropped assignments to the
+# spare row and slot 0) at 0.25, where most are dropped, and training's
+# (each its own free slot) at 1.0, its least factor with drops
+@pytest.mark.parametrize("losses, cf", [(False, 0.25), (True, 1.0)])
+def test_moe_layer_gradient_matches_jax_and_dropped_assignments_get_none(monkeypatch, losses, cf):
+    """With assignments dropped at capacity: the layer's gradients (input,
+    router, experts) within 1e-4 x max |g| of the reference's, a dropped
+    assignment's routing weight gets exactly zero gradient and a kept one's
+    does not, and a token with every assignment dropped gets none."""
+    jcfg, p, tcfg, tp = _layer("qwen3-moe-30b-a3b", "float32")
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 32, jcfg.d_model)).astype(np.float32)
+    dy = rng.normal(size=x.shape).astype(np.float32)
+    want = jax.grad(lambda p, x: (jax_moe.apply_moe(p, jcfg, x, capacity_factor=cf)[0]
+                                  * dy).sum(), argnums=(0, 1))(p, x)
+    seen = {}
+
+    def route(*args, **kw):  # keep the routing weights' gradient
+        out = real_route(*args, **kw)
+        out[0].retain_grad()
+        seen["w"], seen["e"] = out[0], out[1]
+        return out
+
+    real_route = moe.route
+    monkeypatch.setattr(moe, "route", route)
+    leaves = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    out = moe.apply_moe(leaves, tcfg, tx, capacity_factor=cf, losses=losses)
+    ((out[0] if losses else out) * torch.from_numpy(dy)).sum().backward()
+    _close_leaves({**{k: t.grad for k, t in leaves.items()}, "x": tx.grad},
+                  {**{k: torch.from_numpy(np.asarray(v)) for k, v in want[0].items()},
+                   "x": torch.from_numpy(np.asarray(want[1]))}, 1e-4, "MoE gradient")
+    flat_e = seen["e"].reshape(-1)
+    order, _, _, keep = moe.sort_rank(flat_e, moe.capacity(64, tcfg, cf))
+    kept = torch.empty_like(keep)
+    kept[order] = keep
+    gw = seen["w"].grad.reshape(-1)
+    assert kept.any() and not kept.all()
+    assert torch.all(gw[~kept] == 0) and torch.all(gw[kept] != 0)
+    none_kept = ~kept.view(64, -1).any(1)
+    assert none_kept.any() or losses
+    assert torch.all(tx.grad.reshape(64, -1)[none_kept] == 0)
+
+
+def test_k4_backward_refuses_cpu_tensors():
+    x = torch.zeros(1, 8, 2, 16)
+    Bm = torch.zeros(1, 8, 1, 16)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_scan_bwd_cuda(x, torch.zeros(1, 8, 2), torch.zeros(2), Bm, Bm, x)
+    assert ssd_scan_bwd_cuda.launches == 0
