@@ -171,7 +171,7 @@ SSD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}             # tests/test_kernels.p
 # the bf16 kernels' times on the CUDA cores, before they moved to the tensor
 # cores (PERF.md §6, by this script, NVIDIA H100 80GB HBM3, 700.00 W)
 PREVIOUS_MS = {"flash_attention": 0.2979, "admission": 5.2586, "decode_attention": 0.1722,
-               "decode": 0.4635, "ssd_scan": 0.2542}
+               "decode": 0.4635, "ssd_scan": 0.2542, "ssd_scan_bwd": 9.4305}
 REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:113",
     "flash_attention": "src/repro/kernels/flash_attention.py:131",
@@ -238,13 +238,15 @@ def tensor_core_sass(report: dict) -> None:
     forms in the SASS of decode_wgmma_kernel, flash_wgmma_kernel and
     paged_wgmma_kernel at head_dim 128, and of ssd_wgmma_kernel (``cuobjdump
     -sass`` of the built libraries), the attention kernels also at head_dim
-    120 (a 128-wide tile, its last 8 columns zeros), and K2's backward passes
-    dkdv_wgmma_kernel and dq_wgmma_kernel at head_dim 128.  Fails unless each
-    attention kernel holds
+    120 (a 128-wide tile, its last 8 columns zeros), K2's backward passes
+    dkdv_wgmma_kernel and dq_wgmma_kernel at head_dim 128, and K4's backward
+    ssd_bwd_wgmma_kernel.  Fails unless each attention kernel holds
     S = QK^T (64x64x16) and O += PV (64x128x16) on the tensor cores, the
     SSD scan its scores, intra- and inter-chunk terms (64x64x16) and state
-    update (64x128x16), and each backward pass its recomputed S and dP
-    (64x64x16) and its gradient products (64x128x16)."""
+    update (64x128x16), each backward pass its recomputed S and dP
+    (64x64x16) and its gradient products (64x128x16), and K4's backward its
+    scores and dx's products (64x64x16) and its state, dB and dC products
+    (64x128x16)."""
     import re
 
     from repro_torch.kernels import build
@@ -259,7 +261,8 @@ def tensor_core_sass(report: dict) -> None:
                            ("decode_attention_paged", "paged_wgmma_kernel", 120),
                            ("ssd_scan", "ssd_wgmma_kernel", None),
                            ("flash_attention_bwd", "dkdv_wgmma_kernel", 128),
-                           ("flash_attention_bwd", "dq_wgmma_kernel", 128)):
+                           ("flash_attention_bwd", "dq_wgmma_kernel", 128),
+                           ("ssd_scan_bwd", "ssd_bwd_wgmma_kernel", None)):
         if lib not in sass:
             sass[lib] = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(lib))],
                                        capture_output=True, text=True, timeout=120).stdout
@@ -279,32 +282,36 @@ def tensor_core_sass(report: dict) -> None:
 
 
 def no_spills(report: dict, logs: dict) -> None:
-    """K2's backward passes at head_dim 128 as ptxas compiled them: their
-    registers and spill bytes from the build's ``-Xptxas -v`` log.  Fails on
-    any spill (a library built by an earlier run has no log: skipped)."""
+    """The backward kernels on the tensor cores as ptxas compiled them (K2's
+    passes at head_dim 128, K4's ssd_bwd_wgmma_kernel): their registers and
+    spill bytes from the build's ``-Xptxas -v`` log.  Fails on any spill (a
+    library built by an earlier run has no log: skipped)."""
     import re
 
-    if "flash_attention_bwd" not in logs:
-        print("flash_attention_bwd was built before this run: no ptxas log to read")
-        return
-    fn, found = "", {}
-    for line in logs["flash_attention_bwd"].splitlines():
-        if "Compiling entry function" in line:
-            fn = next((k for k in ("dkdv_wgmma_kernel", "dq_wgmma_kernel")
-                       if f"{k}ILi128E" in line), "")
-        elif fn and "spill stores" in line:
-            found[fn] = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
-        elif fn and "Used" in line and "registers" in line:
-            found[fn].append(int(re.search(r"Used (\d+) registers", line).group(1)))
+    found = {}
+    for lib, tag, names in (("flash_attention_bwd", "ILi128E",
+                             ("dkdv_wgmma_kernel", "dq_wgmma_kernel")),
+                            ("ssd_scan_bwd", "", ("ssd_bwd_wgmma_kernel",))):
+        if lib not in logs:
+            print(f"{lib} was built before this run: no ptxas log to read")
+            continue
+        fn = ""
+        for line in logs[lib].splitlines():
+            if "Compiling entry function" in line:
+                fn = next((k for k in names if f"{k}{tag}" in line), "")
+            elif fn and "spill stores" in line:
+                found[fn] = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+            elif fn and "Used" in line and "registers" in line:
+                found[fn].append(int(re.search(r"Used (\d+) registers", line).group(1)))
+        for name in names:
+            label = name + (" (head_dim 128)" if tag else "")
+            if len(found.get(name, ())) != 3:
+                fail(f"{label}: not in the ptxas log")
+            stores, loads, regs = found[name]
+            print(f"{label}: {regs} registers, spill stores {stores} B, loads {loads} B")
+            if stores or loads:
+                fail(f"{label} spills registers")
     report["bwd_ptxas"] = found
-    for name in ("dkdv_wgmma_kernel", "dq_wgmma_kernel"):
-        if len(found.get(name, ())) != 3:
-            fail(f"{name} (head_dim 128): not in the ptxas log")
-        stores, loads, regs = found[name]
-        print(f"{name} (head_dim 128): {regs} registers, spill stores {stores} B, "
-              f"loads {loads} B")
-        if stores or loads:
-            fail(f"{name} (head_dim 128) spills registers")
 
 
 def decode_case(g, B, T, S, H, K, D, dt, fill, poison=True, ring=False):
@@ -2772,9 +2779,10 @@ def ssd_bwd_phase(report: dict) -> dict:
     plain version's autograd (fp32 arithmetic on the bf16 inputs) and each
     gradient row within BWD_ROW_TOL of its RMS, with a control that must
     fail that check (the plain gradients with the last chunk's dy of head 0
-    zeroed); every launch on the CUDA cores (no tensor-core kernel).  At the
-    training shape (bf16): two calls bit for bit, then the backward and the
-    plain version's backward timed on inputs rotated past the L2."""
+    zeroed); every bf16 launch on ssd_bwd_wgmma_kernel and every fp32 one on
+    ssd_bwd_kernel.  At the training shape (bf16): two calls bit for bit,
+    then the backward and the plain version's backward timed on inputs
+    rotated past the L2."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
@@ -2787,8 +2795,8 @@ def ssd_bwd_phase(report: dict) -> dict:
         dy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
         before = ssd_scan_bwd_cuda.wgmma_launches
         got = ssd_scan_bwd_cuda(x, dtv, A, Bm, C, dy)
-        if ssd_scan_bwd_cuda.wgmma_launches != before:
-            fail(f"{tag}: counted a tensor-core launch")
+        if ssd_scan_bwd_cuda.wgmma_launches - before != int(dt == "bfloat16"):
+            fail(f"{tag}: took the wrong kernel")
         want = plain_ssd_grads(x, dtv, A, Bm, C, dy, torch.float64 if dt == "float32" else None)
         here = {}
         for name, a, b in zip(SSD_GRADS, got, want, strict=True):
@@ -2842,7 +2850,8 @@ def ssd_bwd_phase(report: dict) -> dict:
            "plain_ms": timed(lambda i: plain_ssd_grads(*sets[i % len(sets)]), 3),
            "library_ms": None, "bound": bound_ms(nbytes, ops, "bfloat16"),
            "max_abs_err": errs["bfloat16"]}
-    print(f"ssd_scan_bwd [{out['shape']}]: kernel {out['ms']:.4f} ms, plain (autograd) "
+    print(f"ssd_scan_bwd [{out['shape']}]: kernel {out['ms']:.4f} ms (previous kernel "
+          f"{PREVIOUS_MS['ssd_scan_bwd']} ms), plain (autograd) "
           f"{out['plain_ms']:.4f} ms, library none: no single PyTorch call, bound "
           f"{out['bound'][0]:.4f} ms ({out['bound'][1]})")
     report["ssd_bwd"] = {"checks": lines, "errs": errs, "row_errs": rows, "control": control,
@@ -3583,7 +3592,7 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
     restart_phase cuts it).  Every loss finite (a MoE model's router losses
     too); a step's launches: K2 backward one a layer and every K2 launch on
     its wgmma kernels (attention), K4 backward one a layer and every K4
-    forward on ssd_wgmma_kernel (Mamba2), the forwards counted (remat
+    launch on its wgmma kernels (Mamba2), the forwards counted (remat
     recomputes them); ms a step, tokens/s, MFU against 989 TFLOP/s (6 N
     tokens, N the active parameters, plus three times the attention's or
     the SSD scan's forward products), peak memory, the device time of a
@@ -3628,12 +3637,14 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
     ssm = cfg.family == "ssm"
     fwd, bwd = ("ssd_scan", "ssd_scan_bwd") if ssm else ("flash_attention", "flash_attention_bwd")
     per_step = {k: launches[k] / TRAIN_STEPS for k in (fwd, bwd)}
-    on_wgmma = (launches["ssd_scan.wgmma"] == launches["ssd_scan"] if ssm else
+    on_wgmma = (launches["ssd_scan.wgmma"] == launches["ssd_scan"]
+                and launches["ssd_scan_bwd.wgmma"] == launches["ssd_scan_bwd"] if ssm else
                 launches["flash_attention.wgmma"] == launches["flash_attention"]
                 and launches["flash_attention_bwd.wgmma"] == launches["flash_attention_bwd"])
     if per_step[bwd] != cfg.n_layers or not on_wgmma:
         fail(f"train {arch}: launches {launches}: expected {cfg.n_layers} {bwd} launches a step "
-             + ("and every K4 forward on ssd_wgmma_kernel" if ssm else "and every K2 forward on "
+             + ("and every K4 forward on ssd_wgmma_kernel and every backward on "
+                "ssd_bwd_wgmma_kernel" if ssm else "and every K2 forward on "
                 "flash_wgmma_kernel and every backward on dkdv_wgmma_kernel and dq_wgmma_kernel"))
     step_s = sorted(times["step"][1:])[len(times["step"][1:]) // 2]  # median, the first warm-up
     if ssm:
@@ -3647,7 +3658,7 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
     events = sorted((e.start_ns(), e.name(), e.duration_ns() / 1e6) for e in
                     times["prof"].profiler.kineto_results.events()
                     if e.device_type() == DeviceType.CUDA)
-    groups = ((r"ssd_bwd_kernel|ssd_bwd_reduce_kernel", "K4 backward"),
+    groups = ((r"ssd_bwd_(wgmma_)?kernel|ssd_bwd_reduce4?_kernel", "K4 backward"),
               (r"ssd_wgmma_kernel|ssd_kernel", "K4 forward"),
               (r"dkdv_(wgmma_)?kernel|dq_(wgmma_)?kernel|delta_kernel", "K2 backward"),
               (r"flash_wgmma_kernel|flash_kernel", "K2 forward"),
@@ -3983,7 +3994,8 @@ def main() -> None:
                       train_timing["bwd"], tq["flash_attention_bwd"]),
                 entry("flash_attention (qwen3 training, lse)", "flash_wgmma_kernel",
                       train_timing["fwd"], tq["flash_attention"]),
-                entry("ssd_scan_bwd (mamba2 training)", "ssd_bwd_kernel", ssd_bwd_timing,
+                entry("ssd_scan_bwd (mamba2 training)",
+                      "ssd_bwd_wgmma_kernel, ssd_bwd_reduce4_kernel", ssd_bwd_timing,
                       tm["ssd_scan_bwd"]),
                 entry("ssd_scan (mamba2 training)", "ssd_wgmma_kernel", ssd_timing["train"],
                       tm["ssd_scan"]),

@@ -8,9 +8,11 @@ initial state to the final one.  bfloat16 runs ``ssd_wgmma_kernel`` on the
 tensor cores (chunk-parallel, the state passed across a thread-block
 cluster), float32 ``ssd_kernel`` on the CUDA cores; the C entry point
 decides.  The backward (``csrc/ssd_scan_bwd.cu``) is the port's counterpart
-of JAX differentiating the plain scan in training: ``ssd_bwd_kernel`` on the
-CUDA cores in fp32 for both dtypes.  ``SsdScanFn`` joins the two for
-autograd.  The source notes give the bounds and the designs.
+of JAX differentiating the plain scan in training: bfloat16 runs
+``ssd_bwd_wgmma_kernel`` on the tensor cores (chunk-parallel, S and its
+gradient passed across a cluster both ways), float32 ``ssd_bwd_kernel`` on
+the CUDA cores.  ``SsdScanFn`` joins the two for autograd.  The source notes
+give the bounds and the designs.
 """
 from __future__ import annotations
 
@@ -92,11 +94,13 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, C, dy, *, initial_state=None):
     """Launch the backward on the current stream; returns the gradients of y
     (dx, ddt, dA, dB, dC): dx, dB and dC in x's dtype, ddt and dA float32.
     The forward's inputs as ``ssd_scan_cuda`` takes them (the same checks);
-    dy (B, S, H, P) in x's dtype.  The final state takes no gradient.  The
-    states entering each 64-row chunk are recomputed into a workspace (B,
-    ceil(S / 64), H, P, N) float32, and dB, dC are summed over a group's
-    heads from per-head float32 workspaces (B, S, H, N): all alive for the
-    call only (1.0 GB at mamba2-2.7b's training shape, B = 4, S = 2048)."""
+    dy (B, S, H, P) in x's dtype.  The final state takes no gradient.
+    Workspaces, float32, alive for the call only (1.0 GB at mamba2-2.7b's
+    training shape, B = 4, S = 2048): the states of each 64-row chunk (B,
+    ceil(S / 64), H, P, N; 335 MB there), recomputed; dB and dC per head
+    (671 MB), summed over a group's heads by a second kernel; dA's shares
+    (B, H, ceil(S / 64)), one a (row, head) in float32, one a chunk in
+    bfloat16 (whose kernel first keeps each chunk's decay there)."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2:]
     dtype = _check("ssd_scan_bwd", x, dt, A, Bm, C, initial_state)
@@ -110,7 +114,7 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, C, dy, *, initial_state=None):
     dB, dC = (torch.empty((Bsz, S, G, N), dtype=x.dtype, device=dev) for _ in range(2))
     states = torch.empty((Bsz, -(-S // CHUNK), H, P, N), dtype=f32, device=dev)
     dBh, dCh = (torch.empty((Bsz, S, H, N), dtype=f32, device=dev) for _ in range(2))
-    dA_part = torch.empty((Bsz, H), dtype=f32, device=dev)
+    dA_part = torch.empty((Bsz, H, -(-S // CHUNK)), dtype=f32, device=dev)
     build.launch(ssd_scan_bwd_cuda, "ssd_scan_bwd", _BWD_ARGTYPES, dtype,
                  torch.cuda.current_stream(dev).cuda_stream,
                  *(t.data_ptr() for t in (x, dt, A, Bm, C)),
@@ -142,6 +146,6 @@ class SsdScanFn(torch.autograd.Function):
         return (*ssd_scan_bwd_cuda(x, dt, A, Bm, C, dy, initial_state=s0), None)
 
 
-# every launch, and those that took ssd_wgmma_kernel (the backward has none)
+# every launch, and those that took the bf16 tensor-core kernel
 ssd_scan_cuda.launches = ssd_scan_cuda.wgmma_launches = 0
 ssd_scan_bwd_cuda.launches = ssd_scan_bwd_cuda.wgmma_launches = 0
