@@ -8,7 +8,7 @@ Phases, each fatal on failure:
      all at once); show from the SASS that the bf16 attention kernels (K1,
      K2, K3) run both products, the bf16 SSD-scan kernel (K4) its four and
      K2's two bf16 backward passes theirs on HGMMA (wgmma), and from ptxas
-     that the backward passes spill nothing at head_dim 128;
+     that the backward passes spill nothing (K2's at head_dim 64 and 128);
   2. hold each kernel against its plain PyTorch version at the serving
      shapes (bf16, plus fp32, stale-slot poisoning, fully masked rows, and
      for the paged kernel shuffled pages, ragged -1 tails and a window; at
@@ -96,7 +96,8 @@ Phases, each fatal on failure:
      frames and 64-token prompts, or of 256 stub patches and 256-token
      prompts; a prefill and 32 greedy tokens), counting K1 and K2 calls by
      mask per prefill and per step, with a rollback check; and check that
-     cross attention under autograd raises on the card;
+     K1 under autograd raises on the card and launches nothing (training's
+     cross attention runs K2: phase 13);
  12. the serving front door at full width on the dense serve's weights:
      ``StreamServe`` behind ``GatewayThread`` (trace on, warmed up): an
      idle-gateway request against the same prompt served in process, a wave
@@ -136,11 +137,25 @@ Phases, each fatal on failure:
      with a control that drops a chunk), bit for bit on repeat, timed;
      2 fp32 full-width layers of mamba2-2.7b and qwen3-moe-30b-a3b (routing
      and keep masks identical) against the CPU; ``launch.train`` on
-     mamba2-2.7b at full width and depth and qwen3-moe-30b-a3b at full
-     width and 4 of its 48 layers (8 bf16 steps of 4 x 2048 tokens each,
+     mamba2-2.7b at full width and 32 of its 64 layers and
+     qwen3-moe-30b-a3b at full width and 4 of its 48 layers (8 bf16 steps of 4 x 2048 tokens each,
      no saves: K4 forward and backward or K2 forward and backward launches
      a step, the router's losses, ms a step, MFU, peak memory, a profiled
      step split into GEMMs, expert products, K4, K2 and the rest);
+     encoder-decoder and vision-prefix training: K2's forward and backward
+     over queries and keys of their own lengths without a mask
+     (seamless-m4t-large-v2's cross attention over 16 and 1,024 frames, a
+     ragged 1000 x 300, its encoder over 1,024 and 16 frames), its
+     decoder's self-attention at head_dim 64 and internvl2-1b's causal 256 +
+     2,048 positions at G = 7, both dtypes, rows within 0.1 of their RMS, a
+     drop-a-tile control, bit for bit on repeat, timed against SDPA's
+     backward; 2 fp32 full-width layers of each (seamless also 2 encoder
+     layers) on random frames or patches against the CPU; ``launch.train``
+     on each at full width and depth (8 bf16 steps of 4 x 2048 tokens behind
+     the CLI's 16 frames or 256 patches a row, seeded random in place of
+     its zeros, which overflow the gradient at depth, no saves: K2's
+     launches by shape, 72 or 24 backward launches a step, MFU, peak, a
+     profiled step);
  14. print the kernel table as one JSON line, then the result line.
 Every serve of phases 4-8, and phase 9's qwen2.5-14b serve, runs twice on
 the same weights (phase 9 profiles only graphed serves and runs its other
@@ -157,6 +172,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -283,14 +299,14 @@ def tensor_core_sass(report: dict) -> None:
 
 def no_spills(report: dict, logs: dict) -> None:
     """The backward kernels on the tensor cores as ptxas compiled them (K2's
-    passes at head_dim 128, K4's ssd_bwd_wgmma_kernel): their registers and
-    spill bytes from the build's ``-Xptxas -v`` log.  Fails on any spill (a
-    library built by an earlier run has no log: skipped)."""
+    passes at head_dim 64 and 128, K4's ssd_bwd_wgmma_kernel): their
+    registers and spill bytes from the build's ``-Xptxas -v`` log.  Fails on
+    any spill (a library built by an earlier run has no log: skipped)."""
     import re
 
-    found = {}
-    for lib, tag, names in (("flash_attention_bwd", "ILi128E",
-                             ("dkdv_wgmma_kernel", "dq_wgmma_kernel")),
+    found, k2 = {}, ("dkdv_wgmma_kernel", "dq_wgmma_kernel")
+    for lib, tag, names in (("flash_attention_bwd", "ILi64E", k2),
+                            ("flash_attention_bwd", "ILi128E", k2),
                             ("ssd_scan_bwd", "", ("ssd_bwd_wgmma_kernel",))):
         if lib not in logs:
             print(f"{lib} was built before this run: no ptxas log to read")
@@ -298,16 +314,16 @@ def no_spills(report: dict, logs: dict) -> None:
         fn = ""
         for line in logs[lib].splitlines():
             if "Compiling entry function" in line:
-                fn = next((k for k in names if f"{k}{tag}" in line), "")
+                fn = next((k + tag for k in names if k + tag in line), "")
             elif fn and "spill stores" in line:
                 found[fn] = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
             elif fn and "Used" in line and "registers" in line:
                 found[fn].append(int(re.search(r"Used (\d+) registers", line).group(1)))
         for name in names:
-            label = name + (" (head_dim 128)" if tag else "")
-            if len(found.get(name, ())) != 3:
+            label = name + (f" (head_dim {tag[3:-1]})" if tag else "")
+            if len(found.get(name + tag, ())) != 3:
                 fail(f"{label}: not in the ptxas log")
-            stores, loads, regs = found[name]
+            stores, loads, regs = found[name + tag]
             print(f"{label}: {regs} registers, spill stores {stores} B, loads {loads} B")
             if stores or loads:
                 fail(f"{label} spills registers")
@@ -2597,8 +2613,9 @@ def encdec_phase(report: dict, arch: str) -> dict:
 
 
 def cross_grad_refused() -> None:
-    """Cross attention on CUDA tensors under autograd raises (K1 has no
-    backward) and launches nothing."""
+    """K1 (serving's cross attention) on CUDA tensors under autograd raises
+    (it has no backward) and launches nothing.  Training's cross attention
+    takes its gradient through K2 (phase 13)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -2613,7 +2630,7 @@ def cross_grad_refused() -> None:
     except NotImplementedError as e:
         if read_counts()["decode_attention"]:
             fail("a refused cross-attention call launched K1")
-        print(f"cross attention under autograd refused on the card: {e}")
+        print(f"K1 (serving's cross attention) under autograd refused on the card: {e}")
 
 
 # --------------------------------------------------------------- SSM (mamba2)
@@ -3246,8 +3263,12 @@ BWD_ROW_TOL = {"bfloat16": 0.1, "float32": 1e-2}
 TRAIN_STEPS, TRAIN_TOKENS = 8, (4, 2048)  # the full-width runs: steps, batch x sequence
 # the training runs: arch -> layers kept (None: full depth).  qwen3-moe at 4
 # of 48 layers: each layer is 0.62B parameters, 7.5 GB with AdamW's moments,
-# so all 48 would need ~366 GB
-TRAIN_RUNS = {"qwen3-1.7b": None, "mamba2-2.7b": None, "qwen3-moe-30b-a3b": 4}
+# so all 48 would need ~366 GB.  mamba2-2.7b at 32 of 64 layers, for the
+# call's time limit (K4's shapes do not change with depth; PERF.md keeps its
+# full-depth run).  seamless-m4t-large-v2 (1.63B parameters, untied) and
+# internvl2-1b (0.49B) at full depth
+TRAIN_RUNS = {"qwen3-1.7b": None, "mamba2-2.7b": 32, "qwen3-moe-30b-a3b": 4,
+              "seamless-m4t-large-v2": None, "internvl2-1b": None}
 # expert_marks()' marker kernels and the part of a training step that
 # follows each: the expert products' forward (flip ... roll) and backward
 # (tril ... triu)
@@ -3256,18 +3277,27 @@ TRAIN_MARKERS = ((r"flip_kernel", "expert products"), (r"roll_cuda_kernel", None
                  (r"triu_tril_kernel<[^,]+, [^,]+, true", None))
 
 
-def plain_lse(q, k, window=None):
-    """Each row's log-sum-exp of the plain version's masked scaled scores,
-    (B, H, S) float32 (NEG_INF where masked, as ``ref`` masks)."""
+def plain_mask(q, k, causal, window):
+    """(Sq, Sk) visibility of keys to queries, as ``ref`` masks."""
     import torch
 
     from repro_torch.kernels import ref
 
-    B, S, H, D = q.shape
-    G = H // k.shape[2]
+    i, j = (torch.arange(t.shape[1], device=q.device) for t in (q, k))
+    return ref._mask(i[:, None], j[None], causal, window)
+
+
+def plain_lse(q, k, window=None, causal=True):
+    """Each row's log-sum-exp of the plain version's masked scaled scores,
+    (B, H, Sq) float32 (NEG_INF where masked, as ``ref`` masks)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    D = q.shape[3]
+    G = q.shape[2] // k.shape[2]
     kk = k.float().repeat_interleave(G, 2)
-    i = torch.arange(S, device=q.device)
-    mask = ref._mask(i[:, None], i[None], True, window)
+    mask = plain_mask(q, k, causal, window)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * D ** -0.5, kk)
     return torch.logsumexp(torch.where(mask, s, ref.NEG_INF), -1)
 
@@ -3285,9 +3315,9 @@ def row_err(got, want) -> float:
     return float((diff / rms.clamp_min(1e-2 * float(want.pow(2).mean().sqrt()))).max())
 
 
-def plain_bwd(q, k, v, out, dout, window=None):
+def plain_bwd(q, k, v, out, dout, window=None, causal=True):
     """The backward's own arithmetic, plainly, in fp32 on the kernel's
-    inputs: P recomputed from the masked causal scores, delta = rowsum(dout
+    inputs: P recomputed from the masked scores, delta = rowsum(dout
     * out) from the output it is given (bf16 in training, as the kernel
     reads it), dS = P (dP - delta); (dq, dk, dv) in q's dtype.  row_err
     reads against this, not against the autograd of the plain forward,
@@ -3296,14 +3326,11 @@ def plain_bwd(q, k, v, out, dout, window=None):
     row's RMS (SDPA's backward as much as the kernel)."""
     import torch
 
-    from repro_torch.kernels import ref
-
-    B, S, H, D = q.shape
-    G = H // k.shape[2]
+    D = q.shape[3]
+    G = q.shape[2] // k.shape[2]
     qf, of, df = q.float(), out.float(), dout.float()
     kf, vf = (t.float().repeat_interleave(G, 2) for t in (k, v))
-    i = torch.arange(S, device=q.device)
-    mask = ref._mask(i[:, None], i[None], True, window)
+    mask = plain_mask(q, k, causal, window)
     p = torch.einsum("bqhd,bkhd->bhqk", qf * D ** -0.5, kf).masked_fill(~mask, float("-inf"))
     p = p.softmax(-1)
     delta = (df * of).sum(-1).transpose(1, 2)[..., None]
@@ -3314,12 +3341,12 @@ def plain_bwd(q, k, v, out, dout, window=None):
     return [t.to(q.dtype) for t in (dq, dk, dv)]
 
 
-def row_readings(q, k, v, out, dout, window, plain, got, want) -> dict:
+def row_readings(q, k, v, out, dout, window, plain, got, want, causal=True) -> dict:
     """Beside row_err's limit, at one case: its control, the plain dk and dv
     with the last 64-row query tile of head 0 left out (its dout zeroed),
     read against the full ones as the kernel's are, over every key row and
-    over the first half of the keys alone, for which that tile is one far
-    tile of 16 or more; and the kernel's and (causal, no window) SDPA's
+    over the first half of the keys alone, for which (causal) that tile is
+    one far tile of 16 or more; and the kernel's and (no window) SDPA's
     backward read against the plain forward's autograd.  Fails unless the
     control's whole reading exceeds BWD_ROW_TOL: the check must see a
     missing tile."""
@@ -3327,8 +3354,8 @@ def row_readings(q, k, v, out, dout, window, plain, got, want) -> dict:
 
     cut = dout.clone()
     cut[:, -64:, 0] = 0
-    drop = plain_bwd(q, k, v, out, cut, window)
-    half = q.shape[1] // 2
+    drop = plain_bwd(q, k, v, out, cut, window, causal)
+    half = k.shape[1] // 2
     r = {f"control {name}{part}": row_err(a[:, rows], b[:, rows])
          for name, a, b in (("dk", drop[1], plain[1]), ("dv", drop[2], plain[2]))
          for part, rows in (("", slice(None)), (" first half", slice(0, half)))}
@@ -3336,7 +3363,8 @@ def row_readings(q, k, v, out, dout, window, plain, got, want) -> dict:
               for n, a, b in zip(("dq", "dk", "dv"), got, want, strict=True)})
     if window is None:
         th = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
-        lib = torch.autograd.grad(sdpa(*th, is_causal=True), th, dout.transpose(1, 2).contiguous())
+        lib = torch.autograd.grad(sdpa(*th, is_causal=causal), th,
+                                  dout.transpose(1, 2).contiguous())
         r.update({f"sdpa vs autograd {n}": row_err(a.transpose(1, 2), b)
                   for n, a, b in zip(("dq", "dk", "dv"), lib, want, strict=True)})
     tol = BWD_ROW_TOL[str(q.dtype).split(".")[-1]]
@@ -3347,12 +3375,61 @@ def row_readings(q, k, v, out, dout, window, plain, got, want) -> dict:
     return r
 
 
-def bwd_cost(q, k):
-    """(bytes, ops) of the causal backward: q, k, v, out, dout and lse read
-    once, dq, dk, dv written once; five products over the causal half."""
-    nbytes, ops = flash_cost(q, k)
-    return nbytes * 2 + q.numel() * q.element_size() + q.shape[0] * q.shape[2] * q.shape[1] * 4, \
-        ops * 5 // 2
+def bwd_cost(q, k, causal=True):
+    """(bytes, ops) of the backward: q, k, v, out, dout and lse read once,
+    dq, dk, dv written once; five products over the visible pairs."""
+    nbytes, ops = flash_cost(q, k, causal)
+    return nbytes * 2 + q.shape[0] * q.shape[2] * q.shape[1] * 4, ops * 5 // 2
+
+
+def bwd_timing(q, k, v, dout, causal=True) -> tuple:
+    """At one bf16 shape: two backward calls bit for bit; then the backward,
+    the plain version's backward and SDPA's backward timed (the forwards
+    outside the timed region), and K2's forward with lse and without it
+    beside the plain forward and SDPA's; returns the (backward, forward)
+    timing rows."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1:3]
+    shape = f"B={B} Sq={Sq} Sk={Sk} H={H} K={K} D={D} {'' if causal else 'not '}causal bf16"
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, lse=True)
+    runs = [flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=causal) for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs, strict=True)):
+        fail(f"K2 backward ({shape}): two calls on the same inputs gave different bits")
+    print(f"K2 backward at {shape}: two calls give dq, dk and dv bit for bit")
+    del runs
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_o = ref.flash_attention(*leaves, causal=causal)
+    th = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    sdpa_o, dout_h = sdpa(*th, is_causal=causal), dout.transpose(1, 2).contiguous()
+    nbytes, ops = bwd_cost(q, k, causal)
+    bwd = {"shape": shape,
+           "ms": timed(lambda i: flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=causal), 20),
+           "plain_ms": timed(lambda i: torch.autograd.grad(plain_o, leaves, dout,
+                                                           retain_graph=True), 3),
+           "library_ms": timed(lambda i: torch.autograd.grad(sdpa_o, th, dout_h,
+                                                             retain_graph=True), 20),
+           "bound": bound_ms(nbytes, ops, "bfloat16")}
+    del plain_o, sdpa_o
+    nbytes, ops = flash_cost(q, k, causal)
+    fwd = {"shape": shape,
+           "ms": timed(lambda i: flash_attention_cuda(q, k, v, causal=causal, lse=True), 20),
+           "ms_no_lse": timed(lambda i: flash_attention_cuda(q, k, v, causal=causal), 20),
+           "plain_ms": timed(lambda i: ref.flash_attention(q, k, v, causal=causal), 3),
+           "library_ms": timed(lambda i: sdpa(*th, is_causal=causal), 20),
+           "bound": bound_ms(nbytes + B * H * Sq * 4, ops, "bfloat16")}
+    return bwd, fwd
+
+
+def show_bwd_timing(rows: dict) -> None:
+    for key, r in rows.items():
+        show_timing("flash_attention_bwd" if key.startswith("bwd") else "flash_attention (lse)", r)
+        if "ms_no_lse" in r:
+            print(f"flash_attention without lse at the same shape: {r['ms_no_lse']:.4f} ms")
 
 
 def train_kernel_phase(report: dict) -> dict:
@@ -3408,56 +3485,131 @@ def train_kernel_phase(report: dict) -> dict:
     # timing at the training shapes, bf16 (inputs 134 and 168 MB: past the L2
     # by themselves): qwen3-1.7b's (G = 2) and qwen3-moe-30b-a3b's (G = 8)
     for key, H, K in (("", 16, 8), (" g8", 32, 4)):
-        B, S, D = 4, 2048, 128
-        q, k, v, dout = (torch.randn(B, S, n, D, generator=g, device="cuda").to(torch.bfloat16)
-                         for n in (H, K, K, H))
-        o, lse = flash_attention_cuda(q, k, v, lse=True)
-        runs = [flash_attention_bwd_cuda(q, k, v, o, dout, lse) for _ in range(2)]
-        if not all(torch.equal(a, b) for a, b in zip(*runs, strict=True)):
-            fail(f"K2 backward (H={H} K={K}): two calls on the same inputs gave different bits")
-        print(f"K2 backward at B={B} S={S} H={H} K={K}: two calls give dq, dk and dv bit for bit")
-        del runs
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        plain_o = ref.flash_attention(*leaves)
-        th = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
-        sdpa_o, dout_h = sdpa(*th, is_causal=True), dout.transpose(1, 2).contiguous()
-        nbytes, ops = bwd_cost(q, k)
-        out["bwd" + key] = {
-            "shape": f"B={B} S={S} H={H} K={K} D={D} causal bf16",
-            "ms": timed(lambda i: flash_attention_bwd_cuda(q, k, v, o, dout, lse), 20),
-            "plain_ms": timed(lambda i: torch.autograd.grad(plain_o, leaves, dout,
-                                                            retain_graph=True), 3),
-            "library_ms": timed(lambda i: torch.autograd.grad(sdpa_o, th, dout_h,
-                                                              retain_graph=True), 20),
-            "bound": bound_ms(nbytes, ops, "bfloat16"), "max_abs_err": max(
-                errs["dq"], errs["dk"], errs["dv"])}
-        del plain_o, sdpa_o
-        nbytes, ops = flash_cost(q, k)
-        out["fwd" + key] = {
-            "shape": out["bwd" + key]["shape"],
-            "ms": timed(lambda i: flash_attention_cuda(q, k, v, lse=True), 20),
-            "ms_no_lse": timed(lambda i: flash_attention_cuda(q, k, v), 20),
-            "plain_ms": timed(lambda i: ref.flash_attention(q, k, v), 3),
-            "library_ms": timed(lambda i: sdpa(*th, is_causal=True), 20),
-            "bound": bound_ms(nbytes + B * H * S * 4, ops, "bfloat16"),
-            "max_abs_err": max(errs["out"], errs["lse"])}
-        del q, k, v, dout, o, lse, leaves, th
+        q, k, v, dout = (torch.randn(4, 2048, n, 128, generator=g, device="cuda")
+                         .to(torch.bfloat16) for n in (H, K, K, H))
+        out["bwd" + key], out["fwd" + key] = bwd_timing(q, k, v, dout)
+        out["bwd" + key]["max_abs_err"] = max(errs["dq"], errs["dk"], errs["dv"])
+        out["fwd" + key]["max_abs_err"] = max(errs["out"], errs["lse"])
+        del q, k, v, dout
     report["train_kernels"] = {"errs": errs, "row_errs": rows, "row_readings": readings,
                                **{k: dict(v, bound=list(v["bound"])) for k, v in out.items()}}
-    for key, r in out.items():
-        show_timing("flash_attention_bwd" if key.startswith("bwd") else "flash_attention (lse)", r)
-        if "ms_no_lse" in r:
-            print(f"flash_attention without lse at the same shape: {r['ms_no_lse']:.4f} ms")
+    show_bwd_timing(out)
+    return out
+
+
+# K2's backward as the encoder-decoder and the vision-prefix model train it:
+# name -> (B, Sq, Sk, H, K, D, causal), each in bf16 and fp32, then timed in
+# bf16: seamless's cross attention over launch.train's 16 frames and over its
+# frontend's 1,024, a ragged 1000 x 300, its encoder over 1,024 frames and
+# over launch.train's 16, its decoder's self-attention, and internvl2's
+# causal attention over 256 patches + 2,048 tokens at G = 7
+ENCDEC_BWD = {"seamless cross": (4, 2048, 16, 16, 16, 64, False),
+              "seamless cross 1024": (4, 2048, 1024, 16, 16, 64, False),
+              "ragged cross": (2, 1000, 300, 16, 16, 64, False),
+              "seamless encoder 1024": (4, 1024, 1024, 16, 16, 64, False),
+              "seamless encoder": (4, 16, 16, 16, 16, 64, False),
+              "seamless decoder": (4, 2048, 2048, 16, 16, 64, True),
+              "internvl2": (4, 2304, 2304, 14, 2, 64, True)}
+TRAIN_FRAMES = 16  # launch.train's zero frames a row (the reference's make_batch)
+
+
+def tol_ratio(got, want, tol: float) -> float:
+    """The largest |got - want| / (tol + tol |want|): check() passes at <= 1."""
+    d = (got.float() - want.float()).abs()
+    return float((d / (tol + tol * want.float().abs())).max())
+
+
+def encdec_bwd_phase(report: dict) -> dict:
+    """K2's forward (with lse) and backward at ENCDEC_BWD's shapes: queries
+    and keys of their own lengths without a mask, G = 1 at head_dim 64 and
+    G = 7 under a causal mask.  In bf16 and fp32: the output against the
+    plain version, lse against the plain scores' logsumexp, each gradient
+    row against plain_bwd within BWD_ROW_TOL of its RMS, every bf16 call on
+    the tensor-core passes and every fp32 call on the CUDA-core ones; dq,
+    dk, dv in fp32 against the plain version's autograd within BWD_TOL (tol
+    + tol*|b|); in bf16 against the plain version's autograd on the inputs
+    in fp32 (the oracle), by tol_ratio at BWD_TOL, no further from it than
+    1 or than the plain version's own bf16 autograd (SDPA's backward read
+    beside them): at 16 keys each dk and dv row sums 2,048 queries, and no
+    bf16 backward holds every small entry of a large row to 2e-2; at the
+    ragged case the drop-a-tile control (row_readings); then in bf16 each
+    shape bit for bit on repeat and timed (bwd_timing)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(28)
+    out, lines, readings = {}, [], None
+    for name, (B, Sq, Sk, H, K, D, causal) in ENCDEC_BWD.items():
+        for dt in BWD_TOL:
+            t0 = time.perf_counter()
+            tag = (f"K2 backward ({name}) B={B} Sq={Sq} Sk={Sk} H={H} K={K} D={D} "
+                   f"{'' if causal else 'not '}causal {dt}")
+            q, k, v, dout = (torch.randn(B, n, h, D, generator=g, device="cuda")
+                             .to(getattr(torch, dt)) for n, h in ((Sq, H), (Sk, K), (Sk, K), (Sq, H)))
+            o, lse = flash_attention_cuda(q, k, v, causal=causal, lse=True)
+            errs = {"out": check(f"{tag}: out", o, ref.flash_attention(q, k, v, causal=causal), dt),
+                    "lse": check(f"{tag}: lse", lse, plain_lse(q, k, causal=causal), dt, BWD_TOL)}
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            want = torch.autograd.grad(ref.flash_attention(*leaves, causal=causal), leaves, dout)
+            before = flash_attention_bwd_cuda.wgmma_launches
+            got = flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=causal)
+            if flash_attention_bwd_cuda.wgmma_launches - before != (dt == "bfloat16"):
+                fail(f"{tag}: the call did not take the {dt} backward's kernels")
+            plain, rows, ratios = plain_bwd(q, k, v, o, dout, causal=causal), {}, {}
+            if dt == "bfloat16":
+                l32 = [t.float().requires_grad_() for t in (q, k, v)]
+                oracle = torch.autograd.grad(ref.flash_attention(*l32, causal=causal), l32,
+                                             dout.float())
+                th = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+                lib = [t.transpose(1, 2) for t in torch.autograd.grad(
+                    sdpa(*th, is_causal=causal), th, dout.transpose(1, 2).contiguous())]
+            for i, (n, a, c) in enumerate(zip(("dq", "dk", "dv"), got, plain, strict=True)):
+                rows[n] = row_err(a, c)
+                if dt == "float32":
+                    errs[n] = check(f"{tag}: {n}", a, want[i], dt, BWD_TOL)
+                    continue
+                errs[n] = max_err(a, oracle[i])
+                ratios[n] = [tol_ratio(x[i], oracle[i], BWD_TOL[dt]) for x in (got, want, lib)]
+                if not torch.isfinite(a).all() or ratios[n][0] > max(1.0, ratios[n][1]):
+                    fail(f"{tag}: {n} is {ratios[n][0]:.3g} x tol from the fp32 oracle, the "
+                         f"plain version's bf16 autograd {ratios[n][1]:.3g} x")
+            lines.append(f"{tag}: max_abs_err " + ", ".join(f"{n} {x:.3g}" for n, x in errs.items())
+                         + "; row errors " + ", ".join(f"{n} {x:.4g}" for n, x in rows.items())
+                         + "".join(f"; {n} from the fp32 oracle in tol: kernel {a:.3g}, plain "
+                                   f"{b:.3g}, SDPA {c:.3g}" for n, (a, b, c) in ratios.items())
+                         + f" ({time.perf_counter() - t0:.1f} s)")
+            print(lines[-1])
+            if max(rows.values()) > BWD_ROW_TOL[dt]:
+                fail(f"{tag}: a gradient row differs by more than {BWD_ROW_TOL[dt]} of its RMS")
+            if name == "ragged cross" and dt == "bfloat16":
+                readings = row_readings(q, k, v, o, dout, None, plain, got, want, causal)
+            del want, leaves, got, plain, o, lse
+            if dt == "bfloat16":
+                del l32, oracle, th, lib
+            if dt == "bfloat16":
+                bwd, fwd = bwd_timing(q, k, v, dout, causal)
+                out["bwd " + name] = dict(bwd, max_abs_err=max(errs[n] for n in ("dq", "dk", "dv")))
+                out["fwd " + name] = dict(fwd, max_abs_err=max(errs["out"], errs["lse"]))
+            del q, k, v, dout
+    report["encdec_train_kernels"] = {"checks": lines, "row_readings": readings,
+                                      **{k: dict(v, bound=list(v["bound"])) for k, v in out.items()}}
+    show_bwd_timing(out)
     return out
 
 
 def train_model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
-    """(b) 2 full-width layers of ``arch``, fp32, remat "minimal": the loss
-    (with a MoE model's router losses) and every gradient leaf on the card
-    (K2's or K4's forward and backward on their CUDA-core kernels) against
-    the same weights on the CPU: the loss within 1e-5 relative, each leaf
-    within 1e-3 x its max |g|; for MoE first each token's chosen experts
-    and its keep mask at capacity, call by call, identical."""
+    """(b) 2 full-width layers of ``arch`` (an encoder-decoder also 2
+    encoder layers), fp32, remat "minimal": the loss (with a MoE model's
+    router losses) and every gradient leaf on the card (K2's or K4's
+    forward and backward on their CUDA-core kernels; cross attention on K2,
+    K1 never) against the same weights on the CPU: the loss within 1e-5
+    relative, each leaf within 1e-3 x its max |g|; for MoE first each
+    token's chosen experts and its keep mask at capacity, call by call,
+    identical.  2 rows of 200 tokens, behind 11 random frames a row (the
+    encoder's and cross attention's gradients not zero) or the frontend's
+    random patches."""
     import dataclasses
 
     import torch
@@ -3466,9 +3618,12 @@ def train_model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
     from repro_torch.models import build_model
     from repro_torch.params import tree_items, tree_map
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
-    tokens = torch.randint(0, cfg.vocab_size, (2, 200), generator=torch.Generator().manual_seed(4),
-                           dtype=torch.int32)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32",
+                              n_encoder_layers=min(get_config(arch).n_encoder_layers, 2))
+    gen = torch.Generator().manual_seed(4)
+    batch = (encdec_inputs(cfg, 2, 200, gen, "cpu", 11 if cfg.is_encdec else None)
+             if cfg.frontend else
+             {"tokens": torch.randint(0, cfg.vocab_size, (2, 200), generator=gen, dtype=torch.int32)})
     params = build_model(cfg, "cuda").init(1)
     results = {}
     zero_counts()
@@ -3476,7 +3631,7 @@ def train_model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
         for dev, p in (("cuda", params), ("cpu", to_cpu(params))):
             live = tree_map(lambda t: t.detach().requires_grad_(), p)
             leaves = [t for _, t in tree_items(live)]
-            loss, _ = build_model(cfg, dev).loss_fn(live, {"tokens": tokens.to(dev)})
+            loss, _ = build_model(cfg, dev).loss_fn(live, {k: t.to(dev) for k, t in batch.items()})
             results[dev] = (float(loss.detach()),
                             [t.cpu() for t in torch.autograd.grad(loss, leaves)])
             if dev == "cuda":
@@ -3494,12 +3649,73 @@ def train_model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
     for name in ("ssd_scan", "ssd_scan_bwd") if cfg.family == "ssm" else (
             "flash_attention", "flash_attention_bwd"):
         no_wgmma(launches, name, tag)
-    if launches[bwd] != cfg.n_layers:
-        fail(f"{tag}: {launches[bwd]} {bwd} launches")
+    if launches[bwd] != bwd_launches(cfg) or launches["decode_attention"]:
+        fail(f"{tag}: {launches[bwd]} {bwd} launches, {launches['decode_attention']} of K1")
     if abs(lg - lc) > 1e-5 * abs(lc) or worst[0] > 1e-3:
         fail(f"{tag}: loss {lg} vs {lc}, gradient {worst}")
     report["train_model_check" + ("" if arch == "qwen3-1.7b" else f"_{arch}")] = {
         "loss": [lg, lc], "worst_leaf": list(worst), "launches": launches}
+
+
+def bwd_launches(cfg) -> int:
+    """K2's or K4's backward launches a training step: one a layer, and an
+    encoder-decoder's cross attention one a decoder layer."""
+    return cfg.n_layers * (1 + cfg.is_encdec) + cfg.n_encoder_layers
+
+
+def train_flops(cfg, B: int, S: int) -> int:
+    """Model FLOPs of a training step over B x S tokens of text: 6 x each
+    parameter x the positions it meets, plus three times the forward's
+    attention (or SSD) products.  A vision prefix adds its patches to the
+    decoder's positions (causal over all of them); an encoder-decoder's
+    encoder and its cross attention's K and V projections meet the
+    TRAIN_FRAMES frames a row, its cross attention is not causal over
+    them."""
+    import torch
+
+    meta = functools.partial(torch.empty, device="meta")
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        _, ops = ssd_cost(meta(B, S, s.n_heads(cfg.d_model), s.head_dim),
+                          meta(B, S, s.n_groups, s.d_state), None)
+        return 6 * cfg.n_active_params() * B * S + 3 * ops * cfg.n_layers
+    d, H, K, D, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, TRAIN_FRAMES
+    P = S + (cfg.frontend.n_tokens if cfg.frontend and cfg.frontend.kind == "vision" else 0)
+
+    def attn(sq, sk, causal):
+        return flash_cost(meta(B, sq, H, D), meta(B, sk, K, D), causal)[1]
+
+    per_ff = 3 if cfg.mlp_type == "swiglu" else 2
+    at_frames = cfg.n_encoder_layers * (2 * d * (H + K) * D + per_ff * d * cfg.d_ff + 2 * d)
+    if cfg.is_encdec:  # cross attention's K and V projections
+        at_frames += cfg.n_layers * 2 * d * K * D
+    ops = cfg.n_layers * (attn(P, P, True) + (attn(P, F, False) if cfg.is_encdec else 0)) \
+        + cfg.n_encoder_layers * attn(F, F, False)
+    return 6 * (at_frames * B * F + (cfg.n_active_params() - at_frames) * B * P) + 3 * ops
+
+
+@contextlib.contextmanager
+def k2_by_shape():
+    """Count K2's forward and backward launches by kernel, Sq x Sk and mask
+    while on, from each launch's arguments."""
+    from collections import Counter
+
+    from repro_torch.kernels import build
+
+    seen, launch = Counter(), build.launch
+
+    def counting(wrapper, name, argtypes, dtype, stream, *args, **kw):
+        at = {"flash_attention": 5, "flash_attention_bwd": 10}.get(name)
+        if at is not None:
+            Sq, Sk, causal = args[at + 1], args[at + 2], args[at + 6]
+            seen[f"{name} {Sq}x{Sk} {'' if causal else 'not '}causal"] += 1
+        return launch(wrapper, name, argtypes, dtype, stream, *args, **kw)
+
+    build.launch = counting
+    try:
+        yield seen
+    finally:
+        build.launch = launch
 
 
 @contextlib.contextmanager
@@ -3509,7 +3725,11 @@ def train_probes(times: dict):
     listed in ``times["profile"]`` (CUDA activity only); with
     ``times["no_saves"]``, skip the saves (the full-width family runs: a
     save of their 27-31 GB would take most of their time, and the qwen3 run
-    and the restart check hold the checkpoint path)."""
+    and the restart check hold the checkpoint path).  Each step's zero
+    frames or patches (the CLI's stub, as the reference's) become seeded
+    N(0, 1) values of their shape and dtype, the same every step: at the
+    models' depth of 24 the zeros overflow the gradient, in the reference
+    too (tests/test_torch_train_encdec.py)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3521,12 +3741,18 @@ def train_probes(times: dict):
     def timed_make(*a, **kw):
         init, step = make(*a, **kw)
 
-        def run(*args):
+        def run(params, opt, batch):
+            for k in {"frames", "patches"} & set(batch):
+                if k not in times:
+                    gen = torch.Generator(device="cuda").manual_seed(16)
+                    times[k] = torch.randn(batch[k].shape, generator=gen, device="cuda").to(
+                        batch[k].dtype)
+                batch = dict(batch, **{k: times[k]})
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with (profile(activities=[ProfilerActivity.CUDA]) if len(times["step"]) ==
                   times.get("profile", -1) else contextlib.nullcontext()) as prof:
-                out = step(*args)
+                out = step(params, opt, batch)
                 torch.cuda.synchronize()
             times["step"].append(time.perf_counter() - t0)
             times["prof"] = prof or times["prof"]
@@ -3589,16 +3815,19 @@ def expert_marks():
 def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
     """(c) ``launch.train`` at full width, bf16, remat "minimal", 8 steps of
     4 x 2048 tokens, at the depth of TRAIN_RUNS (the config cut as
-    restart_phase cuts it).  Every loss finite (a MoE model's router losses
-    too); a step's launches: K2 backward one a layer and every K2 launch on
-    its wgmma kernels (attention), K4 backward one a layer and every K4
-    launch on its wgmma kernels (Mamba2), the forwards counted (remat
-    recomputes them); ms a step, tokens/s, MFU against 989 TFLOP/s (6 N
-    tokens, N the active parameters, plus three times the attention's or
-    the SSD scan's forward products), peak memory, the device time of a
-    profiled step split into GEMMs, expert products (expert_marks), K4
-    forward and backward, K2 forward and backward and the rest.  qwen3-1.7b
-    also saves its two checkpoints (step 0 and the end) and times them."""
+    restart_phase cuts it); an encoder-decoder on the CLI's 16 frames a
+    row, a vision-prefix model behind its 256 patches, both seeded random
+    (train_probes).  Every loss
+    finite (a MoE model's router losses too); a step's launches: K2
+    backward one a layer (and one a decoder layer's cross attention) and
+    every K2 launch on its wgmma kernels (attention), K4 backward one a
+    layer and every K4 launch on its wgmma kernels (Mamba2), the forwards
+    counted (remat recomputes them), K2's split by Sq x Sk and mask
+    (k2_by_shape); ms a step, tokens/s (of text), MFU against 989 TFLOP/s
+    (train_flops), peak memory, the device time of a profiled step split
+    into GEMMs, expert products (expert_marks), K4 forward and backward, K2
+    forward and backward and the rest.  qwen3-1.7b also saves its two
+    checkpoints (step 0 and the end) and times them."""
     import dataclasses
     import math
     import re
@@ -3620,7 +3849,7 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck, \
             train_probes({"profile": 4, "no_saves": arch != "qwen3-1.7b"}) as times, \
-            mock.patch.object(configs, "get_config", lambda name: cfg), \
+            mock.patch.object(configs, "get_config", lambda name: cfg), k2_by_shape() as shapes, \
             (expert_marks() if cfg.moe else contextlib.nullcontext()):
         t0 = time.perf_counter()
         result = train.main(["--arch", arch, "--no-reduced", "--steps", str(TRAIN_STEPS),
@@ -3641,20 +3870,13 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
                 and launches["ssd_scan_bwd.wgmma"] == launches["ssd_scan_bwd"] if ssm else
                 launches["flash_attention.wgmma"] == launches["flash_attention"]
                 and launches["flash_attention_bwd.wgmma"] == launches["flash_attention_bwd"])
-    if per_step[bwd] != cfg.n_layers or not on_wgmma:
-        fail(f"train {arch}: launches {launches}: expected {cfg.n_layers} {bwd} launches a step "
+    if per_step[bwd] != bwd_launches(cfg) or not on_wgmma:
+        fail(f"train {arch}: launches {launches}: expected {bwd_launches(cfg)} {bwd} launches a step "
              + ("and every K4 forward on ssd_wgmma_kernel and every backward on "
                 "ssd_bwd_wgmma_kernel" if ssm else "and every K2 forward on "
                 "flash_wgmma_kernel and every backward on dkdv_wgmma_kernel and dq_wgmma_kernel"))
     step_s = sorted(times["step"][1:])[len(times["step"][1:]) // 2]  # median, the first warm-up
-    if ssm:
-        s = cfg.ssm
-        _, fwd_ops = ssd_cost(torch.empty(B, S, s.n_heads(cfg.d_model), s.head_dim, device="meta"),
-                              torch.empty(B, S, s.n_groups, s.d_state, device="meta"), None)
-    else:
-        _, fwd_ops = flash_cost(torch.empty(B, S, cfg.n_heads, cfg.head_dim, device="meta"),
-                                torch.empty(B, S, cfg.n_kv_heads, cfg.head_dim, device="meta"))
-    flops = 6 * cfg.n_active_params() * B * S + 3 * fwd_ops * cfg.n_layers
+    flops = train_flops(cfg, B, S)
     events = sorted((e.start_ns(), e.name(), e.duration_ns() / 1e6) for e in
                     times["prof"].profiler.kineto_results.events()
                     if e.device_type() == DeviceType.CUDA)
@@ -3682,6 +3904,7 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
          "tokens_per_s": B * S / step_s, "mfu": flops / step_s / PEAK_OPS["bfloat16"],
          "model_flops_per_step": flops, "active_params": cfg.n_active_params(), "peak_gb": peak,
          "launches_per_step": per_step, "save_s": times["save"],
+         "k2_launches_by_shape": dict(shapes),
          "profiled_step_device_ms": busy,
          "profiled_step_share": {g: ms / busy for g, ms in parts.most_common()},
          "profiled_step_kernel_ms": dict(kernels.most_common()),
@@ -3698,13 +3921,16 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
           f"{peak:.1f} GB; launches a step: {fwd} {per_step[fwd]:g}, {bwd} {per_step[bwd]:g}"
           + (f"; saves {', '.join(f'{x:.1f}' for x in times['save'])} s" if times["save"] else
              " (no saves)"))
+    if shapes:
+        print(f"train {arch}: K2 launches by shape in {TRAIN_STEPS} steps: " + ", ".join(
+            f"{k} {n}" for k, n in sorted(shapes.items())))
     print(f"train {arch}: profiled step device time {busy:.1f} ms: " + ", ".join(
         f"{g} {ms / busy:.1%}" for g, ms in parts.most_common()))
     print(f"train {arch}: kernels in the profiled step: " + ", ".join(
         f"{k} {ms:.2f} ms" for k, ms in kernels.most_common()))
     print(f"train {arch}: the rest's largest kernels: " + "; ".join(
         f"{k} {ms:.2f} ms" for k, ms in rest.most_common(6)))
-    return launches
+    return dict(launches, **shapes)
 
 
 def restart_phase(report: dict) -> None:
@@ -3898,13 +4124,18 @@ def main() -> None:
     release()
     ssd_bwd_timing = ssd_bwd_phase(report)
     release()
+    encdec_train_timing = encdec_bwd_phase(report)
+    release()
+    stamp("training kernels")
     for arch in TRAIN_RUNS:
         train_model_phase(report, arch)
         release()
+    stamp("training model checks")
     train_launches = {}
     for arch in TRAIN_RUNS:
         train_launches[arch] = train_phase(report, arch)
         release()
+    stamp("training runs")
     restart_phase(report)
     stamp("training")
 
@@ -3989,7 +4220,7 @@ def main() -> None:
         kernels.append(entry(name, kernel, encdec_timing[name], n))
     # training: K2 backward and forward (with lse) launches from the qwen3 and
     # qwen3-moe runs, K4 backward and forward from the mamba2 run
-    tq, tm, tmoe = (train_launches[a] for a in TRAIN_RUNS)
+    tq, tm, tmoe = (train_launches[a] for a in ("qwen3-1.7b", "mamba2-2.7b", "qwen3-moe-30b-a3b"))
     kernels += [entry("flash_attention_bwd (qwen3 training)", "dkdv_wgmma_kernel, dq_wgmma_kernel",
                       train_timing["bwd"], tq["flash_attention_bwd"]),
                 entry("flash_attention (qwen3 training, lse)", "flash_wgmma_kernel",
@@ -4004,6 +4235,21 @@ def main() -> None:
                       tmoe["flash_attention_bwd"]),
                 entry("flash_attention (qwen3-moe training, lse)", "flash_wgmma_kernel",
                       train_timing["fwd g8"], tmoe["flash_attention"])]
+    # the encoder-decoder's and the vision-prefix model's training: K2's
+    # launches at each shape of their runs (k2_by_shape), K2's shapes alone
+    # timed in encdec_bwd_phase
+    for arch, name in (("seamless-m4t-large-v2", "seamless cross"),
+                       ("seamless-m4t-large-v2", "seamless encoder"),
+                       ("seamless-m4t-large-v2", "seamless decoder"),
+                       ("internvl2-1b", "internvl2")):
+        _, Sq, Sk, *_, causal = ENCDEC_BWD[name]
+        at = f"{Sq}x{Sk} {'' if causal else 'not '}causal"
+        kernels += [entry(f"flash_attention_bwd ({name} training)",
+                          "dkdv_wgmma_kernel, dq_wgmma_kernel", encdec_train_timing["bwd " + name],
+                          train_launches[arch][f"flash_attention_bwd {at}"]),
+                    entry(f"flash_attention ({name} training, lse)", "flash_wgmma_kernel",
+                          encdec_train_timing["fwd " + name],
+                          train_launches[arch][f"flash_attention {at}"])]
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

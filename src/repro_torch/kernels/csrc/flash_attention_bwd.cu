@@ -5,13 +5,16 @@
 // jax.value_and_grad (src/repro/training/train_loop.py).  The reference has
 // no custom_vjp; this kernel is the port's gradient of K2
 // (flash_attention.cu), with its masking: causal, an optional sliding
-// window, GQA through kv head h / G, keys past S absent.  Self-attention
-// only (Sq = Sk = S, q_offset 0): training never sets another.
+// window, GQA through kv head h / G, keys past Sk absent.  q_offset 0:
+// training never sets another.  Queries and keys have lengths of their own
+// (Sq, Sk) without a mask: an encoder-decoder's cross attention over its
+// whole memory (Sq target tokens, Sk frames); causal or windowed calls are
+// self-attention, Sq = Sk.
 //
 // FlashAttention-2's two passes, no atomics, so the result is the same bits
 // on every run (launch.train's deterministic mode and its restart check
 // rely on it):
-//   delta_kernel       D[b, h, i] = rowsum(dO * O)             (B*S*H warps)
+//   delta_kernel       D[b, h, i] = rowsum(dO * O)            (B*Sq*H warps)
 //   dK/dV pass         one block per (b, kv head, 64-key tile): K and V stay
 //                      in shared memory while it walks the query tiles that
 //                      can see them, for each of the G query heads of that
@@ -53,8 +56,10 @@
 //   dQ pass: S = Q K^T and dP = dO V^T (m64n64k16), P and dS as above by
 //   row, dQ += dS K (m64nDk16, K the MN-major B operand); Q and dO staged
 //   once by TMA, K and V streamed through two TMA stages.
-//   Rows and keys past S arrive as TMA zeros and are masked; the lse and
-//   delta of rows past S are read clamped to row S - 1.
+//   Query rows past Sq and keys past Sk arrive as TMA zeros (each tensor
+//   map has its own row count) and are masked; the lse and delta of rows
+//   past Sq are read clamped to row Sq - 1; no row past its length is
+//   written.
 // What still holds it back: no producer/consumer warp specialisation (a
 // block barrier every tile, and each tile's products wait for its
 // elementwise work), no persistent grid, the two recomputed products of
@@ -86,10 +91,10 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // delta[b, h, i] = sum_d dout[b, i, h, d] * out[b, i, h, d]; warp w is row w
-// of the (B, S, H) layout.
+// of the (B, Sq, H) layout.
 template <class T>
 __global__ void delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                             float* __restrict__ delta, int S, int H, int D, int rows) {
+                             float* __restrict__ delta, int Sq, int H, int D, int rows) {
   const int w = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x % 32;
   if (w >= rows) return;  // whole warps
   const T* o = out + (size_t)w * D;
@@ -98,8 +103,8 @@ __global__ void delta_kernel(const T* __restrict__ out, const T* __restrict__ do
   for (int d = lane; d < D; d += 32) s += to_f(o[d]) * to_f(g[d]);
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) {
-    const int h = w % H, i = (w / H) % S, b = w / (H * S);
-    delta[((size_t)b * H + h) * S + i] = s;
+    const int h = w % H, i = (w / H) % Sq, b = w / (H * Sq);
+    delta[((size_t)b * H + h) * Sq + i] = s;
   }
 }
 
@@ -118,17 +123,19 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
 __device__ __forceinline__ void load_rows(float* s_lse, float* s_delta,
                                           const float* __restrict__ lse,
                                           const float* __restrict__ delta, int b, int h, int q0,
-                                          int S, int H) {
+                                          int Sq, int H) {
   for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    const size_t i = ((size_t)b * H + h) * S + min(q0 + r, S - 1);
+    const size_t i = ((size_t)b * H + h) * Sq + min(q0 + r, Sq - 1);
     s_lse[r] = lse[i] * LOG2E;
     s_delta[r] = delta[i];
   }
 }
 
-// Is position (query qp, key kp) visible?  (Keys and queries past S are not.)
-__device__ __forceinline__ bool visible(int qp, int kp, int S, int causal, int window) {
-  return qp < S && kp < S && !(causal && kp > qp) && !(window >= 0 && kp <= qp - window);
+// Is position (query qp, key kp) visible?  (Queries past Sq and keys past Sk
+// are not.)
+__device__ __forceinline__ bool visible(int qp, int kp, int Sq, int Sk, int causal,
+                                        int window) {
+  return qp < Sq && kp < Sk && !(causal && kp > qp) && !(window >= 0 && kp <= qp - window);
 }
 
 // One 64 x 64 tile of (query rows q0.., key rows k0..): recompute S = Q K^T
@@ -139,7 +146,7 @@ template <int D>
 __device__ __forceinline__ void scores(const float* sq, const float* sdo, const float* sk,
                                        const float* sv, const float* s_lse,
                                        const float* s_delta, float* s_p, float* s_ds, int q0,
-                                       int k0, int S, int causal, int window,
+                                       int k0, int Sq, int Sk, int causal, int window,
                                        float scale_log2) {
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
   float s[4][4], dp[4][4];
@@ -175,7 +182,8 @@ __device__ __forceinline__ void scores(const float* sq, const float* sdo, const 
     for (int c = 0; c < 4; ++c) {
       const int j = tc + 16 * c;
       const float p =
-          visible(qp, k0 + j, S, causal, window) ? exp2f(s[i][c] * scale_log2 - s_lse[r]) : 0.f;
+          visible(qp, k0 + j, Sq, Sk, causal, window) ? exp2f(s[i][c] * scale_log2 - s_lse[r])
+                                                       : 0.f;
       if (s_p != nullptr) s_p[r * (BK + 1) + j] = p;
       s_ds[r * (BK + 1) + j] = p * (dp[i][c] - s_delta[r]);
     }
@@ -191,8 +199,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS) dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int S,
-    int H, int K, int causal, int window, float scale, float scale_log2) {
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int Sq,
+    int Sk, int H, int K, int causal, int window, float scale, float scale_log2) {
   constexpr int DC = D / 32;
   extern __shared__ float smem[];
   float* sk = smem;
@@ -209,10 +217,10 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(
 
   // query rows that can see any of these keys
   const int q_begin = causal ? k0 : 0;
-  const int q_end = window >= 0 ? min(S, k0 + BK - 1 + window) : S;
+  const int q_end = window >= 0 ? min(Sq, k0 + BK - 1 + window) : Sq;
 
-  load_tile<D>(sk, k, b, k0, S, K, kh);
-  load_tile<D>(sv, v, b, k0, S, K, kh);
+  load_tile<D>(sk, k, b, k0, Sk, K, kh);
+  load_tile<D>(sv, v, b, k0, Sk, K, kh);
   float acc_k[8][DC], acc_v[8][DC];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -223,11 +231,11 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(
     const int h = kh * G + g;
     for (int q0 = q_begin / BQ * BQ; q0 < q_end; q0 += BQ) {
       __syncthreads();  // the previous tile consumed (K and V staged)
-      load_tile<D>(sq, q, b, q0, S, H, h);
-      load_tile<D>(sdo, dout, b, q0, S, H, h);
-      load_rows(s_lse, s_delta, lse, delta, b, h, q0, S, H);
+      load_tile<D>(sq, q, b, q0, Sq, H, h);
+      load_tile<D>(sdo, dout, b, q0, Sq, H, h);
+      load_rows(s_lse, s_delta, lse, delta, b, h, q0, Sq, H);
       __syncthreads();
-      scores<D>(sq, sdo, sk, sv, s_lse, s_delta, s_p, s_ds, q0, k0, S, causal, window,
+      scores<D>(sq, sdo, sk, sv, s_lse, s_delta, s_p, s_ds, q0, k0, Sq, Sk, causal, window,
                 scale_log2);
       __syncthreads();
 #pragma unroll 2
@@ -257,8 +265,8 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int kp = k0 + kr * 8 + i;
-    if (kp >= S) continue;
-    const size_t off = (((size_t)b * S + kp) * K + kh) * D;
+    if (kp >= Sk) continue;
+    const size_t off = (((size_t)b * Sk + kp) * K + kh) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       dk[off + dc + 32 * c] = acc_k[i][c] * scale;
@@ -276,8 +284,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS) dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, int S, int H, int K, int causal,
-    int window, float scale, float scale_log2) {
+    const float* __restrict__ delta, float* __restrict__ dq, int Sq, int Sk, int H, int K,
+    int causal, int window, float scale, float scale_log2) {
   constexpr int DC = D / 32;
   extern __shared__ float smem[];
   float* sq = smem;
@@ -292,12 +300,12 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(
   const int qr = threadIdx.x / 32, dc = threadIdx.x % 32;  // rows qr*8+i, cols dc+32c
 
   // key tiles that any row of this query tile can see
-  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
   const int k_begin = window >= 0 ? max(0, q0 - window + 1) / BK * BK : 0;
 
-  load_tile<D>(sq, q, b, q0, S, H, h);
-  load_tile<D>(sdo, dout, b, q0, S, H, h);
-  load_rows(s_lse, s_delta, lse, delta, b, h, q0, S, H);
+  load_tile<D>(sq, q, b, q0, Sq, H, h);
+  load_tile<D>(sdo, dout, b, q0, Sq, H, h);
+  load_rows(s_lse, s_delta, lse, delta, b, h, q0, Sq, H);
   float acc[8][DC];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -306,10 +314,10 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile consumed (Q and dO staged)
-    load_tile<D>(sk, k, b, k0, S, K, kh);
-    load_tile<D>(sv, v, b, k0, S, K, kh);
+    load_tile<D>(sk, k, b, k0, Sk, K, kh);
+    load_tile<D>(sv, v, b, k0, Sk, K, kh);
     __syncthreads();
-    scores<D>(sq, sdo, sk, sv, s_lse, s_delta, nullptr, s_ds, q0, k0, S, causal, window,
+    scores<D>(sq, sdo, sk, sv, s_lse, s_delta, nullptr, s_ds, q0, k0, Sq, Sk, causal, window,
               scale_log2);
     __syncthreads();
 #pragma unroll 2
@@ -329,8 +337,8 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int qi = q0 + qr * 8 + i;
-    if (qi >= S) continue;
-    const size_t off = (((size_t)b * S + qi) * H + h) * D;
+    if (qi >= Sq) continue;
+    const size_t off = (((size_t)b * Sq + qi) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) dq[off + dc + 32 * c] = acc[i][c] * scale;
   }
@@ -377,8 +385,9 @@ __device__ __forceinline__ void two_products(float (&x)[32], float (&y)[32], uin
 }
 
 // Does the 64 x 64 tile (queries q0.., keys k0..) need its mask applied?
-__device__ __forceinline__ bool edge_tile(int q0, int k0, int S, int causal, int window) {
-  return q0 + BQ > S || k0 + BK > S || (causal && k0 + BK - 1 > q0) ||
+__device__ __forceinline__ bool edge_tile(int q0, int k0, int Sq, int Sk, int causal,
+                                          int window) {
+  return q0 + BQ > Sq || k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
          (window >= 0 && k0 <= q0 + BQ - 1 - window);
 }
 
@@ -387,8 +396,8 @@ __global__ void __launch_bounds__(128) dkdv_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dmap,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H, int K,
-    int causal, int window, float scale, float scale_log2) {
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H,
+    int K, int causal, int window, float scale, float scale_log2) {
   using T = tl::Tile<D>;
   constexpr int TB = tl::tile_bytes(D), SW = tl::swizzle_bytes(D), PW = SW / 2;
   static_assert(tl::tile_dim(D) == D, "head_dim 64 or 128: whole panels");
@@ -403,7 +412,7 @@ __global__ void __launch_bounds__(128) dkdv_wgmma_kernel(
 
   // query tiles that can see any of these keys, for each of the G heads
   const int q_first = causal ? k0 : 0;
-  const int q_end = window >= 0 ? min(S, k0 + BK - 1 + window) : S;
+  const int q_end = window >= 0 ? min(Sq, k0 + BK - 1 + window) : Sq;
   const int nq = q_end > q_first ? (q_end - q_first + BQ - 1) / BQ : 0;
   const int n = G * nq;
 
@@ -419,7 +428,7 @@ __global__ void __launch_bounds__(128) dkdv_wgmma_kernel(
   };
   auto stage_rows = [&](int i) {  // every thread: one of tile i's 64 lse and 64 delta
     const int h = kh * G + i / nq, q0 = q_first + i % nq * BQ;
-    const size_t at = ((size_t)b * H + h) * S + min(q0 + tid % BQ, S - 1);
+    const size_t at = ((size_t)b * H + h) * Sq + min(q0 + tid % BQ, Sq - 1);
     tl::cp_async4(tl::smem_u32(rows + (i & 1) * 128 + tid), (tid < BQ ? lse : delta) + at);
     tl::cp_async_commit();
   };
@@ -455,7 +464,7 @@ __global__ void __launch_bounds__(128) dkdv_wgmma_kernel(
     const float* s_lse = rows + (i & 1) * 128;
     const float* s_delta = s_lse + BQ;
     const int q0 = q_first + i % nq * BQ;
-    const bool edge = edge_tile(q0, k0, S, causal, window);
+    const bool edge = edge_tile(q0, k0, Sq, Sk, causal, window);
 
     float s[32], dp[32];  // S^T and dP^T: rows are keys, columns queries
     two_products<D>(s, dp, sk, sq, sv, sdo);
@@ -466,7 +475,7 @@ __global__ void __launch_bounds__(128) dkdv_wgmma_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = T::col(j, e);
-        const bool vis = !edge || visible(q0 + c, r0 + 8 * (e >> 1), S, causal, window);
+        const bool vis = !edge || visible(q0 + c, r0 + 8 * (e >> 1), Sq, Sk, causal, window);
         s[4 * j + e] = vis ? exp2f(fmaf(s[4 * j + e], scale_log2, -s_lse[c] * LOG2E)) : 0.f;
       }
     tl::wgmma_wait<0>();
@@ -495,8 +504,8 @@ __global__ void __launch_bounds__(128) dkdv_wgmma_kernel(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int kp = r0 + 8 * h;
-    if (kp >= S) continue;
-    const size_t off = (((size_t)b * S + kp) * K + kh) * D;
+    if (kp >= Sk) continue;
+    const size_t off = (((size_t)b * Sk + kp) * K + kh) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int c = T::col(j, 0);
@@ -513,8 +522,8 @@ __global__ void __launch_bounds__(128) dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dmap,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    __nv_bfloat16* __restrict__ dq, int S, int H, int K, int causal, int window, float scale,
-    float scale_log2) {
+    __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H, int K, int causal, int window,
+    float scale, float scale_log2) {
   using T = tl::Tile<D>;
   constexpr int TB = tl::tile_bytes(D), SW = tl::swizzle_bytes(D), PW = SW / 2;
   static_assert(tl::tile_dim(D) == D, "head_dim 64 or 128: whole panels");
@@ -527,7 +536,7 @@ __global__ void __launch_bounds__(128) dq_wgmma_kernel(
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
 
   // key tiles that any row of this query tile can see
-  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
   const int k_begin = window >= 0 ? max(0, q0 - window + 1) / BK * BK : 0;
   const int n = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
@@ -558,7 +567,7 @@ __global__ void __launch_bounds__(128) dq_wgmma_kernel(
   float l2[2], dl[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
-    const size_t at = ((size_t)b * H + h) * S + min(r0 + 8 * e, S - 1);
+    const size_t at = ((size_t)b * H + h) * Sq + min(r0 + 8 * e, Sq - 1);
     l2[e] = lse[at] * LOG2E;
     dl[e] = delta[at];
   }
@@ -574,7 +583,7 @@ __global__ void __launch_bounds__(128) dq_wgmma_kernel(
     if (i == 0) tl::mbar_wait(bars, 0);
     tl::mbar_wait(bars + 8 + (i & 1) * 8, (i >> 1) & 1);
     const uint32_t skt = stages + (i & 1) * 2 * TB, svt = skt + TB;
-    const bool edge = edge_tile(q0, k0, S, causal, window);
+    const bool edge = edge_tile(q0, k0, Sq, Sk, causal, window);
 
     float s[32], dp[32];  // S and dP: rows are queries, columns keys
     two_products<D>(s, dp, sq, skt, sdo, svt);
@@ -585,7 +594,8 @@ __global__ void __launch_bounds__(128) dq_wgmma_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int hr = e >> 1;
-        const bool vis = !edge || visible(r0 + 8 * hr, k0 + T::col(j, e), S, causal, window);
+        const bool vis =
+            !edge || visible(r0 + 8 * hr, k0 + T::col(j, e), Sq, Sk, causal, window);
         s[4 * j + e] = vis ? exp2f(fmaf(s[4 * j + e], scale_log2, -l2[hr])) : 0.f;
       }
     tl::wgmma_wait<0>();
@@ -608,8 +618,8 @@ __global__ void __launch_bounds__(128) dq_wgmma_kernel(
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int qi = r0 + 8 * e;
-    if (qi >= S) continue;
-    const size_t off = (((size_t)b * S + qi) * H + h) * D;
+    if (qi >= Sq) continue;
+    const size_t off = (((size_t)b * Sq + qi) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dq + off + T::col(j, 0)) =
@@ -621,18 +631,18 @@ __global__ void __launch_bounds__(128) dq_wgmma_kernel(
 // kernels for bfloat16.
 template <class T, int D>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
-           const float* lse, void* dq, void* dk, void* dv, float* delta, int B, int S, int H,
-           int K, int causal, int window, float scale, cudaStream_t st) {
-  const int rows = B * S * H, tiles = (S + 63) / 64;
+           const float* lse, void* dq, void* dk, void* dv, float* delta, int B, int Sq, int Sk,
+           int H, int K, int causal, int window, float scale, cudaStream_t st) {
+  const int rows = B * Sq * H, q_tiles = (Sq + 63) / 64, k_tiles = (Sk + 63) / 64;
   const float scale_log2 = scale * LOG2E;
   delta_kernel<T><<<(rows + 7) / 8, THREADS, 0, st>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout), delta, S, H, D, rows);
+      static_cast<const T*>(out), static_cast<const T*>(dout), delta, Sq, H, D, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if constexpr (sizeof(T) == 2) {
     CUtensorMap qmap, kmap, vmap, dmap;
-    if (!tl::kv_map<D>(&qmap, q, B, S, H) || !tl::kv_map<D>(&kmap, k, B, S, K) ||
-        !tl::kv_map<D>(&vmap, v, B, S, K) || !tl::kv_map<D>(&dmap, dout, B, S, H))
+    if (!tl::kv_map<D>(&qmap, q, B, Sq, H) || !tl::kv_map<D>(&kmap, k, B, Sk, K) ||
+        !tl::kv_map<D>(&vmap, v, B, Sk, K) || !tl::kv_map<D>(&dmap, dout, B, Sq, H))
       return (int)cudaErrorInvalidValue;
     constexpr size_t smem = bwd_smem<D>();
     e = cudaFuncSetAttribute(dkdv_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -641,14 +651,14 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
       e = cudaFuncSetAttribute(dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (e != cudaSuccess) return (int)e;
-    dkdv_wgmma_kernel<D><<<dim3(B * K, tiles), 128, smem, st>>>(
+    dkdv_wgmma_kernel<D><<<dim3(B * K, k_tiles), 128, smem, st>>>(
         qmap, kmap, vmap, dmap, lse, delta, static_cast<__nv_bfloat16*>(dk),
-        static_cast<__nv_bfloat16*>(dv), S, H, K, causal, window, scale, scale_log2);
+        static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, K, causal, window, scale, scale_log2);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    dq_wgmma_kernel<D><<<dim3(B * H, tiles), 128, smem, st>>>(
-        qmap, kmap, vmap, dmap, lse, delta, static_cast<__nv_bfloat16*>(dq), S, H, K, causal,
-        window, scale, scale_log2);
+    dq_wgmma_kernel<D><<<dim3(B * H, q_tiles), 128, smem, st>>>(
+        qmap, kmap, vmap, dmap, lse, delta, static_cast<__nv_bfloat16*>(dq), Sq, Sk, H, K,
+        causal, window, scale, scale_log2);
     return (int)cudaGetLastError();
   } else {
     const float* tq = static_cast<const float*>(q);
@@ -662,14 +672,14 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
       e = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_q);
     if (e != cudaSuccess) return (int)e;
-    dkdv_kernel<D><<<dim3(B * K, tiles), THREADS, smem_kv, st>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), S, H, K,
-        causal, window, scale, scale_log2);
+    dkdv_kernel<D><<<dim3(B * K, k_tiles), THREADS, smem_kv, st>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H,
+        K, causal, window, scale, scale_log2);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    dq_kernel<D><<<dim3(B * H, tiles), THREADS, smem_q, st>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq), S, H, K, causal, window, scale,
-        scale_log2);
+    dq_kernel<D><<<dim3(B * H, q_tiles), THREADS, smem_q, st>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq), Sq, Sk, H, K, causal, window,
+        scale, scale_log2);
     return (int)cudaGetLastError();
   }
 }
@@ -681,19 +691,20 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
 // cores).  The dtype alone decides.
 extern "C" int flash_attention_bwd_route(int dtype) { return dtype == 1 ? 1 : 0; }
 
-// q, out, dout, dq (B, S, H, D); k, v, dk, dv (B, S, K, D); lse (B, H, S)
-// float32 from the forward (flash_attention.cu); delta (B, H, S) float32
-// scratch.  All contiguous.  dtype: 0 = float32, 1 = bfloat16; D 64 or 128.
+// q, out, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, K, D); lse (B, H, Sq)
+// float32 from the forward (flash_attention.cu); delta (B, H, Sq) float32
+// scratch.  All contiguous; Sq != Sk only with causal 0 and no window.  dtype: 0 = float32, 1 = bfloat16; D 64 or 128.
 // window < 0 means no sliding window.  Returns cudaGetLastError() after the
 // launches, or the error that refused one (cudaErrorInvalidValue for a
 // tensor map the driver does not encode).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                                    const void* dout, const float* lse, void* dq, void* dk,
-                                   void* dv, float* delta, int B, int S, int H, int K, int D,
-                                   int causal, int window, float scale, int dtype,
+                                   void* dv, float* delta, int B, int Sq, int Sk, int H, int K,
+                                   int D, int causal, int window, float scale, int dtype,
                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BWD_ARGS q, k, v, out, dout, lse, dq, dk, dv, delta, B, S, H, K, causal, window, scale, st
+#define BWD_ARGS \
+  q, k, v, out, dout, lse, dq, dk, dv, delta, B, Sq, Sk, H, K, causal, window, scale, st
   if (dtype == 0 && D == 64) return launch<float, 64>(BWD_ARGS);
   if (dtype == 0 && D == 128) return launch<float, 128>(BWD_ARGS);
   if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(BWD_ARGS);

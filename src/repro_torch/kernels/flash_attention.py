@@ -9,8 +9,9 @@ float32 ``flash_kernel`` on the CUDA cores; the C entry point decides.  The
 backward (``csrc/flash_attention_bwd.cu``) is the port's counterpart of JAX
 differentiating that kernel in training: bfloat16 runs ``dkdv_wgmma_kernel``
 and ``dq_wgmma_kernel`` on the tensor cores, float32 ``dkdv_kernel`` and
-``dq_kernel`` on the CUDA cores.  ``FlashAttentionFn`` joins the two for
-autograd.  The source notes give the bounds and the designs.
+``dq_kernel`` on the CUDA cores; without a mask queries and keys may differ
+in length (an encoder-decoder's cross attention).  ``FlashAttentionFn``
+joins the two for autograd.  The source notes give the bounds and the designs.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from repro_torch.kernels import build, ref
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
                                                          ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                                                ctypes.c_void_p]
 
 # The plain version: what the kernel computes, in PyTorch.
@@ -56,25 +57,29 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None,
 def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal=True, window=None,
                              q_offset=0, scale=None):
     """Launch the backward on the current stream; returns (dq, dk, dv) in q's
-    dtype.  q, out, dout (B, S, H, D); k, v (B, S, K, D); lse (B, H, S)
-    float32 from ``flash_attention_cuda(..., lse=True)``.  Self-attention
-    only (training): the same S for queries and keys, ``q_offset`` 0."""
-    B, S, H, D = q.shape
+    dtype.  q, out, dout (B, Sq, H, D); k, v (B, Sk, K, D); lse (B, H, Sq)
+    float32 from ``flash_attention_cuda(..., lse=True)``.  ``q_offset`` 0
+    (training); Sq != Sk only without a mask (cross attention over a whole
+    memory): causal or windowed, it is self-attention."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
     if q_offset or D not in (64, 128):
         raise ValueError(f"flash_attention_bwd: q_offset {q_offset}, head_dim {D} (it takes "
-                         "q_offset 0, training's self-attention, and head_dim 64 or 128)")
+                         "q_offset 0, training's attention, and head_dim 64 or 128)")
+    if Sq != Sk and (causal or window is not None):
+        raise ValueError(f"flash_attention_bwd: Sq {Sq} != Sk {Sk} under a causal mask or a "
+                         "window is a q_offset continuation, which training never sets")
     dtype = build.check_inputs("flash_attention_bwd", q, (k, v, out, dout))
-    K = k.shape[2]
-    if (k.shape[:2] != (B, S) or v.shape != k.shape or H % K or {out.shape, dout.shape} !=
-            {q.shape} or lse.shape != (B, H, S) or lse.dtype != torch.float32):
+    if (k.shape[::3] != (B, D) or v.shape != k.shape or H % K or {out.shape, dout.shape} !=
+            {q.shape} or lse.shape != (B, H, Sq) or lse.dtype != torch.float32):
         raise ValueError(f"flash_attention_bwd: unsupported shapes q{tuple(q.shape)} "
                          f"kv{tuple(k.shape)} lse{tuple(lse.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     build.launch(flash_attention_bwd_cuda, "flash_attention_bwd", _BWD_ARGTYPES, dtype,
                  torch.cuda.current_stream(q.device).cuda_stream,
                  *(t.data_ptr() for t in (q, k, v, out, dout, lse, dq, dk, dv, delta)),
-                 B, S, H, K, D, int(causal), -1 if window is None else window,
+                 B, Sq, Sk, H, K, D, int(causal), -1 if window is None else window,
                  D ** -0.5 if scale is None else scale)
     return dq, dk, dv
 

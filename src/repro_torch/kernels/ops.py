@@ -34,16 +34,17 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, kv_positions=None,
                      window=None, scale=None,
                      causal=True):
     """Decode-step attention of T new tokens against a KV cache, or (not
-    ``causal``) cross attention against an encoder's memory.  K1 has no
-    backward: on a CUDA device a call that autograd would record raises."""
+    ``causal``) serving's cross attention against an encoder's memory.  K1
+    has no backward: on a CUDA device a call that autograd would record
+    raises (training's cross attention runs K2, ``flash_attention``)."""
     if q.device.type == "cpu":
         return da.decode_attention_plain(q, k_cache, v_cache, cache_len,
                                          kv_positions=kv_positions, window=window,
                                          scale=scale, causal=causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k_cache, v_cache)):
         raise NotImplementedError("decode_attention: K1 has no backward kernel, so a gradient "
-                                  "through decode or cross attention cannot run on the card "
-                                  "(ROADMAP §1 item 2.3)")
+                                  "through it cannot run on the card (training's attention, "
+                                  "cross attention too, runs K2: flash_attention)")
     return da.decode_attention_cuda(q, k_cache, v_cache, cache_len, kv_positions=kv_positions,
                                     window=window, scale=scale, causal=causal)
 

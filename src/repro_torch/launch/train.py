@@ -9,10 +9,14 @@ checkpoint and replays, and the run ends with the final loss of an
 uninterrupted run, bit for bit.  On a CUDA device the trainer turns on
 PyTorch's deterministic algorithms (and cuBLAS's fixed workspace) so that a
 replay is exact there too; attention runs K2's forward and backward kernels.
+A vision-prefix model trains behind zero patches and an encoder-decoder on 16
+zero frames a row, as the reference's CLI feeds them (its stub: at the
+models' depth of 24 these zeros overflow the gradient, the reference's too).
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import tempfile
 import time
@@ -67,13 +71,24 @@ def main(argv=None):
     state = {"params": params, "opt": init_opt(params)}
     losses = {}
 
+    def make_batch(step):
+        """The step's tokens, and the reference's stub inputs: zero patches
+        (a vision frontend) or 16 zero frames (an encoder-decoder)."""
+        stream.step = step  # deterministic per-step data (replay-safe)
+        batch = {"tokens": torch.from_numpy(next(stream)).to(device)}
+        zeros = functools.partial(torch.zeros, dtype=getattr(torch, cfg.dtype), device=device)
+        if cfg.frontend is not None and cfg.frontend.kind == "vision":
+            batch["patches"] = zeros(args.batch, cfg.frontend.n_tokens, cfg.d_model)
+        if cfg.is_encdec:
+            batch["frames"] = zeros(args.batch, 16, cfg.d_model)
+        return batch
+
     def run_step(step):
         if step == args.fail_at:
             args.fail_at = -1  # once
             raise RuntimeError(f"injected failure at step {step}")
-        stream.step = step  # deterministic per-step data (replay-safe)
-        batch = {"tokens": torch.from_numpy(next(stream)).to(device)}
-        state["params"], state["opt"], metrics = train_step(state["params"], state["opt"], batch)
+        state["params"], state["opt"], metrics = train_step(state["params"], state["opt"],
+                                                            make_batch(step))
         losses[step] = float(metrics["loss"])
         if step % args.log_every == 0:
             print(f"step {step:5d}  loss {losses[step]:.4f}  lr {float(metrics['lr']):.2e}")

@@ -105,12 +105,17 @@ def cross_memory(p, cfg, enc_out):
     return _project_kv(p, cfg, enc_out)
 
 
-def attention_cross(p, cfg, x, mem_k, mem_v, mem_len, mem_pos):
+def attention_cross(p, cfg, x, mem_k, mem_v, mem_len=None, mem_pos=None):
     """Cross attention of x (B, T, d) against the encoder memory mem_k/mem_v
-    (B, M, K, D): no RoPE, every query sees the slots that ``mem_pos`` (B, M)
-    marks valid (``dense_positions(mem_len, M)``, built once by the caller)."""
-    out = ops.decode_attention(_project_q(p, cfg, x), mem_k, mem_v, mem_len,
-                               kv_positions=mem_pos, causal=False)
+    (B, M, K, D), no RoPE.  Without ``mem_pos`` the memory is whole (training
+    and ``forward``): K2 with no mask, which has a backward.  Prefill and
+    decode pass ``mem_len`` and the slots ``mem_pos`` (B, M) marks valid
+    (``dense_positions(mem_len, M)``, built once by the caller): K1."""
+    q = _project_q(p, cfg, x)
+    if mem_pos is None:
+        out = ops.flash_attention(q, mem_k, mem_v, causal=False)
+    else:
+        out = ops.decode_attention(q, mem_k, mem_v, mem_len, kv_positions=mem_pos, causal=False)
     return _project_out(p, out)
 
 

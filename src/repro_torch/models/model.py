@@ -155,10 +155,9 @@ class Model:
     def _forward(self, params, batch):
         """(logits (B, S, V) fp32, the router's losses summed over the layers)."""
         cfg = self.cfg
-        cross_mem = None
-        if cfg.is_encdec:
-            enc_out = self._encode(params, batch["frames"], cfg.remat_policy)
-            cross_mem = (enc_out, *self._memory(enc_out))
+        # the memory is whole: cross attention takes no mem_len (K2, unmasked)
+        cross_mem = (self._encode(params, batch["frames"], cfg.remat_policy) if cfg.is_encdec
+                     else None)
         x, n_prefix = self._embed_inputs(params, batch)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)[None].expand(B, S)

@@ -9,7 +9,7 @@ policies and carries the MoE router's two losses, summed over the MoE
 layers from zero.  A layer holds
 ``attn`` or ``mamba`` (per ``cfg.layer_kinds()``), in a decoder layer of an
 encoder-decoder also ``cross`` (cross attention over the encoder's memory
-``mem`` = (K, V, mem_len, mem_pos), after the self attention), and a MoE
+``mem`` = (K, V[, mem_len, mem_pos]), after the self attention), and a MoE
 layer (per ``cfg.moe_layer_mask()``) or, when ``d_ff > 0``, an MLP.
 """
 from __future__ import annotations
@@ -98,17 +98,15 @@ def block_decode(layer, cfg, x, cache,
 def block_full(layer, cfg, x, positions, aux, causal=True, cross_mem=None):
     """One layer of the training forward, or of an encoder (not ``causal``):
     attention or Mamba2, then the MoE or MLP half; returns (x, aux plus a MoE
-    layer's router losses).  ``cross_mem`` = (enc_out, mem_len, mem_pos):
-    the layer projects the encoder output through its own cross K/V
-    weights."""
+    layer's router losses).  ``cross_mem``, the whole encoder output (B, M,
+    d): the layer projects it through its own cross K/V weights."""
     h = rms_norm(x, layer["norm1"], cfg.norm_eps)
     if "attn" in layer:
         x = x + attn.attention_full(layer["attn"], cfg, h, positions, causal)
     else:
         x = x + ssm.mamba_full(layer["mamba"], cfg, h)
     if cross_mem is not None:
-        enc_out, *rest = cross_mem
-        x = _apply_cross(layer, cfg, x, (*attn.cross_memory(layer["cross"], cfg, enc_out), *rest))
+        x = _apply_cross(layer, cfg, x, attn.cross_memory(layer["cross"], cfg, cross_mem))
     return _apply_ffn(layer, cfg, x, aux)
 
 

@@ -138,7 +138,8 @@ def test_decode_equals_forward(arch):
 def test_refusals(arch, monkeypatch):
     """Bucketed prefill, the engine (no request carries frames or patches)
     and, without CUDA, build_model's default device; on a CUDA-side tensor
-    under autograd, cross attention (K1 has no backward)."""
+    under autograd, K1 (it has no backward: the model's cross attention
+    takes its gradient through K2, serving's prefill and decode run K1)."""
     *_, tm, tp = model_pair(arch, "float32")
     tb = _both(_batch(tm.cfg, 2, 8), "float32")[1]
     with pytest.raises(NotImplementedError, match="bucketed prefill"):

@@ -209,11 +209,15 @@ def test_train_cli_restart_is_exact_and_matches_the_reference(tmp_path, monkeypa
         assert abs(runs[1]["losses"][s] - loss) <= 1e-5 * loss, s
 
 
-# the K2 backward takes head_dim 64 and 128, q_offset 0 and CUDA tensors only
-@pytest.mark.parametrize("D, q_offset, match", [(32, 0, "head_dim 32"), (64, 3, "q_offset 3"),
-                                                (64, 0, "CUDA device")])
-def test_k2_backward_refusals(D, q_offset, match):
-    q, k = torch.zeros(1, 8, 4, D), torch.zeros(1, 8, 2, D)
+# the K2 backward takes head_dim 64 and 128, q_offset 0, CUDA tensors only,
+# and 8 queries over 5 keys only without a mask (causal or windowed, other
+# lengths are a q_offset continuation)
+@pytest.mark.parametrize("D, q_offset, match, Sk, mask", [
+    (32, 0, "head_dim 32", 8, {}), (64, 3, "q_offset 3", 8, {}), (64, 0, "CUDA device", 8, {}),
+    (64, 0, "Sq 8 != Sk 5", 5, {}), (64, 0, "Sq 8 != Sk 5", 5, {"causal": False, "window": 4})],
+    ids=["32-0-head_dim 32", "64-3-q_offset 3", "64-0-CUDA device", "causal-Sk5", "window-Sk5"])
+def test_k2_backward_refusals(D, q_offset, match, Sk, mask):
+    q, k = torch.zeros(1, 8, 4, D), torch.zeros(1, Sk, 2, D)
     with pytest.raises(ValueError, match=match):
-        flash_attention_bwd_cuda(q, k, k, q, q, torch.zeros(1, 4, 8), q_offset=q_offset)
+        flash_attention_bwd_cuda(q, k, k, q, q, torch.zeros(1, 4, 8), q_offset=q_offset, **mask)
     assert flash_attention_bwd_cuda.launches == 0
