@@ -72,8 +72,7 @@ Phases, each fatal on failure:
  10. the MoE models: hold K1, K2 and K3 at G = 8 (qwen3-moe-30b-a3b) and,
      at D = 128 on mixtral-8x7b's wrapped 4128-slot ring under its window,
      4 against their plain versions and time each serve's shapes (K3 at G =
-     8 too); check that a jamba config is refused by name on the card;
-     check 2 full-width qwen3-moe layers and 1 mixtral layer on the card
+     8 too); check 2 full-width qwen3-moe layers and 1 mixtral layer on the card
      against the CPU (fp32: each token's chosen experts and its keep mask
      at capacity identical, then the logits); with marker kernels and drop
      counters in the MoE layer, serve qwen3-moe-30b-a3b at full width (48
@@ -97,8 +96,18 @@ Phases, each fatal on failure:
      prompts; a prefill and 32 greedy tokens), counting K1 and K2 calls by
      mask per prefill and per step, with a rollback check; and check that
      K1 under autograd raises on the card and launches nothing (training's
-     cross attention runs K2: phase 13);
- 12. the serving front door at full width on the dense serve's weights:
+     cross attention runs K2: phase 14);
+ 12. jamba-1.5-large-398b, the hybrid (Mamba2 and attention layers, MoE
+     16 experts top-2 on every second), at full width over runs of its
+     first block that fit the card: K1, K2 and K2's backward at H = 64,
+     K = 8, D = 128 and K4's forward and backward at 256 heads against their
+     plain versions in both dtypes, bit for bit on repeat, timed; layers 6-7
+     (Mamba2 + MLP, attention + MoE) in fp32 on the card against the CPU
+     (routing and keep masks identical, then the logits and the state);
+     layers 4-7 served on 2 pairs x 8 slots (12 requests, 32 new tokens,
+     the n-gram draft), eager and then graphed, equal, with MoE drops and a
+     profiled burst split by kernel group; its training run is phase 14's;
+ 13. the serving front door at full width on the dense serve's weights:
      ``StreamServe`` behind ``GatewayThread`` (trace on, warmed up): an
      idle-gateway request against the same prompt served in process, a wave
      of 24 concurrent SSE streams (client TTFT/TPOT, ms per engine step), a
@@ -107,7 +116,7 @@ Phases, each fatal on failure:
      with StreamTrace off and on (equal tokens and launches, bookkeeping ms
      a step each); then ``python -m repro_torch.launch.serve --no-reduced
      --warmup`` with a cancel, a worker failure and a Chrome trace;
- 13. training, qwen3-1.7b: hold K2's backward (``flash_attention_bwd.cu``)
+ 14. training, qwen3-1.7b: hold K2's backward (``flash_attention_bwd.cu``)
      against the plain version's autograd (dq, dk, dv; bf16 and fp32 at the
      training shape B=4 S=2048 H=16 K=8 D=128, a ragged S = 1000, G = 1 at
      H = K = 32, a window of 512, head_dim 64, and S = 1000 under a window of
@@ -155,8 +164,11 @@ Phases, each fatal on failure:
      the CLI's 16 frames or 256 patches a row, seeded random in place of
      its zeros, which overflow the gradient at depth, no saves: K2's
      launches by shape, 72 or 24 backward launches a step, MFU, peak, a
-     profiled step);
- 14. print the kernel table as one JSON line, then the result line.
+     profiled step); jamba's layers 6-7 through ``launch.train`` under its
+     own adafloor and remat "full" (8 bf16 steps of 4 x 2048 tokens, no
+     saves: K2 and K4 forward and backward launches a step, MFU, peak
+     memory, a profiled step);
+ 15. print the kernel table as one JSON line, then the result line.
 Every serve of phases 4-8, and phase 9's qwen2.5-14b serve, runs twice on
 the same weights (phase 9 profiles only graphed serves and runs its other
 serves graphed only): eager (its lanes'
@@ -245,6 +257,17 @@ def check(name: str, got, want, dt: str, tols: dict = TOL) -> float:
     if not bool((diff <= tol + tol * ref).all()):  # atol = rtol = tol
         fail(f"{name}: kernel and plain version differ (max abs {err:.3g}, tol {tol})")
     return err
+
+
+def same_bits(tag: str, call) -> None:
+    """Fail unless two calls on the same inputs give the same bits."""
+    import torch
+    from torch.utils._pytree import tree_flatten
+
+    runs = [tree_flatten(call())[0] for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs, strict=True)):
+        fail(f"{tag}: two calls on the same inputs gave different bits")
+    print(f"{tag}: two calls give the same bits")
 
 
 # ------------------------------------------------------------------ kernels
@@ -1088,7 +1111,7 @@ def same_as_eager(report: dict, key: str, bucketed: bool = True) -> None:
         fail(f"{key}: launches graphed {g['launches']} != eager {e['launches']}")
     if bucketed and g["captured_after_warmup"]:
         fail(f"{key}: {g['captured_after_warmup']} graphs captured after warmup")
-    if bucketed and g.get("programs_after_warmup") and not key.startswith("mamba"):
+    if bucketed and g.get("programs_after_warmup") and not key.startswith(("mamba", "jamba")):
         fail(f"{key}: {g['programs_after_warmup']} programs added after warmup")
     line = {m: (e[m], g[m]) for m in ("wall_s", "step_s_mean", "ttft_s_mean", "tpot_s_mean")
             if m in g}
@@ -2000,10 +2023,6 @@ MIXTRAL_LAYERS = 16  # of 32: 46.96 GB of bf16 weights; all 32 (93.4 GB) exceed 
 MOE_NEW_TOKENS = 16
 # the mixtral serve's prompts: all eight past the window and the ring
 MIXTRAL_LENS = (4500, 5200, 6000, 4800, 5600, 4700, 5900, 5000)
-# jamba-1.5-large-398b's shape (the reference's config): Mamba2, attention and MoE
-JAMBA = {"name": "jamba-1.5-large-398b", "family": "hybrid", "n_layers": 72, "d_model": 8192,
-         "n_heads": 64, "n_kv_heads": 8, "d_ff": 24_576, "vocab_size": 65_536,
-         "attn_period": 8, "scan_block": 8}
 MOE_PROBE: dict = {}  # the MoE layer's device counters while moe_probes() is on
 # moe_probes()' marker kernels (a pattern of each one's name) and the part of
 # the MoE layer that follows each
@@ -2020,12 +2039,8 @@ def moe_kernel_phase(report: dict) -> dict:
     plain version, SDPA, bound): qwen3-moe's verify at the depth-4 bucket
     (B=8 T=5) and its 512 prefill bucket (4 rows), mixtral's verify on a full
     ring (B=8) and its 8192 prefill bucket under the window; and K3 at G = 8
-    (the paged path's decode and admission shapes).  A jamba config (hybrid:
-    Mamba2, attention and MoE) must be refused by name on the card."""
+    (the paged path's decode and admission shapes)."""
     import torch
-
-    from repro_torch.configs import ArchConfig, MoEConfig, SSMConfig
-    from repro_torch.models import build_model
 
     g = torch.Generator(device="cuda").manual_seed(22)
     err, lines = {}, []
@@ -2044,14 +2059,6 @@ def moe_kernel_phase(report: dict) -> dict:
     report["moe_paged_timing"] = paged_timing(g, lines, [err["decode_attention_paged"]] * 2,
                                               H, K, D, "qwen3-moe ")
     report["moe_kernel_checks"] = lines
-    jamba = ArchConfig(**JAMBA, moe=MoEConfig(16, 2, 24_576, every_n=2), ssm=SSMConfig())
-    try:
-        build_model(jamba, "cuda")
-        fail("a jamba config was not refused on the card")
-    except NotImplementedError as e:
-        if "§1 item 3)" not in str(e):
-            fail(f"the jamba refusal names no ROADMAP item: {e}")
-        print(f"jamba refused on the card: {e}")
     return out
 
 
@@ -2175,12 +2182,12 @@ def moe_profile(serve, report: dict, key: str, lens, seed=1) -> None:
     dispatch and combine ops (routing, sort, rank, the scatter into the
     buffer, the gather and the sum over k, and the drop counters' adds) and
     the expert products (three batched GEMMs over all E experts and the
-    activation); outside, K1, K2, the other GEMMs and the rest.  The
-    markers' own time and counts are reported apart (equal counts: none
-    was lost; a lost one misplaces the kernels up to the next), and the
-    expert products' time a
-    forward (MoE layer calls over the depth) beside the time to read every
-    expert's weights once at the data sheet's bandwidth."""
+    activation); outside, K1, K2, K4 (a hybrid's Mamba2 layers), the other
+    GEMMs and the rest.  The markers' own time and counts are reported apart
+    (equal counts: none was lost; a lost one misplaces the kernels up to the
+    next), and the expert products' time a forward (MoE layer calls over
+    the MoE layers) beside the time to read every expert's weights once at
+    the data sheet's bandwidth."""
     import re
     from collections import Counter
 
@@ -2207,6 +2214,7 @@ def moe_profile(serve, report: dict, key: str, lens, seed=1) -> None:
                     if e.device_type() == DeviceType.CUDA)
     groups = ((r"decode_wgmma_kernel|decode_kernel", "K1"),
               (r"flash_kernel|flash_wgmma_kernel", "K2"),
+              (r"ssd_wgmma_kernel|ssd_kernel", "K4"),
               (r"gemm|nvjet|xmma|cutlass", "other GEMMs"))
     ms, marks, region = Counter(), Counter(), None
     for _, ns, name in events:
@@ -2222,9 +2230,10 @@ def moe_profile(serve, report: dict, key: str, lens, seed=1) -> None:
     if not min(counts) or not ms["expert products"]:
         fail(f"{key}: markers {counts}, {ms['expert products']:.1f} ms of expert products")
     arch, moe = serve.arch, serve.arch.moe
-    forwards = max(counts) / arch.n_layers
+    n_moe = sum(arch.moe_layer_mask())
+    forwards = max(counts) / n_moe
     mats = 3 if arch.mlp_type == "swiglu" else 2
-    expert_bytes = arch.n_layers * moe.n_experts * mats * arch.d_model * moe.d_ff_expert * 2
+    expert_bytes = n_moe * moe.n_experts * mats * arch.d_model * moe.d_ff_expert * 2
     report[key] = {"burst_wall_ms": wall * 1e3, "burst_wall_profiled_ms": wall_profiled * 1e3,
                    "device_busy_ms": busy, "busy_share": busy / (wall * 1e3),
                    "device_ms_by_part": dict(ms.most_common()), "forwards": forwards,
@@ -2615,7 +2624,7 @@ def encdec_phase(report: dict, arch: str) -> dict:
 def cross_grad_refused() -> None:
     """K1 (serving's cross attention) on CUDA tensors under autograd raises
     (it has no backward) and launches nothing.  Training's cross attention
-    takes its gradient through K2 (phase 13)."""
+    takes its gradient through K2 (phase 14)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -2688,20 +2697,21 @@ def ssd_cost(x, Bm, s0, chunk=64):
     return nbytes, B * ops
 
 
-def ssd_kernel_phase(report: dict) -> dict:
-    """K4 against its plain version on SSD_CHECKS (y and final state; bf16 on
+def ssd_kernel_phase(report: dict, checks=SSD_CHECKS, heads: int = 80,
+                     key: str = "ssd_kernel_checks", seed: int = 4) -> dict:
+    """K4 against its plain version on ``checks`` (y and final state; bf16 on
     ssd_wgmma_kernel, fp32 on ssd_kernel), then checked and timed at the
-    serve shape and at mamba2-2.7b's training shape (B = 4, S = 2048) on
-    views rotated past the L2; returns both timings by "serve" and
-    "train"."""
+    serve shape (a 400-token prompt) and at the training shape (B = 4, S =
+    2048) with ``heads`` heads (mamba2-2.7b's 80, jamba's 256) on views
+    rotated past the L2; returns both timings by "serve" and "train"."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
-    g = torch.Generator(device="cuda").manual_seed(4)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     err, lines = 0.0, []
-    for B, S, H, P, G, N, dt, init in SSD_CHECKS:
+    for B, S, H, P, G, N, dt, init in checks:
         x, dtv, A, Bm, C, s0 = ssd_case(g, B, S, H, P, G, N, dt, init)
         before = ssd_scan_cuda.wgmma_launches
         y, sf = ssd_scan_cuda(x, dtv, A, Bm, C, initial_state=s0)
@@ -2715,31 +2725,34 @@ def ssd_kernel_phase(report: dict) -> dict:
             err = max(err, e)
         lines.append(f"{tag}: max_abs_err={e:.3g}")
         print(lines[-1])
-    out = {}
-    for key, B, S in (("serve", 1, 400), ("train", 4, 2048)):  # the serve's and training's shapes
-        sets = copies(lambda: ssd_case(g, B, S, 80, 64, 1, 128, "bfloat16"),  # noqa: B023
-                      B * S * (80 * 64 * 2 + 256 * 2 + 80 * 4))
+    out, H = {}, heads
+    for part, B, S in (("serve", 1, 400), ("train", 4, 2048)):  # the serve's and training's shapes
+        sets = copies(lambda: ssd_case(g, B, S, H, 64, 1, 128, "bfloat16"),  # noqa: B023
+                      B * S * (H * 64 * 2 + 256 * 2 + H * 4))
         nbytes, ops = ssd_cost(sets[0][0], sets[0][3], None)
         wy, ws = ref.ssd_scan(*sets[0][:5], chunk=256)
         y, sf = ssd_scan_cuda(*sets[0][:5])
-        e = max(check(f"ssd_scan timing set {key}", y, wy, "bfloat16", SSD_TOL),
-                check(f"ssd_scan timing set {key} state", sf, ws, "bfloat16", SSD_TOL))
+        e = max(check(f"ssd_scan timing set {part}", y, wy, "bfloat16", SSD_TOL),
+                check(f"ssd_scan timing set {part} state", sf, ws, "bfloat16", SSD_TOL))
+        same_bits(f"ssd_scan B={B} S={S} H={H}",
+                  lambda: ssd_scan_cuda(*sets[0][:5]))  # noqa: B023
 
         def scan(i, plain=False, sets=sets):
             args = sets[i % len(sets)][:5]
             return ref.ssd_scan(*args, chunk=256) if plain else ssd_scan_cuda(*args)
 
-        r = out[key] = {
-            "shape": f"B={B} S={S} H=80 P=64 G=1 N=128 bf16 (strided views)",
+        r = out[part] = {
+            "shape": f"B={B} S={S} H={H} P=64 G=1 N=128 bf16 (strided views)",
             "ms": timed(scan, 200),
-            "plain_ms": timed(lambda i, f=scan: f(i, plain=True), 20 if key == "serve" else 3),
+            "plain_ms": timed(lambda i, f=scan: f(i, plain=True), 20 if part == "serve" else 3),
             "library_ms": None, "bound": bound_ms(nbytes, ops, "bfloat16"),
             "max_abs_err": max(err, e)}
-        was = f" (previous kernel {PREVIOUS_MS['ssd_scan']} ms)" if key == "serve" else ""
+        was = (f" (previous kernel {PREVIOUS_MS['ssd_scan']} ms)"
+               if (part, H) == ("serve", 80) else "")
         print(f"ssd_scan [{r['shape']}]: kernel {r['ms']:.4f} ms{was}, plain {r['plain_ms']:.4f} "
               f"ms, no single PyTorch call, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
         del sets, wy, ws, y, sf
-    report["ssd_kernel_checks"] = lines
+    report[key] = lines
     return out
 
 
@@ -2784,9 +2797,10 @@ def plain_ssd_grads(x, dtv, A, Bm, C, dy, dtype=None):
     return torch.autograd.grad(y, leaves, dy.to(dtype or dy.dtype))
 
 
-def ssd_bwd_phase(report: dict) -> dict:
+def ssd_bwd_phase(report: dict, checks=SSD_BWD_CHECKS, shape=(4, 2048, 80, 64, 1, 128),
+                  key: str = "ssd_bwd", seed: int = 12) -> dict:
     """K4's backward (``ssd_scan_bwd.cu``) against the plain scan's autograd
-    on SSD_BWD_CHECKS, every gradient (dx, ddt, dA, dB, dC), on the model's
+    on ``checks``, every gradient (dx, ddt, dA, dB, dC), on the model's
     strided views: fp32 elementwise within SSD_TOL (tol + tol*|b|) of the
     plain version run in float64, but ddt within tol * (1 + max |b|) (its
     elementwise reading reported: at the training shape ddt reaches ~900
@@ -2797,16 +2811,16 @@ def ssd_bwd_phase(report: dict) -> dict:
     gradient row within BWD_ROW_TOL of its RMS, with a control that must
     fail that check (the plain gradients with the last chunk's dy of head 0
     zeroed); every bf16 launch on ssd_bwd_wgmma_kernel and every fp32 one on
-    ssd_bwd_kernel.  At the training shape (bf16): two calls bit for bit,
-    then the backward and the plain version's backward timed on inputs
-    rotated past the L2."""
+    ssd_bwd_kernel.  At the training ``shape`` (bf16; mamba2-2.7b's H = 80 or
+    jamba's 256): two calls bit for bit, then the backward and the plain
+    version's backward timed on inputs rotated past the L2."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
 
-    g = torch.Generator(device="cuda").manual_seed(12)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     errs, rows, lines, control = {}, {}, [], None
-    for B, S, H, P, G, N, dt in SSD_BWD_CHECKS:
+    for B, S, H, P, G, N, dt in checks:
         tag = f"ssd_scan_bwd B={B} S={S} H={H} P={P} G={G} N={N} {dt}"
         x, dtv, A, Bm, C, _ = ssd_case(g, B, S, H, P, G, N, dt)
         dy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
@@ -2849,29 +2863,25 @@ def ssd_bwd_phase(report: dict) -> dict:
                 fail("K4 backward: the row check cannot tell a dropped chunk")
         del got, want
     torch.cuda.synchronize()
-    shape = (4, 2048, 80, 64, 1, 128)
+    B, S, H = shape[:3]
 
     def make():
         x, dtv, A, Bm, C, _ = ssd_case(g, *shape, "bfloat16")
         return x, dtv, A, Bm, C, torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
 
-    sets = copies(make, 2048 * 4 * (80 * 64 * 2 * 2 + 256 * 2 + 80 * 4))
-    runs = [ssd_scan_bwd_cuda(*sets[0]) for _ in range(2)]
-    if not all(torch.equal(a, b) for a, b in zip(*runs, strict=True)):
-        fail("K4 backward: two calls on the same inputs gave different bits")
-    print("K4 backward at the training shape: two calls give every gradient bit for bit")
-    del runs
+    sets = copies(make, S * B * (H * 64 * 2 * 2 + 256 * 2 + H * 4))
+    same_bits(f"K4 backward at B={B} S={S} H={H}", lambda: ssd_scan_bwd_cuda(*sets[0]))
     nbytes, ops = ssd_bwd_cost(sets[0][0], sets[0][3])
-    out = {"shape": "B=4 S=2048 H=80 P=64 G=1 N=128 bf16 (strided views)",
+    out = {"shape": f"B={B} S={S} H={H} P=64 G=1 N=128 bf16 (strided views)",
            "ms": timed(lambda i: ssd_scan_bwd_cuda(*sets[i % len(sets)]), 10),
            "plain_ms": timed(lambda i: plain_ssd_grads(*sets[i % len(sets)]), 3),
            "library_ms": None, "bound": bound_ms(nbytes, ops, "bfloat16"),
            "max_abs_err": errs["bfloat16"]}
-    print(f"ssd_scan_bwd [{out['shape']}]: kernel {out['ms']:.4f} ms (previous kernel "
-          f"{PREVIOUS_MS['ssd_scan_bwd']} ms), plain (autograd) "
+    was = f" (previous kernel {PREVIOUS_MS['ssd_scan_bwd']} ms)" if H == 80 else ""
+    print(f"ssd_scan_bwd [{out['shape']}]: kernel {out['ms']:.4f} ms{was}, plain (autograd) "
           f"{out['plain_ms']:.4f} ms, library none: no single PyTorch call, bound "
           f"{out['bound'][0]:.4f} ms ({out['bound'][1]})")
-    report["ssd_bwd"] = {"checks": lines, "errs": errs, "row_errs": rows, "control": control,
+    report[key] = {"checks": lines, "errs": errs, "row_errs": rows, "control": control,
                          **{k: v for k, v in out.items() if k != "bound"},
                          "bound": list(out["bound"])}
     return out
@@ -2969,6 +2979,194 @@ def mamba_serve_phase(report: dict, params=None, graphed=True):
     result["prompt_lens"] = lens
     report["mamba_serve" + ("" if graphed else "_eager")] = result
     return launches, serve
+
+
+# ------------------------------------------- jamba-1.5-large-398b (the hybrid)
+
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_HEADS = (64, 8, 128)  # attention H, K, D; Mamba2 at 256 heads of P = 64, N = 128
+# Runs of consecutive layers of jamba's first 8-layer block that end at its
+# attention layer (7) and fit one card, cut kind for kind (layer i of the run
+# is attention iff i % attn_period == attn_period - 1, MoE iff i is odd):
+# layers 4-7 (ssm+MLP, ssm+MoE, ssm+MLP, attn+MoE; 45.96 GB of bf16 weights
+# with the embeddings) serve; layers 6-7 (23.80 GB bf16, 47.6 GB fp32)
+# train and are held against the CPU.  A whole block is 88.1 GB: every MoE
+# layer holds 19.3 GB of experts.
+JAMBA_CUTS = {"serve": {"n_layers": 4, "attn_period": 4, "scan_block": 4},
+              "train": {"n_layers": 2, "attn_period": 2, "scan_block": 2}}
+JAMBA_SSD_CHECKS = [(1, 400, 256, 64, 1, 128, "bfloat16", False),  # the serve's longest prompt
+                    (1, 400, 256, 64, 1, 128, "float32", True),
+                    (1, 33, 256, 64, 1, 128, "bfloat16", False),
+                    (4, 2048, 256, 64, 1, 128, "bfloat16", False)]  # the training shape
+JAMBA_SSD_BWD_CHECKS = [(4, 2048, 256, 64, 1, 128, "bfloat16"),
+                        (1, 1024, 256, 64, 1, 128, "float32")]
+JAMBA_BWD_CASES = [(4, 2048, 64, 8, 128, "bfloat16", None), (1, 2048, 64, 8, 128, "float32", None)]
+
+
+def jamba_cfg(cut: str, **fields):
+    """jamba-1.5-large-398b at full width, cut to the layer run ``cut``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(JAMBA), **JAMBA_CUTS[cut], **fields)
+
+
+def jamba_kernel_phase(report: dict) -> dict:
+    """(a) jamba's kernels at its shapes: K1, K2 (and K3, which the hybrid
+    does not run: paged KV is attention-only) at H = 64, K = 8, D = 128
+    against their plain versions (``head_checks``); K1 timed at the serve's
+    widest verify (B=8 T=9 S=512: 72 query rows a KV head) and K2 at its
+    longest exact-shape admission (B=1 S=400), each also bit for bit on
+    repeat; K2's backward and its forward with lse at B=4 S=2048 in both
+    dtypes, rows and a control, bit for bit, timed (``train_kernel_phase``);
+    K4 forward and backward at 256 heads (``ssd_kernel_phase``,
+    ``ssd_bwd_phase``): the serve's and the training shapes, both dtypes,
+    bit for bit, timed.  Returns the timing rows by name."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    err, lines = {}, []
+    head_checks(g, {JAMBA: JAMBA_HEADS}, err, lines)
+    H, K, D = JAMBA_HEADS
+    out = {"decode_attention (jamba verify)": decode_timing(g, 8, 9, 512, H, K, D),
+           "flash_attention (jamba prefill)": flash_timing(g, 1, 400, H, K, D)}
+    for name, r in out.items():
+        r["max_abs_err"] = max(err[name.split()[0]], r.pop("err"))
+        show_timing(name, r)
+    q, k, v, clen, pos = decode_case(g, 8, 9, 512, H, K, D, "bfloat16", [500] * 8)
+    same_bits("K1 at jamba's verify", lambda: decode_attention_cuda(q, k, v, clen,
+                                                                     kv_positions=pos))
+    q, k, v = (torch.randn(1, 400, n, D, generator=g, device="cuda").to(torch.bfloat16)
+               for n in (H, K, K))
+    same_bits("K2 at jamba's admission", lambda: flash_attention_cuda(q, k, v))
+    report["jamba_kernel_checks"] = lines
+    train = train_kernel_phase(report, JAMBA_BWD_CASES, ((" jamba", H, K),),
+                               "jamba_train_kernels", 32)
+    out["flash_attention_bwd (jamba training)"] = train["bwd jamba"]
+    out["flash_attention (jamba training, lse)"] = train["fwd jamba"]
+    ssd = ssd_kernel_phase(report, JAMBA_SSD_CHECKS, 256, "jamba_ssd_kernel_checks", 33)
+    out["ssd_scan (jamba prefill)"], out["ssd_scan (jamba training)"] = ssd["serve"], ssd["train"]
+    out["ssd_scan_bwd (jamba training)"] = ssd_bwd_phase(
+        report, JAMBA_SSD_BWD_CHECKS, (4, 2048, 256, 64, 1, 128), "jamba_ssd_bwd", 34)
+    return out
+
+
+def jamba_model_phase(report: dict) -> None:
+    """(b) jamba's layers 6-7 (Mamba2 + MLP, attention + MoE) at full width,
+    float32, on the card against the same weights on the CPU (47.6 GB on
+    each side): an exact-shape prefill of 2 rows of 64 tokens, a 5-token
+    verify, a per-row commit and a plain step; each token's chosen experts
+    and its keep mask at capacity identical, call by call (``same_routing``),
+    then the logits and the committed SSM state within 1e-3.  Every fp32
+    launch of K1, K2 and K4 on its CUDA-core kernel."""
+    import torch
+
+    from repro_torch.models import build_model
+
+    cfg = jamba_cfg("train", dtype="float32")
+    gpu, cpu = build_model(cfg, "cuda"), build_model(cfg, "cpu")
+    t0 = time.perf_counter()
+    params = gpu.init(1)
+    cpu_params = to_cpu(params)
+    made = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, dtype=torch.int32)
+    zero_counts()
+    with routing_recorded() as seen:
+        lg, cg = gpu.prefill(params, {"tokens": tokens.cuda()}, 128)
+        lc, cc = cpu.prefill(cpu_params, {"tokens": tokens}, 128)
+        errs = [max_err(lg.cpu(), lc)]
+        for T, accept in ((5, torch.tensor([1, 4], dtype=torch.int32)), (1, None)):
+            step = torch.randint(0, cfg.vocab_size, (2, T), generator=gen, dtype=torch.int32)
+            errs.append(max_err(gpu.decode_step(params, cg, step.cuda()).cpu(),
+                                cpu.decode_step(cpu_params, cc, step)))
+            if accept is not None:
+                gpu.commit_cache(cg, cg["len"] - T, accept.cuda())
+                cpu.commit_cache(cc, cc["len"] - T, accept)
+                errs.append(max_err(cg["state"].cpu(), cc["state"]))
+    launches = read_counts()
+    tag = "jamba model check"
+    same_routing(tag, cfg, seen, report)
+    print(f"{tag} (layers 6-7 at full width, fp32, card vs CPU; weights made and copied in "
+          f"{made:.1f} s): max_abs_err={max(errs):.3g}; launches {launches}")
+    for name in ("decode_attention", "flash_attention", "ssd_scan"):
+        no_wgmma(launches, name, tag)
+    if max(errs) > 1e-3:
+        fail(f"{tag}: logits or state differ by {max(errs):.3g} > 1e-3")
+    report["jamba_model_check"] = {"max_abs_err": max(errs), "launches": launches,
+                                   "weights_s": made}
+
+
+def jamba_serve_phase(report: dict, params=None, graphed=True):
+    """(c) jamba's layers 4-7 at full width, bf16, on 2 pairs x 8 slots
+    (max_len 512, the n-gram draft with SpecuStream, greedy): the dense
+    serve's 12 prompts, 32 new tokens each.  Every admission is its own
+    exact-shape prefill (the stack is not attention-only): K4 once a Mamba2
+    layer and K2 once the attention layer; every decode and verify step K1
+    once.  Every launch on the tensor-core kernels, no other kernel; the
+    MoE layers' drops counted (moe_probes).  Returns (launches, serve)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ServeConfig
+
+    cfg = ServeConfig(arch=JAMBA, reduced=False, n_pairs=2, max_batch=8, max_len=512,
+                      max_new_tokens=32)
+    t0 = time.perf_counter()
+    serve = served(cfg, graphed, arch_cfg=jamba_cfg("serve"),
+                   **({} if params is None else {"params": params}))
+    torch.cuda.synchronize()
+    arch = serve.arch
+    print(f"jamba serve: layers 4-7 of {JAMBA} ({arch.layer_kinds()}, MoE "
+          f"{arch.moe_layer_mask()}) d_model={arch.d_model} vocab={arch.vocab_size} "
+          f"{arch.dtype}, {cfg.n_pairs} pairs x {cfg.max_batch} slots; init "
+          f"{time.perf_counter() - t0:.2f} s")
+    bad = instrument(serve)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, arch.vocab_size, n).tolist() for n in SERVE_LENS]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    run = drive(serve, {0: prompts[:8], 3: prompts[8:]})
+    launches = read_counts()
+    tag = "jamba serve" + ("" if graphed else " (eager)")
+    result = serve_stats(tag, serve, bad, run, launches)
+    n_attn, n_ssm = arch.layer_kinds().count("attn"), arch.layer_kinds().count("ssm")
+    n_pre, n_dec = result["prefill_calls"], result["decode_calls"]
+    want = {"ssd_scan": n_ssm * n_pre, "flash_attention": n_attn * n_pre,
+            "decode_attention": n_attn * n_dec}
+    counts = {k: launches[k] for k in kernel_counters()}
+    if n_pre != len(prompts) or not n_dec or counts != {k: want.get(k, 0) for k in counts}:
+        fail(f"{tag}: launches {counts} in {n_pre} prefill and {n_dec} decode calls, "
+             f"expected {want}")
+    wgmma_only(launches, tag, *want)
+    dropped_share(tag, launches, result)
+    result["prompt_lens"] = list(SERVE_LENS)
+    report["jamba_serve" + ("" if graphed else "_eager")] = result
+    return launches, serve
+
+
+def jamba_phase(report: dict) -> dict:
+    """(c) the jamba serve eager, then graphed on the same weights (moe_probes
+    on for both, so that both hold the markers and counters): equal tokens
+    and launches, nothing captured after warmup; a profiled burst of the
+    graphed serve split by kernel group (moe_profile).  Returns the graphed
+    serve's launches."""
+    with moe_probes():
+        _, serve = jamba_serve_phase(report, graphed=False)
+        params = serve.engine.pairs[0].lane.params
+        del serve
+        release()
+        launches, serve = jamba_serve_phase(report, params)
+        del params
+        same_as_eager(report, "jamba_serve")
+        moe_profile(serve, report, "jamba_profile", PROFILE_LENS, seed=18)
+        del serve
+        release()
+    return launches
 
 
 def trace_cost_phase(params, report: dict) -> None:
@@ -3397,11 +3595,8 @@ def bwd_timing(q, k, v, dout, causal=True) -> tuple:
     Sk, K = k.shape[1:3]
     shape = f"B={B} Sq={Sq} Sk={Sk} H={H} K={K} D={D} {'' if causal else 'not '}causal bf16"
     o, lse = flash_attention_cuda(q, k, v, causal=causal, lse=True)
-    runs = [flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=causal) for _ in range(2)]
-    if not all(torch.equal(a, b) for a, b in zip(*runs, strict=True)):
-        fail(f"K2 backward ({shape}): two calls on the same inputs gave different bits")
-    print(f"K2 backward at {shape}: two calls give dq, dk and dv bit for bit")
-    del runs
+    same_bits(f"K2 backward at {shape}",
+              lambda: flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal=causal))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     plain_o = ref.flash_attention(*leaves, causal=causal)
     th = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
@@ -3432,7 +3627,8 @@ def show_bwd_timing(rows: dict) -> None:
             print(f"flash_attention without lse at the same shape: {r['ms_no_lse']:.4f} ms")
 
 
-def train_kernel_phase(report: dict) -> dict:
+def train_kernel_phase(report: dict, cases=BWD_CASES, timings=(("", 16, 8), (" g8", 32, 4)),
+                       key: str = "train_kernels", seed: int = 11) -> dict:
     """(a) K2's backward against the plain version's autograd on the card
     (dq, dk, dv elementwise within tol + tol*|b|: 1e-4 fp32, 2e-2 bf16),
     and each gradient row against plain_bwd within BWD_ROW_TOL of its RMS
@@ -3441,20 +3637,21 @@ def train_kernel_phase(report: dict) -> dict:
     G = 4 window at head_dim 64; every bf16 call on the tensor-core passes,
     every fp32 call on the CUDA-core ones; the forward's lse against the
     plain scores' logsumexp; then at the training
-    shape (bf16) two backward calls bit for bit, and the backward, the plain
-    version's backward and SDPA's backward timed (forwards outside the timed
-    region), and K2's forward with and without lse beside the plain forward
-    and SDPA's."""
+    shape (bf16; ``timings``: key suffix, H, K) two backward calls bit for
+    bit, and the backward, the plain version's backward and SDPA's backward
+    timed (forwards outside the timed region), and K2's forward with and
+    without lse beside the plain forward and SDPA's.  ``cases`` and
+    ``timings`` default to qwen3-1.7b's and qwen3-moe-30b-a3b's heads."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 
-    g = torch.Generator(device="cuda").manual_seed(11)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     errs, out = {"dq": 0.0, "dk": 0.0, "dv": 0.0, "lse": 0.0, "out": 0.0}, {}
     rows = {dt: {"dq": 0.0, "dk": 0.0, "dv": 0.0} for dt in BWD_TOL}
     readings = None
-    for B, S, H, K, D, dt, window in BWD_CASES:
+    for B, S, H, K, D, dt, window in cases:
         tag = f"K2 backward B={B} S={S} H={H} K={K} D={D} {dt} window={window}"
         q, k, v, dout = (torch.randn(B, S, n, D, generator=g, device="cuda").to(getattr(torch, dt))
                          for n in (H, K, K, H))
@@ -3482,16 +3679,16 @@ def train_kernel_phase(report: dict) -> dict:
             readings = row_readings(q, k, v, o, dout, window, plain, got, want)
         del want, leaves, got, plain
     torch.cuda.synchronize()
-    # timing at the training shapes, bf16 (inputs 134 and 168 MB: past the L2
-    # by themselves): qwen3-1.7b's (G = 2) and qwen3-moe-30b-a3b's (G = 8)
-    for key, H, K in (("", 16, 8), (" g8", 32, 4)):
+    # timing at the training shapes, bf16 (inputs of 134 MB and more: past the
+    # L2 by themselves): qwen3-1.7b's (G = 2) and qwen3-moe-30b-a3b's (G = 8)
+    for suffix, H, K in timings:
         q, k, v, dout = (torch.randn(4, 2048, n, 128, generator=g, device="cuda")
                          .to(torch.bfloat16) for n in (H, K, K, H))
-        out["bwd" + key], out["fwd" + key] = bwd_timing(q, k, v, dout)
-        out["bwd" + key]["max_abs_err"] = max(errs["dq"], errs["dk"], errs["dv"])
-        out["fwd" + key]["max_abs_err"] = max(errs["out"], errs["lse"])
+        out["bwd" + suffix], out["fwd" + suffix] = bwd_timing(q, k, v, dout)
+        out["bwd" + suffix]["max_abs_err"] = max(errs["dq"], errs["dk"], errs["dv"])
+        out["fwd" + suffix]["max_abs_err"] = max(errs["out"], errs["lse"])
         del q, k, v, dout
-    report["train_kernels"] = {"errs": errs, "row_errs": rows, "row_readings": readings,
+    report[key] = {"errs": errs, "row_errs": rows, "row_readings": readings,
                                **{k: dict(v, bound=list(v["bound"])) for k, v in out.items()}}
     show_bwd_timing(out)
     return out
@@ -3645,22 +3842,28 @@ def train_model_phase(report: dict, arch: str = "qwen3-1.7b") -> None:
                 for n, a, b in zip(names, gg, gc, strict=True))
     print(f"{tag} (2 full-width layers, fp32, card vs CPU): loss {lg:.6f} / {lc:.6f}; worst "
           f"leaf {worst[1]} at {worst[0]:.3g} x its max |g|; launches {launches}")
-    bwd = "ssd_scan_bwd" if cfg.family == "ssm" else "flash_attention_bwd"
-    for name in ("ssd_scan", "ssd_scan_bwd") if cfg.family == "ssm" else (
-            "flash_attention", "flash_attention_bwd"):
-        no_wgmma(launches, name, tag)
-    if launches[bwd] != bwd_launches(cfg) or launches["decode_attention"]:
-        fail(f"{tag}: {launches[bwd]} {bwd} launches, {launches['decode_attention']} of K1")
+    want = bwd_launches(cfg)
+    for bwd in (k for k, n in want.items() if n):
+        for name in (bwd.removesuffix("_bwd"), bwd):
+            no_wgmma(launches, name, tag)
+    if any(launches[k] != n for k, n in want.items()) or launches["decode_attention"]:
+        fail(f"{tag}: launches {launches}, expected {want} and no K1")
     if abs(lg - lc) > 1e-5 * abs(lc) or worst[0] > 1e-3:
         fail(f"{tag}: loss {lg} vs {lc}, gradient {worst}")
     report["train_model_check" + ("" if arch == "qwen3-1.7b" else f"_{arch}")] = {
         "loss": [lg, lc], "worst_leaf": list(worst), "launches": launches}
 
 
-def bwd_launches(cfg) -> int:
-    """K2's or K4's backward launches a training step: one a layer, and an
-    encoder-decoder's cross attention one a decoder layer."""
-    return cfg.n_layers * (1 + cfg.is_encdec) + cfg.n_encoder_layers
+def bwd_launches(cfg) -> dict:
+    """K2's and K4's backward launches a training step: K2's one an attention
+    layer (an encoder-decoder's also one a decoder layer's cross attention
+    and one an encoder layer), K4's one a Mamba2 layer."""
+    kinds = cfg.layer_kinds()
+    return {"flash_attention_bwd": kinds.count("attn") * (1 + cfg.is_encdec)
+            + cfg.n_encoder_layers, "ssd_scan_bwd": kinds.count("ssm")}
+
+
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 
 
 def train_flops(cfg, B: int, S: int) -> int:
@@ -3674,11 +3877,14 @@ def train_flops(cfg, B: int, S: int) -> int:
     import torch
 
     meta = functools.partial(torch.empty, device="meta")
-    if cfg.family == "ssm":
+    kinds = cfg.layer_kinds()
+    ssd = 0
+    if "ssm" in kinds:  # the SSD scan's products, each Mamba2 layer
         s = cfg.ssm
-        _, ops = ssd_cost(meta(B, S, s.n_heads(cfg.d_model), s.head_dim),
-                          meta(B, S, s.n_groups, s.d_state), None)
-        return 6 * cfg.n_active_params() * B * S + 3 * ops * cfg.n_layers
+        ssd = kinds.count("ssm") * ssd_cost(meta(B, S, s.n_heads(cfg.d_model), s.head_dim),
+                                            meta(B, S, s.n_groups, s.d_state), None)[1]
+    if cfg.family == "ssm":
+        return 6 * cfg.n_active_params() * B * S + 3 * ssd
     d, H, K, D, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, TRAIN_FRAMES
     P = S + (cfg.frontend.n_tokens if cfg.frontend and cfg.frontend.kind == "vision" else 0)
 
@@ -3689,8 +3895,8 @@ def train_flops(cfg, B: int, S: int) -> int:
     at_frames = cfg.n_encoder_layers * (2 * d * (H + K) * D + per_ff * d * cfg.d_ff + 2 * d)
     if cfg.is_encdec:  # cross attention's K and V projections
         at_frames += cfg.n_layers * 2 * d * K * D
-    ops = cfg.n_layers * (attn(P, P, True) + (attn(P, F, False) if cfg.is_encdec else 0)) \
-        + cfg.n_encoder_layers * attn(F, F, False)
+    ops = kinds.count("attn") * (attn(P, P, True) + (attn(P, F, False) if cfg.is_encdec else 0)) \
+        + cfg.n_encoder_layers * attn(F, F, False) + ssd
     return 6 * (at_frames * B * F + (cfg.n_active_params() - at_frames) * B * P) + 3 * ops
 
 
@@ -3812,10 +4018,11 @@ def expert_marks():
         moe.expert_ffn = ffn
 
 
-def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
-    """(c) ``launch.train`` at full width, bf16, remat "minimal", 8 steps of
-    4 x 2048 tokens, at the depth of TRAIN_RUNS (the config cut as
-    restart_phase cuts it); an encoder-decoder on the CLI's 16 frames a
+def train_phase(report: dict, arch: str = "qwen3-1.7b", cut=None) -> dict:
+    """(c) ``launch.train`` at full width, bf16, under the config's optimizer
+    and remat policy (AdamW and "minimal"; jamba's adafloor and "full"), 8
+    steps of 4 x 2048 tokens, at the depth of TRAIN_RUNS or the fields of
+    ``cut`` (the config cut as restart_phase cuts it); an encoder-decoder on the CLI's 16 frames a
     row, a vision-prefix model behind its 256 patches, both seeded random
     (train_probes).  Every loss
     finite (a MoE model's router losses too); a step's launches: K2
@@ -3841,9 +4048,8 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
     from repro_torch import configs
     from repro_torch.launch import train
 
-    cfg = configs.get_config(arch)
-    if TRAIN_RUNS[arch]:
-        cfg = dataclasses.replace(cfg, n_layers=TRAIN_RUNS[arch])
+    cut = cut or ({"n_layers": TRAIN_RUNS[arch]} if TRAIN_RUNS.get(arch) else {})
+    cfg = dataclasses.replace(configs.get_config(arch), **cut)
     B, S = TRAIN_TOKENS
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -3863,18 +4069,15 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
               if cfg.moe}
     if not all(map(math.isfinite, losses + sum(router.values(), []))):
         fail(f"train {arch}: a loss is not finite: {losses} {router}")
-    ssm = cfg.family == "ssm"
-    fwd, bwd = ("ssd_scan", "ssd_scan_bwd") if ssm else ("flash_attention", "flash_attention_bwd")
-    per_step = {k: launches[k] / TRAIN_STEPS for k in (fwd, bwd)}
-    on_wgmma = (launches["ssd_scan.wgmma"] == launches["ssd_scan"]
-                and launches["ssd_scan_bwd.wgmma"] == launches["ssd_scan_bwd"] if ssm else
-                launches["flash_attention.wgmma"] == launches["flash_attention"]
-                and launches["flash_attention_bwd.wgmma"] == launches["flash_attention_bwd"])
-    if per_step[bwd] != bwd_launches(cfg) or not on_wgmma:
-        fail(f"train {arch}: launches {launches}: expected {bwd_launches(cfg)} {bwd} launches a step "
-             + ("and every K4 forward on ssd_wgmma_kernel and every backward on "
-                "ssd_bwd_wgmma_kernel" if ssm else "and every K2 forward on "
-                "flash_wgmma_kernel and every backward on dkdv_wgmma_kernel and dq_wgmma_kernel"))
+    per_step = {k: launches[k] / TRAIN_STEPS for k in TRAIN_KERNELS if launches[k]}
+    want = {k: n for k, n in bwd_launches(cfg).items() if n}
+    if any(per_step.get(k) != n for k, n in want.items()) or set(per_step) != {
+            *want, *(k.removesuffix("_bwd") for k in want)} or any(
+            launches[f"{k}.wgmma"] != launches[k] for k in per_step):
+        fail(f"train {arch}: launches {launches}: expected {want} backward launches a step, "
+             "their forwards, and every launch on the tensor-core kernels (K4: "
+             "ssd_wgmma_kernel, ssd_bwd_wgmma_kernel; K2: flash_wgmma_kernel, "
+             "dkdv_wgmma_kernel and dq_wgmma_kernel)")
     step_s = sorted(times["step"][1:])[len(times["step"][1:]) // 2]  # median, the first warm-up
     flops = train_flops(cfg, B, S)
     events = sorted((e.start_ns(), e.name(), e.duration_ns() / 1e6) for e in
@@ -3899,7 +4102,8 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
         elif (region or part) == "rest":  # the bucket's largest kernels, by name
             rest[name.removeprefix("void ")[:110]] += ms
     busy = sum(parts.values())
-    r = {"arch": arch, "n_layers": cfg.n_layers, "losses": losses, "router_losses": router,
+    r = {"arch": arch, "n_layers": cfg.n_layers, "optimizer": cfg.optimizer,
+         "remat": cfg.remat_policy, "losses": losses, "router_losses": router,
          "wall_s": wall, "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times["step"]],
          "tokens_per_s": B * S / step_s, "mfu": flops / step_s / PEAK_OPS["bfloat16"],
          "model_flops_per_step": flops, "active_params": cfg.n_active_params(), "peak_gb": peak,
@@ -3911,14 +4115,15 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b") -> dict:
          "profiled_step_rest_ms": dict(rest.most_common(12))}
     report["train" + ("" if arch == "qwen3-1.7b" else f"_{arch}")] = r
     depth = f"{cfg.n_layers} layers" + (f" of {configs.get_config(arch).n_layers}"
-                                        if TRAIN_RUNS[arch] else "")
-    print(f"train ({arch} full width, {depth}, bf16, {B}x{S} tokens, remat minimal): "
-          f"losses {' '.join(f'{x:.4f}' for x in losses)}")
+                                        if cut else "")
+    print(f"train ({arch} full width, {depth}, bf16, {B}x{S} tokens, {cfg.optimizer}, remat "
+          f"{cfg.remat_policy}): losses {' '.join(f'{x:.4f}' for x in losses)}")
     for k, v in router.items():
         print(f"train {arch}: {k} {' '.join(f'{x:.4f}' for x in v)}")
     print(f"train {arch}: {r['step_ms']:.1f} ms a step (median of steps 2-{TRAIN_STEPS}), "
           f"{r['tokens_per_s']:.0f} tokens/s, MFU {r['mfu']:.1%} of 989 TFLOP/s, peak "
-          f"{peak:.1f} GB; launches a step: {fwd} {per_step[fwd]:g}, {bwd} {per_step[bwd]:g}"
+          f"{peak:.1f} GB; launches a step: "
+          + ", ".join(f"{k} {n:g}" for k, n in per_step.items())
           + (f"; saves {', '.join(f'{x:.1f}' for x in times['save'])} s" if times["save"] else
              " (no saves)"))
     if shapes:
@@ -4110,6 +4315,12 @@ def main() -> None:
     cross_grad_refused()
     release()
     stamp("encoder-decoder and vision-prefix models")
+    jamba_timing = jamba_kernel_phase(report)
+    release()
+    jamba_model_phase(report)
+    release()
+    jamba_launches = jamba_phase(report)
+    stamp(JAMBA)
     params = to_cpu(dense_weights, "cuda")
     del dense_weights
     gateway_phase(params, report)
@@ -4135,6 +4346,8 @@ def main() -> None:
     for arch in TRAIN_RUNS:
         train_launches[arch] = train_phase(report, arch)
         release()
+    train_launches[JAMBA] = train_phase(report, JAMBA, JAMBA_CUTS["train"])
+    release()
     stamp("training runs")
     restart_phase(report)
     stamp("training")
@@ -4250,6 +4463,23 @@ def main() -> None:
                     entry(f"flash_attention ({name} training, lse)", "flash_wgmma_kernel",
                           encdec_train_timing["fwd " + name],
                           train_launches[arch][f"flash_attention {at}"])]
+    # jamba: K1, K2 and K4 from the graphed serve of layers 4-7, the backward
+    # passes and the forwards with lse or at the training shape from its
+    # training run on layers 6-7
+    tj = train_launches[JAMBA]
+    for name, kernel, n in (
+            ("decode_attention (jamba verify)", "decode_wgmma_kernel",
+             jamba_launches["decode_attention"]),
+            ("flash_attention (jamba prefill)", "flash_wgmma_kernel",
+             jamba_launches["flash_attention"]),
+            ("ssd_scan (jamba prefill)", "ssd_wgmma_kernel", jamba_launches["ssd_scan"]),
+            ("flash_attention_bwd (jamba training)", "dkdv_wgmma_kernel, dq_wgmma_kernel",
+             tj["flash_attention_bwd"]),
+            ("flash_attention (jamba training, lse)", "flash_wgmma_kernel", tj["flash_attention"]),
+            ("ssd_scan_bwd (jamba training)", "ssd_bwd_wgmma_kernel, ssd_bwd_reduce4_kernel",
+             tj["ssd_scan_bwd"]),
+            ("ssd_scan (jamba training)", "ssd_wgmma_kernel", tj["ssd_scan"])):
+        kernels.append(entry(name, kernel, jamba_timing[name], n))
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -9,6 +9,7 @@ cancelled (at step 3) mid-run.  ``--http`` serves the gateway instead.
   python -m repro_torch.launch.serve --no-reduced     # full width, on the card
   python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu --requests 6
   python -m repro_torch.launch.serve --arch mamba2-2.7b --no-reduced   # on the card
+  python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --device cpu --requests 6
   # the paper's model with the small-transformer draft, round-robin routing
   python -m repro_torch.launch.serve --arch llama2-7b --reduced --draft model \
       --router roundrobin --device cpu --requests 6

@@ -48,7 +48,6 @@ _CROSS_KEYS = ("cross_k", "cross_v")
 
 class Model:
     def __init__(self, cfg, device):
-        tfm.check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = getattr(torch, cfg.dtype)

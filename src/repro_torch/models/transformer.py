@@ -1,6 +1,6 @@
-"""Layer walkers for attention+MLP, attention+MoE and Mamba2 stacks and for
-an encoder-decoder's two stacks (a port of ``repro.models.transformer``
-without the hybrid family).
+"""Layer walkers for attention+MLP, attention+MoE and Mamba2 stacks, for
+the hybrid interleave of Mamba2 and attention layers with MoE on some, and
+for an encoder-decoder's two stacks (a port of ``repro.models.transformer``).
 
 The JAX package stacks layer parameters and scans over them; here the stack
 is a Python list of per-layer parameter dicts and a loop.  Training
@@ -24,13 +24,6 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import apply_mlp, init_mlp, rms_norm
-
-
-def check_supported(cfg):
-    """Raise for every layer kind this port does not run yet, naming its item."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(f"{cfg.name}: hybrid Mamba/attention/MoE stacks are not "
-                                  "ported yet (ROADMAP M9, §1 item 3)")
 
 
 def init_layer(gen, cfg, kind, is_moe, dtype, device, cross=False):

@@ -13,7 +13,7 @@ heads (``ArchConfig.padded_heads``), the pad slots of ``wq``, ``bq`` and
 ``wo`` (self and cross attention) are dropped: the reference masks those heads to zero before ``wo``,
 so the port's unpadded heads, in the order GQA's ``h // G`` expects, compute
 the same function.  ``from_reference_state`` takes the same path for a
-reference training checkpoint's parameters and AdamW moments.  ``tree_map``
+reference training checkpoint's parameters and optimizer state.  ``tree_map``
 (PyTorch's pytree) and ``tree_items`` walk the port's trees (dicts, lists,
 NamedTuples).
 """
@@ -88,9 +88,12 @@ def from_jax_tree(tree, cfg, device="cpu",
 
 def from_reference_state(leaves, cfg, device="cpu", dtype=None):
     """A reference training checkpoint's leaves ({"params/...", "opt/step",
-    "opt/mu/...", "opt/nu/..."}: arrays or tensors) as the port's
-    (parameters in ``dtype``, (step, mu, nu) in float32): the fields of the
-    reference's ``AdamWState``, leaf for leaf."""
+    "opt/mu/...", "opt/nu/..."} of AdamW, or "opt/vr/...", "opt/vc/..." of
+    adafloor: arrays or tensors) as the port's (parameters in ``dtype``,
+    (step, mu, nu) or (step, vr, vc) in float32): the fields of the
+    reference's ``AdamWState`` or ``AdafloorState``, leaf for leaf.
+    Adafloor's (1,) placeholder of a block leaf is not stacked: each layer
+    gets its own."""
     tree = {}
     for key, a in leaves.items():
         *path, last = key.split("/")
@@ -99,6 +102,10 @@ def from_reference_state(leaves, cfg, device="cpu", dtype=None):
             node = node.setdefault(name, {})
         node[last] = a
     opt = tree["opt"]
+    names = ("mu", "nu") if "mu" in opt else ("vr", "vc")
+    if "vc" in opt:
+        n_blocks = cfg.n_layers // cfg.scan_block
+        opt["vc"]["blocks"] = _map(opt["vc"]["blocks"], lambda a, _: np.broadcast_to(
+            a, (n_blocks, 1)) if tuple(a.shape) == (1,) else a)
     return (from_jax_tree(tree["params"], cfg, device, dtype),
-            (to_tensor(opt["step"]), from_jax_tree(opt["mu"], cfg, device),
-             from_jax_tree(opt["nu"], cfg, device)))
+            (to_tensor(opt["step"]), *(from_jax_tree(opt[k], cfg, device) for k in names)))

@@ -1,18 +1,22 @@
-"""AdamW with a warmup-cosine schedule and global-norm clipping (a port of
-``repro.training.optimizer``).
+"""AdamW and adafloor with a warmup-cosine schedule and global-norm clipping
+(a port of ``repro.training.optimizer``).
 
-``make_optimizer(name, cfg)`` returns ``(init, update)`` with the reference's
-contract: ``state = init(params)``; ``updates, state, metrics = update(grads,
-state, params)``; ``params = apply_updates(params, updates)``.  The moments
-are float32 whatever the parameters' dtype; each update is cast to its
-parameter's dtype.  The scalars (step, learning rate, norm) are float32 as in
-JAX.  Unlike JAX, ``update`` steps the moments in place, with the same
-arithmetic: the state it returns holds the same tensors, so the old and new
-moments (8 bytes a parameter each) are never alive together.
+``make_optimizer(name, cfg, scan_block)`` returns ``(init, update)`` with the
+reference's contract: ``state = init(params)``; ``updates, state, metrics =
+update(grads, state, params)``; ``params = apply_updates(params, updates)``.
+The optimizer state is float32 whatever the parameters' dtype; each update is
+cast to its parameter's dtype.  The scalars (step, learning rate, norm) are
+float32 as in JAX.  Unlike JAX, the port works in place with the same
+arithmetic: ``update`` steps the state's tensors and returns them, and
+``apply_updates`` adds into the parameters, so a step makes no second copy
+of the parameters or the state; adafloor also writes each update into its
+gradient's tensor (jamba's 11.9B parameters at two full-width layers hold
+23.8 GB of bf16 parameters and as much of gradients).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, NamedTuple
 
@@ -31,6 +35,7 @@ class OptConfig:
     warmup_steps: int = 100
     total_steps: int = 10_000
     min_lr_frac: float = 0.1
+    clip_rms: float = 1.0  # adafloor's update clipping
     clip_norm: float = 1.0
 
 
@@ -94,14 +99,108 @@ def adamw(cfg):
     return init, update
 
 
-def make_optimizer(name, cfg=None):
+class AdafloorState(NamedTuple):
+    step: Any   # int32 scalar tensor
+    vr: Any     # a factored leaf's row statistics, else its whole second moment
+    vc: Any     # a factored leaf's column statistics, else a (1,) placeholder
+
+
+def _factored(p):
+    """The reference's test.  It sees a layer's leaf stacked over the blocks,
+    which changes nothing while a stack has fewer than 128 blocks."""
+    return p.ndim >= 2 and p.shape[-1] >= 128 and p.shape[-2] >= 128
+
+
+def _stacks(params, scan_block):
+    """Leaf indices (in ``tree_items`` order) grouped as the reference
+    stacks its leaves: a layer's leaf with the same leaf of every layer
+    ``scan_block`` apart (the blocks), any other leaf alone."""
+    stacks = {}
+    for i, (path, _) in enumerate(tree_items(params)):
+        top, *rest = path.split("/")
+        if top in ("layers", "encoder"):
+            rest[0] = int(rest[0]) % scan_block
+        stacks.setdefault((top, *rest), []).append(i)
+    return stacks.values()
+
+
+PIECE = 1 << 28  # elements of a leaf that adafloor takes at once (1 GiB in float32)
+
+
+def _slices(p, g, vr, vc):
+    """(parameter, gradient, vr, vc or None if the leaf is not factored) cut
+    along the first axis into slices of at most PIECE elements, a leaf of
+    fewer than 3 axes whole: a slice's statistics depend on it alone."""
+    vc = vc if _factored(p) else None
+    if p.ndim < 3:
+        return [(p, g, vr, vc)]
+    n = max(1, PIECE * p.shape[0] // p.numel())
+    return zip(p.split(n), g.split(n), vr.split(n),
+               itertools.repeat(None) if vc is None else vc.split(n), strict=False)
+
+
+def adafloor(cfg, scan_block=1):
+    """Adafactor-style: a factored second moment and no momentum, the update
+    clipped to RMS ``clip_rms`` over the reference's stacked leaf: a layer's
+    leaf together with the same leaf of every layer ``scan_block`` apart.
+    Two passes over each stack, slice by slice (``_slices``): the statistics
+    and the sum of u², then the clipped update."""
+    def init(params):
+        def zeros(p, factored, whole):
+            return torch.zeros(factored if _factored(p) else whole, dtype=torch.float32,
+                               device=p.device)
+
+        return AdafloorState(torch.zeros((), dtype=torch.int32),
+                             tree_map(lambda p: zeros(p, p.shape[:-1], p.shape), params),
+                             tree_map(lambda p: zeros(p, p.shape[:-2] + p.shape[-1:], (1,)),
+                                      params))
+
+    def update(grads, state, params):
+        step = state.step + 1
+        norm = global_norm(grads)
+        scale = _clip_scale(norm, cfg.clip_norm)  # clip_by_global_norm, leaf by leaf
+        lr = lr_schedule(cfg, step)
+        decay = 1.0 - (step.float() + 1.0) ** -0.8
+
+        def direction(g, vr, vc, first):
+            """u of a slice; ``first`` steps its statistics in place first."""
+            g = g.float() * scale
+            if first:
+                g2 = g.square().add_(1e-30)
+                vr.mul_(decay).add_((1 - decay) * (g2 if vc is None else g2.mean(-1)))
+                if vc is not None:
+                    vc.mul_(decay).add_((1 - decay) * g2.mean(-2))
+            if vc is None:
+                return g.mul_(torch.rsqrt(vr + 1e-30))
+            denom = (vr[..., None] * vc[..., None, :]).div_(
+                vr.mean(-1).clamp(min=1e-30)[..., None, None])
+            return g.mul_(denom.add_(1e-30).rsqrt_())
+
+        leaves = [[x for _, x in tree_items(t)] for t in (params, grads, state.vr, state.vc)]
+        for stack in _stacks(params, scan_block):
+            parts = [s for i in stack for s in _slices(*(t[i] for t in leaves))]
+            sq = sum(direction(*s[1:], first=True).square().sum() for s in parts)
+            n = sum(s[0].numel() for s in parts)
+            div = torch.clamp(torch.sqrt(sq / n + 1e-30) / cfg.clip_rms, min=1.0)
+            for p, g, vr, vc in parts:
+                u = direction(g, vr, vc, False).div_(div).add_(cfg.weight_decay * p.float())
+                g.copy_(u.mul_(-lr))
+        return grads, AdafloorState(step, state.vr, state.vc), {"grad_norm": norm, "lr": lr}
+
+    return init, update
+
+
+def make_optimizer(name, cfg=None, scan_block=1):
+    """``scan_block``: the model's, which decides adafloor's stacks."""
     if name == "adamw":
         return adamw(cfg or OptConfig())
     if name == "adafloor":
-        raise NotImplementedError("adafloor (jamba-398b's optimizer) is not ported yet "
-                                  "(ROADMAP §1 item 3, with jamba)")
+        return adafloor(cfg or OptConfig(), scan_block)
     raise ValueError(f"unknown optimizer {name!r}")
 
 
 def apply_updates(params, updates):
-    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+    """``params`` with each update added in place (the same bits as ``p + u``)."""
+    for (_, p), (_, u) in zip(tree_items(params), tree_items(updates), strict=True):
+        p.add_(u.to(p.dtype))
+    return params

@@ -14,7 +14,8 @@ def make_train_step(model, opt_cfg=None, compression=None):
     reference's int8 wire format) is M11 and not ported."""
     if compression is not None:
         raise NotImplementedError("gradient compression is M11 and not ported yet")
-    opt_init, opt_update = make_optimizer(model.cfg.optimizer, opt_cfg or OptConfig())
+    opt_init, opt_update = make_optimizer(model.cfg.optimizer, opt_cfg or OptConfig(),
+                                          model.cfg.scan_block)
 
     def train_step(params, opt_state, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)

@@ -28,7 +28,7 @@ from repro.models import build_model as jax_build
 from repro.serving.cost_model import TPU_V5E
 from repro.serving.speculative import verify_tokens as jax_verify
 from repro_torch.api import ServeConfig, StreamServe
-from repro_torch.configs import reduced_config
+from repro_torch.configs import FrontendConfig, reduced_config
 from repro_torch.core.engine import EngineConfig, PipeServeEngine
 from repro_torch.launch.train import main as train_main
 from repro_torch.params import from_jax_tree
@@ -293,10 +293,12 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, fp32
         train_main(["--steps", "1"])
 
 
-@pytest.mark.parametrize("overrides, item", [({"family": "hybrid"}, r"M9, §1 item 3\)"),
-                                             ({"n_encoder_layers": 2}, r"§3 item 10\)")])
+@pytest.mark.parametrize("overrides, item", [
+    ({"frontend": FrontendConfig(kind="vision", n_tokens=8)}, r"§3 item 10\)"),
+    ({"n_encoder_layers": 2}, r"§3 item 10\)")])
 def test_later_slices_refuse_by_name(fp32_model, overrides, item):
-    """The features of later slices refuse, naming their ROADMAP item."""
+    """What the engine does not serve (a request carries no patches or
+    frames) refuses, naming its ROADMAP item."""
     with pytest.raises(NotImplementedError, match=item):
         PipeServeEngine(dataclasses.replace(fp32_model[2], **overrides), fp32_model[3],
                         n_pairs=1, device="cpu", econf=EngineConfig(max_batch=2, max_len=96))

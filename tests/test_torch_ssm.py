@@ -27,11 +27,10 @@ from repro.kernels.ssd_scan import ssd_scan_pallas
 from repro.models import ssm as jax_ssm
 from repro.serving.cost_model import TPU_V5E
 from repro.serving.cost_model import PrefillDelayEstimator as JaxEstimator
-from repro_torch.configs import ArchConfig, SSMConfig, get_config
+from repro_torch.configs import get_config
 from repro_torch.core.engine import EngineConfig, PipeServeEngine
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-from repro_torch.models import build_model
 from repro_torch.models import ssm
 from repro_torch.serving.cost_model import HardwareProfile, PrefillDelayEstimator
 from repro_torch.serving.request import Request
@@ -270,8 +269,7 @@ def test_paged_ssm_and_moe_are_refused(fp32_mamba):
     with pytest.raises(ValueError, match="attention-only"):
         PipeServeEngine(*fp32_mamba[2:], n_pairs=1, device="cpu",
                         econf=EngineConfig(max_batch=2, max_len=96, paged_kv=True))
-    jamba = jax_get_config("jamba-1.5-large-398b")
-    fields = {f.name: getattr(jamba, f.name) for f in dataclasses.fields(ArchConfig)}
-    fields["ssm"] = SSMConfig(**dataclasses.asdict(jamba.ssm))
-    with pytest.raises(NotImplementedError, match=r"M9, §1 item 3\)"):
-        build_model(ArchConfig(**fields), "cpu")
+    jamba = fp32_pair("jamba-1.5-large-398b", n_layers=4)
+    with pytest.raises(ValueError, match="attention-only"):
+        PipeServeEngine(*jamba[2:], n_pairs=1, device="cpu",
+                        econf=EngineConfig(max_batch=2, max_len=96, paged_kv=True))

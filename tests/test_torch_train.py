@@ -124,8 +124,9 @@ def test_five_training_steps_match_jax():
 
 def test_optimizer_pieces_match_jax():
     """lr_schedule over 32 steps, clip_by_global_norm below and above the
-    norm, and one AdamW update, on seeded trees; adafloor and gradient
-    compression raise by name."""
+    norm, and one AdamW update, on seeded trees; adafloor is made by name
+    (``tests/test_torch_hybrid.py`` holds it), an unknown name and gradient
+    compression raise."""
     cfg, jcfg, rng = opt.OptConfig(**OPT), jopt.OptConfig(**OPT), np.random.default_rng(3)
     np.testing.assert_allclose([float(opt.lr_schedule(cfg, s)) for s in range(32)],
                                [float(jopt.lr_schedule(jcfg, jnp.asarray(s))) for s in range(32)],
@@ -141,8 +142,9 @@ def test_optimizer_pieces_match_jax():
     for (_, a), (_, b) in zip(tree_items(got), tree_items(jax.tree.map(np.asarray, want)),
                               strict=True):
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=1e-9)
-    with pytest.raises(NotImplementedError, match="adafloor"):
-        opt.make_optimizer("adafloor")
+    assert opt.make_optimizer("adafloor")[0](p)[1]["b"][0].shape == (7,)
+    with pytest.raises(ValueError, match="adafloor2"):
+        opt.make_optimizer("adafloor2")
     with pytest.raises(NotImplementedError, match="M11"):
         make_train_step(Model(configs.reduced_config("qwen3-1.7b"), "cpu"), compression=object())
 
@@ -172,41 +174,54 @@ def test_checkpoint_round_trip_latest_and_gc(tmp_path, dt):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def test_reference_checkpoint_restores_into_the_port(tmp_path):
-    """The reference's CheckpointManager writes the JAX parameters and AdamW
-    state after one step; the port restores them through the bridge, and
-    its next step's loss is the JAX step's."""
-    _, jcfg, jm, jp, tm, _ = model_pair("qwen3-1.7b", "float32")
+def _restores_from_reference(tmp_path, pair):
+    """The reference's CheckpointManager writes the JAX parameters and
+    optimizer state (the config's: AdamW's moments, adafloor's statistics)
+    after one step; the port restores them through the bridge, and its next
+    step's loss is the JAX step's."""
+    _, jcfg, jm, jp, tm, _ = pair
     stream = JaxTokenStream(jcfg.vocab_size, 32, 8, seed=0)
     first, second = next(stream), next(stream)
     jp, jstate, _ = _jax_steps(jm, jp, [first])
     JaxCheckpoints(tmp_path).save(1, {"params": jp, "opt": jstate, "meta": {}})
     (want,) = _jax_steps(jm, jp, [second], jstate)[2]
     step, leaves, _ = CheckpointManager(tmp_path).read()
-    params, (s, mu, nu) = from_reference_state(leaves, tm.cfg)
+    params, (s, *moments) = from_reference_state(leaves, tm.cfg)
     assert step == 1 and int(s) == 1
-    _close_leaves(dict(tree_items(mu)), _as_port(jstate.mu, tm.cfg), 0, "mu")
-    _, _, metrics = make_train_step(tm, opt.OptConfig(**OPT))[1](
-        params, opt.AdamWState(s, mu, nu), {"tokens": torch.from_numpy(second)})
+    _close_leaves(dict(tree_items(moments[0])), _as_port(jstate[1], tm.cfg), 0, "moment")
+    init, train_step = make_train_step(tm, opt.OptConfig(**OPT))
+    _, _, metrics = train_step(params, type(init(params))(s, *moments),
+                               {"tokens": torch.from_numpy(second)})
     assert abs(float(metrics["loss"]) - float(want["loss"])) <= 1e-5 * float(want["loss"])
 
 
-def test_train_cli_restart_is_exact_and_matches_the_reference(tmp_path, monkeypatch):
-    """``--fail-at 6``: the supervisor restores step 4 and replays; the final
-    loss is the uninterrupted run's, bit for bit, and the losses are the
-    reference CLI's (2 float32 layers, the reference's init in both)."""
-    _, jcfg, _, _, tm, tp = model_pair("qwen3-1.7b", "float32")
+def test_reference_checkpoint_restores_into_the_port(tmp_path):
+    _restores_from_reference(tmp_path, model_pair("qwen3-1.7b", "float32"))
+
+
+def _cli_matches_reference(tmp_path, monkeypatch, arch, jcfg, tcfg, params):
+    """``launch.train --arch arch --device cpu`` on the configs (jcfg, tcfg),
+    the reference's weights ``params`` in both CLIs: ``--fail-at 6``
+    restores step 4 and ends bit-equal to the uninterrupted run; the losses
+    are the reference CLI's."""
     monkeypatch.setattr(repro.configs, "reduced_config", lambda name: jcfg)
-    monkeypatch.setattr(configs, "reduced_config", lambda name: tm.cfg)
-    monkeypatch.setattr(Model, "init", lambda self, seed: tree_map(torch.clone, tp))
-    argv = ["--steps", "10", "--ckpt-every", "4", "--device", "cpu"]
-    want = jax_train([*argv[:4], "--ckpt-dir", str(tmp_path / "jax")])
+    monkeypatch.setattr(configs, "reduced_config", lambda name: tcfg)
+    monkeypatch.setattr(Model, "init", lambda self, seed: tree_map(torch.clone, params))
+    argv = ["--arch", arch, "--steps", "10", "--ckpt-every", "4", "--device", "cpu"]
+    want = jax_train([*argv[:6], "--ckpt-dir", str(tmp_path / "jax")])
     runs = [train([*argv, "--ckpt-dir", str(tmp_path / d), "--fail-at", f]) for d, f in
             (("a", "-1"), ("b", "6"))]
     assert runs[1]["report"].restarts == 1 and runs[1]["report"].restore_steps == [4]
     assert runs[0]["final_loss"] == runs[1]["final_loss"] and runs[0]["losses"] == runs[1]["losses"]
+    assert sorted(runs[1]["losses"]) == sorted(want["losses"]) == list(range(10))
     for s, loss in want["losses"].items():
         assert abs(runs[1]["losses"][s] - loss) <= 1e-5 * loss, s
+
+
+def test_train_cli_restart_is_exact_and_matches_the_reference(tmp_path, monkeypatch):
+    """2 float32 layers, the reference's init in both CLIs."""
+    _, jcfg, _, _, tm, tp = model_pair("qwen3-1.7b", "float32")
+    _cli_matches_reference(tmp_path, monkeypatch, "qwen3-1.7b", jcfg, tm.cfg, tp)
 
 
 # the K2 backward takes head_dim 64 and 128, q_offset 0, CUDA tensors only,

@@ -17,19 +17,16 @@ import torch
 from test_torch_encdec import ARCHS, _batch, _both
 from test_torch_engine import _one_torch_thread  # noqa: F401
 from test_torch_model import model_pair
-from test_torch_train import OPT, _as_port, _close_leaves, _loss_grads
+from test_torch_train import OPT, _as_port, _cli_matches_reference, _close_leaves, _loss_grads
 
 import repro.configs
 import repro.training.optimizer as jopt
 from repro.distributed.sharding import unzip_params
 from repro.kernels import ref as jax_ref
-from repro.launch.train import main as jax_train
 from repro.models import build_model as jax_build
 from repro.training.train_loop import make_train_step as jax_train_step
 from repro_torch import configs
-from repro_torch.launch.train import main as train
 from repro_torch.models import attention as attn
-from repro_torch.models.model import Model
 from repro_torch.params import from_jax_tree, tree_items, tree_map
 from repro_torch.training import optimizer as opt
 from repro_torch.training.train_loop import make_train_step
@@ -56,18 +53,7 @@ def test_train_cli_restart_is_exact_and_matches_the_reference(arch, tmp_path, mo
     moments) and ends bit-equal to the uninterrupted run; the losses are the
     reference CLI's (2 float32 layers, the reference's init in both)."""
     jcfg, _, _, tcfg, params = _reference_pair(arch)
-    monkeypatch.setattr(repro.configs, "reduced_config", lambda name: jcfg)
-    monkeypatch.setattr(configs, "reduced_config", lambda name: tcfg)
-    monkeypatch.setattr(Model, "init", lambda self, seed: tree_map(torch.clone, params))
-    argv = ["--arch", arch, "--steps", "10", "--ckpt-every", "4", "--device", "cpu"]
-    want = jax_train([*argv[:6], "--ckpt-dir", str(tmp_path / "jax")])
-    runs = [train([*argv, "--ckpt-dir", str(tmp_path / d), "--fail-at", f]) for d, f in
-            (("a", "-1"), ("b", "6"))]
-    assert runs[1]["report"].restarts == 1 and runs[1]["report"].restore_steps == [4]
-    assert runs[0]["final_loss"] == runs[1]["final_loss"] and runs[0]["losses"] == runs[1]["losses"]
-    assert sorted(runs[1]["losses"]) == sorted(want["losses"]) == list(range(10))
-    for s, loss in want["losses"].items():
-        assert abs(runs[1]["losses"][s] - loss) <= 1e-5 * loss, s
+    _cli_matches_reference(tmp_path, monkeypatch, arch, jcfg, tcfg, params)
 
 
 # (Sq, Sk): target tokens over frames, fewer, more, and a ragged 64-row tile

@@ -39,10 +39,10 @@ FAMILIES = ("mamba2-2.7b", "qwen3-moe-30b-a3b")
 ROUTER = ("load_balance", "router_z")
 
 
-@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_loss_gradients_and_router_losses_match_jax(arch, dt):
-    _, jcfg, jm, jp, tm, tp = model_pair(arch, dt)
+def _check_loss_and_gradients(pair):
+    """The loss, a MoE model's router losses and (float32) every gradient
+    against the JAX model's, equal under the three remat policies."""
+    dt, jcfg, jm, jp, tm, tp = pair
     tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 40)).astype(np.int32)
     (jl, jmet), jg = jax.value_and_grad(jm.loss_fn, has_aux=True)(
         jp, {"tokens": jnp.asarray(tokens)})
@@ -61,6 +61,12 @@ def test_loss_gradients_and_router_losses_match_jax(arch, dt):
         _close_leaves(runs[0][2], _as_port(jg, tm.cfg), 1e-4, "gradient")
 
 
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_loss_gradients_and_router_losses_match_jax(arch, dt):
+    _check_loss_and_gradients(model_pair(arch, dt))
+
+
 # the parameters after 5 steps, absolute: AdamW's first steps turn the two
 # frameworks' differences in gradient entries near its eps into parameter
 # differences of a share of lr (ROADMAP §3 item 9); in qwen3-moe a wk entry
@@ -70,9 +76,10 @@ def test_loss_gradients_and_router_losses_match_jax(arch, dt):
 PARAM_TOL = {"mamba2-2.7b": 1e-4, "qwen3-moe-30b-a3b": 2e-4}
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_five_training_steps_match_jax(arch):
-    _, jcfg, jm, jp, tm, tp = model_pair(arch, "float32")
+def _check_five_steps(pair, param_tol):
+    """Five train steps of the config's optimizer against the JAX package's:
+    the metrics (a MoE model's router losses too), then the parameters."""
+    _, jcfg, jm, jp, tm, tp = pair
     stream = JaxTokenStream(jcfg.vocab_size, 32, 8, seed=0)
     jp, _, jmet = _jax_steps(jm, jp, [next(stream) for _ in range(5)])
     init, step = make_train_step(tm, opt.OptConfig(**OPT))
@@ -84,8 +91,13 @@ def test_five_training_steps_match_jax(arch):
         for name, tol in names:
             np.testing.assert_allclose(float(metrics[name]), float(want[name]), rtol=tol)
     assert int(state.step) == 5
-    _close_leaves(dict(tree_items(tp)), _as_port(jp, tm.cfg), PARAM_TOL[arch], "after 5 steps",
+    _close_leaves(dict(tree_items(tp)), _as_port(jp, tm.cfg), param_tol, "after 5 steps",
                   rel=False)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_five_training_steps_match_jax(arch):
+    _check_five_steps(model_pair(arch, "float32"), PARAM_TOL[arch])
 
 
 # (B, S, H, G, P, N, chunk): a ragged tail, 2 and 4 groups, chunks that do
