@@ -75,12 +75,12 @@ Phases, each fatal on failure:
      8 too); check 2 full-width qwen3-moe layers and 1 mixtral layer on the card
      against the CPU (fp32: each token's chosen experts and its keep mask
      at capacity identical, then the logits); with marker kernels and drop
-     counters in the MoE layer, serve qwen3-moe-30b-a3b at full width (48
-     layers, 128 experts top-8) on the dense serve's path, graphed, with
+     counters in the MoE layer, serve qwen3-moe-30b-a3b at full width (24
+     of 48 layers, 128 experts top-8) on the dense serve's path, graphed, with
      the share of assignments dropped at capacity and a profiled burst
      split into expert products, dispatch and combine, the other GEMMs, K1,
      K2 and the rest; a short sampled serve eager and graphed, token for
-     token; and mixtral-8x7b at full width and 16 of its 32 layers at
+     token; and mixtral-8x7b at full width and 8 of its 32 layers at
      max_len 8192 (8 prompts of 4500-6000 tokens wrap the ring), graphed,
      with the same numbers and a profiled burst;
  11. the encoder-decoder and the vision-prefix model: hold K1 not causal
@@ -168,7 +168,21 @@ Phases, each fatal on failure:
      own adafloor and remat "full" (8 bf16 steps of 4 x 2048 tokens, no
      saves: K2 and K4 forward and backward launches a step, MFU, peak
      memory, a profiled step);
- 15. print the kernel table as one JSON line, then the result line.
+ 15. the examples (examples/*_torch.py, the reference's four): K1, K2 and
+     K4 at their reduced shapes against the plain versions (K2's training
+     call at head_dim 32 and K4's at P = 32, N = 16 under autograd, K2's
+     backward and K4 on zero-padded copies), timed; the quickstart (80 training steps of the
+     reduced qwen3-1.7b, then its weights served: the loss falls, every
+     handle streams and finishes; each part's launches and seconds) and
+     serve_cluster (8 requests, pair 1 failed, all complete; its simulator
+     on the host) before the training group; after it, train_resilient
+     (the reduced mamba2-2.7b: a restart and a compressed restart bit for
+     bit, compression within 0.1) and ``launch.train --compress-grads`` on
+     mamba2-2.7b at full width and 32 layers beside the uncompressed run
+     (K4 launches a step equal, the loss gap, ms a step, peak), then
+     ``compress_decompress`` alone over one step's gradients against its
+     byte bound;
+ 16. print the kernel table as one JSON line, then the result line.
 Every serve of phases 4-8, and phase 9's qwen2.5-14b serve, runs twice on
 the same weights (phase 9 profiles only graphed serves and runs its other
 serves graphed only): eager (its lanes'
@@ -1199,18 +1213,20 @@ SERVE_LENS = (16, 400, 24, 300, 40, 200, 64, 130, 350, 33, 100, 250)
 
 
 def serve_phase(report: dict, params=None, graphed=True, temperature=0.0, trace=None,
-                arch="qwen3-1.7b", new_tokens=32, lens=SERVE_LENS):
+                arch="qwen3-1.7b", new_tokens=32, lens=SERVE_LENS, n_layers=None):
     """The default serve at full width (sampled, with ``temperature`` > 0;
     with ``trace``, StreamTrace set so and the report keyed by it; another
-    ``arch`` on the same path keys the report by its name): the first 8 of
-    ``lens`` at tick 0, the rest 3 steps later, ``new_tokens`` each."""
+    ``arch`` on the same path keys the report by its name; ``n_layers`` cuts
+    its depth): the first 8 of ``lens`` at tick 0, the rest 3 steps later,
+    ``new_tokens`` each."""
     import numpy as np
     import torch
 
     from repro_torch.api import ServeConfig
 
-    cfg = ServeConfig(arch=arch, reduced=False, n_pairs=2, max_batch=8, max_len=512,
-                      max_new_tokens=new_tokens, temperature=temperature, trace=trace or "off")
+    cfg = ServeConfig(arch=arch, reduced=False, n_layers=n_layers, n_pairs=2, max_batch=8,
+                      max_len=512, max_new_tokens=new_tokens, temperature=temperature,
+                      trace=trace or "off")
     t0 = time.perf_counter()
     serve = served(cfg, graphed, **({} if params is None else {"params": params}))
     torch.cuda.synchronize()
@@ -1971,7 +1987,7 @@ def ring_serve_phase(report: dict, arch="h2o-danube-3-4b", key="h2o", lens=H2O_L
     speculative margin), so prompts of 4500-6000 tokens wrap it and the
     window binds on every step of theirs.  h2o-danube-3-4b (24 layers,
     d_model 3840, 32 heads over 8 KV heads of 120; 4 slots a pair, four long
-    prompts and four short) and mixtral-8x7b (``n_layers`` 16 of 32, d_model
+    prompts and four short) and mixtral-8x7b (``n_layers`` 8 of 32, d_model
     4096, 8 experts top-2; 8 slots a pair, eight long prompts).  K2 on every
     prefill (the long ones at the 8192 bucket, under the window), K1 on every
     decode and verify, all on the tensor-core kernels; graphed."""
@@ -2019,7 +2035,10 @@ def ring_serve_phase(report: dict, arch="h2o-danube-3-4b", key="h2o", lens=H2O_L
 # each MoE model's attention heads (H, K, D): G = 8 (qwen3-moe) and 4
 # (mixtral, under its window of 4096 on the 4128-slot ring)
 MOE_HEADS = {"qwen3-moe-30b-a3b": (32, 4, 128), "mixtral-8x7b": (32, 8, 128)}
-MIXTRAL_LAYERS = 16  # of 32: 46.96 GB of bf16 weights; all 32 (93.4 GB) exceed one card
+# the MoE serves' depth, cut for the call's time limit (graph capture grows
+# with the layers): mixtral-8x7b at 8 of 32 layers (all 32, 93.4 GB of bf16
+# weights, exceed one card), qwen3-moe-30b-a3b at 24 of 48
+MIXTRAL_LAYERS, QWEN3_MOE_LAYERS = 8, 24
 MOE_NEW_TOKENS = 16
 # the mixtral serve's prompts: all eight past the window and the ring
 MIXTRAL_LENS = (4500, 5200, 6000, 4800, 5600, 4700, 5900, 5000)
@@ -2253,18 +2272,19 @@ def moe_profile(serve, report: dict, key: str, lens, seed=1) -> None:
 
 def moe_phase(report: dict) -> tuple:
     """The MoE serves on the card, with moe_probes() on (each model alone on
-    the card, released before the next): qwen3-moe-30b-a3b at full width (48
-    layers, 128 experts top-8, 61.07 GB of bf16 weights) on the dense serve's
+    the card, released before the next): qwen3-moe-30b-a3b at full width (24
+    of its 48 layers, 128 experts top-8) on the dense serve's
     path (2 pairs x 8 slots, max_len 512, 12 requests, 16 new tokens),
     graphed, and a profiled burst; a short sampled serve (4 requests, 8 new
     tokens, temperature 1.0) eager and then graphed on the same weights,
-    token for token; mixtral-8x7b at full width and 16 of its 32 layers (8
+    token for token; mixtral-8x7b at full width and 8 of its 32 layers (8
     experts top-2) on a wrapped 4128-slot ring (2 pairs x 8 slots, max_len
     8192, 8 prompts of 4500-6000 tokens), graphed, and a profiled burst.
     Returns both serves' launches."""
     qwen = "qwen3-moe-30b-a3b"
     with moe_probes():
-        launches, serve = serve_phase(report, arch=qwen, new_tokens=MOE_NEW_TOKENS)
+        launches, serve = serve_phase(report, arch=qwen, new_tokens=MOE_NEW_TOKENS,
+                                      n_layers=QWEN3_MOE_LAYERS)
         dropped_share(f"{qwen} serve", launches, report[f"{qwen}_serve"])
         moe_profile(serve, report, "qwen3-moe_profile", PROFILE_LENS)
         params = serve.engine.pairs[0].lane.params
@@ -2272,7 +2292,7 @@ def moe_phase(report: dict) -> tuple:
         release()
         for graphed in (False, True):
             _, serve = serve_phase(report, params, graphed, temperature=1.0, arch=qwen,
-                                   new_tokens=8, lens=SERVE_LENS[:4])
+                                   new_tokens=8, lens=SERVE_LENS[:4], n_layers=QWEN3_MOE_LAYERS)
             del serve
             release()
         same_as_eager(report, f"{qwen}_sampled_serve")
@@ -4018,7 +4038,7 @@ def expert_marks():
         moe.expert_ffn = ffn
 
 
-def train_phase(report: dict, arch: str = "qwen3-1.7b", cut=None) -> dict:
+def train_phase(report: dict, arch: str = "qwen3-1.7b", cut=None, extra=(), tag="") -> dict:
     """(c) ``launch.train`` at full width, bf16, under the config's optimizer
     and remat policy (AdamW and "minimal"; jamba's adafloor and "full"), 8
     steps of 4 x 2048 tokens, at the depth of TRAIN_RUNS or the fields of
@@ -4034,7 +4054,9 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b", cut=None) -> dict:
     (train_flops), peak memory, the device time of a profiled step split
     into GEMMs, expert products (expert_marks), K4 forward and backward, K2
     forward and backward and the rest.  qwen3-1.7b also saves its two
-    checkpoints (step 0 and the end) and times them."""
+    checkpoints (step 0 and the end) and times them.  ``extra``: more CLI
+    flags (``--compress-grads``), the run's report key and lines marked
+    with ``tag``."""
     import dataclasses
     import math
     import re
@@ -4060,7 +4082,7 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b", cut=None) -> dict:
         t0 = time.perf_counter()
         result = train.main(["--arch", arch, "--no-reduced", "--steps", str(TRAIN_STEPS),
                              "--batch", str(B), "--seq-len", str(S), "--ckpt-dir", ck,
-                             "--log-every", "1"])
+                             "--log-every", "1", *extra])
         wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -4113,9 +4135,10 @@ def train_phase(report: dict, arch: str = "qwen3-1.7b", cut=None) -> dict:
          "profiled_step_share": {g: ms / busy for g, ms in parts.most_common()},
          "profiled_step_kernel_ms": dict(kernels.most_common()),
          "profiled_step_rest_ms": dict(rest.most_common(12))}
-    report["train" + ("" if arch == "qwen3-1.7b" else f"_{arch}")] = r
+    report["train" + ("" if arch == "qwen3-1.7b" else f"_{arch}") + tag.replace(" ", "_")] = r
     depth = f"{cfg.n_layers} layers" + (f" of {configs.get_config(arch).n_layers}"
                                         if cut else "")
+    arch += tag
     print(f"train ({arch} full width, {depth}, bf16, {B}x{S} tokens, {cfg.optimizer}, remat "
           f"{cfg.remat_policy}): losses {' '.join(f'{x:.4f}' for x in losses)}")
     for k, v in router.items():
@@ -4167,6 +4190,282 @@ def restart_phase(report: dict) -> None:
     if b["report"].restarts != 1 or a["final_loss"] != b["final_loss"] or \
             a["losses"] != b["losses"]:
         fail("restart: the restarted run's losses differ from the uninterrupted run's")
+
+
+# ------------------------------------------------------------------ examples
+# examples/*_torch.py, the reference's four examples on the port.  Their
+# kernels' shapes: K1 at the reduced serve (3 slots of 96, H = 4, K = 2,
+# D = 32), K2's prefill at D = 32 and its training call at head_dim 32
+# (forward with lse and backward on copies padded to 64: ``widened``), K4
+# at the reduced mamba2's heads (B = 4 rows of launch.train's 64 tokens, H =
+# 8, P = 32, N = 16: padded to 64 and 128 for the bf16 kernels)
+QUICKSTART = {"serve": (3, 5, 96, 4, 2, 32), "prefill": (3, 16, 4, 2, 32),
+              "train": (8, 32, 4, 2, 32)}
+RESILIENT = (4, 64, 8, 32, 1, 16)  # B, S, H, P, G, N
+EXAMPLE_STEPS = {"quickstart": 80, "train_resilient": 30}
+
+
+def example_kernel_phase(report: dict) -> dict:
+    """The examples' kernels at their shapes, bf16, against the plain
+    versions: K1 at the reduced serve for T = 1, 5 and 9; K2's training
+    call (``ops.flash_attention`` under autograd at head_dim 32: forward
+    with lse at 32, backward padded to 64) and K4's (``ops.ssd_scan`` under
+    autograd at P = 32, N = 16, padded) against the plain versions'
+    autograd, each launch on the tensor-core kernels; then timed where the
+    kernel runs (K1 and K2's prefill as served, K2's training forward at 32,
+    the padded calls on the padded copies the kernels get), the bound of the
+    unpadded function's work."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    B, T, S, H, K, D = QUICKSTART["serve"]
+    lines, e1 = [], 0.0
+    for t in (1, T, 9):
+        q, k, v, clen, pos = decode_case(g, B, t, S, H, K, D, "bfloat16", [10, 40, 80])
+        e1 = max(e1, check(f"decode T={t} D={D}", decode_attention_cuda(
+            q, k, v, clen, kv_positions=pos), ref.decode_attention(q, k, v, clen,
+                                                                   kv_positions=pos), "bfloat16"))
+    out = {"decode_attention (quickstart serve)": decode_timing(g, B, T, S, H, K, D),
+           "flash_attention (quickstart prefill)": flash_timing(g, *QUICKSTART["prefill"])}
+    out["decode_attention (quickstart serve)"]["err"] = max(
+        e1, out["decode_attention (quickstart serve)"]["err"])
+    for r in out.values():
+        r["max_abs_err"] = r.pop("err")
+    pad = torch.nn.functional.pad
+    B, S, H, K, D = QUICKSTART["train"]
+    q, k, v, dout = (torch.randn(B, S, n, D, generator=g, device="cuda").to(torch.bfloat16)
+                     for n in (H, K, K, H))
+    Bs, Ss, Hs, P, G, N = RESILIENT
+    x, dtv, A, Bm, C, _ = ssd_case(g, Bs, Ss, Hs, P, G, N, "bfloat16")
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+    errs = {}
+    zero_counts()
+    for name, fn, ins, grad, plain in (
+            ("K2", ops.flash_attention, (q, k, v), dout,
+             lambda *t: (ref.flash_attention(*t),)),
+            ("K4", ops.ssd_scan, (x, dtv, A, Bm, C), dy,
+             lambda *t: ref.ssd_scan(*t, chunk=256))):
+        runs = []
+        for f in (fn, plain):
+            leaves = [t.clone().requires_grad_() for t in ins]
+            y = f(*leaves)
+            y = y[0] if isinstance(y, tuple) else y
+            runs.append([*torch.autograd.grad(y, leaves, grad), y.detach()])
+        errs[name] = max(check(f"{name} under autograd at the reduced shape: output {i}", a, b,
+                               "bfloat16", BWD_TOL) for i, (a, b) in enumerate(zip(*runs)))
+    launches = read_counts()
+    want = {"flash_attention": 1, "flash_attention_bwd": 1, "ssd_scan": 1, "ssd_scan_bwd": 1}
+    if any(launches[n] != c or launches[f"{n}.wgmma"] != c for n, c in want.items()):
+        fail(f"examples' training kernels: launches {launches}, expected one each on the "
+             "tensor-core kernels")
+    lines.append(f"K2 at head_dim 32 under autograd (backward padded to 64): max_abs_err {errs['K2']:.3g}; "
+                 f"K4 at P=32 N=16 under autograd (padded to 64, 128): {errs['K4']:.3g}")
+    print(lines[-1])
+    qp, kp, vp, dp = (pad(t, (0, 64 - D)) for t in (q, k, v, dout))
+    bwd = bwd_timing(qp, kp, vp, dp)[0]
+    bwd["shape"] += " (head_dim 32 zero-padded)"
+    bwd["bound"] = bound_ms(*bwd_cost(q, k), "bfloat16")
+    th = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    nbytes, n_ops = flash_cost(q, k)
+    fwd = {"shape": f"B={B} S={S} H={H} K={K} D={D} causal bf16",
+           "ms": timed(lambda i: flash_attention_cuda(q, k, v, lse=True), 20),
+           "plain_ms": timed(lambda i: ref.flash_attention(q, k, v), 3),
+           "library_ms": timed(lambda i: sdpa(*th, is_causal=True), 20),
+           "bound": bound_ms(nbytes + B * H * S * 4, n_ops, "bfloat16")}
+    for r in (bwd, fwd):
+        r["max_abs_err"] = errs["K2"]
+    out["flash_attention_bwd (quickstart training)"] = bwd
+    out["flash_attention (quickstart training, lse)"] = fwd
+    xp, Bp, Cp, dyp = pad(x, (0, 64 - P)), pad(Bm, (0, 128 - N)), pad(C, (0, 128 - N)), \
+        pad(dy, (0, 64 - P))
+    shape = f"B={Bs} S={Ss} H={Hs} P=64 G=1 N=128 bf16 (P=32, N=16 zero-padded)"
+    out["ssd_scan (train_resilient)"] = {
+        "shape": shape, "ms": timed(lambda i: ssd_scan_cuda(xp, dtv, A, Bp, Cp), 200),
+        "plain_ms": timed(lambda i: ref.ssd_scan(x, dtv, A, Bm, C, chunk=256), 20),
+        "library_ms": None, "bound": bound_ms(*ssd_cost(x, Bm, None), "bfloat16"),
+        "max_abs_err": errs["K4"]}
+    out["ssd_scan_bwd (train_resilient)"] = {
+        "shape": shape, "ms": timed(lambda i: ssd_scan_bwd_cuda(xp, dtv, A, Bp, Cp, dyp), 50),
+        "plain_ms": timed(lambda i: plain_ssd_grads(x, dtv, A, Bm, C, dy), 5),
+        "library_ms": None, "bound": bound_ms(*ssd_bwd_cost(x, Bm), "bfloat16"),
+        "max_abs_err": errs["K4"]}
+    for name, r in out.items():
+        print(f"{name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {'none' if r['library_ms'] is None else f'%.4f ms' % r['library_ms']}, "
+              f"bound {r['bound'][0]:.3g} ms ({r['bound'][1]})")
+    report["example_kernels"] = {"checks": lines, **{k: dict(v, bound=list(v["bound"]))
+                                                    for k, v in out.items()}}
+    return out
+
+
+def example(name: str):
+    sys.path.insert(0, str(ROOT / "examples"))
+    import importlib
+
+    return importlib.import_module(name)
+
+
+def quickstart_phase(report: dict) -> dict:
+    """(a) examples/quickstart_torch.py on the card: 80 training steps of
+    the reduced qwen3-1.7b (K2 forward and backward each layer), then the
+    trained weights served through StreamServe (K1, K2); the loss must fall
+    and every handle stream and finish (the example's own checks).  Records
+    the wall seconds of each part, the first and last loss and the launches
+    of each part (read when StreamServe is built)."""
+    from unittest import mock
+
+    quickstart = example("quickstart_torch")
+    parts, serve = {}, quickstart.StreamServe
+
+    def counted_serve(*a, **kw):
+        parts["train"] = read_counts()
+        zero_counts()
+        return serve(*a, **kw)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(quickstart, "StreamServe", counted_serve):
+        out = quickstart.main(steps=EXAMPLE_STEPS["quickstart"], device="cuda")
+    parts["serve"] = read_counts()
+    r = report["quickstart"] = {
+        "wall_s": time.perf_counter() - t0, "train_s": out["train_s"], "serve_s": out["serve_s"],
+        "first_loss": out["losses"][0], "last_loss": out["losses"][-1],
+        "launches": {p: {k: n for k, n in c.items() if n} for p, c in parts.items()}}
+    t, s = parts["train"], parts["serve"]
+    if not (t["flash_attention"] and t["flash_attention_bwd"] and s["decode_attention"]
+            and s["flash_attention"]) or any(c[n] != c[f"{n}.wgmma"] for c in (t, s)
+                                              for n in ("flash_attention", "decode_attention",
+                                                        "flash_attention_bwd")):
+        fail(f"quickstart: launches {r['launches']}: training must launch K2 forward and "
+             "backward, serving K1 and K2, all on the tensor-core kernels")
+    print(f"quickstart (reduced qwen3-1.7b, {EXAMPLE_STEPS['quickstart']} steps): loss "
+          f"{r['first_loss']:.4f} -> {r['last_loss']:.4f}, training {r['train_s']:.1f} s, "
+          f"serving {r['serve_s']:.1f} s; launches {r['launches']}")
+    return parts
+
+
+def serve_cluster_phase(report: dict) -> dict:
+    """(d) examples/serve_cluster_torch.py: its engine demo on the card (8
+    requests, pair 1 failed after 4 steps; every request completes, those
+    still open on pair 0), its simulator parts on the host (model
+    predictions, H100 SXM data-sheet profile)."""
+    zero_counts()
+    t0 = time.perf_counter()
+    out = example("serve_cluster_torch").main(device="cuda")
+    launches = read_counts()
+    r = report["serve_cluster"] = {
+        "wall_s": time.perf_counter() - t0, "engine": out["engine"],
+        "simulated": {k: out["cluster"][k] for k in ("n", "latency_p50", "latency_p99",
+                                                     "aggregate_tput")},
+        "launches": {k: n for k, n in launches.items() if n}}
+    if not launches["decode_attention"] or launches["decode_attention"] != launches[
+            "decode_attention.wgmma"]:
+        fail(f"serve_cluster: launches {launches}")
+    print(f"serve_cluster: engine {out['engine']}, simulated (model prediction) "
+          f"{r['simulated']}; {r['wall_s']:.1f} s; launches {r['launches']}")
+    return launches
+
+
+def resilient_phase(report: dict) -> dict:
+    """(b) examples/train_resilient_torch.py on the card: the reduced
+    mamba2-2.7b (K4 forward and backward, padded) for 30 steps,
+    uninterrupted (A), with a failure (B), compressed (C) and compressed
+    with a failure (D): the example's checks, and here B's losses equal A's
+    and D's equal C's bit for bit.  Records each run's final loss and K4
+    launches."""
+    from unittest import mock
+
+    resilient = example("train_resilient_torch")
+    train, per_run = resilient.train_main, []
+
+    def counted(argv):
+        zero_counts()
+        out = train(argv)
+        per_run.append({k: n for k, n in read_counts().items() if n})
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.object(resilient, "train_main", counted):
+        runs = resilient.main(steps=EXAMPLE_STEPS["train_resilient"], device="cuda")
+    r = report["train_resilient"] = {
+        "wall_s": time.perf_counter() - t0,
+        "final_loss": {k: v["final_loss"] for k, v in runs.items()},
+        "restarts": {k: v["report"].restarts for k, v in runs.items()},
+        "launches": dict(zip(runs, per_run, strict=True))}
+    if runs["A"]["losses"] != runs["B"]["losses"] or runs["C"]["losses"] != runs["D"]["losses"]:
+        fail("train_resilient: a restarted run's losses differ from its uninterrupted run's")
+    if any(not c.get("ssd_scan_bwd") or c["ssd_scan_bwd"] != c.get("ssd_scan_bwd.wgmma")
+           for c in per_run):
+        fail(f"train_resilient: K4 launches {per_run}")
+    print(f"train_resilient (reduced mamba2-2.7b): final losses {r['final_loss']}, restarts "
+          f"{r['restarts']}, {r['wall_s']:.1f} s; launches {r['launches']}")
+    return {k: sum(c.get(k, 0) for c in per_run) for k in per_run[0]}
+
+
+def compressed_phase(report: dict) -> dict:
+    """(c) ``launch.train --compress-grads`` on mamba2-2.7b at full width and
+    TRAIN_RUNS' depth (train_phase: 8 bf16 steps of 4 x 2048 tokens, no
+    saves) beside the uncompressed run: K4's launches a step equal, every
+    loss finite, the losses' gap step by step, ms a step and peak against
+    the uncompressed run's; then ``compress_decompress`` alone over one
+    step's gradients (the model's leaves, random bf16, an fp32 error tree)
+    by CUDA events beside its byte bound (each gradient and error element
+    read once and written once), one leaf bit for bit against the CPU."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed.compression import MIN_SIZE, GradientCompressor
+    from repro_torch.models import build_model
+    from repro_torch.params import tree_items, tree_map
+
+    arch = "mamba2-2.7b"
+    launches = train_phase(report, arch, extra=("--compress-grads",), tag=" compressed")
+    base, comp = report[f"train_{arch}"], report[f"train_{arch}_compressed"]
+    if comp["launches_per_step"] != base["launches_per_step"] or not all(
+            map(math.isfinite, comp["losses"])):
+        fail(f"compressed training: launches a step {comp['launches_per_step']} against "
+             f"{base['launches_per_step']}, losses {comp['losses']}")
+    comp["loss_gap"] = [a - b for a, b in zip(comp["losses"], base["losses"], strict=True)]
+    comp["step_ms_over_uncompressed"] = comp["step_ms"] / base["step_ms"]
+    release()
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=TRAIN_RUNS[arch])
+    params = build_model(cfg, "cuda").init(0)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen, device="cuda").to(p.dtype)
+                     * 1e-3, params)
+    c = GradientCompressor()
+    err = c.init_error(params)
+    del params
+    big = [g for _, g in tree_items(grads) if g.numel() >= MIN_SIZE]
+    nbytes = sum(g.numel() * (2 * g.element_size() + 8) for g in big)
+    leaf = min(big, key=lambda t: t.numel()).clone()
+    e0 = torch.randn(leaf.shape, generator=gen, device="cuda") * 1e-5
+    on_cpu = c.compress_decompress([leaf.cpu()], [e0.cpu()])
+    on_card = c.compress_decompress([leaf], [e0.clone()])
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(on_card[0] + on_card[1],
+                                                      on_cpu[0] + on_cpu[1], strict=True)):
+        fail("compress_decompress: the card and the CPU give different bits")
+    ms = timed(lambda i: c.compress_decompress(grads, err), 5)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    comp["compress_decompress"] = {
+        "ms": ms, "bound_ms": bound, "bytes": nbytes, "leaves": len(big),
+        "elements": sum(g.numel() for g in big)}
+    print(f"train {arch} compressed: loss gap a step {' '.join(f'{x:+.4f}' for x in comp['loss_gap'])}"
+          f"; {comp['step_ms']:.1f} ms a step against {base['step_ms']:.1f} "
+          f"({comp['step_ms_over_uncompressed']:.3f}x), peak {comp['peak_gb']:.1f} GB against "
+          f"{base['peak_gb']:.1f}; compress_decompress over one step's {len(big)} leaves "
+          f"({comp['compress_decompress']['elements'] / 1e9:.3f}B elements): {ms:.3f} ms, bound "
+          f"{bound:.3f} ms ({nbytes / 1e9:.2f} GB at 3.35 TB/s), {ms / bound:.1f}x")
+    del grads, err
+    return launches
 
 
 def release() -> None:
@@ -4331,6 +4630,13 @@ def main() -> None:
     cli_phase(report)
     stamp("front door")
     release()
+    example_timing = example_kernel_phase(report)
+    release()
+    quickstart = quickstart_phase(report)
+    release()
+    serve_cluster_phase(report)
+    release()
+    stamp("examples: kernels, quickstart and serve_cluster")
     train_timing = train_kernel_phase(report)
     release()
     ssd_bwd_timing = ssd_bwd_phase(report)
@@ -4351,6 +4657,11 @@ def main() -> None:
     stamp("training runs")
     restart_phase(report)
     stamp("training")
+    resilient = resilient_phase(report)
+    release()
+    compressed_phase(report)
+    release()
+    stamp("examples: train_resilient and compressed training")
 
     def entry(name, kernel, r, n):  # every number measured in this run, or computed (bound)
         return {"name": name, "kernel": kernel, "route": "cuda",
@@ -4480,6 +4791,21 @@ def main() -> None:
              tj["ssd_scan_bwd"]),
             ("ssd_scan (jamba training)", "ssd_wgmma_kernel", tj["ssd_scan"])):
         kernels.append(entry(name, kernel, jamba_timing[name], n))
+    # the examples: K1 and K2's prefill from the quickstart's serve, K2's
+    # training calls from its training, K4 from train_resilient's four runs
+    for name, kernel, n in (
+            ("decode_attention (quickstart serve)", "decode_wgmma_kernel",
+             quickstart["serve"]["decode_attention"]),
+            ("flash_attention (quickstart prefill)", "flash_wgmma_kernel",
+             quickstart["serve"]["flash_attention"]),
+            ("flash_attention (quickstart training, lse)", "flash_wgmma_kernel",
+             quickstart["train"]["flash_attention"]),
+            ("flash_attention_bwd (quickstart training)", "dkdv_wgmma_kernel, dq_wgmma_kernel",
+             quickstart["train"]["flash_attention_bwd"]),
+            ("ssd_scan (train_resilient)", "ssd_wgmma_kernel", resilient["ssd_scan"]),
+            ("ssd_scan_bwd (train_resilient)", "ssd_bwd_wgmma_kernel, ssd_bwd_reduce4_kernel",
+             resilient["ssd_scan_bwd"])):
+        kernels.append(entry(name, kernel, example_timing[name], n))
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

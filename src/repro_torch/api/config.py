@@ -5,6 +5,7 @@
     cfg = cfg.replace(max_batch=4)               # validated copy-update
     arch = cfg.build_arch_config()               # -> ArchConfig
     econf = cfg.build_engine_config()            # -> EngineConfig
+    sim = cfg.to_sim_config()                    # -> the simulator's SimConfig
 
 Policy fields (``router``, ``draft``, ``spec_policy``) are registry names
 (:mod:`repro_torch.api.registry`).  The paged fields are checked by the
@@ -212,3 +213,15 @@ class ServeConfig:
         return EngineConfig(adaptive=self.spec_policy == "specustream", spec_config=self.spec,
                             router_config=self.flowguard,
                             **{name: getattr(self, name) for name in sorted(shared)})
+
+    def to_sim_config(self, **overrides):
+        """The discrete-event simulator's SimConfig for this deployment."""
+        from repro_torch.serving.simulator import SimConfig
+
+        return SimConfig(**{
+            "mode": "streamserve", "n_workers": self.n_pairs, "router": self.router,
+            "speculative": self.draft != "none" and self.spec_policy != "none",
+            "adaptive": self.spec_policy == "specustream", "fixed_depth": self.fixed_depth,
+            "max_batch": self.max_batch, "kv_blocks": self.kv_blocks,
+            "kv_block_size": self.kv_block_size, "spec_config": self.spec,
+            "flowguard_config": self.flowguard, "seed": self.seed, **overrides})

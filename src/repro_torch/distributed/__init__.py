@@ -1,1 +1,2 @@
-"""Fault tolerance for training (a part of ``repro.distributed``)."""
+"""Fault tolerance for training and gradient compression (a part of
+``repro.distributed``)."""

@@ -99,8 +99,14 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors  # once: remat's saved-tensor hooks unpack once
-        return (*flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(), lse, **ctx.mask),
-                None, None, None)
+        D, mask = q.shape[-1], dict(ctx.mask)
+        if D == 32:  # a reduced model's heads: the backward takes head_dim 64, so zero
+            # columns pad its inputs (they change no product, and lse stays) and are
+            # cut from the gradients; the scale stays head_dim 32's
+            q, k, v, out, dout = (torch.nn.functional.pad(t, (0, 32)) for t in (q, k, v, out, dout))
+            mask["scale"] = mask["scale"] or D ** -0.5
+        grads = flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(), lse, **mask)
+        return (*(g[..., :D] for g in grads), None, None, None)
 
 
 # every launch, and those that took a tensor-core kernel (bf16 forward and backward)

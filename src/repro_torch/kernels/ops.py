@@ -68,7 +68,7 @@ def ssd_scan(x, dt, A, Bm, C, *, chunk=256, initial_state=None):
         if initial_state is not None and initial_state.requires_grad:
             raise NotImplementedError("ssd_scan: no gradient for the initial state on the card: "
                                       "K4's backward kernel has no term for it")
-        return ssd.SsdScanFn.apply(x, dt, A, Bm, C, initial_state)
+        return ssd.widened(ssd.SsdScanFn.apply, x, dt, A, Bm, C, initial_state)
     return ssd.ssd_scan_cuda(x, dt, A, Bm, C, initial_state=initial_state)
 
 

@@ -146,6 +146,21 @@ class SsdScanFn(torch.autograd.Function):
         return (*ssd_scan_bwd_cuda(x, dt, A, Bm, C, dy, initial_state=s0), None)
 
 
+def widened(fn, x, dt, A, Bm, C, initial_state=None):
+    """``fn(x, dt, A, Bm, C, initial_state)`` -> (y, final state), with a
+    reduced model's bfloat16 heads (P < 64) and states (N < 128) padded with
+    zeros to the tensor-core kernels' P = 64 and N = 128 and the outputs cut
+    back: a zero column adds nothing to any product, and autograd carries
+    the gradients through the pad and the cut."""
+    P, N = x.shape[3], Bm.shape[3]
+    if x.dtype != torch.bfloat16 or (P, N) == (64, 128) or P > 64 or N > 128:
+        return fn(x, dt, A, Bm, C, initial_state)
+    pad = torch.nn.functional.pad
+    y, sf = fn(pad(x, (0, 64 - P)), dt, A, pad(Bm, (0, 128 - N)), pad(C, (0, 128 - N)),
+               None if initial_state is None else pad(initial_state, (0, 128 - N, 0, 64 - P)))
+    return y[..., :P], sf[:, :, :P, :N]
+
+
 # every launch, and those that took the bf16 tensor-core kernel
 ssd_scan_cuda.launches = ssd_scan_cuda.wgmma_launches = 0
 ssd_scan_bwd_cuda.launches = ssd_scan_bwd_cuda.wgmma_launches = 0

@@ -1,12 +1,15 @@
-"""The training entry point: checkpoint/restart and an injected mid-run
-failure (a port of ``repro.launch.train``).
+"""The training entry point: checkpoint/restart, int8 gradient compression
+and an injected mid-run failure (a port of ``repro.launch.train``).
 
   python -m repro_torch.launch.train --device cpu --steps 20 --fail-at 8
+  python -m repro_torch.launch.train --device cpu --steps 20 --compress-grads
   python -m repro_torch.launch.train --no-reduced      # full width, on the card
 
 ``--fail-at N`` raises at step N; the ``TrainSupervisor`` restores the latest
 checkpoint and replays, and the run ends with the final loss of an
-uninterrupted run, bit for bit.  On a CUDA device the trainer turns on
+uninterrupted run, bit for bit; with ``--compress-grads`` the
+error-feedback tree is saved and restored with the optimizer state, so a
+compressed run replays exactly too.  On a CUDA device the trainer turns on
 PyTorch's deterministic algorithms (and cuBLAS's fixed workspace) so that a
 replay is exact there too; attention runs K2's forward and backward kernels.
 A vision-prefix model trains behind zero patches and an encoder-decoder on 16
@@ -33,13 +36,12 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--fail-at", type=int, default=-1)
-    ap.add_argument("--compress-grads", action="store_true", help="int8 gradients (M11)")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8 gradients with error feedback")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", help="torch device (cpu for a CPU run)")
     args = ap.parse_args(argv)
-    if args.compress_grads:
-        raise NotImplementedError("--compress-grads: gradient compression is M11, not ported yet")
 
     import torch
 
@@ -55,6 +57,7 @@ def main(argv=None):
 
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.data.workloads import TokenStream
+    from repro_torch.distributed.compression import GradientCompressor
     from repro_torch.distributed.fault_tolerance import TrainSupervisor
     from repro_torch.models import build_model
     from repro_torch.training.checkpoint import CheckpointManager
@@ -64,7 +67,8 @@ def main(argv=None):
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     model = build_model(cfg, device)
     init_opt, train_step = make_train_step(
-        model, OptConfig(learning_rate=args.lr, warmup_steps=5, total_steps=args.steps))
+        model, OptConfig(learning_rate=args.lr, warmup_steps=5, total_steps=args.steps),
+        compression=GradientCompressor() if args.compress_grads else None)
     params = model.init(0)
     stream = TokenStream(cfg.vocab_size, args.seq_len, args.batch, seed=1)
     ckpt = CheckpointManager(args.ckpt_dir)

@@ -1,5 +1,5 @@
-"""Analytic per-operation cost model (the part of ``repro.serving.cost_model``
-that SLO routing reads).
+"""Analytic per-operation cost model (a port of ``repro.serving.cost_model``):
+what SLO routing reads and what the discrete-event simulator prices.
 
 Every op costs ``max(compute_time, memory_time) + dispatch_overhead``: a
 roofline max, since the device overlaps copies with compute.  The default
@@ -32,16 +32,23 @@ H100_SXM = HardwareProfile(
     host_staged_bw=25e9,       # PCIe gen5 x16, one direction
 )
 
+DRAFT_FRAC = 0.08             # the draft's size, a fraction of the target's
+DRAFT_STEP_OVERHEAD = 0.6e-3  # s of launch latency a draft step
+
 
 @dataclasses.dataclass(frozen=True)
 class CostModel:
-    """Prices engine ops for one (arch, hardware) deployment on a one-device
-    lane (the reference's tensor-parallel lane terms are zero there)."""
+    """Prices engine ops for one (arch, hardware, lane-width) deployment.  A
+    lane of ``lane_chips`` devices splits the rates' work tensor-parallel and
+    pays two activation all-reduces a layer (``tp_comm_time``, zero on one
+    device)."""
 
     cfg: ArchConfig
     hw: HardwareProfile = H100_SXM
+    lane_chips: int = 1          # devices per prefill/decode worker
     mfu: float = 0.5             # achievable fraction of peak on matmuls
     bw_efficiency: float = 0.55  # achieved fraction of peak HBM bandwidth
+    tp_sync_latency: float = 40e-6  # per all-reduce within a lane: latency-bound at decode
     dtype_bytes: int = 2
 
     @property
@@ -50,11 +57,22 @@ class CostModel:
 
     @property
     def flops_rate(self):
-        return self.hw.peak_flops * self.mfu
+        return self.hw.peak_flops * self.lane_chips * self.mfu
 
     @property
     def mem_rate(self):
-        return self.hw.hbm_bw * self.bw_efficiency
+        return self.hw.hbm_bw * self.lane_chips * self.bw_efficiency
+
+    def tp_comm_time(self, tokens):
+        """Two activation all-reduces a layer within a tensor-parallel lane:
+        latency-bound for decode, bandwidth-bound for prefill."""
+        if self.lane_chips <= 1:
+            return 0.0
+        n_layers = self.cfg.n_layers + self.cfg.n_encoder_layers
+        act_bytes = tokens * self.cfg.d_model * self.dtype_bytes
+        ring = 2.0 * (self.lane_chips - 1) / self.lane_chips
+        return 2.0 * n_layers * max(self.tp_sync_latency,
+                                    act_bytes * ring / self.hw.interconnect_bw)
 
     def _n_attn(self):
         return sum(1 for k in self.cfg.layer_kinds() if k == "attn")
@@ -77,7 +95,8 @@ class CostModel:
         attn_heads = self.cfg.n_heads * self.cfg.head_dim
         flops += 4.0 * self._n_attn() * live * max(live, 1) * attn_heads / 2
         t_memory = (self.n_active * self.dtype_bytes) / self.mem_rate
-        return max(flops / self.flops_rate, t_memory) + self.hw.dispatch_overhead
+        return (max(flops / self.flops_rate, t_memory) + self.tp_comm_time(live)
+                + self.hw.dispatch_overhead)
 
     def decode_step_time(self, batch, mean_context, t_tokens=1):
         """One decode (or verify) iteration: weights once, KV and SSM state
@@ -87,12 +106,22 @@ class CostModel:
         state_bytes = batch * self.ssm_state_bytes()
         t_memory = (weight_bytes + kv_bytes + state_bytes) / self.mem_rate
         t_compute = 2.0 * self.n_active * batch * t_tokens / self.flops_rate
-        return max(t_compute, t_memory) + self.hw.dispatch_overhead
+        return (max(t_compute, t_memory) + self.tp_comm_time(batch * t_tokens)
+                + self.hw.dispatch_overhead)
 
-    def kv_transfer_time(self, prompt_len):
-        """Prefill -> decode KV (and SSM state) handoff over the lanes' direct link."""
+    def draft_time(self, k_tokens):
+        """k sequential steps of a draft ``DRAFT_FRAC`` the target's size; the
+        per-step launch latency is what makes depth costly."""
+        per_step = (self.n_active * self.dtype_bytes * DRAFT_FRAC / self.mem_rate
+                    + DRAFT_STEP_OVERHEAD)
+        return k_tokens * per_step
+
+    def kv_transfer_time(self, prompt_len, nixl=True):
+        """Prefill -> decode KV (and SSM state) handoff: over NVLink between
+        the lanes, or (``nixl=False``) staged through host memory."""
         nbytes = prompt_len * self.kv_bytes_per_token() + self.ssm_state_bytes()
-        return nbytes / self.hw.interconnect_bw + self.hw.dispatch_overhead
+        bw = self.hw.interconnect_bw if nixl else self.hw.host_staged_bw
+        return nbytes / bw + self.hw.dispatch_overhead
 
 
 class PrefillDelayEstimator:

@@ -163,6 +163,15 @@ class KVCacheManager:
             self.hit_rate = self._hit_ema * self.hit_rate + (1 - self._hit_ema) * hit
         return alloc
 
+    def extend_sequence(self, request_id, n_new_tokens):
+        """Grow a sequence by ``n_new_tokens``, all or nothing: on exhaustion
+        the partial grant is rolled back (blocks taken so far stay attached
+        for a later extend or free).  Returns whether it was granted."""
+        granted = self.extend_up_to(request_id, n_new_tokens)
+        if granted != n_new_tokens:
+            self.seqs[request_id].n_tokens -= granted
+        return granted == n_new_tokens
+
     def extend_up_to(self, request_id, n_new_tokens, tokens=None):
         """Grow a sequence by UP TO ``n_new_tokens``; returns how many were
         granted (short when the pool runs dry or the table is full — the

@@ -305,10 +305,13 @@ def test_later_slices_refuse_by_name(fp32_model, overrides, item):
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """Every module of the port, chip_smoke.py and attention_variants.py import
-    in a fresh process without loading jax, any module of ``repro`` or
-    ``tools``, or PyYAML (the card's machine has none)."""
+    """Every module of the port, chip_smoke.py, attention_variants.py and the
+    ``examples/*_torch.py`` import in a fresh process without loading jax,
+    any module of ``repro`` or ``tools``, or PyYAML (the card's machine has
+    none)."""
     code = ("import importlib, pkgutil, sys, repro_torch, chip_smoke, attention_variants\n"
+            "import quickstart_torch, train_resilient_torch, serve_cluster_torch\n"
+            "import spec_depth_study_torch\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro', 'tools',\n"
@@ -316,5 +319,6 @@ def test_port_imports_neither_jax_nor_the_reference():
             "sys.exit(f'loaded {bad}' if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120,
-                          env={**os.environ, "PYTHONPATH": f"{REPO / 'src'}:{REPO}"})
+                          env={**os.environ,
+                               "PYTHONPATH": f"{REPO / 'src'}:{REPO}:{REPO / 'examples'}"})
     assert proc.returncode == 0, proc.stdout + proc.stderr

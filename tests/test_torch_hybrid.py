@@ -20,8 +20,8 @@ import torch
 from test_torch_engine import _copy, _engines, _serve_both, fp32_pair
 from test_torch_engine import _one_torch_thread  # noqa: F401
 from test_torch_model import model_pair
-from test_torch_train import _cli_matches_reference, _restores_from_reference
-from test_torch_train_families import _check_five_steps, _check_loss_and_gradients
+from test_torch_train import (_check_five_steps, _check_loss_and_gradients, _cli_matches_reference,
+                              _restores_from_reference)
 
 import repro.configs
 from repro_torch import configs

@@ -19,21 +19,27 @@ import repro.configs
 import repro.kernels.ops as jax_ops
 import repro.training.optimizer as jopt
 from repro.data.workloads import TokenStream as JaxTokenStream
+from repro.distributed.compression import GradientCompressor as JaxCompressor
 from repro.launch.train import main as jax_train
 from repro.training.checkpoint import CheckpointManager as JaxCheckpoints
 from repro.training.train_loop import make_train_step as jax_train_step
 from repro_torch import configs
 from repro_torch.data.workloads import TokenStream
-from repro_torch.kernels import ops
+from repro_torch.distributed.compression import MIN_SIZE, GradientCompressor
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
 from repro_torch.launch.train import main as train
 from repro_torch.models.model import Model
-from repro_torch.params import from_jax_tree, from_reference_state, tree_items, tree_map
+from repro_torch.params import (from_jax_tree, from_reference_state, to_tensor, tree_items,
+                                tree_map)
 from repro_torch.training import optimizer as opt
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.train_loop import make_train_step
 
 OPT = dict(learning_rate=3e-3, warmup_steps=2, total_steps=30)
+ROUTER = ("load_balance", "router_z")  # a MoE model's router losses
 
 
 def _as_port(tree, cfg):
@@ -58,21 +64,31 @@ def _loss_grads(cfg, params, batch):
     return float(loss.detach()), metrics, dict(zip([k for k, _ in items], grads, strict=True))
 
 
-@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-def test_loss_and_gradients_match_jax_under_every_remat_policy(dt):
-    _, jcfg, jm, jp, tm, tp = model_pair("qwen3-1.7b", dt)
+def _check_loss_and_gradients(pair):
+    """The loss, a MoE model's router losses and (float32) every gradient
+    against the JAX model's, equal under the three remat policies."""
+    dt, jcfg, jm, jp, tm, tp = pair
     tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 40)).astype(np.int32)
     (jl, jmet), jg = jax.value_and_grad(jm.loss_fn, has_aux=True)(
         jp, {"tokens": jnp.asarray(tokens)})
     runs = [_loss_grads(dataclasses.replace(tm.cfg, remat_policy=r), tp, {"tokens": tokens})
             for r in ("none", "minimal", "full")]
+    keys = {"ce", "ppl_log", "loss", *(ROUTER if jcfg.moe else ())}
     for loss, metrics, grads in runs:
-        assert loss == runs[0][0] and set(metrics) == set(jmet) == {"ce", "ppl_log", "loss"}
+        assert loss == runs[0][0] and set(metrics) == set(jmet) == keys
+        assert all(torch.equal(m, runs[0][1][k]) for k, m in metrics.items())
         assert all(torch.equal(g, runs[0][2][k]) for k, g in grads.items())
     tol = 1e-5 if dt == "float32" else 2e-2
-    assert abs(runs[0][0] - float(jl)) <= tol * abs(float(jl))
+    for name in ("loss", *(ROUTER if jcfg.moe else ())):
+        want = float(jmet[name])
+        assert abs(float(runs[0][1][name].detach()) - want) <= tol * abs(want), name
     if dt == "float32":
         _close_leaves(runs[0][2], _as_port(jg, tm.cfg), 1e-4, "gradient")
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_loss_and_gradients_match_jax_under_every_remat_policy(dt):
+    _check_loss_and_gradients(model_pair("qwen3-1.7b", dt))
 
 
 # (B, S, H, K, D, window): G = 1 and 2, a window, lengths that are not a
@@ -94,10 +110,10 @@ def test_attention_gradient_matches_jax(case):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=2e-5)
 
 
-def _jax_steps(jm, jp, batches, state=None):
+def _jax_steps(jm, jp, batches, state=None, compression=None):
     """The reference's train step over ``batches`` from ``state`` (default: a
     new AdamW state); returns (params, state, metrics of each step)."""
-    init, step = jax_train_step(jm, jopt.OptConfig(**OPT))
+    init, step = jax_train_step(jm, jopt.OptConfig(**OPT), compression)
     state, step, out = state or init(jp), jax.jit(step), []
     for tokens in batches:
         jp, state, metrics = step(jp, state, {"tokens": jnp.asarray(tokens)})
@@ -105,28 +121,117 @@ def _jax_steps(jm, jp, batches, state=None):
     return jp, state, out
 
 
-def test_five_training_steps_match_jax():
-    _, jcfg, jm, jp, tm, tp = model_pair("qwen3-1.7b", "float32")
+def _check_five_steps(pair, param_tol):
+    """Five train steps of the config's optimizer against the JAX package's:
+    the metrics (a MoE model's router losses too), then the parameters."""
+    _, jcfg, jm, jp, tm, tp = pair
     stream = JaxTokenStream(jcfg.vocab_size, 32, 8, seed=0)
     jp, _, jmet = _jax_steps(jm, jp, [next(stream) for _ in range(5)])
     init, step = make_train_step(tm, opt.OptConfig(**OPT))
     state, stream = init(tp), TokenStream(jcfg.vocab_size, 32, 8, seed=0)
+    names = (("loss", 1e-5), ("grad_norm", 1e-5), ("lr", 1e-6),
+             *((k, 1e-5) for k in (ROUTER if jcfg.moe else ())))
     for want in jmet:
         tp, state, metrics = step(tp, state, {"tokens": torch.from_numpy(next(stream))})
-        # the norm within the loss's 1e-5: an embedding gradient of -1.0e-8 here
-        # against -7.7e-9 in JAX (4e-8 x the leaf's max |g|) moves its first
-        # AdamW update by 4% (eps 1e-8), and step 5's norm by 1.9e-6 relative
-        for name, tol in (("loss", 1e-5), ("grad_norm", 1e-5), ("lr", 1e-6)):
+        for name, tol in names:
             np.testing.assert_allclose(float(metrics[name]), float(want[name]), rtol=tol)
     assert int(state.step) == 5
-    _close_leaves(dict(tree_items(tp)), _as_port(jp, tm.cfg), 1e-4, "after 5 steps", rel=False)
+    _close_leaves(dict(tree_items(tp)), _as_port(jp, tm.cfg), param_tol, "after 5 steps",
+                  rel=False)
+
+
+def test_five_training_steps_match_jax():
+    # the norm within the loss's 1e-5: an embedding gradient of -1.0e-8 here
+    # against -7.7e-9 in JAX (4e-8 x the leaf's max |g|) moves its first
+    # AdamW update by 4% (eps 1e-8), and step 5's norm by 1.9e-6 relative
+    _check_five_steps(model_pair("qwen3-1.7b", "float32"), 1e-4)
+
+
+def test_five_compressed_training_steps_match_jax(capsys):
+    """Five steps with int8 gradients and error feedback, the port's twice:
+    held (each step from the reference's state: its parameters, AdamW
+    moments and error tree through the bridge) and free (from its own).
+    int8 rounding is a step function: the frameworks' gradients differ by
+    ~1e-6 of a leaf's max, which moves a few entries across a rounding
+    boundary, by one quantum (1/127 of the row's max |g + e|), in the
+    gradient and in the error.  Where an entry's earlier gradients all
+    rounded to 0, AdamW's update for it is then 0 on one side and up to lr
+    on the other.  So, held, the loss, lr and grad norm hold step by step,
+    and the parameters within 1e-4 and the error within 1e-6 everywhere but
+    at those entries (at most 1e-3 of them a step), where the parameters
+    stay within 2 lr and the error within one quantum of its row (plus
+    1e-6).  Free, one step's flips move the next step's gradients, so the
+    gaps grow: the loss holds within 1e-5 and lr within 1e-6, the grad norm
+    within 1e-4 and the parameters within one lr; each free step's gaps
+    are printed (``pytest -s``)."""
+    _, jcfg, jm, jp, tm, tp = model_pair("qwen3-1.7b", "float32")
+    jinit, jstep = jax_train_step(jm, jopt.OptConfig(**OPT), JaxCompressor())
+    init, step = make_train_step(tm, opt.OptConfig(**OPT), GradientCompressor())
+    jstate, jstep, free = jinit(jp), jax.jit(jstep), (tp, init(tp))
+    jgrad = jax.jit(jax.grad(lambda p, b: jm.loss_fn(p, b)[0]))
+    stream, off = JaxTokenStream(jcfg.vocab_size, 32, 8, seed=0), []
+    for i in range(5):
+        tokens = next(stream)
+        (s, mu, nu), err = jstate
+        quanta = _as_port(jax.tree.map(lambda g, e: jnp.broadcast_to(jnp.maximum(
+            jnp.max(jnp.abs(g + e), -1, keepdims=True) / 127.0, 1e-12), g.shape) * (
+            g.size >= MIN_SIZE), jgrad(jp, {"tokens": jnp.asarray(tokens)}), err), tm.cfg)
+        tp, mu, nu, err = (from_jax_tree(jax.tree.map(np.asarray, t), tm.cfg)
+                           for t in (jp, mu, nu, err))
+        held = step(tp, (opt.AdamWState(torch.tensor(int(s), dtype=torch.int32), mu, nu), err),
+                    {"tokens": torch.from_numpy(tokens)})
+        free = step(*free[:2], {"tokens": torch.from_numpy(tokens)})
+        jp, jstate, want = jstep(jp, jstate, {"tokens": jnp.asarray(tokens)})
+        lr, theirs = float(want["lr"]), (_as_port(jp, tm.cfg), _as_port(jstate[1], tm.cfg))
+        for params, (_, error), metrics in (held, free):
+            rel = {k: abs(float(metrics[k]) - float(want[k])) / float(want[k])
+                   for k in ("loss", "grad_norm", "lr")}
+            assert rel["loss"] <= 1e-5 and rel["lr"] <= 1e-6, rel
+            assert rel["grad_norm"] <= (1e-4 if metrics is free[2] else 1e-5), rel
+            gaps = [[((t - w[path]).abs(), quanta[path]) for path, t in tree_items(got)]
+                    for got, w in zip((params, error), theirs, strict=True)]
+            worst, past = zip(*((max(float(d.max()) for d, _ in g), sum(
+                int((d > tol).sum()) for d, _ in g)) for g, tol in zip(gaps, (1e-4, 1e-6))))
+            if metrics is free[2]:
+                assert worst[0] <= lr
+                with capsys.disabled():
+                    print(f"\nfree step {i + 1}: loss {rel['loss']:.3g}, grad_norm "
+                          f"{rel['grad_norm']:.3g} relative; parameters max {worst[0]:.3g} "
+                          f"({worst[0] / lr:.3f} lr), {past[0]} past 1e-4; error max "
+                          f"{worst[1]:.3g}, {past[1]} past 1e-6")
+                continue
+            assert all(bool((d <= 2 * lr + 1e-4).all()) for d, _ in gaps[0])
+            assert all(bool((d <= q + 1e-6).all()) for d, q in gaps[1])
+            off += past
+    assert max(off) <= 1e-3 * sum(d.numel() for d, _ in gaps[1]), off  # held, at each step
+
+
+def test_compress_decompress_is_bit_equal_to_the_reference():
+    """Four error-feedback steps over float32 and bfloat16 leaves with rows
+    of very different scales and a row of zeros, and a leaf under
+    ``MIN_SIZE``, which passes through; then ``wire_bytes``."""
+    rng, mine, theirs = np.random.default_rng(7), GradientCompressor(), JaxCompressor()
+    for step in range(4):
+        g = [rng.normal(size=s) * rng.exponential(size=s[:-1] + (1,))
+             for s in ((64, 96), (3, 40, 128), (10,), (80, 64))]
+        g[1][1, 3] = 0.0
+        jg = [jnp.asarray(a, jnp.bfloat16 if i == 3 else jnp.float32) for i, a in enumerate(g)]
+        tg = [to_tensor(np.asarray(a)) for a in jg]
+        if not step:
+            err, jerr = mine.init_error(tg), theirs.init_error(jg)
+        want, jerr = theirs.compress_decompress(jg, jerr)
+        got, err = mine.compress_decompress(tg, err)  # in place
+        assert all(torch.equal(a, to_tensor(np.asarray(b))) for a, b in
+                   zip(got + err, want + jerr, strict=True))
+    assert mine.wire_bytes(got) == theirs.wire_bytes(want)
 
 
 def test_optimizer_pieces_match_jax():
     """lr_schedule over 32 steps, clip_by_global_norm below and above the
     norm, and one AdamW update, on seeded trees; adafloor is made by name
-    (``tests/test_torch_hybrid.py`` holds it), an unknown name and gradient
-    compression raise."""
+    (``tests/test_torch_hybrid.py`` holds it), an unknown name raises, and
+    with gradient compression the optimizer state carries a zero float32
+    error tree of the parameters' shapes."""
     cfg, jcfg, rng = opt.OptConfig(**OPT), jopt.OptConfig(**OPT), np.random.default_rng(3)
     np.testing.assert_allclose([float(opt.lr_schedule(cfg, s)) for s in range(32)],
                                [float(jopt.lr_schedule(jcfg, jnp.asarray(s))) for s in range(32)],
@@ -145,8 +250,10 @@ def test_optimizer_pieces_match_jax():
     assert opt.make_optimizer("adafloor")[0](p)[1]["b"][0].shape == (7,)
     with pytest.raises(ValueError, match="adafloor2"):
         opt.make_optimizer("adafloor2")
-    with pytest.raises(NotImplementedError, match="M11"):
-        make_train_step(Model(configs.reduced_config("qwen3-1.7b"), "cpu"), compression=object())
+    state, err = make_train_step(Model(configs.reduced_config("qwen3-1.7b"), "cpu"),
+                                 compression=GradientCompressor())[0](t[0])
+    assert int(state.step) == 0 and all(torch.equal(e, p * 0) for (_, e), (_, p) in zip(
+        tree_items(err), tree_items(t[0]), strict=True))
 
 
 def test_token_stream_matches_jax_and_round_trips():
@@ -199,16 +306,16 @@ def test_reference_checkpoint_restores_into_the_port(tmp_path):
     _restores_from_reference(tmp_path, model_pair("qwen3-1.7b", "float32"))
 
 
-def _cli_matches_reference(tmp_path, monkeypatch, arch, jcfg, tcfg, params):
-    """``launch.train --arch arch --device cpu`` on the configs (jcfg, tcfg),
-    the reference's weights ``params`` in both CLIs: ``--fail-at 6``
-    restores step 4 and ends bit-equal to the uninterrupted run; the losses
-    are the reference CLI's."""
+def _cli_matches_reference(tmp_path, monkeypatch, arch, jcfg, tcfg, params, extra=()):
+    """``launch.train --arch arch --device cpu`` (and ``extra`` flags) on the
+    configs (jcfg, tcfg), the reference's weights ``params`` in both CLIs:
+    ``--fail-at 6`` restores step 4 and ends bit-equal to the uninterrupted
+    run; the losses are the reference CLI's."""
     monkeypatch.setattr(repro.configs, "reduced_config", lambda name: jcfg)
     monkeypatch.setattr(configs, "reduced_config", lambda name: tcfg)
     monkeypatch.setattr(Model, "init", lambda self, seed: tree_map(torch.clone, params))
-    argv = ["--arch", arch, "--steps", "10", "--ckpt-every", "4", "--device", "cpu"]
-    want = jax_train([*argv[:6], "--ckpt-dir", str(tmp_path / "jax")])
+    argv = ["--arch", arch, "--steps", "10", "--ckpt-every", "4", *extra, "--device", "cpu"]
+    want = jax_train([*argv[:-2], "--ckpt-dir", str(tmp_path / "jax")])
     runs = [train([*argv, "--ckpt-dir", str(tmp_path / d), "--fail-at", f]) for d, f in
             (("a", "-1"), ("b", "6"))]
     assert runs[1]["report"].restarts == 1 and runs[1]["report"].restore_steps == [4]
@@ -224,6 +331,15 @@ def test_train_cli_restart_is_exact_and_matches_the_reference(tmp_path, monkeypa
     _cli_matches_reference(tmp_path, monkeypatch, "qwen3-1.7b", jcfg, tm.cfg, tp)
 
 
+def test_compressed_train_cli_restart_is_exact_and_matches_the_reference(tmp_path, monkeypatch):
+    """``--compress-grads``: the error tree is saved beside the optimizer
+    state and restored with it, so the failed run replays bit for bit."""
+    _, jcfg, _, _, tm, tp = model_pair("qwen3-1.7b", "float32")
+    _cli_matches_reference(tmp_path, monkeypatch, "qwen3-1.7b", jcfg, tm.cfg, tp,
+                           ["--compress-grads"])
+    assert any("opt__1__" in f.name for f in (tmp_path / "b").rglob("*.npy"))
+
+
 # the K2 backward takes head_dim 64 and 128, q_offset 0, CUDA tensors only,
 # and 8 queries over 5 keys only without a mask (causal or windowed, other
 # lengths are a q_offset continuation)
@@ -236,3 +352,45 @@ def test_k2_backward_refusals(D, q_offset, match, Sk, mask):
     with pytest.raises(ValueError, match=match):
         flash_attention_bwd_cuda(q, k, k, q, q, torch.zeros(1, 4, 8), q_offset=q_offset, **mask)
     assert flash_attention_bwd_cuda.launches == 0
+
+
+def test_reduced_heads_reach_the_training_kernels_on_zero_padded_copies(monkeypatch):
+    """K2's backward takes head_dim 64 and 128, K4's bfloat16 kernels P = 64
+    and N = 128: on the card a reduced model's heads (32; P 32, N 16) reach
+    them padded with zeros (``FlashAttentionFn``'s backward, ``ssd.widened``);
+    K2's forward takes head_dim 32 as it is.  With the plain versions as
+    stand-ins for the kernels (refusing any other shape), the outputs and
+    gradients equal the plain versions' on the unpadded tensors (float32
+    within 1e-6, bfloat16 to its rounding)."""
+    gen = torch.Generator().manual_seed(0)
+    attn = [torch.randn(2, 40, h, 32, generator=gen) for h in (4, 2, 2)]
+    scan = [torch.randn(2, 100, 4, 32, generator=gen).bfloat16(), torch.rand(2, 100, 4, generator=gen),
+            -torch.rand(4, generator=gen) - .5,
+            *(torch.randn(2, 100, 1, 16, generator=gen).bfloat16() for _ in "BC")]
+
+    def k2(q, k, v, out=None, dout=None, lse=None, **mask):  # K2's forward or backward
+        assert q.shape[-1] == (32 if dout is None else 64)
+        if dout is None:
+            return ref.flash_attention(q, k, v, **mask), None
+        live = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            return torch.autograd.grad(ref.flash_attention(*live, **mask), live, dout)
+
+    def k4(x, dt, A, Bm, C, s0=None, kernel=True):
+        assert (x.shape[3], Bm.shape[3]) == ((64, 128) if kernel else (32, 16))
+        return ref.ssd_scan(x, dt, A, Bm, C, chunk=64, initial_state=s0)
+
+    monkeypatch.setattr(fa, "flash_attention_cuda", k2)
+    monkeypatch.setattr(fa, "flash_attention_bwd_cuda", k2)
+    for run, plain, ins in (
+            (lambda *t: fa.FlashAttentionFn.apply(*t, True, None, None), ref.flash_attention, attn),
+            (lambda *t: ssd.widened(k4, *t)[0], lambda *t: k4(*t, kernel=False)[0], scan)):
+        dout, outs = torch.randn(ins[0].shape, generator=gen).to(ins[0].dtype), []
+        for f in (run, plain):
+            live = [t.clone().requires_grad_() for t in ins]
+            y = f(*live)
+            outs.append([y.detach(), *torch.autograd.grad(y, live, dout)])
+        for a, b in zip(*outs, strict=True):
+            tol = 1e-2 if b.dtype == torch.bfloat16 else 1e-6
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert float((a - b).float().abs().max()) <= tol * float(b.float().abs().max())

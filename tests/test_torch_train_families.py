@@ -11,10 +11,7 @@ alone is held to ``jax.grad`` through ``repro.kernels.ops.ssd_scan`` within
 to ``jax.grad`` through the reference's layer the same way.  The bf16 K4
 backward's chunk-parallel schedule, walked in numpy, is held to jax.grad
 within 2e-2 with the kernel's roundings and 1e-4 x max |g| without."""
-import dataclasses
-
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -22,43 +19,15 @@ from test_torch_engine import _one_torch_thread  # noqa: F401
 from test_torch_model import model_pair
 from test_torch_moe import _layer
 from test_torch_paged import _bf16
-from test_torch_train import OPT, _as_port, _close_leaves, _jax_steps, _loss_grads
+from test_torch_train import _check_five_steps, _check_loss_and_gradients, _close_leaves
 
 import repro.kernels.ops as jax_ops
-from repro.data.workloads import TokenStream as JaxTokenStream
 from repro.models import moe as jax_moe
-from repro_torch.data.workloads import TokenStream
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
 from repro_torch.models import moe
-from repro_torch.params import tree_items
-from repro_torch.training import optimizer as opt
-from repro_torch.training.train_loop import make_train_step
 
 FAMILIES = ("mamba2-2.7b", "qwen3-moe-30b-a3b")
-ROUTER = ("load_balance", "router_z")
-
-
-def _check_loss_and_gradients(pair):
-    """The loss, a MoE model's router losses and (float32) every gradient
-    against the JAX model's, equal under the three remat policies."""
-    dt, jcfg, jm, jp, tm, tp = pair
-    tokens = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 40)).astype(np.int32)
-    (jl, jmet), jg = jax.value_and_grad(jm.loss_fn, has_aux=True)(
-        jp, {"tokens": jnp.asarray(tokens)})
-    runs = [_loss_grads(dataclasses.replace(tm.cfg, remat_policy=r), tp, {"tokens": tokens})
-            for r in ("none", "minimal", "full")]
-    keys = {"ce", "ppl_log", "loss", *(ROUTER if jcfg.moe else ())}
-    for loss, metrics, grads in runs:
-        assert loss == runs[0][0] and set(metrics) == set(jmet) == keys
-        assert all(torch.equal(m, runs[0][1][k]) for k, m in metrics.items())
-        assert all(torch.equal(g, runs[0][2][k]) for k, g in grads.items())
-    tol = 1e-5 if dt == "float32" else 2e-2
-    for name in ("loss", *(ROUTER if jcfg.moe else ())):
-        want = float(jmet[name])
-        assert abs(float(runs[0][1][name].detach()) - want) <= tol * abs(want), name
-    if dt == "float32":
-        _close_leaves(runs[0][2], _as_port(jg, tm.cfg), 1e-4, "gradient")
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
@@ -74,25 +43,6 @@ def test_loss_gradients_and_router_losses_match_jax(arch, dt):
 # entry with sqrt(nu) ~ eps 1.4e-4, where every entry with sqrt(nu) > 100 eps
 # agrees within 1.1e-5
 PARAM_TOL = {"mamba2-2.7b": 1e-4, "qwen3-moe-30b-a3b": 2e-4}
-
-
-def _check_five_steps(pair, param_tol):
-    """Five train steps of the config's optimizer against the JAX package's:
-    the metrics (a MoE model's router losses too), then the parameters."""
-    _, jcfg, jm, jp, tm, tp = pair
-    stream = JaxTokenStream(jcfg.vocab_size, 32, 8, seed=0)
-    jp, _, jmet = _jax_steps(jm, jp, [next(stream) for _ in range(5)])
-    init, step = make_train_step(tm, opt.OptConfig(**OPT))
-    state, stream = init(tp), TokenStream(jcfg.vocab_size, 32, 8, seed=0)
-    names = (("loss", 1e-5), ("grad_norm", 1e-5), ("lr", 1e-6),
-             *((k, 1e-5) for k in (ROUTER if jcfg.moe else ())))
-    for want in jmet:
-        tp, state, metrics = step(tp, state, {"tokens": torch.from_numpy(next(stream))})
-        for name, tol in names:
-            np.testing.assert_allclose(float(metrics[name]), float(want[name]), rtol=tol)
-    assert int(state.step) == 5
-    _close_leaves(dict(tree_items(tp)), _as_port(jp, tm.cfg), param_tol, "after 5 steps",
-                  rel=False)
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
