@@ -182,7 +182,23 @@ Phases, each fatal on failure:
      (K4 launches a step equal, the loss gap, ms a step, peak), then
      ``compress_decompress`` alone over one step's gradients against its
      byte bound;
- 16. print the kernel table as one JSON line, then the result line.
+ 16. M11, distributed, after the quickstart and serve_cluster (no kernel
+     of its own: the context-parallel partials and the expert products are
+     plain PyTorch, as in the reference): (a) one rank over NCCL on a (1, 1)
+     data x model mesh, the full-width qwen3-moe-30b-a3b MoE layer (bf16,
+     seeded) on 8 x 5 verify tokens and a 4 x 512 prefill through
+     ``apply_moe`` under ``use_mesh`` (the expert-parallel path, counted;
+     no K1-K4 launch) against the layer without a mesh, bf16 2e-2 and
+     whether the bits are equal, each timed with the all-reduce alone; (b)
+     two ranks on the one card over gloo on a (1, 2) mesh (this script run
+     as ``--distributed-rank``): qwen3-1.7b's attention decode at full width
+     under context parallelism (256 of 512 slots a rank, a verify crossing
+     the ranks' boundary) against K1 on the whole cache, bf16 and fp32 at
+     TOL, the written slots equal, ``attention_decode`` under the mesh
+     against the layer without one, and the MoE layer with 64 experts a
+     rank against one rank, each timed beside K1 or the one-rank layer with
+     its all-reduces alone;
+ 17. print the kernel table as one JSON line, then the result line.
 Every serve of phases 4-8, and phase 9's qwen2.5-14b serve, runs twice on
 the same weights (phase 9 profiles only graphed serves and runs its other
 serves graphed only): eager (its lanes'
@@ -4468,6 +4484,239 @@ def compressed_phase(report: dict) -> dict:
     return launches
 
 
+DIST_MOE = "qwen3-moe-30b-a3b"  # one full-width MoE layer: d 2048, 128 experts top-8, f 768
+DIST_SHAPES = {"verify 8x5": (8, 5), "prefill 4x512": (4, 512)}
+CP_FILL = [40, 250, 253, 255, 300, 500, 7, 128]  # 253 + 5 crosses into the second rank's slots
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_moe(seed: int = 31):
+    """The full-width MoE layer in bf16 from a seeded init, and its inputs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(DIST_MOE)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = moe.init_moe(g, cfg, torch.bfloat16, "cuda")
+    xs = {k: torch.randn(B, S, cfg.d_model, generator=g, device="cuda").bfloat16()
+          for k, (B, S) in DIST_SHAPES.items()}
+    return cfg, p, xs
+
+
+@contextlib.contextmanager
+def counted_calls(module, name: str):
+    """Count the calls of ``module.name`` (the path a mesh selects)."""
+    fn, calls = getattr(module, name), []
+
+    def call(*args, **kw):
+        calls.append(name)
+        return fn(*args, **kw)
+
+    setattr(module, name, call)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def wall_ms(fn, iters: int = 20) -> float:
+    """Mean wall milliseconds a call, synchronised each time: across
+    processes over gloo the collectives wait on the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) / iters * 1e3
+
+
+def all_reduce_ms(mesh, *tensors) -> float:
+    """Wall ms of the all-reduces a call makes over "model" (tensors of its
+    shapes and types), on every rank together."""
+    import torch.distributed as dist
+
+    ts = [t.cuda() for t in tensors]
+    return wall_ms(lambda: [dist.all_reduce(t, group=mesh.get_group("model")) for t in ts])
+
+
+def distributed_phase(report: dict) -> None:
+    """M11 on the card.  (a) One rank over NCCL on a (1, 1) data x model
+    mesh: the full-width qwen3-moe MoE layer through ``apply_moe`` under
+    ``use_mesh`` (the expert-parallel path: every call counted, one real NCCL
+    all-reduce) against the same layer without a mesh, bf16 2e-2 and whether
+    the bits are equal, each timed, the all-reduce alone too; no K1-K4
+    launch on this path.  (b) Two ranks on the one card over gloo (NCCL
+    refuses two ranks on one device; gloo's CUDA all-reduce is all that
+    context-parallel decode and the MoE layer need): ``distributed_rank``."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe
+
+    res = report["distributed"] = {}
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = sharding.make_mesh((1, 1))
+        cfg, p, xs = dist_moe()
+        local = sharding.shard_params(p, sharding.param_axes({"moe": p})["moe"], mesh,
+                                      sharding.INFERENCE_RULES)
+
+        def ep(x):
+            with sharding.use_mesh(mesh):
+                return moe.apply_moe(local, cfg, x)
+
+        zero_counts()
+        with counted_calls(moe, "apply_moe_expert_parallel") as calls:
+            got = {k: ep(x) for k, x in xs.items()}
+        if len(calls) != len(xs) or any(read_counts().values()):
+            fail(f"distributed (a): {len(calls)} expert-parallel calls of {len(xs)}, "
+                 f"launches {read_counts()}")
+        for k, x in xs.items():
+            want = moe.apply_moe(p, cfg, x)
+            r = {"max_abs_err": check(f"EP MoE {k}", got[k], want, "bfloat16"),
+                 "bit_equal": bool(torch.equal(got[k], want)),
+                 "ms": timed(lambda i, x=x: ep(x), 20),
+                 "plain_ms": timed(lambda i, x=x: moe.apply_moe(p, cfg, x), 20),
+                 "all_reduce_ms": timed(lambda i: dist.all_reduce(
+                     got[k], group=mesh.get_group("model")), 50)}
+            r["all_reduce_share"] = r["all_reduce_ms"] / r["ms"]
+            res[f"(a) EP MoE {k}"] = r
+            print(f"distributed (a): qwen3-moe MoE layer {k}, 1 rank over NCCL: expert parallel "
+                  f"{r['ms']:.4f} ms, no mesh {r['plain_ms']:.4f} ms, all-reduce "
+                  f"{r['all_reduce_ms']:.4f} ms ({r['all_reduce_share']:.1%}); max abs err "
+                  f"{r['max_abs_err']:.3g}, bit-equal {r['bit_equal']}")
+    finally:
+        dist.destroy_process_group()
+    del p, local, xs, got
+    release()
+    run = tempfile.mkdtemp(prefix="m11-")
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--distributed-rank",
+                               str(r), run]) for r in range(2)]
+    try:
+        codes = [proc.wait(timeout=300) for proc in procs]
+    finally:
+        for proc in procs:
+            proc.kill()
+    if codes != [0, 0]:
+        fail(f"distributed (b): the two ranks exited {codes}")
+    res.update(json.loads((Path(run) / "rank0.json").read_text()))
+    for name, r in res.items():
+        if name.startswith("(b)"):
+            r["all_reduce_share"] = r["all_reduce_ms"] / r["ms"]
+            print(f"distributed {name}: " + ", ".join(f"{k} {v:.4g}" for k, v in r.items()))
+    report["distributed_s"] = time.perf_counter() - t0
+    print(f"distributed: the group took {report['distributed_s']:.1f} s")
+
+
+def distributed_rank(rank: int, run: str) -> None:
+    """One of (b)'s two ranks, both on the one card, over gloo on a (1, 2)
+    data x model mesh.  Context-parallel decode of qwen3-1.7b's attention at
+    full width (H 16, K 8, D 128, B 8, T 5, a 512-slot cache: 256 slots a
+    rank; CP_FILL, one verify crossing the ranks' boundary), bf16 and fp32:
+    the CP core against K1 on the whole cache after the same write (the
+    tolerances of TOL; the written slots equal), and ``attention_decode``
+    under the mesh against the layer without one (K1 inside); the qwen3-moe
+    layer with 64 experts a rank against the one-rank layer (bf16 2e-2).
+    Each timed beside K1 or the one-rank layer (rank 0 alone, the other
+    waiting).  Rank 0 writes rank0.json."""
+    import datetime
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, moe
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{run}/rendezvous", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=120))
+    mesh = sharding.make_mesh((1, 2))
+    j, res, acfg = mesh.get_coordinate()[1], {}, get_config("qwen3-1.7b")
+    H, K, D, B, T, S = acfg.n_heads, acfg.n_kv_heads, acfg.head_dim, 8, 5, 512
+    g = torch.Generator(device="cuda").manual_seed(41)
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        q, kn, vn = (torch.randn(B, T, n, D, generator=g, device="cuda").to(dtype)
+                     for n in (H, K, K))
+        clen = torch.tensor(CP_FILL, dtype=torch.int32, device="cuda")
+        slot = torch.arange(S, device="cuda")
+        whole = {"k": torch.randn(B, S, K, D, generator=g, device="cuda").to(dtype),
+                 "v": torch.randn(B, S, K, D, generator=g, device="cuda").to(dtype),
+                 "kv_pos": torch.where(slot < clen[:, None], slot, -1).int()}
+
+        def mine():
+            return {k: v[:, 256 * j:256 * (j + 1)].clone() for k, v in whole.items()}
+
+        def cp(cache):
+            with sharding.use_mesh(mesh):
+                return attention._decode_attention_cp(mesh, acfg, q, kn, vn, cache, clen)
+
+        cache, ref = mine(), {k: v.clone() for k, v in whole.items()}
+        got = cp(cache)
+        attention.write_cache(ref["k"], ref["v"], ref["kv_pos"], kn, vn, clen)
+        want = ops.decode_attention(q, ref["k"], ref["v"], clen + T, kv_positions=ref["kv_pos"])
+        if any(not torch.equal(cache[k], ref[k][:, 256 * j:256 * (j + 1)]) for k in cache):
+            fail(f"distributed (b): rank {rank}'s written slots differ from the whole write")
+        err = check(f"CP decode {dt}", got, want, dt)
+        p = attention.init_attention(g, acfg, dtype, "cuda")
+        x = torch.randn(B, T, acfg.d_model, generator=g, device="cuda").to(dtype)
+        with sharding.use_mesh(mesh):
+            layer = attention.attention_decode(p, acfg, x, mine(), clen)
+        check(f"CP attention_decode {dt}", layer, attention.attention_decode(
+            p, acfg, x, {k: v.clone() for k, v in whole.items()}, clen), dt)
+        r = {"max_abs_err": err, "ms": wall_ms(lambda: cp(cache)),  # the same writes again
+             "all_reduce_ms": all_reduce_ms(mesh, torch.zeros(B, K, H // K, T),
+                                            torch.zeros(B, K, H // K, T, D + 1))}
+        dist.barrier()
+        if rank == 0:
+            r["k1_ms"] = timed(lambda i: ops.decode_attention(
+                q, ref["k"], ref["v"], clen + T, kv_positions=ref["kv_pos"]), 50)
+        dist.barrier()
+        res[f"(b) CP decode {dt}"] = r
+    cfg, p, xs = dist_moe()
+    local = sharding.shard_params(p, sharding.param_axes({"moe": p})["moe"], mesh,
+                                  sharding.INFERENCE_RULES)
+    if local["wi"].shape[0] != 64:
+        fail(f"distributed (b): rank {rank} holds {local['wi'].shape[0]} experts, not 64")
+    for k, x in xs.items():
+        want = moe.apply_moe(p, cfg, x)  # one rank, no mesh
+        with sharding.use_mesh(mesh):
+            r = {"max_abs_err": check(f"EP MoE 2 ranks {k}", moe.apply_moe(local, cfg, x), want,
+                                      "bfloat16"),
+                 "ms": wall_ms(lambda x=x: moe.apply_moe(local, cfg, x)),
+                 "all_reduce_ms": all_reduce_ms(mesh, want)}
+        dist.barrier()
+        if rank == 0:
+            r["one_rank_ms"] = timed(lambda i, x=x: moe.apply_moe(p, cfg, x), 20)
+        dist.barrier()
+        res[f"(b) EP MoE 2 ranks {k}"] = r
+    if rank == 0:
+        (Path(run) / "rank0.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
 def release() -> None:
     """Free a finished phase's device memory before the next one measures its
     peak: the instrumented lane methods form reference cycles (closures over
@@ -4637,6 +4886,9 @@ def main() -> None:
     serve_cluster_phase(report)
     release()
     stamp("examples: kernels, quickstart and serve_cluster")
+    distributed_phase(report)
+    release()
+    stamp("distributed")
     train_timing = train_kernel_phase(report)
     release()
     ssd_bwd_timing = ssd_bwd_phase(report)
@@ -4818,4 +5070,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--distributed-rank"]:  # one of distributed_phase's two ranks
+        distributed_rank(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

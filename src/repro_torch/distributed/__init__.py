@@ -1,2 +1,9 @@
-"""Fault tolerance for training and gradient compression (a part of
-``repro.distributed``)."""
+"""Sharding rules, collectives, fault tolerance and gradient compression (a
+port of ``repro.distributed``)."""
+from repro_torch.distributed.sharding import (  # noqa: F401
+    DEFAULT_RULES,
+    logical_to_spec,
+    param_axes,
+    placements,
+    shard_params,
+)

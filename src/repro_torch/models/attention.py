@@ -10,6 +10,12 @@ Dense cache per attention layer: ``k``/``v`` (B, cap, K, D) and ``kv_pos``
 Slots are addressed ``pos % cap``.  Speculative rollback leaves stale slots
 behind; the positional mask makes them unreachable until overwritten.
 
+Under a mesh with a "model" axis larger than 1 (``distributed.use_mesh``)
+the dense or ring cache is sharded along its slots over that axis, as the
+reference's context-parallel decode shards it: each rank holds its data
+shard's rows and cap / n_model slots, and decode merges the ranks' partial
+attention with one log-sum-exp (``_decode_attention_cp``).
+
 Paged cache per attention layer: a global pool ``k``/``v`` (n_pages + 1, ps,
 K, D) shared by every row through (B, P) block tables.  The last page is a
 spare that absorbs the writes JAX drops (``mode="drop"``), so the scatter
@@ -19,8 +25,11 @@ from __future__ import annotations
 
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.collectives import context_parallel_decode_attention
+from repro_torch.distributed.sharding import current_mesh, data_shards, mesh_sizes
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rms_norm, rope
 
@@ -31,6 +40,18 @@ def cache_capacity(cfg, max_len):
     if cfg.sliding_window is not None:
         return min(max_len, cfg.sliding_window + SPEC_MARGIN)
     return max_len
+
+
+def local_cache_shape(cfg, batch, max_len):
+    """(rows, slots) of the dense cache a rank holds: under a mesh its data
+    shard's rows (pod x data) and its slots of the model axis.  Where either
+    does not divide, the reference falls back to GSPMD's layout of the whole
+    cache, which the port does not have: ValueError."""
+    sizes = (batch, data_shards()), (cache_capacity(cfg, max_len), _n_model())
+    for name, (size, n) in zip(("batch", "cache capacity"), sizes, strict=True):
+        if size % n:
+            raise ValueError(f"context-parallel decode: {name} {size} does not split into {n}")
+    return tuple(size // n for size, n in sizes)
 
 
 def init_attention(gen, cfg, dtype, device, cross=False):
@@ -178,13 +199,42 @@ def write_pages(pool_k, pool_v, k_new, v_new, block_tables, start_pos):
     pool_v.view(-1, K, D)[flat] = v_new.reshape(-1, K, D).to(pool_v.dtype)
 
 
+def _n_model():
+    return mesh_sizes(current_mesh() or {}).get("model", 1)
+
+
+def _cp_mesh():
+    """The active mesh, if its "model" axis is larger than 1."""
+    return current_mesh() if _n_model() > 1 else None
+
+
+def _decode_attention_cp(mesh, cfg, q, k_new, v_new, cache, cache_len):
+    """Context-parallel decode on this rank's slots [j S, (j + 1) S) of the
+    ring (j its model index, S = cap / n_model): the new K/V and positions
+    are written in place where their slot falls in its range (a verify's
+    tokens may straddle two ranks' ranges), then fp32 partial attention, the
+    window folded into the mask, merged over the model axis with one
+    log-sum-exp (``collectives.lse_merge``)."""
+    group = mesh.get_group("model")
+    S, T = cache["k"].shape[1], q.shape[1]
+    pos = cache_len[:, None].long() + torch.arange(T, device=q.device)
+    slot = pos % (S * dist.get_world_size(group)) - dist.get_rank(group) * S
+    b, t = ((slot >= 0) & (slot < S)).nonzero(as_tuple=True)
+    for key, new in (("k", k_new), ("v", v_new), ("kv_pos", pos)):
+        cache[key][b, slot[b, t]] = new[b, t].to(cache[key].dtype)
+    return context_parallel_decode_attention(q, cache["k"], cache["v"], cache["kv_pos"],
+                                             cache_len + T, "model", window=cfg.sliding_window)
+
+
 def attention_decode(p, cfg, x, cache,
                      cache_len, block_tables=None):
     """Decode T >= 1 new tokens; the layer's cache views are updated in place.
 
     ``cache`` = {"k", "v", "kv_pos"} of this layer, or its page pool {"k",
     "v"} with ``block_tables``; ``cache_len`` (B,) is the committed length
-    BEFORE these tokens, so query i sits at cache_len + i.
+    BEFORE these tokens, so query i sits at cache_len + i.  A dense cache
+    under a context-parallel mesh takes ``_decode_attention_cp``; a paged one
+    keeps K3, as in the reference.
     """
     T = x.shape[1]
     pos = cache_len[:, None].long() + torch.arange(T, device=x.device)[None, :]
@@ -196,6 +246,9 @@ def attention_decode(p, cfg, x, cache,
         out = ops.decode_attention_paged(q, cache["k"][:-1], cache["v"][:-1], cache_len + T,
                                          block_tables, window=cfg.sliding_window)
         return _project_out(p, out)
+    mesh = _cp_mesh()
+    if mesh is not None:
+        return _project_out(p, _decode_attention_cp(mesh, cfg, q, k, v, cache, cache_len))
     write_cache(cache["k"], cache["v"], cache["kv_pos"], k, v, cache_len)
     out = ops.decode_attention(q, cache["k"], cache["v"], cache_len + T,
                                kv_positions=cache["kv_pos"], window=cfg.sliding_window)

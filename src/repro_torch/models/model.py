@@ -94,10 +94,13 @@ class Model:
         """Zeroed decode cache; ``steps`` preallocates the SSM layers'
         per-token states for verify steps of up to that many tokens; an
         encoder-decoder's holds ``cross_len`` (default 1) memory slots, all
-        invalid."""
+        invalid.  Under a mesh it is this rank's shard: its data shard's rows
+        and its slots of a context-parallel attention cache
+        (``attention.local_cache_shape``)."""
+        batch, cap = attn.local_cache_shape(self.cfg, batch, max_len)
         cache = {"len": torch.zeros(batch, dtype=torch.int32, device=self.device)}
         if self.n_attn:
-            cache.update(self._attn_cache(batch, attn.cache_capacity(self.cfg, max_len), True))
+            cache.update(self._attn_cache(batch, cap, True))
         if self.cfg.is_encdec:
             cache.update(self._cross_cache(batch, cross_len or 1, True))
             cache["mem_len"] = torch.zeros(batch, dtype=torch.int32, device=self.device)

@@ -8,7 +8,9 @@ buffer of ``C`` slots an expert; an assignment ranked past ``C`` is dropped.
 The expert FFNs run as one batched product over all E experts, and each
 token sums its kept results over its k choices.  This is the reference's
 single-capacity-space formulation (``apply_moe_global``), which is what its
-``apply_moe`` computes without a mesh.
+``apply_moe`` computes without a mesh.  Under a mesh (``distributed.use_mesh``)
+the reference's two other layouts run: hierarchical (per data shard
+capacity) and expert parallel over the "model" axis.
 
 Capacity couples the rows of a call: ``C`` comes from every token of the
 call (idle decode rows, bucket padding and verify padding included), and
@@ -25,8 +27,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import current_mesh, data_shards, mesh_sizes
 from repro_torch.models.layers import dense_init
 
 
@@ -114,40 +118,86 @@ def expert_ffn(p, cfg, buf):
     return torch.bmm(h, p["wo"])
 
 
-def apply_moe(p, cfg, x, capacity_factor=1.25, losses=False):
-    """x (B, S, d) -> (B, S, d): route, dispatch into the (E, C, d) buffer,
-    the expert FFNs, combine; with ``losses`` (training) returns (out, the
-    router's losses).  The gradient reaches the router through the kept
-    assignments' weights and the experts through dispatch and combine; a
-    dropped assignment gets none."""
+def _moe(p, cfg, x, capacity_factor, losses=False, shards=1, lo=0, n_loc=None):
+    """Route x (B, S, d), dispatch, the expert FFNs, combine.  The T tokens
+    form ``shards`` groups of consecutive tokens, each with capacity(T /
+    shards) slots an expert (an assignment's group e * shards + s is sorted
+    and ranked on its own: the reference's hierarchical layout), and the
+    buffer holds only the experts [lo, lo + n_loc) (expert parallel: this
+    rank's), whose weights ``p`` holds; other assignments weigh 0."""
     B, S, d = x.shape
     T, E, K = B * S, cfg.moe.n_experts, cfg.moe.top_k
+    G, first = (n_loc or E) * shards, lo * shards  # the (expert, shard) groups computed here
+    C = capacity(T // shards, cfg, capacity_factor)
     tokens = x.reshape(T, d)
     top_w, top_e, *aux = route(p, cfg, tokens, losses)
-    C = capacity(T, cfg, capacity_factor)
     flat_e = top_e.reshape(-1)
+    if shards > 1:  # assignment i is token i // K's, in shard i // (K T / shards)
+        flat_e = flat_e * shards + torch.arange(T * K, device=x.device) // (T // shards * K)
     order, se, rank_c, keep = sort_rank(flat_e, C)
-    # dispatch: serving sends a dropped assignment to the spare row E * C,
-    # past the buffer, never onto a kept token's slot; training to a slot of
-    # its own that no kept assignment fills (its result weighs 0)
+    mine = keep if n_loc is None else keep & (se >= first) & (se < first + G)
+    # dispatch: serving sends a dropped assignment (or another rank's) to the
+    # spare row G * C, past the buffer, never onto a kept token's slot;
+    # training to a slot of its own that no kept assignment fills (its result
+    # weighs 0)
     if losses:
         dest = _distinct_slots(se, rank_c, keep, E, C)
-        buf = x.new_zeros((E * C, d))
     else:
-        dest = torch.where(keep, se * C + rank_c, E * C)
-        buf = x.new_zeros((E * C + 1, d))
+        dest = torch.where(mine, (se - first) * C + rank_c, G * C)
+    buf = x.new_zeros((G * C + (not losses), d))
     buf[dest] = tokens[order // K]
-    out_buf = expert_ffn(p, cfg, buf[:E * C].view(E, C, d)).view(E * C, d)
-    # combine: each assignment's rank back in token order, its result
-    # gathered (dropped ones weigh 0) and summed over the token's k choices
-    rank = torch.empty_like(rank_c)
-    rank[order] = rank_c
-    kept = rank < C
-    if losses:
-        slot = torch.empty_like(dest)
-        slot[order] = dest
-    else:
-        slot = torch.where(kept, flat_e * C + rank, 0)
-    w = (top_w.reshape(-1) * kept).to(x.dtype)
+    out_buf = expert_ffn(p, cfg, buf[:G * C].view(G // shards, shards * C, d)).view(G * C, d)
+    # combine: each assignment's slot back in token order, its result
+    # gathered (the others weigh 0) and summed over the token's k choices
+    slot, used = torch.empty_like(dest), torch.empty_like(mine)
+    slot[order], used[order] = dest, mine
+    if not losses:
+        slot = torch.where(used, slot, 0)
+    w = (top_w.reshape(-1) * used).to(x.dtype)
     out = (out_buf[slot] * w[:, None]).view(T, K, d).sum(1).reshape(B, S, d)
     return (out, *aux) if losses else out
+
+
+def apply_moe_hierarchical(p, cfg, x, capacity_factor=1.25):
+    """The reference's shard-local dispatch batched on one device: x's tokens
+    form data_shards() groups of consecutive tokens (one when they do not
+    divide), each with its own capacity; every expert's buffer holds the
+    groups' slots side by side."""
+    DS = data_shards()
+    return _moe(p, cfg, x, capacity_factor, shards=DS if x.shape[0] * x.shape[1] % DS == 0 else 1)
+
+
+def apply_moe_expert_parallel(p, cfg, x, capacity_factor=1.25):
+    """Expert parallelism over the active mesh's "model" axis (the
+    reference's ``apply_moe_shardmap``), run on every rank: x is this rank's
+    data shard's tokens, routed in fp32 and ranked with capacity(T_local);
+    the rank computes its E / n_model experts (``p``'s stacks hold those), or
+    where E < n_model its f / n_model columns of every expert, then one
+    all-reduce over "model" sums the ranks' results."""
+    n = mesh_sizes(current_mesh())["model"]
+    E, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
+    if E % n and (n % E or f % n):
+        raise ValueError(f"expert parallel: {E} experts of {f} columns do not split over "
+                         f"a {n}-way model axis")
+    group = current_mesh().get_group("model")
+    n_loc = E if E < n else E // n
+    out = _moe(p, cfg, x, capacity_factor, lo=0 if E < n else dist.get_rank(group) * n_loc,
+               n_loc=n_loc)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def apply_moe(p, cfg, x, capacity_factor=1.25, losses=False):
+    """x (B, S, d) -> (B, S, d); with ``losses`` (training) returns (out, the
+    router's losses).  The gradient reaches the router through the kept
+    assignments' weights and the experts through dispatch and combine; a
+    dropped assignment gets none.  Under a mesh (serving only), as the
+    reference's default dispatch: expert parallel when it has a "model"
+    axis, else hierarchical, where x is this rank's data shard, one shard of
+    that layout (``apply_moe_hierarchical`` holds them all on one device)."""
+    mesh = current_mesh()
+    if mesh is not None and losses:
+        raise ValueError("MoE training under a mesh is not ported (serving only)")
+    if mesh is not None and "model" in mesh_sizes(mesh):
+        return apply_moe_expert_parallel(p, cfg, x, capacity_factor)
+    return _moe(p, cfg, x, capacity_factor, losses)

@@ -52,6 +52,10 @@ class CostModel:
     dtype_bytes: int = 2
 
     @property
+    def n_params(self):
+        return self.cfg.n_params()
+
+    @property
     def n_active(self):
         return self.cfg.n_active_params()
 
@@ -88,15 +92,30 @@ class CostModel:
         n_ssm = self.cfg.n_layers - self._n_attn()
         return n_ssm * s.n_heads(self.cfg.d_model) * s.head_dim * s.d_state * 4
 
+    def _step_time(self, n, context):
+        """n tokens through the lane, attending to ``context`` positions:
+        compute or one weight stream, the lane's all-reduces, a dispatch."""
+        flops = 2.0 * self.n_active * n
+        heads = self.cfg.n_heads * self.cfg.head_dim
+        flops += 4.0 * self._n_attn() * n * max(context, 1) * heads / 2
+        t_memory = (self.n_active * self.dtype_bytes) / self.mem_rate
+        return (max(flops / self.flops_rate, t_memory) + self.tp_comm_time(n)
+                + self.hw.dispatch_overhead)
+
     def prefill_time(self, prompt_len, cached_tokens=0):
         """One prompt through the prefill lane (compute-bound)."""
         live = max(prompt_len - cached_tokens, 0)
-        flops = 2.0 * self.n_active * live
-        attn_heads = self.cfg.n_heads * self.cfg.head_dim
-        flops += 4.0 * self._n_attn() * live * max(live, 1) * attn_heads / 2
-        t_memory = (self.n_active * self.dtype_bytes) / self.mem_rate
-        return (max(flops / self.flops_rate, t_memory) + self.tp_comm_time(live)
-                + self.hw.dispatch_overhead)
+        return self._step_time(live, live)
+
+    def chunked_prefill_time(self, prompt_len, chunk, cached_tokens=0):
+        """Prefill as ceil(L / chunk) chunk steps: each streams the weights
+        again and attends to the prefix ingested so far plus itself, so
+        chunking costs a dispatch and a weight stream a chunk."""
+        live, chunk = max(prompt_len - cached_tokens, 0), max(chunk, 1)
+        total = 0.0  # in order: sum() compensates its rounding
+        for done in range(0, live, chunk):
+            total += self._step_time(min(chunk, live - done), min(done + chunk, live))
+        return total or self.hw.dispatch_overhead
 
     def decode_step_time(self, batch, mean_context, t_tokens=1):
         """One decode (or verify) iteration: weights once, KV and SSM state

@@ -10,6 +10,7 @@ start/call/stop timeouts, drain deadlines).
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_gateway.py
 """
+import asyncio
 import concurrent.futures
 import json
 import time
@@ -21,8 +22,10 @@ from test_torch_engine import _one_torch_thread, fp32_model  # noqa: F401
 
 import repro.api as jax_api
 import repro.gateway as jax_gateway
+import repro.gateway.client as jax_client
 from repro_torch.api import ServeConfig, StreamServe
 from repro_torch.gateway import GatewayThread
+from repro_torch.gateway import client as port_client
 from repro_torch.gateway.client import KeepAliveClient, SSEClient, completion_body, http_request
 from repro_torch.launch import serve as serve_cli
 
@@ -45,6 +48,7 @@ def gateways(fp32_model):
                                      arch_cfg=jcfg), thread_cls=jax_gateway.GatewayThread)
     port = _start(StreamServe(ServeConfig.reduced_smoke(**cfg), params=tparams, arch_cfg=tcfg,
                               device="cpu"))
+    jax["client"], port["client"] = jax_client, port_client
     yield jax, port
     for gw in (jax, port):
         gw["thread"].stop(timeout=TIMEOUT)
@@ -77,9 +81,13 @@ def _anon(obj, rid):
     return json.loads(json.dumps(obj).replace(json.dumps(rid), '"<id>"'))
 
 
-def _exchange(gw, method, path, body=None):
-    status, headers, raw = http_request(gw["host"], gw["port"], method, path, body,
-                                        timeout=TIMEOUT)
+def _exchange(gw, method, path, body=None, via_async=False):
+    if via_async:
+        status, headers, raw = asyncio.run(gw["client"].arequest(gw["host"], gw["port"], method,
+                                                                 path, body))
+    else:
+        status, headers, raw = http_request(gw["host"], gw["port"], method, path, body,
+                                            timeout=TIMEOUT)
     _drain(gw)
     return status, headers.get("content-type"), raw
 
@@ -103,7 +111,15 @@ def _reply(gw, kind, body):
         frames = _client(gw, body)[0]
         _drain(gw)
         return _anon(frames, frames[0]["id"])
-    status, ctype, raw = _exchange(gw, "POST", "/v1/completions", body)
+    if kind == "astream":  # asse_collect: its stamps in order, then its frames
+        got = asyncio.run(gw["client"].asse_collect(gw["host"], gw["port"], "/v1/completions",
+                                                    body))
+        _drain(gw)
+        times, t = got.pop("frame_times"), [got.pop(k) for k in ("t_submit", "t_first", "t_last")]
+        assert len(times) == len(got["frames"]) and times == sorted(times)
+        assert not times or t[0] <= t[1] == times[0] <= t[2] == times[-1]
+        return _anon(got, got["frames"][0]["id"]) if got["frames"] else got
+    status, ctype, raw = _exchange(gw, "POST", "/v1/completions", body, kind == "ajson")
     payload = json.loads(raw)
     return status, ctype, _anon(payload, payload.get("id"))
 
@@ -133,6 +149,20 @@ def test_single_requests_match_the_jax_gateway(gateways):
     for path in ("/healthz", "/metrics", "/nope"):
         assert _exchange(gateways[1], "GET", path) == _exchange(gateways[0], "GET", path), path
     assert b"streamserve_tokens_generated_total 27" in _exchange(gateways[1], "GET", "/metrics")[2]
+
+
+def test_async_clients_match_the_jax_gateway(gateways):
+    """arequest and asse_collect, each package's against its own gateway: a
+    buffered completion, a stream, a stream refused for its length."""
+    replies = []
+    for kind, body in (("ajson", completion_body(PROMPT[:7], 4, stream=False)),
+                       ("astream", completion_body(PROMPT, 5)),
+                       ("astream", completion_body(list(range(90)), 12))):
+        got, want = (_reply(gw, kind, body) for gw in gateways[::-1])
+        assert got == want, body
+        replies.append(got)
+    assert replies[0][0] == 200 and len(replies[1]["frames"]) == 5 and not replies[1]["error"]
+    assert replies[2]["status"] == 400 and "max_len" in replies[2]["terminal"]["error"]["message"]
 
 
 def test_keepalive_and_close(gw):

@@ -20,12 +20,13 @@ import repro.serving.simulator as jax_sim
 from repro.configs import get_config as jax_config
 from repro.data import workloads as jax_workloads
 from repro.serving.cost_model import TPU_V5E
+from repro.serving.cost_model import CostModel as JaxCostModel
 from repro.serving.kv_cache import KVCacheManager as JaxKV
 from repro_torch.api import ServeConfig
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.data import workloads
 from repro_torch.serving import simulator
-from repro_torch.serving.cost_model import H100_SXM, HardwareProfile
+from repro_torch.serving.cost_model import H100_SXM, CostModel, HardwareProfile
 from repro_torch.serving.kv_cache import KVCacheManager
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
@@ -85,6 +86,20 @@ def test_extend_sequence_is_all_or_nothing_as_in_the_reference():
         seen.append([kv.extend_sequence("b", 12), len(b.block_ids), b.n_tokens, kv.free_blocks,
                      kv.free_sequence("a"), kv.extend_sequence("b", 12), b.n_tokens])
     assert seen[0] == seen[1] == [False, 4, 9, 0, None, True, 21]
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_cost_model_counts_and_prices_chunked_prefill_as_the_reference(arch):
+    """``n_params`` and ``chunked_prefill_time`` against the reference's
+    CostModel on its profile, float for float (tests/test_chunked_prefill.py's
+    three cases among them: one chunk as long as the prompt is one-shot
+    prefill, 64 chunks pay 64 dispatches, an empty prompt one)."""
+    got, want = CostModel(get_config(arch), hw=TPU), JaxCostModel(jax_config(arch))
+    assert got.n_params == want.n_params
+    for args in ((512, 512), (512, 8), (0, 128), (1000, 96, 200), (5, 64), (4096, 1000, 900)):
+        assert got.chunked_prefill_time(*args) == want.chunked_prefill_time(*args), args
+    assert got.chunked_prefill_time(512, 512) == pytest.approx(got.prefill_time(512))
+    assert got.chunked_prefill_time(512, 8) >= 64 * TPU.dispatch_overhead
 
 
 @pytest.mark.parametrize("preset, overrides", [
