@@ -55,8 +55,8 @@ Phases, each fatal on failure:
      the serve shape, 2 and 4 chunks a block), check that bf16 takes the
      tensor-core kernel and fp32 the CUDA-core one, and time it; check 2
      full-width mamba2-2.7b layers on the card against the CPU (fp32: every
-     K4 launch on the CUDA-core kernel); serve mamba2-2.7b at full width (64
-     layers, d_model 2560), counting SSD-scan launches (every one on the
+     K4 launch on the CUDA-core kernel); serve mamba2-2.7b at full width (32
+     of its 64 layers, d_model 2560), counting SSD-scan launches (every one on the
      tensor-core kernel), and profile a burst, splitting device time between
      prefill and decode;
   9. the dense M9 models: hold K1, K2 and K3 at G = 5 (qwen2.5-14b), 9
@@ -65,9 +65,9 @@ Phases, each fatal on failure:
      window 4096), time each serve's shapes, and time the reference's padded
      query heads against the port's at a decode step; check 2 full-width
      layers of each on the card against the CPU (fp32, nonzero QKV biases);
-     serve qwen2.5-14b on the dense path (eager and graphed, a profiled
-     burst), starcoder2-7b paged (K3 at G = 9, prefix hits) and
-     h2o-danube-3-4b at max_len 8192 (long prompts wrap the ring, the window
+     serve qwen2.5-14b (24 of its 48 layers) on the dense path (eager and
+     graphed, a profiled burst), starcoder2-7b paged (K3 at G = 9, prefix
+     hits) and h2o-danube-3-4b (12 of its 24 layers) at max_len 8192 (long prompts wrap the ring, the window
      binds; a profiled burst);
  10. the MoE models: hold K1, K2 and K3 at G = 8 (qwen3-moe-30b-a3b) and,
      at D = 128 on mixtral-8x7b's wrapped 4128-slot ring under its window,
@@ -75,7 +75,7 @@ Phases, each fatal on failure:
      8 too); check 2 full-width qwen3-moe layers and 1 mixtral layer on the card
      against the CPU (fp32: each token's chosen experts and its keep mask
      at capacity identical, then the logits); with marker kernels and drop
-     counters in the MoE layer, serve qwen3-moe-30b-a3b at full width (24
+     counters in the MoE layer, serve qwen3-moe-30b-a3b at full width (12
      of 48 layers, 128 experts top-8) on the dense serve's path, graphed, with
      the share of assignments dropped at capacity and a profiled burst
      split into expert products, dispatch and combine, the other GEMMs, K1,
@@ -198,7 +198,21 @@ Phases, each fatal on failure:
      against the layer without one, and the MoE layer with 64 experts a
      rank against one rank, each timed beside K1 or the one-rank layer with
      its all-reduces alone;
- 17. print the kernel table as one JSON line, then the result line.
+ 17. M12, the dry run (after the distributed group): (a) full-width
+     qwen3-1.7b (28 layers, bf16) counted by ``launch.dryrun_lib`` on meta
+     and then run on the card under the same analyzer at a 4 x 2048 prefill
+     and an 8 x 5 verify over 512 slots: FLOPs, bytes and kernel calls equal,
+     argument bytes those of the real tensors; the predicted peak against
+     ``max_memory_allocated`` and the compute/memory roofline term against
+     the step's device ms, printed; K1, K2 and K4 at a rank's heads under a
+     2-way model axis checked and timed; (b), in phase 16's two gloo ranks:
+     one full-width qwen3-1.7b layer and one mamba2-2.7b layer (with their
+     vocab-parallel embedding and head) tensor parallel at model = 2 against
+     the layer without a mesh (fp32 1e-5; bf16 ``bf16_error``: against the
+     same layer in fp32, within 1.25x the no-mesh layer's largest and mean
+     error), in prefill and a verify, timed with their all-reduces; in phase 16 (a), the same layers
+     on one NCCL rank bit-equal to the layer without a mesh;
+ 18. print the kernel table as one JSON line, then the result line.
 Every serve of phases 4-8, and phase 9's qwen2.5-14b serve, runs twice on
 the same weights (phase 9 profiles only graphed serves and runs its other
 serves graphed only): eager (its lanes'
@@ -2001,7 +2015,7 @@ def ring_serve_phase(report: dict, arch="h2o-danube-3-4b", key="h2o", lens=H2O_L
     """A model with a window of 4096 at full width with max_len 8192, 2 pairs:
     each slot's ring holds 4128 positions (the window and a 32-token
     speculative margin), so prompts of 4500-6000 tokens wrap it and the
-    window binds on every step of theirs.  h2o-danube-3-4b (24 layers,
+    window binds on every step of theirs.  h2o-danube-3-4b (12 of 24 layers,
     d_model 3840, 32 heads over 8 KV heads of 120; 4 slots a pair, four long
     prompts and four short) and mixtral-8x7b (``n_layers`` 8 of 32, d_model
     4096, 8 experts top-2; 8 slots a pair, eight long prompts).  K2 on every
@@ -2051,10 +2065,13 @@ def ring_serve_phase(report: dict, arch="h2o-danube-3-4b", key="h2o", lens=H2O_L
 # each MoE model's attention heads (H, K, D): G = 8 (qwen3-moe) and 4
 # (mixtral, under its window of 4096 on the 4128-slot ring)
 MOE_HEADS = {"qwen3-moe-30b-a3b": (32, 4, 128), "mixtral-8x7b": (32, 8, 128)}
-# the MoE serves' depth, cut for the call's time limit (graph capture grows
-# with the layers): mixtral-8x7b at 8 of 32 layers (all 32, 93.4 GB of bf16
-# weights, exceed one card), qwen3-moe-30b-a3b at 24 of 48
-MIXTRAL_LAYERS, QWEN3_MOE_LAYERS = 8, 24
+# the serves' depth, cut for the call's time limit (eager steps and graph
+# capture grow with the layers): mixtral-8x7b at 8 of 32 layers (all 32,
+# 93.4 GB of bf16 weights, exceed one card), qwen3-moe-30b-a3b at 12 of 48,
+# mamba2-2.7b's serve at 32 of 64, qwen2.5-14b's at 24 of 48,
+# h2o-danube-3-4b's at 12 of 24 (llama2-7b's paper serve keeps all 32)
+MIXTRAL_LAYERS, QWEN3_MOE_LAYERS = 8, 12
+MAMBA_SERVE_LAYERS, QWEN25_SERVE_LAYERS, H2O_SERVE_LAYERS = 32, 24, 12
 MOE_NEW_TOKENS = 16
 # the mixtral serve's prompts: all eight past the window and the ring
 MIXTRAL_LENS = (4500, 5200, 6000, 4800, 5600, 4700, 5900, 5000)
@@ -2288,7 +2305,7 @@ def moe_profile(serve, report: dict, key: str, lens, seed=1) -> None:
 
 def moe_phase(report: dict) -> tuple:
     """The MoE serves on the card, with moe_probes() on (each model alone on
-    the card, released before the next): qwen3-moe-30b-a3b at full width (24
+    the card, released before the next): qwen3-moe-30b-a3b at full width (12
     of its 48 layers, 128 experts top-8) on the dense serve's
     path (2 pairs x 8 slots, max_len 512, 12 requests, 16 new tokens),
     graphed, and a profiled burst; a short sampled serve (4 requests, 8 new
@@ -2984,7 +3001,7 @@ def mamba_serve_phase(report: dict, params=None, graphed=True):
     from repro_torch.api import ServeConfig
 
     cfg = ServeConfig(arch="mamba2-2.7b", reduced=False, n_pairs=2, max_batch=8, max_len=512,
-                      max_new_tokens=16)
+                      max_new_tokens=16, n_layers=MAMBA_SERVE_LAYERS)
     t0 = time.perf_counter()
     serve = served(cfg, graphed, **({} if params is None else {"params": params}))
     torch.cuda.synchronize()
@@ -4603,6 +4620,13 @@ def distributed_phase(report: dict) -> None:
                   f"{r['ms']:.4f} ms, no mesh {r['plain_ms']:.4f} ms, all-reduce "
                   f"{r['all_reduce_ms']:.4f} ms ({r['all_reduce_share']:.1%}); max abs err "
                   f"{r['max_abs_err']:.3g}, bit-equal {r['bit_equal']}")
+        for arch in TP_ARCHS:  # M12: the tensor-parallel layers on one rank
+            for step, (got, want, _) in tp_layer(mesh, arch, "bfloat16")[0].items():
+                if not torch.equal(got, want):
+                    fail(f"distributed (a): {arch} {step} on one NCCL rank is not bit-equal "
+                         f"to the layer without a mesh")
+            print(f"distributed (a): {arch} layer on one NCCL rank: prefill and verify "
+                  f"bit-equal to the layer without a mesh")
     finally:
         dist.destroy_process_group()
     del p, local, xs, got
@@ -4620,7 +4644,8 @@ def distributed_phase(report: dict) -> None:
     res.update(json.loads((Path(run) / "rank0.json").read_text()))
     for name, r in res.items():
         if name.startswith("(b)"):
-            r["all_reduce_share"] = r["all_reduce_ms"] / r["ms"]
+            if "all_reduce_ms" in r:
+                r["all_reduce_share"] = r["all_reduce_ms"] / r["ms"]
             print(f"distributed {name}: " + ", ".join(f"{k} {v:.4g}" for k, v in r.items()))
     report["distributed_s"] = time.perf_counter() - t0
     print(f"distributed: the group took {report['distributed_s']:.1f} s")
@@ -4634,9 +4659,10 @@ def distributed_rank(rank: int, run: str) -> None:
     the CP core against K1 on the whole cache after the same write (the
     tolerances of TOL; the written slots equal), and ``attention_decode``
     under the mesh against the layer without one (K1 inside); the qwen3-moe
-    layer with 64 experts a rank against the one-rank layer (bf16 2e-2).
-    Each timed beside K1 or the one-rank layer (rank 0 alone, the other
-    waiting).  Rank 0 writes rank0.json."""
+    layer with 64 experts a rank against the one-rank layer (bf16 2e-2);
+    M12's tensor-parallel layers (``tp_layer``: fp32 within TP_TOL, bf16 by
+    ``bf16_error``).  Each timed beside K1 or the one-rank layer (rank 0
+    alone, the other waiting).  Rank 0 writes rank0.json."""
     import datetime
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -4712,9 +4738,205 @@ def distributed_rank(rank: int, run: str) -> None:
             r["one_rank_ms"] = timed(lambda i, x=x: moe.apply_moe(p, cfg, x), 20)
         dist.barrier()
         res[f"(b) EP MoE 2 ranks {k}"] = r
+    del p, local, xs
+    for arch in TP_ARCHS:
+        for dt in ("bfloat16", "float32"):
+            pairs, r = tp_layer(mesh, arch, dt, timed_rank=rank == 0)
+            for step, (got, want, exact) in pairs.items():
+                tag = f"TP {arch} {step} {dt}"
+                if exact is None:
+                    r[f"{step}_max_abs_err"] = check(tag, got, want, dt, TP_TOL)
+                else:
+                    r.update({f"{step}_{k}": v for k, v in bf16_error(
+                        tag, got, want, exact, get_config(arch).vocab_size).items()})
+            res[f"(b) TP {arch} {dt}"] = r
     if rank == 0:
         (Path(run) / "rank0.json").write_text(json.dumps(res))
     dist.destroy_process_group()
+
+
+TP_ARCHS = ("qwen3-1.7b", "mamba2-2.7b")
+TP_TOL = {"float32": 1e-5}  # bf16: bf16_error
+TP_SHAPES = {"prefill": (4, 2048), "verify": (4, 5)}
+
+
+def tp_layer(mesh, arch: str, dt: str, timed_rank=None, seed: int = 43):
+    """One full-width layer of ``arch`` (with its embedding and head) in dtype
+    dt: a 4 x 2048 prefill and a 4 x 5 verify on this rank's shards under
+    ``mesh`` (``shard_params`` under INFERENCE_RULES: tensor parallel where
+    its "model" axis is larger than 1), and the same without a mesh on the
+    whole weights.  Returns ({step: (logits under the mesh, without)}, and
+    K2/K4 launches under the mesh; with ``timed_rank`` set and a "model"
+    axis larger than 1, wall ms a call, the ms its collectives take and,
+    on the timed rank, the ms without a mesh)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=1, dtype=dt)
+    model = Model(cfg, "cuda")
+    params = model.init(seed)
+    local = sharding.shard_params(params, sharding.param_axes(params), mesh,
+                                  sharding.INFERENCE_RULES, cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = {k: torch.randint(0, cfg.vocab_size, s, generator=g, device="cuda", dtype=torch.int32)
+            for k, s in TP_SHAPES.items()}
+
+    def run(p):
+        logits, cache = model.prefill(p, {"tokens": toks["prefill"]}, 2560)
+        return {"prefill": logits, "verify": model.decode_step(p, cache, toks["verify"])}
+
+    with torch.no_grad():
+        want = run(params)
+        exact = {k: None for k in want}
+        if dt == "bfloat16":  # the same weights in float32, without a mesh
+            model = Model(dataclasses.replace(cfg, dtype="float32"), "cuda")
+            exact = run(torch.utils._pytree.tree_map(lambda t: t.float(), params))
+            model = Model(cfg, "cuda")
+        before = flash_attention_cuda.launches + ssd_scan_cuda.launches
+        with sharding.use_mesh(mesh):
+            got = run(local)
+        r = {"k2_k4_launches": flash_attention_cuda.launches + ssd_scan_cuda.launches - before}
+        if timed_rank is not None and sharding.mesh_sizes(mesh)["model"] > 1:
+            with sharding.use_mesh(mesh):
+                r["ms"] = wall_ms(lambda: run(local), 5)
+                r["collective_ms"] = collective_ms(lambda: run(local))
+            r["collective_share"] = r["collective_ms"] / r["ms"]
+            dist.barrier()
+            if timed_rank:
+                r["no_mesh_ms"] = wall_ms(lambda: run(params), 5)
+            dist.barrier()
+    return {k: (got[k], want[k], exact[k]) for k in got}, r
+
+
+def bf16_error(name: str, got, want, exact, vocab: int) -> dict:
+    """bf16 logits under tensor parallelism against the layer without a mesh:
+    the mesh rounds each rank's partial sum of a row-parallel product to
+    bf16 where the layer without one rounds their sum, so the two are a few
+    bf16 ulps apart (PERF.md §6) and each is as far from the same
+    layer in float32.  Fail unless the mesh's largest and mean error
+    against the float32 layer are within 1.25x those of the layer without a
+    mesh."""
+    errs = [(x[..., :vocab].float() - exact[..., :vocab]).abs() for x in (got, want)]
+    r = {"max_err": float(errs[0].max()), "no_mesh_max_err": float(errs[1].max()),
+         "mean_err": float(errs[0].mean()), "no_mesh_mean_err": float(errs[1].mean()),
+         "max_abs_diff": float((got - want)[..., :vocab].abs().max())}
+    if r["max_err"] > 1.25 * r["no_mesh_max_err"] or r["mean_err"] > 1.25 * r["no_mesh_mean_err"]:
+        fail(f"{name}: tensor parallel error against float32 {r}")
+    return r
+
+
+def collective_ms(fn) -> float:
+    """Wall ms that one call of ``fn`` spends in the tensor-parallel
+    collectives (``distributed.collectives``' all-reduces and all-gathers),
+    the device synchronised around each."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+
+    spent = [0.0]
+
+    class Timed:
+        def __getattr__(self, name):
+            fn_ = getattr(dist, name)
+            if name not in ("all_reduce", "all_gather_into_tensor"):
+                return fn_
+
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn_(*a, **kw)
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t
+                return out
+
+            return call
+
+    collectives.dist = Timed()
+    try:
+        fn()
+    finally:
+        collectives.dist = dist
+    return spent[0] * 1e3
+
+
+DRYRUN_CELLS = {"prefill 4x2048": ("prefill", 2048, 4, 0), "verify 8x5": ("decode", 512, 8, 4)}
+
+
+def dryrun_phase(report: dict) -> dict:
+    """M12 (a): full-width qwen3-1.7b (28 layers, bf16) at DRYRUN_CELLS,
+    counted by ``lower_cell`` on meta and run on the card under the same
+    analyzer: FLOPs, bytes and kernel calls must be equal, and the argument
+    bytes those of the real tensors.  Printed, not gated: the predicted peak
+    (temp + output) against ``max_memory_allocated`` over the step, and the
+    larger roofline term (H100 data-sheet constants) against the step's
+    device ms.  Then K1, K2 and K4 at the heads one rank holds under a 2-way
+    model axis (qwen3-1.7b's 8 and 4, mamba2-2.7b's 40), checked and timed;
+    returns those timings."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun_lib
+
+    res = report["dryrun"] = {}
+    t0 = time.perf_counter()
+    one = {"data": 1, "model": 1}
+    for name, (kind, S, B, spec) in DRYRUN_CELLS.items():
+        shape = ShapeConfig(name, kind, S, B)
+        meta = dryrun_lib.lower_cell("qwen3-1.7b", name, spec_tokens=spec, shape=shape, sizes=one)
+        seen = {}
+
+        def measure(step, seen=seen):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = step()
+            torch.cuda.synchronize()
+            seen["peak"] = torch.cuda.max_memory_allocated() - base
+            del out
+            seen["ms"] = timed(lambda i: step(), 5)
+
+        card = dryrun_lib.lower_cell("qwen3-1.7b", name, spec_tokens=spec, shape=shape,
+                                     sizes=one, device="cuda", after=measure)
+        for key in ("flops_per_device", "bytes_per_device", "kernels", "argument_bytes"):
+            if getattr(meta, key) != getattr(card, key):
+                fail(f"dry run {name}: {key} on meta {getattr(meta, key)} and on the card "
+                     f"{getattr(card, key)} differ")
+        terms = dryrun_lib.roofline_terms(card, one)
+        bound = max(terms["compute_s"], terms["memory_s"]) * 1e3
+        r = res[name] = {"flops": card.flops_per_device, "bytes": card.bytes_per_device,
+                         "kernels": card.kernels, "argument_bytes": card.argument_bytes,
+                         "predicted_peak_bytes": card.peak_memory_per_device,
+                         "measured_peak_bytes": seen["peak"], "predicted_ms": bound,
+                         "bound_by": max(("compute", "memory"),
+                                         key=lambda t: terms[t + "_s"]),
+                         "ms": seen["ms"], "roofline_share": bound / seen["ms"]}
+        print(f"dry run {name}: meta and card agree: {r['flops']:.4e} FLOPs, {r['bytes']:.4e} "
+              f"bytes, kernels {r['kernels']}, arguments {r['argument_bytes']} bytes; peak "
+              f"predicted {r['predicted_peak_bytes'] / 1e9:.3f} GB, measured "
+              f"{r['measured_peak_bytes'] / 1e9:.3f} GB; roofline {bound:.4f} ms "
+              f"({r['bound_by']}, data sheet) against {r['ms']:.4f} ms on the card: share "
+              f"{r['roofline_share']:.1%}")
+        release()
+    g = torch.Generator(device="cuda").manual_seed(44)
+    timing = {"flash_attention (TP rank, H = 8)": flash_timing(g, 4, 2048, 8, 4, 128),
+              "decode_attention (TP rank, H = 8)": decode_timing(g, 8, 5, 512, 8, 4, 128)}
+    timing["ssd_scan (TP rank, H = 40)"] = ssd_kernel_phase(report, [], 40, "dryrun_ssd")["train"]
+    for name, t in timing.items():
+        t.setdefault("max_abs_err", t.get("err"))
+        if t["library_ms"] is not None:
+            show_timing(name, t)
+    report["dryrun_s"] = time.perf_counter() - t0
+    print(f"dry run: the group took {report['dryrun_s']:.1f} s")
+    return timing
 
 
 def release() -> None:
@@ -4832,14 +5054,15 @@ def main() -> None:
         release()
     qwen25_launches, serve, w = twice(
         report, "qwen2.5-14b_serve",
-        lambda g, **w: serve_phase(report, graphed=g, arch="qwen2.5-14b", **w))
+        lambda g, **w: serve_phase(report, graphed=g, arch="qwen2.5-14b",
+                                   n_layers=QWEN25_SERVE_LAYERS, **w))
     profile_phase(serve, report, key="qwen2.5-14b_profile")
     del serve, w  # its 29.5 GB of weights: the next serves measure their peaks
     release()
     sc_launches, serve = paged_serve_phase(None, report, arch="starcoder2-7b")
     del serve
     release()
-    h2o_launches, serve = ring_serve_phase(report)
+    h2o_launches, serve = ring_serve_phase(report, n_layers=H2O_SERVE_LAYERS)
     profile_phase(serve, report, key="h2o_profile", lens=H2O_LENS, seed=14)
     del serve
     release()
@@ -4889,6 +5112,9 @@ def main() -> None:
     distributed_phase(report)
     release()
     stamp("distributed")
+    dryrun_timing = dryrun_phase(report)
+    release()
+    stamp("dry run")
     train_timing = train_kernel_phase(report)
     release()
     ssd_bwd_timing = ssd_bwd_phase(report)
@@ -5058,6 +5284,14 @@ def main() -> None:
             ("ssd_scan_bwd (train_resilient)", "ssd_bwd_wgmma_kernel, ssd_bwd_reduce4_kernel",
              resilient["ssd_scan_bwd"])):
         kernels.append(entry(name, kernel, example_timing[name], n))
+    # M12: K2 and K4 at a rank's heads from the tensor-parallel layers' runs
+    # (rank 0 of phase 16 (b), bf16 and fp32)
+    tp = {arch: sum(report["distributed"][f"(b) TP {arch} {dt}"]["k2_k4_launches"]
+                    for dt in ("bfloat16", "float32")) for arch in TP_ARCHS}
+    for name, kernel, n in (
+            ("flash_attention (TP rank, H = 8)", "flash_wgmma_kernel", tp["qwen3-1.7b"]),
+            ("ssd_scan (TP rank, H = 40)", "ssd_wgmma_kernel", tp["mamba2-2.7b"])):
+        kernels.append(entry(name, kernel, dryrun_timing[name], n))
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

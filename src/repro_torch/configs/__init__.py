@@ -12,7 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs.base import ArchConfig, FrontendConfig, MoEConfig, SSMConfig
+from repro_torch.configs.base import (SHAPES, ArchConfig, FrontendConfig, MoEConfig,
+                                      ShapeConfig, SSMConfig, shape_applicable)
 from repro_torch.configs.h2o_danube_3_4b import CONFIG as _danube
 from repro_torch.configs.internvl2_1b import CONFIG as _internvl2
 from repro_torch.configs.jamba_1_5_large_398b import CONFIG as _jamba
@@ -28,6 +29,10 @@ from repro_torch.configs.starcoder2_7b import CONFIG as _starcoder2
 ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [_mamba2, _qwen3, _qwen25, _starcoder2,
                                                     _danube, _internvl2, _jamba, _mixtral,
                                                     _qwen3moe, _seamless, _llama2]}
+# the ten architectures of the dry run (llama2-7b is the paper's own extra)
+ASSIGNED = ["mamba2-2.7b", "qwen3-1.7b", "qwen2.5-14b", "starcoder2-7b", "h2o-danube-3-4b",
+            "internvl2-1b", "jamba-1.5-large-398b", "mixtral-8x7b", "qwen3-moe-30b-a3b",
+            "seamless-m4t-large-v2"]
 
 
 def get_config(name):
@@ -66,5 +71,5 @@ def reduced_config(name):
     return dataclasses.replace(cfg, **kw)
 
 
-__all__ = ["ARCHS", "ArchConfig", "FrontendConfig", "MoEConfig", "SSMConfig", "get_config",
-           "reduced_config"]
+__all__ = ["ARCHS", "ASSIGNED", "SHAPES", "ArchConfig", "FrontendConfig", "MoEConfig",
+           "SSMConfig", "ShapeConfig", "get_config", "reduced_config", "shape_applicable"]

@@ -1,5 +1,5 @@
-"""Architecture configuration (a port of ``repro.configs.base`` without its
-dry-run shapes).
+"""Architecture configuration and the dry run's input shapes (a port of
+``repro.configs.base``).
 
 Every architecture is an :class:`ArchConfig`: pure frozen data with the same
 fields and defaults as the reference: dense attention+MLP decoders,
@@ -110,6 +110,12 @@ class ArchConfig:
         return -(-self.vocab_size // 256) * 256
 
     @property
+    def supports_long_context(self):
+        """Decode memory bounded in the context: an SSM or hybrid stack, or a
+        sliding window (``long_500k`` is skipped for the others)."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window is not None
+
+    @property
     def is_encdec(self):
         return self.n_encoder_layers > 0
 
@@ -162,3 +168,28 @@ class ArchConfig:
     def n_active_params(self):
         """Active parameters per token (MoE: only top_k experts count)."""
         return self._count_params(active_only=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+def shape_applicable(cfg, shape):
+    """Whether (arch, shape) is a runnable dry-run cell, and why not (every
+    architecture has a decode step, so that reason of the reference's never
+    applies)."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "pure full-attention arch: 500k decode KV is unbounded (see DESIGN.md)"
+    return True, ""

@@ -4,6 +4,5 @@ from repro_torch.distributed.sharding import (  # noqa: F401
     DEFAULT_RULES,
     logical_to_spec,
     param_axes,
-    placements,
     shard_params,
 )

@@ -7,7 +7,9 @@ group, never emulated.
   pod axis over 1/N of the bytes, all-gather inside the pod;
 * ring all-gather: n - 1 send/receive steps to the next rank;
 * the log-sum-exp merge of partial attention over a sequence-sharded KV
-  cache, and context-parallel decode attention on top of it.
+  cache, and context-parallel decode attention on top of it;
+* tensor parallelism on "model": the sum of a row-parallel product's
+  partial results and the gather of head- or vocab-sharded outputs.
 
 Each function runs on every rank of the mesh (:func:`use_mesh`), as the
 reference's run inside ``shard_map``.
@@ -17,11 +19,47 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import current_mesh, use_mesh
+from repro_torch.distributed.sharding import current_mesh, mesh_sizes, use_mesh
 
 
 def _group(axis):
     return current_mesh().get_group(axis)
+
+
+def model_rank():
+    """(n, j): the active mesh's "model" axis size and this rank's index on
+    it; (1, 0) without one."""
+    mesh = current_mesh()
+    if mesh is None or mesh_sizes(mesh).get("model", 1) == 1:
+        return 1, 0
+    group = _group("model")
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def model_split(local, whole):
+    """(n, j, sharded): ``model_rank``, and whether a weight dimension of
+    ``local`` entries is this rank's shard of one of ``whole`` (the layer
+    then runs tensor parallel) rather than whole.  Every layer decides its
+    layout here."""
+    n, j = model_rank()
+    return n, j, n > 1 and local < whole
+
+
+def model_sum(x, sharded):
+    """Sum a row-parallel product's partial results over "model", in place,
+    where its weight is a shard (``model_split``); x as it is otherwise."""
+    if sharded:
+        dist.all_reduce(x, group=_group("model"))
+    return x
+
+
+def model_gather(x, dim):
+    """All-gather over "model": the ranks' pieces of x, joined along ``dim``
+    in rank order."""
+    n = model_rank()[0]
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))  # gloo takes the pieces along dim 0
+    dist.all_gather_into_tensor(out, x.contiguous(), group=_group("model"))
+    return torch.cat(out.view(n, *x.shape).unbind(0), dim)
 
 
 def hierarchical_all_reduce(x, pod_axis, inner_axis):

@@ -12,21 +12,21 @@ tuple of mesh axes (major to minor), trailing ``None``s dropped, as JAX's
 ``data``   data parallelism, FSDP
 ``model``  experts, heads, mlp, vocab, and the decode KV cache's sequence
 
-:func:`use_mesh` is the port's ``with mesh:``: the context-parallel decode
-(``models.attention``) and the expert-parallel MoE (``models.moe``) run
-when a mesh is active.  Under a mesh every tensor a rank holds is its own
-shard: its data shard's rows of the activations and caches, its slots of a
-sequence-sharded cache, its slices of the expert stacks
-(:func:`shard_params`).
+:func:`use_mesh` is the port's ``with mesh:``.  Under a mesh every tensor a
+rank holds is its own shard (:func:`shard_params`, :func:`local_shape`): its
+data shard's rows of the activations and caches, its slots of a
+sequence-sharded cache, and under :data:`INFERENCE_RULES` its slices of the
+weights on "model" (heads, kv, mlp, vocab, experts, the Mamba2 inner
+channels); the layers run tensor parallel on those slices
+(``distributed.collectives``).
 
 Left out: the reference's ``P`` leaf class (the port's parameter dicts
 carry no axes; :func:`param_axes` gives them) and ``constraint``, a GSPMD
-layout hint inside the reference's model code, which an eager port whose
-kernels take plain tensors has no use for.  Without it, weights sharded on
-"heads" or "mlp" would need tensor-parallel layers, which the port does not
-have.  The reference's expert-parallel layout is what
-:data:`INFERENCE_RULES` gives a MoE layer's leaves; the rest stays whole on
-each rank.
+layout hint inside the reference's model code: the port's layers issue
+their collectives themselves.  Query heads the reference pads for its
+16-way model axis (``ArchConfig.padded_heads``) are split as the padded
+slots fall (:func:`head_range`): a rank holds the real heads among its
+slots.
 """
 from __future__ import annotations
 
@@ -133,17 +133,23 @@ def logical_to_spec(axes, mesh, rules=DEFAULT_RULES, shape=None):
     return tuple(out)
 
 
-def placements(spec, mesh):
-    """DTensor placements of a spec: ``Shard(d)`` on each mesh dimension
-    that tensor dimension d uses (a tuple entry over several, in mesh
-    order), ``Replicate()`` on the others."""
-    from torch.distributed.tensor import Replicate, Shard
+def batch_axes(batch):
+    """Logical axes of a batch's leaves (tensors or shapes): rows on "batch"."""
+    return {k: ("batch",) + (None,) * (len(getattr(v, "shape", v)) - 1) for k, v in batch.items()}
 
-    def dim(ax):
-        return next((d for d, e in enumerate(spec) if ax == e or isinstance(e, tuple) and ax in e),
-                    None)
 
-    return [Replicate() if dim(ax) is None else Shard(dim(ax)) for ax in mesh.mesh_dim_names]
+# logical axes of the port's flat decode cache (the reference's ``cache_axes``
+# for its keys): stacked leaves lead with their layer axis
+CACHE_AXES = {
+    "k": ("layer", "batch", "kv_seq", "kv", None), "v": ("layer", "batch", "kv_seq", "kv", None),
+    "kv_pos": ("layer", "batch", "kv_seq"), "conv": ("layer", "batch", None, "conv"),
+    "state": ("layer", "batch", "heads", None, None),
+    "conv_all": ("layer", "batch", None, None, "conv"),
+    "states_all": ("layer", "batch", None, "heads", None, None),
+    "cross_k": ("layer", "batch", None, "kv", None),
+    "cross_v": ("layer", "batch", None, "kv", None),
+    "len": ("batch",), "mem_len": ("batch",), "mem_pos": ("batch", None),
+}
 
 
 def _leaves(axes_tree):
@@ -162,18 +168,67 @@ def tree_specs(axes_tree, values_tree, mesh, rules=DEFAULT_RULES):
                                   zip(_leaves(axes_tree), values, strict=True)], spec)
 
 
-def shard_params(params, axes_tree, mesh, rules=None):
-    """This rank's shard of every leaf (plain tensors), under ``rules`` (the
-    active rules by default): each leaf, whole on every rank, goes through
-    ``distribute_tensor`` with its spec's placements, each rank taking its
-    own piece (no collective), and comes back as that piece."""
-    from torch.distributed.tensor import distribute_tensor
+def local_shape(shape, spec, sizes, coord=None):
+    """One rank's shard shape of a tensor of ``shape`` under ``spec``, from a
+    mapping of mesh sizes; with ``coord`` ({axis: index}) also where each
+    dimension's shard starts: (shape, starts)."""
+    out, starts = list(shape), [0] * len(shape)
+    for d, entry in enumerate(spec):
+        i, n = 0, 1
+        for ax in (entry,) if isinstance(entry, str) else entry or ():
+            i, n = i * sizes[ax] + (coord or {}).get(ax, 0), n * sizes[ax]
+        out[d] //= n
+        starts[d] = i * out[d]
+    return (tuple(out), starts) if coord is not None else tuple(out)
+
+
+def head_range(cfg, n, j):
+    """Query heads [h0, h1) of rank j of a "model" axis of n: the real heads
+    among the padded slots [j Hp / n, (j + 1) Hp / n) (every slot is real
+    where the reference pads nothing); all heads where the slots do not
+    split."""
+    Hp, Gp = cfg.padded_heads, cfg.padded_group
+    if n == 1 or Hp < n or Hp % n:
+        return 0, cfg.n_heads
+    G = cfg.n_heads // cfg.n_kv_heads
+
+    def real(s):  # real heads before slot s
+        return s // Gp * G + min(s % Gp, G)
+
+    return real(j * Hp // n), real((j + 1) * Hp // n)
+
+
+def shard_params(params, axes_tree, mesh, rules=None, cfg=None):
+    """This rank's shard of every leaf under ``rules`` (the active rules by
+    default): each leaf, whole on every rank, narrowed on each sharded
+    dimension to the piece of the rank's mesh coordinate (rank 0's for a
+    mapping of sizes; a copy where it is smaller, no collective); meta
+    tensors give meta shards.  With ``cfg``, the query heads of a config
+    whose heads the reference pads follow :func:`head_range`."""
+    sizes = mesh_sizes(mesh)
+    coord = dict(zip(sizes, [0] * len(sizes) if isinstance(mesh, dict)
+                     else mesh.get_coordinate(), strict=True))
+
+    def narrow(v, dims):
+        for d, (size, start) in enumerate(zip(*dims, strict=True)):
+            v = v.narrow(d, start, size)
+        return v
 
     def piece(v, spec):
-        return distribute_tensor(v, mesh, placements(spec, mesh), src_data_rank=None).to_local()
+        return narrow(v, local_shape(v.shape, spec, sizes, coord))
 
-    return pytree.tree_map(piece, params, tree_specs(axes_tree, params, mesh,
-                                                     rules or active_rules()))
+    out = pytree.tree_map(piece, params, tree_specs(axes_tree, params, mesh,
+                                                    rules or active_rules()))
+    if cfg is not None and cfg.padded_heads != cfg.n_heads:  # the padded slots' real heads
+        h0, h1 = head_range(cfg, sizes.get("model", 1), coord.get("model", 0))
+        for mine, whole in zip(out["layers"] + out.get("encoder", []),
+                               params["layers"] + params.get("encoder", []), strict=True):
+            for k in ("attn", "cross"):
+                for name, d in (("wq", 1), ("wo", 0), ("bq", 0)):
+                    if name in mine.get(k, ()):
+                        mine[k][name] = whole[k][name].narrow(d, h0, h1 - h0)
+    return pytree.tree_map(lambda v, w: v.clone() if v.numel() < w.numel() else v, out,
+                           params)
 
 
 _ATTN = {"wq": "embed heads -", "wk": "embed kv -", "wv": "embed kv -", "wo": "heads - embed",

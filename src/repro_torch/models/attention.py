@@ -14,7 +14,15 @@ Under a mesh with a "model" axis larger than 1 (``distributed.use_mesh``)
 the dense or ring cache is sharded along its slots over that axis, as the
 reference's context-parallel decode shards it: each rank holds its data
 shard's rows and cap / n_model slots, and decode merges the ranks' partial
-attention with one log-sum-exp (``_decode_attention_cp``).
+attention with one log-sum-exp (``_decode_attention_cp``).  With the
+weights sharded too (``shard_params`` under ``INFERENCE_RULES``) the layer
+is tensor parallel: ``wq`` holds this rank's query heads
+(``sharding.head_range``), ``wk``/``wv`` its KV heads or all of them where
+the spec holds them whole, ``wo`` is row parallel and summed over "model".
+Prefill runs K2 on the rank's heads and gathers the KV heads for the cache;
+decode gathers the new tokens' query heads (in the reference's padded slot
+order), runs the context-parallel decode over every head on the rank's
+slots and keeps its own heads for ``wo``.
 
 Paged cache per attention layer: a global pool ``k``/``v`` (n_pages + 1, ps,
 K, D) shared by every row through (B, P) block tables.  The last page is a
@@ -25,11 +33,11 @@ from __future__ import annotations
 
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.collectives import context_parallel_decode_attention
-from repro_torch.distributed.sharding import current_mesh, data_shards, mesh_sizes
+from repro_torch.distributed.collectives import (context_parallel_decode_attention,
+                                                 model_gather, model_rank, model_split, model_sum)
+from repro_torch.distributed.sharding import current_mesh, head_range, mesh_sizes
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rms_norm, rope
 
@@ -40,18 +48,6 @@ def cache_capacity(cfg, max_len):
     if cfg.sliding_window is not None:
         return min(max_len, cfg.sliding_window + SPEC_MARGIN)
     return max_len
-
-
-def local_cache_shape(cfg, batch, max_len):
-    """(rows, slots) of the dense cache a rank holds: under a mesh its data
-    shard's rows (pod x data) and its slots of the model axis.  Where either
-    does not divide, the reference falls back to GSPMD's layout of the whole
-    cache, which the port does not have: ValueError."""
-    sizes = (batch, data_shards()), (cache_capacity(cfg, max_len), _n_model())
-    for name, (size, n) in zip(("batch", "cache capacity"), sizes, strict=True):
-        if size % n:
-            raise ValueError(f"context-parallel decode: {name} {size} does not split into {n}")
-    return tuple(size // n for size, n in sizes)
 
 
 def init_attention(gen, cfg, dtype, device, cross=False):
@@ -98,9 +94,36 @@ def _project_kv(p, cfg, x):
     return k, v
 
 
-def _project_out(p, out):
+def _project_out(p, cfg, out):
     B, S, H, D = out.shape
-    return out.reshape(B, S, H * D) @ p["wo"].reshape(H * D, -1)
+    y = out.reshape(B, S, H * D) @ p["wo"].reshape(H * D, -1)
+    return model_sum(y, cfg is not None and model_split(H, cfg.n_heads)[2])
+
+
+def _heads(p, cfg):
+    """(h0, h1, kv whole): the query heads [h0, h1) this rank's ``wq``
+    holds, and whether they are a shard while ``wk``/``wv`` hold every KV
+    head (the layer then takes the KV heads its queries read).  Cross
+    attention may run with no config (``cfg`` None), and then on whole
+    weights."""
+    n, j, sharded = model_split(p["wq"].shape[1], cfg.n_heads if cfg else p["wq"].shape[1])
+    if not sharded:
+        return 0, p["wq"].shape[1], False
+    h0, h1 = head_range(cfg, n, j)
+    return h0, h1, not model_split(p["wk"].shape[1], cfg.n_kv_heads)[2]
+
+
+def _local_kv(cfg, k, v, h0, h1, whole):
+    """The KV heads that query heads [h0, h1) read, out of all of them
+    (``whole``; else k and v are theirs already)."""
+    if not whole:
+        return k, v
+    G = cfg.n_heads // cfg.n_kv_heads
+    k0, k1 = h0 // G, -(-h1 // G)
+    if k1 - k0 > 1 and (h0 % G or h1 % G):
+        raise ValueError(f"tensor parallel attention: query heads [{h0}, {h1}) do not group "
+                         f"over KV heads [{k0}, {k1})")
+    return k[:, :, k0:k1], v[:, :, k0:k1]
 
 
 def attention_full(p, cfg, x, positions, causal=True):
@@ -115,9 +138,9 @@ def attention_prefill(p, cfg, x, positions, causal=True):
     q = rope(_project_q(p, cfg, x), positions, cfg.rope_theta)
     k, v = _project_kv(p, cfg, x)
     k = rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=causal,
+    out = ops.flash_attention(q, *_local_kv(cfg, k, v, *_heads(p, cfg)), causal=causal,
                               window=cfg.sliding_window if causal else None)
-    return _project_out(p, out), (k, v)
+    return _project_out(p, cfg, out), (k, v)
 
 
 def cross_memory(p, cfg, enc_out):
@@ -133,11 +156,12 @@ def attention_cross(p, cfg, x, mem_k, mem_v, mem_len=None, mem_pos=None):
     decode pass ``mem_len`` and the slots ``mem_pos`` (B, M) marks valid
     (``dense_positions(mem_len, M)``, built once by the caller): K1."""
     q = _project_q(p, cfg, x)
+    mem_k, mem_v = _local_kv(cfg, mem_k, mem_v, *_heads(p, cfg))
     if mem_pos is None:
         out = ops.flash_attention(q, mem_k, mem_v, causal=False)
     else:
         out = ops.decode_attention(q, mem_k, mem_v, mem_len, kv_positions=mem_pos, causal=False)
-    return _project_out(p, out)
+    return _project_out(p, cfg, out)
 
 
 def write_cache(cache_k, cache_v, kv_pos, k_new, v_new, start_pos):
@@ -158,19 +182,21 @@ def write_cache(cache_k, cache_v, kv_pos, k_new, v_new, start_pos):
     kv_pos[rows, slots] = pos
 
 
-def prefill_fill_cache(k_new, v_new, lengths, cap, dtype):
-    """Decode cache from right-padded (bucketed) prefill K/V, as a gather.
+def prefill_fill_cache(k_new, v_new, lengths, cap, dtype, lo=0, n=None):
+    """Decode cache slots [lo, lo + n) (default all ``cap``) from
+    right-padded (bucketed) prefill K/V, as a gather.
 
     For slot j the winner is the LAST real position p < lengths with
     p % cap == j.  Padded positions never reach the cache: their slots keep
     kv_pos = -1, so bucketed prefill is invisible to every later decode step.
     """
     B, S, K, D = k_new.shape
-    j = torch.arange(cap, device=k_new.device)[None, :]
+    n = cap if n is None else n
+    j = torch.arange(lo, lo + n, device=k_new.device)[None, :]
     wrap = torch.div(lengths.long()[:, None] - 1 - j, cap, rounding_mode="floor")
     pos_win = j + cap * wrap.clamp_min(0)
     valid = wrap >= 0
-    idx = pos_win.clamp(0, S - 1)[:, :, None, None].expand(B, cap, K, D)
+    idx = pos_win.clamp(0, S - 1)[:, :, None, None].expand(B, n, K, D)
     m = valid[:, :, None, None]
     zero = torch.zeros((), dtype=dtype, device=k_new.device)
     ck = torch.where(m, torch.gather(k_new, 1, idx).to(dtype), zero)
@@ -199,31 +225,57 @@ def write_pages(pool_k, pool_v, k_new, v_new, block_tables, start_pos):
     pool_v.view(-1, K, D)[flat] = v_new.reshape(-1, K, D).to(pool_v.dtype)
 
 
-def _n_model():
-    return mesh_sizes(current_mesh() or {}).get("model", 1)
-
-
 def _cp_mesh():
     """The active mesh, if its "model" axis is larger than 1."""
-    return current_mesh() if _n_model() > 1 else None
+    mesh = current_mesh()
+    return mesh if mesh_sizes(mesh or {}).get("model", 1) > 1 else None
+
+
+def _write_held(cache, k_new, v_new, pos):
+    """Write the new tokens whose slot falls in this rank's range [0, S) of
+    its cache, in place, with no host sync: a token outside it repeats its
+    row's first held write (a row with none rewrites one slot's own value),
+    so every index is written with one value."""
+    n, j = model_rank()
+    S, T = cache["k"].shape[1], pos.shape[1]
+    slot = pos % (S * n) - j * S
+    held = (slot >= 0) & (slot < S)
+    src = torch.where(held, torch.arange(T, device=pos.device), held.int().argmax(1, True))
+    dst = slot.gather(1, src).clamp(0, S - 1)
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    keep = held.any(1)
+    for key, new in (("k", k_new), ("v", v_new), ("kv_pos", pos)):
+        c = cache[key]
+        val = new[rows, src].to(c.dtype)
+        c[rows, dst] = torch.where(keep.view(-1, *[1] * (val.dim() - 1)), val, c[rows, dst])
 
 
 def _decode_attention_cp(mesh, cfg, q, k_new, v_new, cache, cache_len):
     """Context-parallel decode on this rank's slots [j S, (j + 1) S) of the
-    ring (j its model index, S = cap / n_model): the new K/V and positions
-    are written in place where their slot falls in its range (a verify's
-    tokens may straddle two ranks' ranges), then fp32 partial attention, the
-    window folded into the mask, merged over the model axis with one
-    log-sum-exp (``collectives.lse_merge``)."""
-    group = mesh.get_group("model")
-    S, T = cache["k"].shape[1], q.shape[1]
+    ring (j its model index, S = cap / n_model): the new K/V (every KV head)
+    and positions are written in place where their slot falls in its range
+    (a verify's tokens may straddle two ranks' ranges), then fp32 partial
+    attention over every query head, the window folded into the mask,
+    merged over the model axis with one log-sum-exp
+    (``collectives.lse_merge``).  Query heads that are a shard (tensor
+    parallel) are gathered in the reference's padded slot order first, and
+    the rank's own kept after."""
+    T = q.shape[1]
     pos = cache_len[:, None].long() + torch.arange(T, device=q.device)
-    slot = pos % (S * dist.get_world_size(group)) - dist.get_rank(group) * S
-    b, t = ((slot >= 0) & (slot < S)).nonzero(as_tuple=True)
-    for key, new in (("k", k_new), ("v", v_new), ("kv_pos", pos)):
-        cache[key][b, slot[b, t]] = new[b, t].to(cache[key].dtype)
-    return context_parallel_decode_attention(q, cache["k"], cache["v"], cache["kv_pos"],
-                                             cache_len + T, "model", window=cfg.sliding_window)
+    _write_held(cache, k_new, v_new, pos)
+    h = q.shape[2]
+    n, j, sharded = model_split(h, cfg.n_heads)
+    if sharded:
+        m, Gp, G = cfg.padded_heads // n, cfg.padded_group, cfg.n_heads // cfg.n_kv_heads
+        real = torch.tensor([s for s in range(m) if (j * m + s) % Gp < G], device=q.device)
+        if h < m:
+            q = q.new_zeros((*q.shape[:2], m, q.shape[3])).index_copy_(2, real, q)
+        q = model_gather(q, 2)
+    out = context_parallel_decode_attention(q, cache["k"], cache["v"], cache["kv_pos"],
+                                            cache_len + T, "model", window=cfg.sliding_window)
+    if sharded:
+        out = out[:, :, j * m:(j + 1) * m].index_select(2, real)
+    return out
 
 
 def attention_decode(p, cfg, x, cache,
@@ -245,11 +297,13 @@ def attention_decode(p, cfg, x, cache,
         write_pages(cache["k"], cache["v"], k, v, block_tables, cache_len)
         out = ops.decode_attention_paged(q, cache["k"][:-1], cache["v"][:-1], cache_len + T,
                                          block_tables, window=cfg.sliding_window)
-        return _project_out(p, out)
+        return _project_out(p, cfg, out)
     mesh = _cp_mesh()
     if mesh is not None:
-        return _project_out(p, _decode_attention_cp(mesh, cfg, q, k, v, cache, cache_len))
+        if model_split(k.shape[2], cfg.n_kv_heads)[2]:  # the cache holds every KV head
+            k, v = model_gather(k, 2), model_gather(v, 2)
+        return _project_out(p, cfg, _decode_attention_cp(mesh, cfg, q, k, v, cache, cache_len))
     write_cache(cache["k"], cache["v"], cache["kv_pos"], k, v, cache_len)
     out = ops.decode_attention(q, cache["k"], cache["v"], cache_len + T,
                                kv_positions=cache["kv_pos"], window=cfg.sliding_window)
-    return _project_out(p, out)
+    return _project_out(p, cfg, out)

@@ -2,6 +2,12 @@
 
 Functions on tensors over a parameter dict.  Weights keep the JAX layout:
 a dense kernel is (in_dim, *out_dims), so ``x @ w.view(in_dim, -1)``.
+
+Under a mesh a layer takes this rank's weight shards (``shard_params``) and
+learns its layout from their shapes: the MLP's ``wi`` (and gate) column
+parallel on "mlp" and ``wo`` row parallel, summed over "model"; the
+embedding and the head vocab parallel (a masked lookup summed over
+"model"; logits gathered).  A dimension the spec holds whole is used whole.
 """
 from __future__ import annotations
 
@@ -11,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.collectives import model_gather, model_split, model_sum
 
 
 def dense_init(gen, in_dim, out_dims, dtype, device,
@@ -58,7 +65,7 @@ def init_mlp(gen, cfg, d_ff, dtype, device):
 def apply_mlp(p, cfg, x):
     h = x @ p["wi"]
     h = F.silu(x @ p["wg"]) * h if cfg.mlp_type == "swiglu" else F.gelu(h, approximate="tanh")
-    return h @ p["wo"]
+    return model_sum(h @ p["wo"], model_split(p["wo"].shape[0], cfg.d_ff)[2])
 
 
 def init_embedding(gen, cfg, dtype, device):
@@ -72,12 +79,25 @@ def init_embedding(gen, cfg, dtype, device):
     return out
 
 
-def embed_tokens(p, tokens):
-    return p["table"][tokens]
+def embed_tokens(p, tokens, vocab=None):
+    """The table's rows of ``tokens``; a table of fewer rows than ``vocab``
+    is this rank's vocab shard: the rows it holds, zeros for the others,
+    summed over "model"."""
+    table = p["table"]
+    V = table.shape[0]
+    _, j, sharded = model_split(V, vocab or V)
+    if not sharded:
+        return table[tokens]
+    idx = tokens - j * V
+    held = (idx >= 0) & (idx < V)
+    return model_sum(table[idx.clamp(0, V - 1)] * held[..., None].to(table.dtype), True)
 
 
 def unembed(p, x, tie, vocab_size=None):
-    logits = x @ p["table"].T if tie else x @ p["head"]
+    w = p["table"].T if tie else p["head"]
+    logits = x @ w
+    if vocab_size is not None and model_split(w.shape[1], -(-vocab_size // 256) * 256)[2]:
+        logits = model_gather(logits, -1)  # vocab parallel
     vp = logits.shape[-1]
     if vocab_size is not None and vocab_size < vp:
         # padded vocab columns are never sampled

@@ -36,6 +36,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.collectives import model_gather, model_split
+from repro_torch.distributed.sharding import (CACHE_AXES, DEFAULT_RULES, current_mesh,
+                                              local_shape, logical_to_spec, mesh_sizes)
 from repro_torch.kernels.decode_attention import dense_positions
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
@@ -60,7 +63,8 @@ class Model:
     def init(self, seed):
         """Random weights from a seeded generator on the model's device, with
         the distributions of ``repro``'s init (the numbers differ)."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = (None if self.device.type == "meta"  # shapes only: no numbers to draw
+               else torch.Generator(device=self.device).manual_seed(seed))
         cfg, dt, dev = self.cfg, self.dtype, self.device
         params = {
             "embedding": init_embedding(gen, cfg, dt, dev),
@@ -74,41 +78,47 @@ class Model:
             params["enc_norm"] = torch.ones(cfg.d_model, dtype=dt, device=dev)
         return params
 
-    def _attn_cache(self, batch, cap, fill):
-        cfg, dev = self.cfg, self.device
-        shape = (self.n_attn, batch, cap, cfg.n_kv_heads, cfg.head_dim)
-        make = torch.zeros if fill else torch.empty
-        return {"k": make(shape, dtype=self.dtype, device=dev),
-                "v": make(shape, dtype=self.dtype, device=dev),
-                "kv_pos": (torch.full(shape[:3], -1, dtype=torch.int32, device=dev) if fill
-                           else torch.empty(shape[:3], dtype=torch.int32, device=dev))}
+    def _layout(self, batch, cap, steps=0, cross_len=None):
+        """{key: (whole shape, dtype, fill value)} of the decode cache."""
+        cfg, dt, i32 = self.cfg, self.dtype, torch.int32
+        out = {"len": ((batch,), i32, 0)}
+        if self.n_attn:
+            kv = (self.n_attn, batch, cap, cfg.n_kv_heads, cfg.head_dim)
+            out.update(k=(kv, dt, 0), v=(kv, dt, 0), kv_pos=(kv[:3], i32, -1))
+        if cfg.is_encdec:
+            mem = (cfg.n_layers, batch, cross_len or 1, cfg.n_kv_heads, cfg.head_dim)
+            out.update(cross_k=(mem, dt, 0), cross_v=(mem, dt, 0), mem_len=((batch,), i32, 0),
+                       mem_pos=(mem[1:3], i32, -1))
+        if self.n_ssm:
+            out.update(ssm.mamba_cache_layout(cfg, self.n_ssm, batch, dt, steps))
+        return out
 
-    def _cross_cache(self, batch, mem, fill):
-        cfg, dev = self.cfg, self.device
-        make = torch.zeros if fill else torch.empty
-        shape = (cfg.n_layers, batch, mem, cfg.n_kv_heads, cfg.head_dim)
-        return {"cross_k": make(shape, dtype=self.dtype, device=dev),
-                "cross_v": make(shape, dtype=self.dtype, device=dev)}
+    def _make(self, layout, fill=True, rows=True):
+        """The cache tensors of a layout.  Under a mesh each is this rank's
+        shard by ``sharding.CACHE_AXES`` (``rows`` False: the batch given is
+        already the rank's rows): its data shard's rows where the batch
+        splits, its slots of a context-parallel attention cache, its KV or
+        SSM heads and conv channels where those split."""
+        mesh, out = current_mesh(), {}
+        for key, (shape, dtype, value) in layout.items():
+            if mesh is not None:
+                axes = tuple(a if rows or a != "batch" else None for a in CACHE_AXES[key])
+                whole, sizes = shape, mesh_sizes(mesh)
+                shape = local_shape(shape, logical_to_spec(axes, mesh, DEFAULT_RULES, shape), sizes)
+                if key == "k" and shape[2] == whole[2] and sizes.get("model", 1) > 1:
+                    raise ValueError(f"context-parallel decode: cache capacity {whole[2]} does "
+                                     f"not split into {sizes['model']}")
+            out[key] = (torch.full(shape, value, dtype=dtype, device=self.device) if fill
+                        else torch.empty(shape, dtype=dtype, device=self.device))
+        return out
 
     def init_cache(self, batch, max_len, steps=0, cross_len=None):
         """Zeroed decode cache; ``steps`` preallocates the SSM layers'
         per-token states for verify steps of up to that many tokens; an
         encoder-decoder's holds ``cross_len`` (default 1) memory slots, all
-        invalid.  Under a mesh it is this rank's shard: its data shard's rows
-        and its slots of a context-parallel attention cache
-        (``attention.local_cache_shape``)."""
-        batch, cap = attn.local_cache_shape(self.cfg, batch, max_len)
-        cache = {"len": torch.zeros(batch, dtype=torch.int32, device=self.device)}
-        if self.n_attn:
-            cache.update(self._attn_cache(batch, cap, True))
-        if self.cfg.is_encdec:
-            cache.update(self._cross_cache(batch, cross_len or 1, True))
-            cache["mem_len"] = torch.zeros(batch, dtype=torch.int32, device=self.device)
-            cache["mem_pos"] = dense_positions(cache["mem_len"], cross_len or 1)
-        if self.n_ssm:
-            cache.update(ssm.init_mamba_cache(self.cfg, self.n_ssm, batch, self.dtype,
-                                              self.device, steps))
-        return cache
+        invalid.  Under a mesh it is this rank's shard (``_make``)."""
+        return self._make(self._layout(batch, attn.cache_capacity(self.cfg, max_len), steps,
+                                       cross_len))
 
     def init_paged_cache(self, batch, n_pages, page_size, max_context):
         """Paged decode cache: zeroed per-layer page pools (plus the spare
@@ -131,7 +141,7 @@ class Model:
     def _embed_inputs(self, params, batch):
         """(x, n_prefix): the tokens' embeddings, behind a vision frontend's
         ``patches`` (n_prefix of them)."""
-        x = embed_tokens(params["embedding"], batch["tokens"])
+        x = embed_tokens(params["embedding"], batch["tokens"], self.cfg.padded_vocab)
         front = self.cfg.frontend
         if front is None or front.kind != "vision":
             return x, 0
@@ -217,16 +227,18 @@ class Model:
             raise ValueError("prefill of a stack with SSM layers needs every row "
                              "unpadded (lengths == S): the SSM state would absorb padding")
         cap = attn.cache_capacity(cfg, max_len)
+        enc_out = self._encode(params, batch["frames"]) if cfg.is_encdec else None
+        layout = self._layout(B, cap, cross_len=enc_out.shape[1] if cfg.is_encdec else None)
         # a copy: decode grows the cache's len in place, never the caller's lengths
         cache = {"len": lengths.to(torch.int32, copy=True)}
-        if self.n_attn:
-            cache.update(self._attn_cache(B, cap, False))
-        if self.n_ssm:
-            cache.update(ssm.init_mamba_cache(cfg, self.n_ssm, B, self.dtype, self.device))
+        cache.update(self._make({k: v for k, v in layout.items()
+                                 if k not in ("len", "mem_len", "mem_pos")}, False, False))
         if cfg.is_encdec:
-            enc_out = self._encode(params, batch["frames"])
-            cache.update(self._cross_cache(B, enc_out.shape[1], False))
             cache["mem_len"], cache["mem_pos"] = self._memory(enc_out)
+        if self.n_attn:  # this rank's slots of a context-parallel cache
+            n = cache["kv_pos"].shape[-1]
+            _, j, split = model_split(n, cap)
+            lo = j * n if split else 0
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         for layer, j in zip(params["layers"], self._slot, strict=True):
             mem = None
@@ -235,9 +247,11 @@ class Model:
                                                                              enc_out)
                 mem = self._mem_view(cache, j)
             x, new = tfm.block_prefill(layer, cfg, x, positions, mem)
-            if "attn" in layer:
+            if "attn" in layer:  # the cache holds every KV head
+                k, v = (model_gather(t, 2) if model_split(t.shape[2], cfg.n_kv_heads)[2] else t
+                        for t in new)
                 cache["k"][j], cache["v"][j], cache["kv_pos"][j] = attn.prefill_fill_cache(
-                    *new, lengths, cap, self.dtype)
+                    k, v, lengths, cap, self.dtype, lo, n)
             else:
                 cache["conv"][j], cache["state"][j] = new
         idx = (lengths.long() - 1).clamp(0, S - 1)
@@ -252,11 +266,9 @@ class Model:
         cache has fewer than T positions for them)."""
         T = tokens.shape[1]
         if self.n_ssm and ("states_all" not in cache or cache["states_all"].shape[2] < T):
-            B = tokens.shape[0]
-            cache.update({k: v for k, v in ssm.init_mamba_cache(
-                self.cfg, self.n_ssm, B, self.dtype, self.device, T).items()
-                if k in ssm.STEP_KEYS})
-        x = embed_tokens(params["embedding"], tokens)
+            layout = ssm.mamba_cache_layout(self.cfg, self.n_ssm, tokens.shape[0], self.dtype, T)
+            cache.update(self._make({k: layout[k] for k in ssm.STEP_KEYS}, rows=False))
+        x = embed_tokens(params["embedding"], tokens, self.cfg.padded_vocab)
         for layer, j in zip(params["layers"], self._slot, strict=True):
             names = _ATTN_KEYS if "attn" in layer else ssm.CACHE_KEYS + ssm.STEP_KEYS
             view = {name: cache[name][j] for name in names if name in cache}

@@ -7,12 +7,22 @@ keeps the state and the conv window after EVERY verified token
 (``states_all``, ``conv_all``) and ``Model.commit_cache`` selects the one at
 the accepted index.  Unlike the JAX package, the port writes them into
 preallocated cache tensors in place.
+
+Under a mesh the layer takes this rank's shards (``shard_params`` under
+``INFERENCE_RULES``): ``in_z``, ``norm`` and ``out_proj`` on "inner",
+``in_xbc`` and the conv on "conv" (a contiguous slice of the x | B | C
+channels), ``in_dt``, ``A_log``, ``D``, ``dt_bias`` and the state on "heads".
+The depthwise conv runs on the rank's channels (its cache holds their raw
+window), one all-gather over "model" joins them, and the rank takes its
+heads' x and the shared B and C groups; the gated RMSNorm sums its squares
+over "model" and ``out_proj`` is row parallel, summed over "model".
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import model_gather, model_split, model_sum
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rms_norm
 
@@ -58,21 +68,34 @@ def _conv(window, w, b, T):
 
 def _ssd_inputs(cfg, xBC, dt_raw, A_log, dt_bias):
     """Split the conv output into x (…, H, P), B and C (…, G, N) views, and
-    dt = softplus(dt_raw + dt_bias), A = -exp(A_log) in float32."""
-    s, d_in, nh, _ = _dims(cfg)
+    dt = softplus(dt_raw + dt_bias), A = -exp(A_log) in float32.  Under
+    tensor parallelism xBC holds this rank's channels: gathered over
+    "model", x keeps the rank's heads (as many as ``A_log`` holds)."""
+    s, d_in, nh, conv_ch = _dims(cfg)
     gn = s.n_groups * s.d_state
-    shp = xBC.shape[:-1]
-    x = xBC[..., :d_in].reshape(*shp, nh, s.head_dim)
+    if model_split(xBC.shape[-1], conv_ch)[2]:
+        xBC = model_gather(xBC, -1)
+    shp, h = xBC.shape[:-1], A_log.shape[0]
+    _, j, sharded = model_split(h, nh)
+    lo = j * h * s.head_dim if sharded else 0
+    x = xBC[..., lo:lo + h * s.head_dim].reshape(*shp, h, s.head_dim)
     Bm = xBC[..., d_in:d_in + gn].reshape(*shp, s.n_groups, s.d_state)
     C = xBC[..., d_in + gn:].reshape(*shp, s.n_groups, s.d_state)
     return x, F.softplus(dt_raw.float() + dt_bias), -torch.exp(A_log), Bm, C
 
 
 def _out(p, cfg, y, x, z):
-    """Skip term, gate, norm and the output projection."""
-    y = y + x * p["D"].to(y.dtype)[:, None]
-    y = rms_norm(y.reshape(*y.shape[:2], -1) * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    """Skip term, gate, norm and the output projection; on a shard of the
+    inner channels the norm's sum of squares and the product are summed
+    over "model"."""
+    y = (y + x * p["D"].to(y.dtype)[:, None]).reshape(*y.shape[:2], -1) * F.silu(z)
+    d_in = cfg.ssm.d_inner(cfg.d_model)
+    if not model_split(y.shape[-1], d_in)[2]:
+        return rms_norm(y, p["norm"], cfg.norm_eps) @ p["out_proj"]
+    yf = y.float()
+    var = model_sum(yf.square().sum(-1, keepdim=True), True) / d_in
+    y = (yf * torch.rsqrt(var + cfg.norm_eps) * p["norm"].float()).to(y.dtype)
+    return model_sum(y @ p["out_proj"], True)
 
 
 def _full(p, cfg, h):
@@ -125,16 +148,16 @@ def mamba_decode(p, cfg, h, cache):
     return _out(p, cfg, torch.stack(ys, 1), x, z)
 
 
-def init_mamba_cache(cfg, n_layers, batch, dtype, device, steps=0):
-    """Zeroed per-slot SSM cache stacked over ``n_layers`` (plus the per-step
-    ``states_all`` / ``conv_all`` for ``steps`` decode positions when > 0)."""
+def mamba_cache_layout(cfg, n_layers, batch, dtype, steps=0):
+    """{key: (shape, dtype, fill)} of the per-slot SSM cache stacked over
+    ``n_layers``, plus the per-step ``states_all`` / ``conv_all`` for
+    ``steps`` decode positions when > 0 (``Model._make`` allocates it)."""
     s, _, nh, conv_ch = _dims(cfg)
     conv = (n_layers, batch, s.d_conv - 1, conv_ch)
     state = (n_layers, batch, nh, s.head_dim, s.d_state)
-    cache = {"conv": torch.zeros(conv, dtype=dtype, device=device),
-             "state": torch.zeros(state, device=device)}
+    out = {"conv": (conv, dtype, 0), "state": (state, torch.float32, 0)}
     if steps:
-        cache["states_all"] = torch.zeros((*state[:2], steps, *state[2:]), device=device)
-        cache["conv_all"] = torch.zeros((*conv[:2], steps, *conv[2:]), dtype=dtype,
-                                        device=device)
-    return cache
+        out["states_all"] = ((*state[:2], steps, *state[2:]), torch.float32, 0)
+        out["conv_all"] = ((*conv[:2], steps, *conv[2:]), dtype, 0)
+    return out
+

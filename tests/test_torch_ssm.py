@@ -172,8 +172,8 @@ def test_mamba_layer_prefill_and_decode_match_reference(models):
     for got, want in ((out, jout), (conv, jc["conv"]), (state, jc["state"])):
         _close(got, want, dt)
     jout, jc = jax_ssm.mamba_decode(jp, jcfg, jnp.asarray(h[:, 33:]), jc)
-    cache = ssm.init_mamba_cache(tm.cfg, 1, 2, torch.float32, "cpu", steps=4)
-    cache = {k: v[0] for k, v in cache.items()}
+    cache = {k: torch.zeros(shape, dtype=dtype)[0] for k, (shape, dtype, _) in
+             ssm.mamba_cache_layout(tm.cfg, 1, 2, torch.float32, steps=4).items()}
     cache["conv"].copy_(conv)
     cache["state"].copy_(state)
     _close(ssm.mamba_decode(p, tm.cfg, torch.from_numpy(h[:, 33:]), cache), jout, dt)
