@@ -75,12 +75,12 @@ Phases, each fatal on failure:
      8 too); check 2 full-width qwen3-moe layers and 1 mixtral layer on the card
      against the CPU (fp32: each token's chosen experts and its keep mask
      at capacity identical, then the logits); with marker kernels and drop
-     counters in the MoE layer, serve qwen3-moe-30b-a3b at full width (12
+     counters in the MoE layer, serve qwen3-moe-30b-a3b at full width (8
      of 48 layers, 128 experts top-8) on the dense serve's path, graphed, with
      the share of assignments dropped at capacity and a profiled burst
      split into expert products, dispatch and combine, the other GEMMs, K1,
      K2 and the rest; a short sampled serve eager and graphed, token for
-     token; and mixtral-8x7b at full width and 8 of its 32 layers at
+     token; and mixtral-8x7b at full width and 4 of its 32 layers at
      max_len 8192 (8 prompts of 4500-6000 tokens wrap the ring), graphed,
      with the same numbers and a profiled burst;
  11. the encoder-decoder and the vision-prefix model: hold K1 not causal
@@ -230,6 +230,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2015,9 +2016,9 @@ def ring_serve_phase(report: dict, arch="h2o-danube-3-4b", key="h2o", lens=H2O_L
     """A model with a window of 4096 at full width with max_len 8192, 2 pairs:
     each slot's ring holds 4128 positions (the window and a 32-token
     speculative margin), so prompts of 4500-6000 tokens wrap it and the
-    window binds on every step of theirs.  h2o-danube-3-4b (12 of 24 layers,
-    d_model 3840, 32 heads over 8 KV heads of 120; 4 slots a pair, four long
-    prompts and four short) and mixtral-8x7b (``n_layers`` 8 of 32, d_model
+    window binds on every step of theirs.  h2o-danube-3-4b (``n_layers``, 12 of
+    24, d_model 3840, 32 heads over 8 KV heads of 120; 4 slots a pair, four long
+    prompts and four short) and mixtral-8x7b (``n_layers`` 4 of 32, d_model
     4096, 8 experts top-2; 8 slots a pair, eight long prompts).  K2 on every
     prefill (the long ones at the 8192 bucket, under the window), K1 on every
     decode and verify, all on the tensor-core kernels; graphed."""
@@ -2066,11 +2067,13 @@ def ring_serve_phase(report: dict, arch="h2o-danube-3-4b", key="h2o", lens=H2O_L
 # (mixtral, under its window of 4096 on the 4128-slot ring)
 MOE_HEADS = {"qwen3-moe-30b-a3b": (32, 4, 128), "mixtral-8x7b": (32, 8, 128)}
 # the serves' depth, cut for the call's time limit (eager steps and graph
-# capture grow with the layers): mixtral-8x7b at 8 of 32 layers (all 32,
-# 93.4 GB of bf16 weights, exceed one card), qwen3-moe-30b-a3b at 12 of 48,
+# capture grow with the layers): mixtral-8x7b at 4 of 32 layers (all 32,
+# 93.4 GB of bf16 weights, exceed one card), qwen3-moe-30b-a3b at 8 of 48,
 # mamba2-2.7b's serve at 32 of 64, qwen2.5-14b's at 24 of 48,
-# h2o-danube-3-4b's at 12 of 24 (llama2-7b's paper serve keeps all 32)
-MIXTRAL_LAYERS, QWEN3_MOE_LAYERS = 8, 12
+# h2o-danube-3-4b's at 12 of 24 (llama2-7b's paper serve keeps all 32); the
+# two MoE serves are the ones cut to make room for the training checks under
+# a mesh
+MIXTRAL_LAYERS, QWEN3_MOE_LAYERS = 4, 8
 MAMBA_SERVE_LAYERS, QWEN25_SERVE_LAYERS, H2O_SERVE_LAYERS = 32, 24, 12
 MOE_NEW_TOKENS = 16
 # the mixtral serve's prompts: all eight past the window and the ring
@@ -2305,12 +2308,12 @@ def moe_profile(serve, report: dict, key: str, lens, seed=1) -> None:
 
 def moe_phase(report: dict) -> tuple:
     """The MoE serves on the card, with moe_probes() on (each model alone on
-    the card, released before the next): qwen3-moe-30b-a3b at full width (12
-    of its 48 layers, 128 experts top-8) on the dense serve's
+    the card, released before the next): qwen3-moe-30b-a3b at full width
+    (``QWEN3_MOE_LAYERS`` of its 48 layers, 128 experts top-8) on the dense serve's
     path (2 pairs x 8 slots, max_len 512, 12 requests, 16 new tokens),
     graphed, and a profiled burst; a short sampled serve (4 requests, 8 new
     tokens, temperature 1.0) eager and then graphed on the same weights,
-    token for token; mixtral-8x7b at full width and 8 of its 32 layers (8
+    token for token; mixtral-8x7b at full width and ``MIXTRAL_LAYERS`` of its 32 layers (8
     experts top-2) on a wrapped 4128-slot ring (2 pairs x 8 slots, max_len
     8192, 8 prompts of 4500-6000 tokens), graphed, and a profiled burst.
     Returns both serves' launches."""
@@ -4633,7 +4636,9 @@ def distributed_phase(report: dict) -> None:
     release()
     run = tempfile.mkdtemp(prefix="m11-")
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--distributed-rank",
-                               str(r), run]) for r in range(2)]
+                               str(r), run], env=dict(  # two ranks share the card's memory
+                                   os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+             for r in range(2)]
     try:
         codes = [proc.wait(timeout=300) for proc in procs]
     finally:
@@ -4750,9 +4755,160 @@ def distributed_rank(rank: int, run: str) -> None:
                     r.update({f"{step}_{k}": v for k, v in bf16_error(
                         tag, got, want, exact, get_config(arch).vocab_size).items()})
             res[f"(b) TP {arch} {dt}"] = r
+    del pairs
+    release()  # the layers above leave reference cycles: their weights go with the collector
+    meshes = {(1, 2): mesh, (2, 1): sharding.make_mesh((2, 1))}
+    for name, (arch, n_layers, shape, fsdp, B) in MESH_TRAIN.items():
+        for dt in ("float32", "bfloat16"):
+            res[f"(b) train {name} {dt}"] = train_mesh_case(
+                meshes[shape], name, arch, n_layers, dt, fsdp, B, rank == 0 and dt == "bfloat16")
+            release()
     if rank == 0:
         (Path(run) / "rank0.json").write_text(json.dumps(res))
     dist.destroy_process_group()
+
+
+# (b)'s training steps under a mesh: name -> (arch, layers, (data, model),
+# FSDP, rows); each at S = 2048, its embedding and loss included (two ranks
+# on the one card: qwen3's 151,936-column fp32 logits cost 2.5 GB a row)
+MESH_TRAIN = {"qwen3 ZeRO-1 data=2": ("qwen3-1.7b", 2, (2, 1), False, 2),
+              "qwen3 FSDP data=2": ("qwen3-1.7b", 2, (2, 1), True, 2),
+              "qwen3 model=2": ("qwen3-1.7b", 2, (1, 2), False, 4),
+              "mamba2 model=2": ("mamba2-2.7b", 1, (1, 2), False, 4),
+              "qwen3-moe model=2": ("qwen3-moe-30b-a3b", 1, (1, 2), False, 2)}
+STEP_TOL = 1e-2  # (b): a step's change to a parameter shard against the change without a mesh
+MESH_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
+
+
+def mesh_train_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    fns = (fa.flash_attention_cuda, fa.flash_attention_bwd_cuda, ssd.ssd_scan_cuda,
+           ssd.ssd_scan_bwd_cuda)
+    return {k: f.launches for k, f in zip(MESH_TRAIN_KERNELS, fns, strict=True)}
+
+
+def train_mesh_case(mesh, name: str, arch: str, n_layers: int, dt: str, fsdp: bool, B: int,
+                    timed_rank: bool, S: int = 2048, seed: int = 45) -> dict:
+    """One AdamW step of ``arch`` (full width, ``n_layers`` layers, in dtype
+    dt) on this rank's shards under ``mesh`` (ZeRO-1, or FSDP with its rules
+    forced), against the same step without a mesh on the whole weights and
+    batch: fp32 loss within 1e-5 (relative), each gradient shard within 1e-4
+    x max |g| of its place in the whole gradient, the parameters after the
+    step within 1e-4 (MoE 2e-4) and the change the step makes to each
+    parameter shard (~3e-6 at warmup's first step) within ``STEP_TOL`` of the
+    change without a mesh, in norm; bf16 by ``bf16_error`` on the gradients
+    (the step without a mesh in fp32 the exact one).  With ``timed_rank`` set,
+    wall ms a step under the mesh and its collectives' ms (both ranks), and
+    on rank 0 the step without a mesh."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.models.model import Model
+    from repro_torch.params import tree_items, tree_map
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype=dt)
+    params = Model(cfg, "cuda").init(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda",
+                           dtype=torch.int32)
+
+    def step(p, batch, c=cfg):
+        """(loss, the gradients before the update, in fp32 each parameter
+        after the update and, on the host, the change it made (the card holds
+        no more than the step does))."""
+        init_opt, ts = make_train_step(Model(c, "cuda"))
+        opt = init_opt(p)
+        _, m, grads = ts.grads(p, batch)
+        kept, was = [x.clone() for _, x in tree_items(grads)], None
+        if dt == "float32":
+            was = [x.cpu() for _, x in tree_items(p)]
+            p = ts.update(p, opt, grads, m)[0]
+        del opt, grads
+        return float(m["loss"].detach()), kept, was and [
+            (x, (x - w.cuda()).cpu()) for (_, x), w in zip(tree_items(p), was, strict=True)]
+
+    want = step(tree_map(torch.clone, params), {"tokens": tokens})
+    sizes = sharding.mesh_sizes(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate(), strict=True))
+    rules = sharding.DEFAULT_RULES if fsdp else sharding.ZERO1_PARAM_RULES
+    rows = {"tokens": tokens[coord["data"] * B // sizes["data"]:
+                             (coord["data"] + 1) * B // sizes["data"]]}
+    with sharding.use_mesh(mesh), sharding.use_rules(rules):
+        local = sharding.shard_params(params, sharding.param_axes(params), mesh, rules, cfg)
+        before = mesh_train_counts()
+        got = step(local, rows)
+        r = {f"{k}_launches": v - before[k] for k, v in mesh_train_counts().items()}
+
+    def places(rules):
+        out = []
+        for w, ax in zip([w for _, w in tree_items(params)],
+                         sharding.axes_leaves(sharding.param_axes(params)), strict=True):
+            spec = sharding.logical_to_spec(ax, sizes, rules, w.shape)
+            shape, starts = sharding.local_shape(w.shape, spec, sizes, coord)
+            out.append([(d, a, n) for d, (a, n) in enumerate(zip(starts, shape, strict=True))])
+        return out
+
+    def at(t, place):
+        for d, a, n in place:
+            t = t.narrow(d, a, n)
+        return t
+
+    tag = f"distributed (b) train {name} {dt}"
+    r["loss"], r["no_mesh_loss"] = got[0], want[0]
+    if dt == "float32":
+        if abs(got[0] - want[0]) > 1e-5 * max(1.0, abs(want[0])):
+            fail(f"{tag}: loss {got[0]} against {want[0]} without a mesh")
+        r["grad_err"] = max(max_err(a, at(b, pl)) / max(float(b.abs().max()), 1e-30)
+                            for a, b, pl in zip(got[1], want[1], places(sharding.DEFAULT_RULES),
+                                                strict=True))
+        pairs = list(zip(got[2], want[2], places(rules), strict=True))
+        r["param_err"] = max(max_err(a, at(b, pl)) for (a, _), (b, _), pl in pairs)
+        r["step_err"] = max(float((a - at(b, pl)).norm() / at(b, pl).norm().clamp(min=1e-30))
+                            for (_, a), (_, b), pl in pairs)
+        if (r["grad_err"] > 1e-4 or r["param_err"] > (2e-4 if cfg.moe else 1e-4)
+                or r["step_err"] > STEP_TOL):
+            fail(f"{tag}: gradients {r['grad_err']:.3g} x max |g|, parameters "
+                 f"{r['param_err']:.3g}, a step's change {r['step_err']:.3g} (in norm) from the "
+                 "step without a mesh")
+    else:
+        exact = step(tree_map(lambda t: t.float(), params), {"tokens": tokens},
+                     dataclasses.replace(cfg, dtype="float32"))
+        pl = places(sharding.DEFAULT_RULES)
+        flat = [torch.cat([(x if v is got[1] else at(x, p)).float().flatten()
+                           for x, p in zip(v, pl, strict=True)])
+                for v in (got[1], want[1], exact[1])]
+        r.update(bf16_error(tag + " gradients", *flat, None))
+    if dt == "bfloat16":  # both ranks time a training step under the mesh (warm: the
+        # checks ran it), then one with its collectives synchronised around each
+        def timer(p, batch):
+            init_opt, ts = make_train_step(Model(cfg, "cuda"))
+            opt = init_opt(p)
+            return lambda: ts(p, opt, batch)
+
+        def once_ms(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3
+
+        with sharding.use_mesh(mesh), sharding.use_rules(rules):
+            r["ms"] = once_ms(timer(local, rows))
+            r["collective_ms"] = collective_ms(timer(local, rows))
+        r["collective_share"] = r["collective_ms"] / r["ms"]
+        release()
+        dist.barrier()
+        if timed_rank:
+            r["no_mesh_ms"] = wall_ms(timer(tree_map(torch.clone, params), {"tokens": tokens}), 1)
+        dist.barrier()
+    return r
 
 
 TP_ARCHS = ("qwen3-1.7b", "mamba2-2.7b")
@@ -4847,7 +5003,7 @@ def collective_ms(fn) -> float:
     class Timed:
         def __getattr__(self, name):
             fn_ = getattr(dist, name)
-            if name not in ("all_reduce", "all_gather_into_tensor"):
+            if name not in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
                 return fn_
 
             def call(*a, **kw):
@@ -4868,7 +5024,8 @@ def collective_ms(fn) -> float:
     return spent[0] * 1e3
 
 
-DRYRUN_CELLS = {"prefill 4x2048": ("prefill", 2048, 4, 0), "verify 8x5": ("decode", 512, 8, 4)}
+DRYRUN_CELLS = {"prefill 4x2048": ("prefill", 2048, 4, 0), "verify 8x5": ("decode", 512, 8, 4),
+                "train 4x2048": ("train", 2048, 4, 0)}
 
 
 def dryrun_phase(report: dict) -> dict:
@@ -4878,9 +5035,12 @@ def dryrun_phase(report: dict) -> dict:
     bytes those of the real tensors.  Printed, not gated: the predicted peak
     (temp + output) against ``max_memory_allocated`` over the step, and the
     larger roofline term (H100 data-sheet constants) against the step's
-    device ms.  Then K1, K2 and K4 at the heads one rank holds under a 2-way
-    model axis (qwen3-1.7b's 8 and 4, mamba2-2.7b's 40), checked and timed;
-    returns those timings."""
+    device ms.  The training step (forward, backward and AdamW; K2's forward
+    twice a layer under "minimal" remat, its backward once) must also launch
+    as many K2 calls as both count.  Then K1, K2 and K4 at the heads one rank
+    holds under a 2-way model axis (qwen3-1.7b's 8 and 4, mamba2-2.7b's 40),
+    checked and timed, and for training K2's forward with lse and backward
+    and K4's backward there; returns those timings."""
     import torch
 
     from repro_torch.configs import ShapeConfig
@@ -4895,6 +5055,7 @@ def dryrun_phase(report: dict) -> dict:
         seen = {}
 
         def measure(step, seen=seen):
+            seen["launches"] = read_counts()  # the analyzed step's
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -4902,14 +5063,19 @@ def dryrun_phase(report: dict) -> dict:
             torch.cuda.synchronize()
             seen["peak"] = torch.cuda.max_memory_allocated() - base
             del out
-            seen["ms"] = timed(lambda i: step(), 5)
+            seen["ms"] = timed(lambda i: step(), 5 if kind != "train" else 3)
 
+        zero_counts()
         card = dryrun_lib.lower_cell("qwen3-1.7b", name, spec_tokens=spec, shape=shape,
                                      sizes=one, device="cuda", after=measure)
         for key in ("flops_per_device", "bytes_per_device", "kernels", "argument_bytes"):
             if getattr(meta, key) != getattr(card, key):
                 fail(f"dry run {name}: {key} on meta {getattr(meta, key)} and on the card "
                      f"{getattr(card, key)} differ")
+        launched = {k: seen["launches"][k] for k in card.kernels}
+        if launched != card.kernels or kind == "train" and launched != {
+                "flash_attention": 56, "flash_attention_bwd": 28}:
+            fail(f"dry run {name}: launched {launched}, counted {card.kernels}")
         terms = dryrun_lib.roofline_terms(card, one)
         bound = max(terms["compute_s"], terms["memory_s"]) * 1e3
         r = res[name] = {"flops": card.flops_per_device, "bytes": card.bytes_per_device,
@@ -4930,6 +5096,13 @@ def dryrun_phase(report: dict) -> dict:
     timing = {"flash_attention (TP rank, H = 8)": flash_timing(g, 4, 2048, 8, 4, 128),
               "decode_attention (TP rank, H = 8)": decode_timing(g, 8, 5, 512, 8, 4, 128)}
     timing["ssd_scan (TP rank, H = 40)"] = ssd_kernel_phase(report, [], 40, "dryrun_ssd")["train"]
+    rows = train_kernel_phase(report, [(4, 2048, 8, 4, 128, "bfloat16", None)],
+                              ((" tp", 8, 4),), "mesh_train_kernels", 46)
+    timing["flash_attention_bwd (TP training rank, H = 8)"] = rows["bwd tp"]
+    timing["flash_attention (TP training rank, H = 8, lse)"] = rows["fwd tp"]
+    timing["ssd_scan_bwd (TP training rank, H = 40)"] = ssd_bwd_phase(
+        report, [(4, 2048, 40, 64, 1, 128, "bfloat16")], (4, 2048, 40, 64, 1, 128),
+        "mesh_ssd_bwd", 47)
     for name, t in timing.items():
         t.setdefault("max_abs_err", t.get("err"))
         if t["library_ms"] is not None:
@@ -5292,6 +5465,22 @@ def main() -> None:
             ("flash_attention (TP rank, H = 8)", "flash_wgmma_kernel", tp["qwen3-1.7b"]),
             ("ssd_scan (TP rank, H = 40)", "ssd_wgmma_kernel", tp["mamba2-2.7b"])):
         kernels.append(entry(name, kernel, dryrun_timing[name], n))
+    # training under a mesh: K2 and K4 at a rank's heads from (b)'s model=2
+    # steps (rank 0, fp32 and bf16); K4's forward at 40 heads is the row above
+    mt = {arch: {k: sum(report["distributed"][f"(b) train {arch} model=2 {dt}"][k + "_launches"]
+                        for dt in ("bfloat16", "float32")) for k in MESH_TRAIN_KERNELS}
+          for arch in ("qwen3", "mamba2")}
+    for name, kernel, n in (
+            ("flash_attention (TP training rank, H = 8, lse)", "flash_wgmma_kernel",
+             mt["qwen3"]["flash_attention"]),
+            ("flash_attention_bwd (TP training rank, H = 8)", "dkdv_wgmma_kernel, dq_wgmma_kernel",
+             mt["qwen3"]["flash_attention_bwd"]),
+            ("ssd_scan (TP training rank, H = 40)", "ssd_wgmma_kernel", mt["mamba2"]["ssd_scan"]),
+            ("ssd_scan_bwd (TP training rank, H = 40)", "ssd_bwd_wgmma_kernel, "
+             "ssd_bwd_reduce4_kernel", mt["mamba2"]["ssd_scan_bwd"])):
+        kernels.append(entry(name, kernel, dryrun_timing[name.replace("training ", "")
+                                                         if name.startswith("ssd_scan (")
+                                                         else name], n))
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

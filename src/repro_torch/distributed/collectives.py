@@ -9,10 +9,23 @@ group, never emulated.
 * the log-sum-exp merge of partial attention over a sequence-sharded KV
   cache, and context-parallel decode attention on top of it;
 * tensor parallelism on "model": the sum of a row-parallel product's
-  partial results and the gather of head- or vocab-sharded outputs.
+  partial results and the gather of head- or vocab-sharded outputs;
+* training under a mesh: the same collectives with their gradients, FSDP's
+  gather of a weight's "embed" shards over "data", and the gradient
+  reduction over the batch axes.
 
 Each function runs on every rank of the mesh (:func:`use_mesh`), as the
 reference's run inside ``shard_map``.
+
+Gradients follow Megatron's f/g pair.  A tensor every rank of an axis holds
+alike takes its whole gradient on each of them; a rank's share of a sum
+(a row-parallel product, a rank-specific use of a whole tensor) takes its
+part.  :func:`model_sum` (all-reduce forward, identity backward) joins the
+parts into a whole tensor; :func:`model_copy` (identity forward, all-reduce
+backward) marks a whole tensor's entry into a rank-specific computation, so
+that the parts of its gradient are summed; :func:`model_gather` takes the
+rank's slice of a whole gradient.  Under ``no_grad`` (serving) each issues
+exactly the calls it issued before it had a gradient.
 """
 from __future__ import annotations
 
@@ -45,21 +58,124 @@ def model_split(local, whole):
     return n, j, n > 1 and local < whole
 
 
+def _records(x):
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _spanned(axes):
+    """The mesh axes of ``axes`` that are larger than 1."""
+    return [a for a in axes if mesh_sizes(current_mesh() or {}).get(a, 1) > 1]
+
+
+def _all_reduce(x, axes):
+    for axis in _spanned(axes):
+        dist.all_reduce(x, group=_group(axis))
+    return x
+
+
+def _gather(x, dim, group):
+    n = dist.get_world_size(group)
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))  # gloo takes the pieces along dim 0
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return torch.cat(out.view(n, *x.shape).unbind(0), dim)
+
+
+def _scatter(g, dim, group):
+    """reduce-scatter: the sum over ``group`` of g, this rank's piece along ``dim``."""
+    parts = g.chunk(dist.get_world_size(group), dim)
+    piece = torch.empty_like(parts[0], memory_format=torch.contiguous_format)
+    dist.reduce_scatter_tensor(piece, torch.cat(parts).contiguous(), group=group)
+    return piece
+
+
+def _summed(x, axes):
+    return _all_reduce(x.clone(memory_format=torch.contiguous_format), axes)
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce over ``axes`` forward (into a copy: "minimal" remat may keep
+    x, a product's output) and the whole gradient backward, or (``copy``)
+    the identity forward and the gradient's parts summed backward."""
+
+    @staticmethod
+    def forward(ctx, x, axes, copy=False):
+        ctx.axes, ctx.copy = axes, copy
+        return x.view_as(x) if copy else _summed(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.axes) if ctx.copy else g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` over ``axis`` forward; backward the rank's
+    slice of the whole gradient, or (``reduce``) the reduce-scatter of the
+    ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis, reduce):
+        ctx.args = dim, axis, x.shape[dim], reduce
+        return _gather(x, dim, _group(axis))
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, axis, size, reduce = ctx.args
+        group = _group(axis)
+        return (_scatter(g, dim, group) if reduce else
+                g.narrow(dim, dist.get_rank(group) * size, size).contiguous()), None, None, None
+
+
+def all_sum(x, axes):
+    """The sum of x over the mesh axes ``axes`` (those larger than 1), in
+    place without a gradient; under autograd each rank's x takes the whole
+    gradient (its share of a sum every rank holds)."""
+    return _Sum.apply(x, axes) if _records(x) and _spanned(axes) else _all_reduce(x, axes)
+
+
 def model_sum(x, sharded):
     """Sum a row-parallel product's partial results over "model", in place,
     where its weight is a shard (``model_split``); x as it is otherwise."""
+    return all_sum(x, ("model",)) if sharded else x
+
+
+def model_max(x, sharded):
+    """The elementwise max of x over "model", in place (no gradient), where
+    x is a shard's; x as it is otherwise."""
     if sharded:
-        dist.all_reduce(x, group=_group("model"))
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_group("model"))
     return x
+
+
+def model_copy(x, sharded=True):
+    """x, entering a rank-specific computation on "model" (a column-parallel
+    product, a shard's use of a whole tensor): its gradient's parts summed
+    over "model".  x itself without a gradient or unsharded."""
+    return _Sum.apply(x, ("model",), True) if sharded and model_rank()[0] > 1 and _records(
+        x) else x
 
 
 def model_gather(x, dim):
     """All-gather over "model": the ranks' pieces of x, joined along ``dim``
-    in rank order."""
-    n = model_rank()[0]
-    out = x.new_empty((n * x.shape[0], *x.shape[1:]))  # gloo takes the pieces along dim 0
-    dist.all_gather_into_tensor(out, x.contiguous(), group=_group("model"))
-    return torch.cat(out.view(n, *x.shape).unbind(0), dim)
+    in rank order; the gradient the rank's slice."""
+    return _Gather.apply(x, dim, "model", False) if _records(x) else _gather(x, dim,
+                                                                           _group("model"))
+
+
+def fsdp_gather(w, dim):
+    """FSDP's all-gather of a weight's shards along ``dim`` over "data"; its
+    gradient reduce-scattered back onto the shard."""
+    return _Gather.apply(w, dim, "data", True) if _records(w) else _gather(w, dim, _group("data"))
+
+
+def reduce_grad(g, dim, axes):
+    """A gradient's sum over the batch axes ``axes`` (of those the mesh
+    has), onto the optimizer's shard: reduce-scatter along ``dim`` over
+    "data" (the whole sum where ``dim`` is None), then all-reduce over
+    "pod" (the reference's hierarchical split)."""
+    if dim is not None and "data" in _spanned(axes):
+        g = _scatter(g, dim, _group("data"))
+        axes = [a for a in axes if a != "data"]
+    return _all_reduce(g.contiguous(), axes)
 
 
 def hierarchical_all_reduce(x, pod_axis, inner_axis):
@@ -67,12 +183,9 @@ def hierarchical_all_reduce(x, pod_axis, inner_axis):
     over both axes, with only 1/inner of the bytes crossing the pod axis."""
     inner = _group(inner_axis)
     n = dist.get_world_size(inner)
-    xp = torch.cat([x, x.new_zeros(((-x.shape[0]) % n, *x.shape[1:]))]).contiguous()
-    piece = xp.new_empty((xp.shape[0] // n, *x.shape[1:]))
-    dist.reduce_scatter_tensor(piece, xp, group=inner)
+    piece = _scatter(torch.cat([x, x.new_zeros(((-x.shape[0]) % n, *x.shape[1:]))]), 0, inner)
     dist.all_reduce(piece, group=_group(pod_axis))
-    dist.all_gather_into_tensor(xp, piece, group=inner)
-    return xp[:x.shape[0]]
+    return _gather(piece, 0, inner)[:x.shape[0]]
 
 
 def ring_all_gather(x, axis):

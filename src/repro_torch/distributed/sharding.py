@@ -152,7 +152,8 @@ CACHE_AXES = {
 }
 
 
-def _leaves(axes_tree):
+def axes_leaves(axes_tree):
+    """The axes tuples of a tree of them, in leaf order."""
     return pytree.tree_flatten(axes_tree, is_leaf=lambda x: isinstance(x, tuple))[0]
 
 
@@ -165,7 +166,7 @@ def tree_specs(axes_tree, values_tree, mesh, rules=DEFAULT_RULES):
     """Specs of a parameter tree, leaf for leaf, from each leaf's shape."""
     values, spec = pytree.tree_flatten(values_tree)
     return pytree.tree_unflatten([logical_to_spec(a, mesh, rules, v.shape) for a, v in
-                                  zip(_leaves(axes_tree), values, strict=True)], spec)
+                                  zip(axes_leaves(axes_tree), values, strict=True)], spec)
 
 
 def local_shape(shape, spec, sizes, coord=None):
@@ -198,6 +199,28 @@ def head_range(cfg, n, j):
     return real(j * Hp // n), real((j + 1) * Hp // n)
 
 
+def _head_leaves(cfg, *trees):
+    """((each tree's attention dict), leaf name, the query heads' dimension)
+    of every attention leaf split by query heads."""
+    for dicts in zip(*(t["layers"] + t.get("encoder", []) for t in trees), strict=True):
+        for k in ("attn", "cross"):
+            for name, d in (("wq", 1), ("wo", 0), ("bq", 0)):
+                if name in dicts[0].get(k, ()):
+                    yield [t[k] for t in dicts], name, d
+
+
+def param_specs(axes_tree, params, mesh, rules=None, cfg=None):
+    """Each leaf's spec as :func:`shard_params` resolves it under ``rules``
+    (the active rules by default); with ``cfg``, where the query heads split
+    over "model" (:func:`head_range`: as the reference pads them), their
+    dimension on "model".  The one place a parameter's layout is decided."""
+    specs = tree_specs(axes_tree, params, mesh, rules or active_rules())
+    if cfg is not None and head_range(cfg, mesh_sizes(mesh).get("model", 1), 0)[1] < cfg.n_heads:
+        for (spec,), name, d in _head_leaves(cfg, specs):
+            spec[name] = (*spec[name], *(None,) * d)[:d] + ("model",) + spec[name][d + 1:]
+    return specs
+
+
 def shard_params(params, axes_tree, mesh, rules=None, cfg=None):
     """This rank's shard of every leaf under ``rules`` (the active rules by
     default): each leaf, whole on every rank, narrowed on each sharded
@@ -217,16 +240,11 @@ def shard_params(params, axes_tree, mesh, rules=None, cfg=None):
     def piece(v, spec):
         return narrow(v, local_shape(v.shape, spec, sizes, coord))
 
-    out = pytree.tree_map(piece, params, tree_specs(axes_tree, params, mesh,
-                                                    rules or active_rules()))
+    out = pytree.tree_map(piece, params, param_specs(axes_tree, params, mesh, rules, cfg))
     if cfg is not None and cfg.padded_heads != cfg.n_heads:  # the padded slots' real heads
         h0, h1 = head_range(cfg, sizes.get("model", 1), coord.get("model", 0))
-        for mine, whole in zip(out["layers"] + out.get("encoder", []),
-                               params["layers"] + params.get("encoder", []), strict=True):
-            for k in ("attn", "cross"):
-                for name, d in (("wq", 1), ("wo", 0), ("bq", 0)):
-                    if name in mine.get(k, ()):
-                        mine[k][name] = whole[k][name].narrow(d, h0, h1 - h0)
+        for (mine, whole), name, d in _head_leaves(cfg, out, params):
+            mine[name] = whole[name].narrow(d, h0, h1 - h0)
     return pytree.tree_map(lambda v, w: v.clone() if v.numel() < w.numel() else v, out,
                            params)
 

@@ -9,7 +9,19 @@ counted again.
 * K2 counts the (query, key) pairs its causal mask and window leave;
 * K3 reads every page its block table has room for;
 * K4 runs the chunked dual form at its 64-row chunks: C.B per group, the
-  causal intra-chunk product, the inter-chunk term and the state update.
+  causal intra-chunk product, the inter-chunk term and the state update;
+* K2's backward (``flash_bwd``): its two passes' seven products over K2's
+  pairs (S and dP twice: the dQ pass recomputes them); q, k, v, out, dout
+  and lse read once, dq, dk and dv written once;
+* K4's backward (``ssd`` with ``bwd``): C.B a group, and a head's dy.x over the
+  causal half, the transposed intra-chunk forms of dx, dB and dC, their
+  three terms through the state or its gradient, the gradient's step back
+  and the recomputed state update; x, dt, A, B, C and dy read once, dx,
+  ddt, dA, dB and dC written once.
+
+The counting rule: a kernel's FLOPs are two a multiply-add of the products
+it runs (what its source notes bound), its bytes each input read once and
+each output written once; workspaces are not counted.
 """
 from __future__ import annotations
 
@@ -34,6 +46,11 @@ def flash(q, k, causal=True, window=None, q_offset=0):
     return 4 * B * H * pairs * D, 2 * _size(q, k)
 
 
+def flash_bwd(q, k, causal=True, window=None):
+    flops, nbytes = flash(q, k, causal, window)  # two products; q, k, v, out
+    return 7 * flops // 2, 2 * nbytes + 4 * q.numel() // q.shape[3]
+
+
 def decode(q, k, cache_len, kv_positions=None):
     B, T, H, D = q.shape
     return 4 * B * T * H * k.shape[1] * D, 2 * _size(q, k) + _size(cache_len, kv_positions)
@@ -46,15 +63,18 @@ def paged(q, k_pages, cache_len, block_tables):
     return 4 * B * T * H * slots * D, 2 * _size(q) + kv + _size(cache_len, block_tables)
 
 
-def ssd(x, dt, A, Bm, C, initial_state=None, chunk=64):
+def ssd(x, dt, A, Bm, C, initial_state=None, chunk=64, bwd=False):
+    """K4's work, or with ``bwd`` its backward's."""
     B, S, H, P = x.shape
     G, N = Bm.shape[2:]
     ops = 0
     for c0 in range(0, S, chunk):
         c = min(chunk, S - c0)
-        ops += 2 * c * c * N * G + c * (c + 1) * P * H + 4 * c * P * N * H
-    state = B * H * P * N * 4
-    return B * ops, 2 * _size(x) + _size(dt, A, Bm, C, initial_state) + state
+        ops += 2 * c * c * N * G + (H * (2 * c * (c + 1) * (P + N) + 10 * c * P * N) if bwd else
+                                    c * (c + 1) * P * H + 4 * c * P * N * H)
+    if bwd:
+        return B * ops, 3 * _size(x) + 4 * _size(Bm) + 2 * B * S * H * 4 + 2 * H * 4
+    return B * ops, 2 * _size(x) + _size(dt, A, Bm, C, initial_state) + B * H * P * N * 4
 
 
 @contextlib.contextmanager

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
                                                          ctypes.c_void_p]
@@ -86,12 +86,18 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal=True, window=Non
 
 class FlashAttentionFn(torch.autograd.Function):
     """K2 under autograd: the forward kernel with its log-sum-exp, the
-    backward kernel for the gradients of q, k and v."""
+    backward kernel for the gradients of q, k and v.  On meta tensors (the
+    dry run) both give empty outputs of the kernels' shapes; the backward
+    reports its work (``cost.flash_bwd``) on meta and CUDA alike."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale,
-                                        lse=True)
+        if q.is_meta:
+            out, lse = q.new_empty(q.shape), q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                                                         dtype=torch.float32)
+        else:
+            out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale,
+                                            lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = {"causal": causal, "window": window, "scale": scale}
         return out
@@ -100,12 +106,17 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors  # once: remat's saved-tensor hooks unpack once
         D, mask = q.shape[-1], dict(ctx.mask)
-        if D == 32:  # a reduced model's heads: the backward takes head_dim 64, so zero
-            # columns pad its inputs (they change no product, and lse stays) and are
-            # cut from the gradients; the scale stays head_dim 32's
-            q, k, v, out, dout = (torch.nn.functional.pad(t, (0, 32)) for t in (q, k, v, out, dout))
-            mask["scale"] = mask["scale"] or D ** -0.5
-        grads = flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(), lse, **mask)
+        with cost.kernel("flash_attention_bwd", cost.flash_bwd, q, k, mask["causal"],
+                         mask["window"]):
+            if q.is_meta:
+                return (*(t.new_empty(t.shape) for t in (q, k, v)), None, None, None)
+            if D == 32:  # a reduced model's heads: the backward takes head_dim 64, so zero
+                # columns pad its inputs (they change no product, and lse stays) and are
+                # cut from the gradients; the scale stays head_dim 32's
+                q, k, v, out, dout = (torch.nn.functional.pad(t, (0, 32))
+                                      for t in (q, k, v, out, dout))
+                mask["scale"] = mask["scale"] or D ** -0.5
+            grads = flash_attention_bwd_cuda(q, k, v, out, dout.contiguous(), lse, **mask)
         return (*(g[..., :D] for g in grads), None, None, None)
 
 

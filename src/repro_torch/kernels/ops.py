@@ -33,12 +33,12 @@ def flash_attention(q, k, v, *, causal=True, window=None,
         return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                         q_offset=q_offset, scale=scale)
     with cost.kernel("flash_attention", cost.flash, q, k, causal, window, q_offset):
-        if q.is_meta:
-            return q.new_empty(q.shape)
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
             if q_offset:
                 raise ValueError("flash_attention: a gradient needs q_offset 0")
             return fa.FlashAttentionFn.apply(q, k, v, causal, window, scale)
+        if q.is_meta:
+            return q.new_empty(q.shape)
         return fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset, scale=scale)
 
@@ -82,9 +82,8 @@ def ssd_scan(x, dt, A, Bm, C, *, chunk=256, initial_state=None):
     if _on(x) == "cpu":
         return ssd.ssd_scan_plain(x, dt, A, Bm, C, chunk=chunk, initial_state=initial_state)
     with cost.kernel("ssd_scan", cost.ssd, x, dt, A, Bm, C, initial_state):
-        if x.is_meta:
-            return x.new_empty(x.shape), x.new_empty((x.shape[0], *x.shape[2:], Bm.shape[-1]),
-                                                     dtype=torch.float32)
+        if x.is_meta:  # empty outputs (under autograd, an empty backward); nothing to pad
+            return ssd.SsdScanFn.apply(x, dt, A, Bm, C, initial_state)
         if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                            for t in (x, dt, A, Bm, C, initial_state)):
             if initial_state is not None and initial_state.requires_grad:

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, cost, ref
 
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8
              + [ctypes.c_int, ctypes.c_void_p])
@@ -128,11 +128,18 @@ class SsdScanFn(torch.autograd.Function):
     """K4 under autograd: the forward kernel, then the backward kernel for
     the gradients of x, dt, A, B and C.  Neither state takes a gradient: one
     that reaches the final state raises here (the kernel has no term for
-    it), and ``ops.ssd_scan`` refuses an initial state that requires one."""
+    it), and ``ops.ssd_scan`` refuses an initial state that requires one.
+    On meta tensors (the dry run) both give empty outputs of the kernels'
+    shapes; the backward reports its work (``cost.ssd`` with ``bwd``) on
+    meta and CUDA alike."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, C, initial_state):
-        y, sf = ssd_scan_cuda(x, dt, A, Bm, C, initial_state=initial_state)
+        if x.is_meta:
+            y, sf = x.new_empty(x.shape), x.new_empty((x.shape[0], *x.shape[2:], Bm.shape[-1]),
+                                                      dtype=torch.float32)
+        else:
+            y, sf = ssd_scan_cuda(x, dt, A, Bm, C, initial_state=initial_state)
         ctx.save_for_backward(x, dt, A, Bm, C, initial_state)
         ctx.set_materialize_grads(False)
         return y, sf
@@ -143,7 +150,10 @@ class SsdScanFn(torch.autograd.Function):
             raise NotImplementedError("ssd_scan: no gradient through the final state on the "
                                       "card: K4's backward kernel has no term for it")
         x, dt, A, Bm, C, s0 = ctx.saved_tensors  # once: remat's saved-tensor hooks unpack once
-        return (*ssd_scan_bwd_cuda(x, dt, A, Bm, C, dy, initial_state=s0), None)
+        with cost.kernel("ssd_scan_bwd", cost.ssd, x, dt, A, Bm, C, bwd=True):
+            if x.is_meta:
+                return (*(t.new_empty(t.shape) for t in (x, dt, A, Bm, C)), None)
+            return (*ssd_scan_bwd_cuda(x, dt, A, Bm, C, dy, initial_state=s0), None)
 
 
 def widened(fn, x, dt, A, Bm, C, initial_state=None):

@@ -11,8 +11,8 @@ device count to lock), and each result is kept as
 reuses a kept cell unless ``--force``.  Each line gives the per-device
 counts, the peak and the three roofline terms in seconds on the H100
 data-sheet constants of ``launch.mesh`` (predictions, not measurements).
-Designed skips and ``not_ported`` cells (training) print as such, apart from
-failures; the exit code is nonzero only on a failure.
+Designed skips print as such, apart from failures; the exit code is
+nonzero only on a failure.
 """
 from __future__ import annotations
 

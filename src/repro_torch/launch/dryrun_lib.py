@@ -8,8 +8,12 @@ under a fake process group of the mesh's size: every op and collective
 reaches :class:`~repro_torch.launch.op_analysis.OpAnalyzer`, nothing is
 computed and nothing is allocated.  The same step runs on CUDA tensors
 under the same analyzer (``device="cuda"``, a one-device size mapping) to
-hold the two counts alike.  Serving steps only: training under a mesh is
-not ported (ROADMAP §1).
+hold the two counts alike.  Serving steps run under ``INFERENCE_RULES``;
+a training step (``train_4k``) under the reference's choice: ZeRO-1
+(``ZERO1_PARAM_RULES``) where the bf16 weights a model rank holds fit
+``ZERO1_WEIGHT_BYTES_LIMIT``, else FSDP (``DEFAULT_RULES``), the optimizer
+state under ``DEFAULT_RULES`` either way; the analyzer counts its forward,
+backward (remat's recomputation included) and update.
 """
 from __future__ import annotations
 
@@ -21,13 +25,16 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import SHAPES, get_config, shape_applicable
-from repro_torch.distributed.sharding import (INFERENCE_RULES, batch_axes, local_shape,
-                                              logical_to_spec, make_mesh, mesh_sizes, param_axes,
-                                              shard_params, use_mesh, use_rules)
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import (DEFAULT_RULES, INFERENCE_RULES, batch_axes,
+                                              local_shape, logical_to_spec, make_mesh, mesh_sizes,
+                                              param_axes, shard_params, use_mesh, use_rules)
 from repro_torch.launch.mesh import (HBM_BW, NET_BW, NVLINK_BW, PEAK_FLOPS_BF16,
                                      PRODUCTION_MESHES, in_one_node, mesh_chips)
 from repro_torch.launch.op_analysis import COLLECTIVES, OpAnalyzer
 from repro_torch.models.model import Model
+from repro_torch.training.optimizer import OptConfig
+from repro_torch.training.train_loop import make_train_step
 
 
 @dataclasses.dataclass
@@ -35,7 +42,7 @@ class CellResult:
     arch: str
     shape: str
     mesh: str
-    status: str  # ok | skipped | not_ported | error
+    status: str  # ok | skipped | error
     seconds: float
     flops_per_device: float = 0.0
     bytes_per_device: float = 0.0
@@ -73,10 +80,12 @@ def _nbytes(tree):
 
 def _batch(cfg, shape, mesh, device, gen):
     """The rank's rows of the step's batch (the reference's ``batch_specs``):
-    tokens, behind a vision frontend's patches or an encoder's frames."""
+    tokens, behind a vision frontend's patches or an encoder's frames (and
+    then, training, max(S // 4, 16) target tokens)."""
     B, S, d = shape.global_batch, shape.seq_len, cfg.d_model
     front = cfg.frontend.n_tokens if cfg.frontend is not None else 0
-    shapes = ({"frames": (B, S, d), "tokens": (B, 1)} if cfg.is_encdec else
+    shapes = ({"frames": (B, S, d), "tokens": (B, max(S // 4, 16) if shape.kind == "train" else 1)}
+              if cfg.is_encdec else
               {"patches": (B, front, d), "tokens": (B, S - front)} if front else
               {"tokens": (B, S)})
     out, axes = {}, batch_axes(shapes)
@@ -102,22 +111,29 @@ def lower_cell(arch, shape_name, mesh_kind="single", spec_tokens=0, *, cfg=None,
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         return CellResult(arch, shape_name, mesh_kind, "skipped", 0.0, error=why)
-    if shape.kind == "train":
-        return CellResult(arch, shape_name, mesh_kind, "not_ported", 0.0,
-                          error="training under a mesh: ROADMAP §1")
+    train = shape.kind == "train"  # the reference's choice, its constant read at call time:
+    fsdp = train and 2.0 * cfg.n_params() / sizes.get("model", 1) > sharding.ZERO1_WEIGHT_BYTES_LIMIT
+    rules = DEFAULT_RULES if fsdp else INFERENCE_RULES  # ZERO1_PARAM_RULES are INFERENCE_RULES
     with contextlib.ExitStack() as stack:
         mesh = stack.enter_context(fake_world(sizes)) if mesh_chips(sizes) > 1 else sizes
-        stack.enter_context(use_rules(INFERENCE_RULES))
+        stack.enter_context(use_rules(rules))
         stack.enter_context(use_mesh(mesh))
-        stack.enter_context(torch.no_grad())  # inference mode would hide the aten ops
+        if not train:
+            stack.enter_context(torch.no_grad())  # inference mode would hide the aten ops
         model = Model(cfg, device)
         full = model.init(0)
-        params = shard_params(full, param_axes(full), mesh, INFERENCE_RULES, cfg)
+        params = shard_params(full, param_axes(full), mesh, rules, cfg)
         del full
         gen = None if device == "meta" else torch.Generator(device=device).manual_seed(0)
         batch = _batch(cfg, shape, mesh, device, gen)
         args = [params, batch]
-        if shape.kind == "prefill":
+        if train:
+            init_opt, train_step = make_train_step(model, OptConfig())
+            args.insert(1, init_opt(params))
+
+            def step():
+                return train_step(*args)
+        elif shape.kind == "prefill":
             def step():
                 return model.prefill(params, batch, max_len=shape.seq_len)
         else:
@@ -140,7 +156,8 @@ def lower_cell(arch, shape_name, mesh_kind="single", spec_tokens=0, *, cfg=None,
                                         if k == "matmul" or k in c.kernels),
             peak_memory_per_device=analyzer.peak_bytes,
             argument_bytes=arg_bytes, output_bytes=out_bytes,
-            temp_bytes=analyzer.peak_bytes - out_bytes,
+            # a training step's outputs are its arguments, updated in place
+            temp_bytes=analyzer.peak_bytes - out_bytes * (not train),
             collectives={**{k: c.collectives.get(k, 0.0) for k in COLLECTIVES},
                          "total": sum(c.collectives.values())},
             collectives_by_axis=c.collectives_by_axis, kernels=c.kernels)

@@ -19,7 +19,9 @@ weights sharded too (``shard_params`` under ``INFERENCE_RULES``) the layer
 is tensor parallel: ``wq`` holds this rank's query heads
 (``sharding.head_range``), ``wk``/``wv`` its KV heads or all of them where
 the spec holds them whole, ``wo`` is row parallel and summed over "model".
-Prefill runs K2 on the rank's heads and gathers the KV heads for the cache;
+Prefill runs K2 on the rank's heads and gathers the KV heads for the cache
+(training runs the same layer under autograd, ``collectives.model_copy``
+at each entry into the rank's heads);
 decode gathers the new tokens' query heads (in the reference's padded slot
 order), runs the context-parallel decode over every head on the rank's
 slots and keeps its own heads for ``wo``.
@@ -36,7 +38,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.collectives import (context_parallel_decode_attention,
-                                                 model_gather, model_rank, model_split, model_sum)
+                                                 model_copy, model_gather, model_rank, model_split,
+                                                 model_sum)
 from repro_torch.distributed.sharding import current_mesh, head_range, mesh_sizes
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rms_norm, rope
@@ -77,20 +80,23 @@ def _proj(x, w):
 
 
 def _project_q(p, cfg, x):
-    q = _proj(x, p["wq"])
+    sharded = cfg is not None and model_split(p["wq"].shape[1], cfg.n_heads)[2]
+    q = _proj(model_copy(x, sharded), p["wq"])
     if "bq" in p:
         q = q + p["bq"]
-    if "q_norm" in p:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if "q_norm" in p:  # whole, on the rank's heads
+        q = rms_norm(q, model_copy(p["q_norm"], sharded), cfg.norm_eps)
     return q
 
 
 def _project_kv(p, cfg, x):
+    sharded = cfg is not None and model_split(p["wk"].shape[1], cfg.n_kv_heads)[2]
+    x = model_copy(x, sharded)
     k, v = _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
     if "k_norm" in p:
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        k = rms_norm(k, model_copy(p["k_norm"], sharded), cfg.norm_eps)
     return k, v
 
 
@@ -118,6 +124,7 @@ def _local_kv(cfg, k, v, h0, h1, whole):
     (``whole``; else k and v are theirs already)."""
     if not whole:
         return k, v
+    k, v = model_copy(k), model_copy(v)  # under autograd: each rank's share of their gradient
     G = cfg.n_heads // cfg.n_kv_heads
     k0, k1 = h0 // G, -(-h1 // G)
     if k1 - k0 > 1 and (h0 % G or h1 % G):

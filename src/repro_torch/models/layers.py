@@ -8,6 +8,9 @@ learns its layout from their shapes: the MLP's ``wi`` (and gate) column
 parallel on "mlp" and ``wo`` row parallel, summed over "model"; the
 embedding and the head vocab parallel (a masked lookup summed over
 "model"; logits gathered).  A dimension the spec holds whole is used whole.
+Under autograd a whole activation enters each column-parallel product
+through ``model_copy``; under FSDP (training, "embed" on "data") each
+weight is gathered where it is used (``gather_weights``).
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.collectives import model_gather, model_split, model_sum
+from repro_torch.distributed.collectives import (fsdp_gather, model_copy, model_gather,
+                                                 model_rank, model_split, model_sum)
+from repro_torch.distributed.sharding import current_mesh
 
 
 def dense_init(gen, in_dim, out_dims, dtype, device,
@@ -62,7 +67,24 @@ def init_mlp(gen, cfg, d_ff, dtype, device):
     return p
 
 
+def gather_weights(tree):
+    """FSDP: ``tree``'s leaves whole, each gathered over "data" on the
+    dimensions the train step's layout gives it (``fsdp_dims``), inside a
+    layer's remat, so the whole weight lives for the layer only; ``tree`` as
+    it is otherwise."""
+    if current_mesh() is None:
+        return tree
+
+    def whole(w):
+        for d in getattr(w, "fsdp_dims", ()):
+            w = fsdp_gather(w, d)
+        return w
+
+    return torch.utils._pytree.tree_map(whole, tree)
+
+
 def apply_mlp(p, cfg, x):
+    x = model_copy(x, model_split(p["wi"].shape[1], cfg.d_ff)[2])
     h = x @ p["wi"]
     h = F.silu(x @ p["wg"]) * h if cfg.mlp_type == "swiglu" else F.gelu(h, approximate="tanh")
     return model_sum(h @ p["wo"], model_split(p["wo"].shape[0], cfg.d_ff)[2])
@@ -93,14 +115,19 @@ def embed_tokens(p, tokens, vocab=None):
     return model_sum(table[idx.clamp(0, V - 1)] * held[..., None].to(table.dtype), True)
 
 
-def unembed(p, x, tie, vocab_size=None):
+def unembed(p, x, tie, vocab_size=None, gather=True):
+    """Logits of x; a vocab shard's columns gathered over "model" (or, not
+    ``gather``, this rank's columns, padding masked: training's
+    vocab-parallel cross-entropy)."""
     w = p["table"].T if tie else p["head"]
-    logits = x @ w
-    if vocab_size is not None and model_split(w.shape[1], -(-vocab_size // 256) * 256)[2]:
+    sharded = vocab_size is not None and model_split(w.shape[1], -(-vocab_size // 256) * 256)[2]
+    logits = model_copy(x, sharded) @ w
+    if sharded and gather:
         logits = model_gather(logits, -1)  # vocab parallel
     vp = logits.shape[-1]
-    if vocab_size is not None and vocab_size < vp:
+    first = model_rank()[1] * vp if sharded and not gather else 0  # this rank's columns
+    if vocab_size is not None and vocab_size < first + vp:
         # padded vocab columns are never sampled
-        pad = torch.arange(vp, device=logits.device) >= vocab_size
+        pad = torch.arange(first, first + vp, device=logits.device) >= vocab_size
         logits = logits.masked_fill(pad, torch.finfo(logits.dtype).min)
     return logits

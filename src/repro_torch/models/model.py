@@ -36,15 +36,20 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.collectives import model_gather, model_split
+from repro_torch.distributed.collectives import (all_sum, model_gather, model_max, model_split,
+                                                 model_sum)
 from repro_torch.distributed.sharding import (CACHE_AXES, DEFAULT_RULES, current_mesh,
-                                              local_shape, logical_to_spec, mesh_sizes)
+                                              data_shards, local_shape, logical_to_spec,
+                                              mesh_sizes)
 from repro_torch.kernels.decode_attention import dense_positions
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import embed_tokens, init_embedding, rms_norm, unembed
+from repro_torch.models.layers import (embed_tokens, gather_weights, init_embedding, rms_norm,
+                                      unembed)
+from repro_torch.models.moe import BATCH_AXES
 
+_TOP = ("embedding", "final_norm", "enc_norm")  # the leaves outside the layers
 _ATTN_KEYS = ("k", "v", "kv_pos")
 _CROSS_KEYS = ("cross_k", "cross_v")
 
@@ -164,9 +169,11 @@ class Model:
         mem_len = torch.full((B,), M, dtype=torch.int32, device=enc_out.device)
         return mem_len, dense_positions(mem_len, M)
 
-    def _forward(self, params, batch):
-        """(logits (B, S, V) fp32, the router's losses summed over the layers)."""
+    def _forward(self, params, batch, gather=True):
+        """(logits (B, S, V) fp32, the router's losses summed over the layers);
+        not ``gather``: a vocab shard's logits stay this rank's."""
         cfg = self.cfg
+        params = {**params, **gather_weights({k: params[k] for k in _TOP if k in params})}
         # the memory is whole: cross attention takes no mem_len (K2, unmasked)
         cross_mem = (self._encode(params, batch["frames"], cfg.remat_policy) if cfg.is_encdec
                      else None)
@@ -175,7 +182,11 @@ class Model:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         x, aux = tfm.scan_full(params["layers"], cfg, x, positions, cfg.remat_policy,
                                cross_mem=cross_mem)
-        return self._logits(params, x[:, n_prefix:]), aux
+        if gather:
+            return self._logits(params, x[:, n_prefix:]), aux
+        x = rms_norm(x[:, n_prefix:], params["final_norm"], cfg.norm_eps)
+        return (unembed(params["embedding"], x, cfg.tie_embeddings, cfg.vocab_size, False).float(),
+                aux)
 
     def forward(self, params, batch):
         """Full-sequence logits (B, S, V) fp32 of ``batch["tokens"]`` (B, S)
@@ -186,20 +197,44 @@ class Model:
         """Next-token cross-entropy, ``logsumexp - target logit`` averaged over
         (B, S - 1), plus for a MoE model its router losses weighted by
         ``cfg.moe``; returns (loss, metrics ``ce``, ``ppl_log``, ``loss`` and
-        for MoE ``load_balance`` and ``router_z``)."""
-        logits, aux = self._forward(params, batch)
-        logits = logits[:, :-1]
-        targets = batch["tokens"][:, 1:].long()
-        tgt = logits.gather(-1, targets[..., None])[..., 0]
-        ce = (torch.logsumexp(logits, -1) - tgt).mean()
-        loss, metrics = ce, {"ce": ce, "ppl_log": ce}
+        for MoE ``load_balance`` and ``router_z``).  Under a mesh a rank's
+        loss takes its rows' share of the mean (``_shard_ce``) and the global
+        router losses, and its metrics are global (``ce`` summed over the
+        batch axes)."""
+        mesh = current_mesh() is not None
+        logits, aux = self._forward(params, batch, gather=not mesh)
+        logits, targets = logits[:, :-1], batch["tokens"][:, 1:].long()
+        if mesh:
+            ce = self._shard_ce(logits, targets)
+        else:
+            tgt = logits.gather(-1, targets[..., None])[..., 0]
+            ce = (torch.logsumexp(logits, -1) - tgt).mean()
         m = self.cfg.moe
-        if m is not None:
-            loss = (ce + m.load_balance_loss * aux["load_balance"]
-                    + m.router_z_loss * aux["router_z"])
-            metrics.update(aux)
-        metrics["loss"] = loss
+
+        def total(ce):
+            return ce if m is None else (ce + m.load_balance_loss * aux["load_balance"]
+                                         + m.router_z_loss * aux["router_z"])
+
+        loss = total(ce)
+        shown = all_sum(ce.detach().clone(), BATCH_AXES) if mesh else ce
+        metrics = {"ce": shown, "ppl_log": shown, **(aux if m is not None else {})}
+        metrics["loss"] = total(shown) if mesh else loss
         return loss, metrics
+
+    def _shard_ce(self, logits, targets):
+        """The sum of this rank's token losses over the global token count
+        (the ranks' gradients sum to those of the reference's mean); vocab
+        parallel where the logits are a vocab shard: a MAX all-reduce, then
+        the sum of exp and the target logit, masked to its rank, summed over
+        "model"."""
+        V = logits.shape[-1]
+        _, j, sharded = model_split(V, self.cfg.padded_vocab)
+        m = model_max(logits.detach().amax(-1), sharded)
+        lse = torch.log(model_sum(torch.exp(logits - m[..., None]).sum(-1), sharded)) + m
+        idx = targets - j * V
+        held = (idx >= 0) & (idx < V)  # the target's column on this rank
+        tgt = model_sum(logits.gather(-1, idx.clamp(0, V - 1)[..., None])[..., 0] * held, sharded)
+        return (lse - tgt).sum() / (targets.numel() * data_shards())
 
     def prefill(self, params, batch, max_len):
         """Run the prompt; returns (last-token logits (B, V) fp32, cache).

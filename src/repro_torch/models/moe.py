@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import all_sum, model_copy
 from repro_torch.distributed.sharding import current_mesh, data_shards, mesh_sizes
 from repro_torch.models.layers import dense_init
 
@@ -55,6 +56,9 @@ def init_moe(gen, cfg, dtype, device):
     return p
 
 
+BATCH_AXES = ("pod", "data")
+
+
 def capacity(n_tokens, cfg, capacity_factor):
     """Slots an expert: ceil(T k cf / E), rounded up to a multiple of 8 and
     bounded by T k."""
@@ -68,7 +72,10 @@ def route(p, cfg, tokens, losses=False):
     weights and expert ids (..., k); with ``losses`` (training) also the
     router's auxiliary losses: ``load_balance`` = E sum_e density_e / k
     mean_prob_e (the density, from the top-k ids, takes no gradient) and
-    ``router_z`` = mean(logsumexp(logits)^2)."""
+    ``router_z`` = mean(logsumexp(logits)^2).  Under a mesh the tokens are
+    this rank's data shard's, and the density, the mean probability and
+    router_z's mean are taken over every shard's (the reference keeps its
+    router global), all-reduced over the batch axes."""
     logits = tokens.float() @ p["router"]
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = probs.topk(cfg.moe.top_k, dim=-1)
@@ -78,8 +85,9 @@ def route(p, cfg, tokens, losses=False):
     E, K = cfg.moe.n_experts, cfg.moe.top_k
     density = F.one_hot(top_e, E).sum(-2).reshape(-1, E).float().mean(0)
     mean_prob = probs.reshape(-1, E).mean(0)
-    return top_w, top_e, {"load_balance": E * (density / K * mean_prob).sum(),
-                          "router_z": torch.logsumexp(logits, -1).square().mean()}
+    density, mean_prob, z = (all_sum(t, BATCH_AXES) / data_shards() for t in (
+        density, mean_prob, torch.logsumexp(logits, -1).square().mean()))
+    return top_w, top_e, {"load_balance": E * (density / K * mean_prob).sum(), "router_z": z}
 
 
 def sort_rank(flat_e, C):
@@ -138,20 +146,23 @@ def _moe(p, cfg, x, capacity_factor, losses=False, shards=1, lo=0, n_loc=None):
     mine = keep if n_loc is None else keep & (se >= first) & (se < first + G)
     # dispatch: serving sends a dropped assignment (or another rank's) to the
     # spare row G * C, past the buffer, never onto a kept token's slot;
-    # training to a slot of its own that no kept assignment fills (its result
-    # weighs 0)
-    if losses:
+    # training without a mesh to a slot of its own that no kept assignment
+    # fills (its result weighs 0).  Expert parallel training keeps the spare
+    # row: its buffer has no room for the other ranks' assignments.
+    distinct = losses and n_loc is None
+    if distinct:
         dest = _distinct_slots(se, rank_c, keep, E, C)
     else:
         dest = torch.where(mine, (se - first) * C + rank_c, G * C)
-    buf = x.new_zeros((G * C + (not losses), d))
+        tokens, top_w = model_copy(tokens), model_copy(top_w)  # the rank's experts' shares
+    buf = x.new_zeros((G * C + (not distinct), d))
     buf[dest] = tokens[order // K]
     out_buf = expert_ffn(p, cfg, buf[:G * C].view(G // shards, shards * C, d)).view(G * C, d)
     # combine: each assignment's slot back in token order, its result
     # gathered (the others weigh 0) and summed over the token's k choices
     slot, used = torch.empty_like(dest), torch.empty_like(mine)
     slot[order], used[order] = dest, mine
-    if not losses:
+    if not distinct:
         slot = torch.where(used, slot, 0)
     w = (top_w.reshape(-1) * used).to(x.dtype)
     out = (out_buf[slot] * w[:, None]).view(T, K, d).sum(1).reshape(B, S, d)
@@ -167,13 +178,15 @@ def apply_moe_hierarchical(p, cfg, x, capacity_factor=1.25):
     return _moe(p, cfg, x, capacity_factor, shards=DS if x.shape[0] * x.shape[1] % DS == 0 else 1)
 
 
-def apply_moe_expert_parallel(p, cfg, x, capacity_factor=1.25):
+def apply_moe_expert_parallel(p, cfg, x, capacity_factor=1.25, losses=False):
     """Expert parallelism over the active mesh's "model" axis (the
     reference's ``apply_moe_shardmap``), run on every rank: x is this rank's
     data shard's tokens, routed in fp32 and ranked with capacity(T_local);
     the rank computes its E / n_model experts (``p``'s stacks hold those), or
     where E < n_model its f / n_model columns of every expert, then one
-    all-reduce over "model" sums the ranks' results."""
+    all-reduce over "model" sums the ranks' results.  With ``losses``
+    (training) returns (out, the router's losses), the gradient of the
+    whole tokens and weights summed over "model" (``model_copy``)."""
     n = mesh_sizes(current_mesh())["model"]
     E, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
     if E % n and (n % E or f % n):
@@ -181,8 +194,10 @@ def apply_moe_expert_parallel(p, cfg, x, capacity_factor=1.25):
                          f"a {n}-way model axis")
     group = current_mesh().get_group("model")
     n_loc = E if E < n else E // n
-    out = _moe(p, cfg, x, capacity_factor, lo=0 if E < n else dist.get_rank(group) * n_loc,
+    out = _moe(p, cfg, x, capacity_factor, losses, lo=0 if E < n else dist.get_rank(group) * n_loc,
                n_loc=n_loc)
+    if losses:
+        return all_sum(out[0], ("model",)), out[1]
     dist.all_reduce(out, group=group)
     return out
 
@@ -191,13 +206,12 @@ def apply_moe(p, cfg, x, capacity_factor=1.25, losses=False):
     """x (B, S, d) -> (B, S, d); with ``losses`` (training) returns (out, the
     router's losses).  The gradient reaches the router through the kept
     assignments' weights and the experts through dispatch and combine; a
-    dropped assignment gets none.  Under a mesh (serving only), as the
-    reference's default dispatch: expert parallel when it has a "model"
-    axis, else hierarchical, where x is this rank's data shard, one shard of
-    that layout (``apply_moe_hierarchical`` holds them all on one device)."""
+    dropped assignment gets none.  Under a mesh, as the reference's default
+    dispatch: expert parallel when it has a "model" axis, else
+    hierarchical, where x is this rank's data shard, one shard of that
+    layout (``apply_moe_hierarchical`` holds them all on one device); the
+    capacity is the rank's tokens', the router's losses global (``route``)."""
     mesh = current_mesh()
-    if mesh is not None and losses:
-        raise ValueError("MoE training under a mesh is not ported (serving only)")
     if mesh is not None and "model" in mesh_sizes(mesh):
-        return apply_moe_expert_parallel(p, cfg, x, capacity_factor)
+        return apply_moe_expert_parallel(p, cfg, x, capacity_factor, losses)
     return _moe(p, cfg, x, capacity_factor, losses)

@@ -15,14 +15,16 @@ channels), ``in_dt``, ``A_log``, ``D``, ``dt_bias`` and the state on "heads".
 The depthwise conv runs on the rank's channels (its cache holds their raw
 window), one all-gather over "model" joins them, and the rank takes its
 heads' x and the shared B and C groups; the gated RMSNorm sums its squares
-over "model" and ``out_proj`` is row parallel, summed over "model".
+over "model" and ``out_proj`` is row parallel, summed over "model".  Under
+autograd (training) the layer's whole inputs enter its rank-specific parts
+through ``model_copy``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.collectives import model_gather, model_split, model_sum
+from repro_torch.distributed.collectives import model_copy, model_gather, model_split, model_sum
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rms_norm
 
@@ -57,8 +59,13 @@ def init_mamba(gen, cfg, dtype, device):
     }
 
 
-def _project_in(p, h):
-    return h @ p["in_z"], h @ p["in_xbc"], h @ p["in_dt"]
+def _project_in(p, cfg, h):
+    """z, xBC and dt_raw; under autograd the whole h enters the sharded
+    products through ``model_copy``."""
+    _, d_in, nh, conv_ch = _dims(cfg)
+    hc = model_copy(h)  # where the model axis splits them
+    return tuple((hc if model_split(p[k].shape[1], n)[2] else h) @ p[k]
+                 for k, n in (("in_z", d_in), ("in_xbc", conv_ch), ("in_dt", nh)))
 
 
 def _conv(window, w, b, T):
@@ -77,6 +84,7 @@ def _ssd_inputs(cfg, xBC, dt_raw, A_log, dt_bias):
         xBC = model_gather(xBC, -1)
     shp, h = xBC.shape[:-1], A_log.shape[0]
     _, j, sharded = model_split(h, nh)
+    xBC = model_copy(xBC, sharded)  # the rank's heads' x, and B and C for them
     lo = j * h * s.head_dim if sharded else 0
     x = xBC[..., lo:lo + h * s.head_dim].reshape(*shp, h, s.head_dim)
     Bm = xBC[..., d_in:d_in + gn].reshape(*shp, s.n_groups, s.d_state)
@@ -93,7 +101,7 @@ def _out(p, cfg, y, x, z):
     if not model_split(y.shape[-1], d_in)[2]:
         return rms_norm(y, p["norm"], cfg.norm_eps) @ p["out_proj"]
     yf = y.float()
-    var = model_sum(yf.square().sum(-1, keepdim=True), True) / d_in
+    var = model_copy(model_sum(yf.square().sum(-1, keepdim=True), True)) / d_in
     y = (yf * torch.rsqrt(var + cfg.norm_eps) * p["norm"].float()).to(y.dtype)
     return model_sum(y @ p["out_proj"], True)
 
@@ -102,7 +110,7 @@ def _full(p, cfg, h):
     """The layer over whole rows (B, S, d_model): (out, the padded raw conv
     input, the final SSD state fp32).  Every call runs the SSD scan once."""
     s = cfg.ssm
-    z, xBC, dt_raw = _project_in(p, h)
+    z, xBC, dt_raw = _project_in(p, cfg, h)
     padded = F.pad(xBC, (0, 0, s.d_conv - 1, 0))
     x, dt, A, Bm, C = _ssd_inputs(cfg, _conv(padded, p["conv_w"], p["conv_b"], h.shape[1]),
                                   dt_raw, p["A_log"], p["dt_bias"])
@@ -132,7 +140,7 @@ def mamba_decode(p, cfg, h, cache):
     advances ``conv`` and ``state`` to the last token, all in place."""
     s = cfg.ssm
     T = h.shape[1]
-    z, xBC, dt_raw = _project_in(p, h)
+    z, xBC, dt_raw = _project_in(p, cfg, h)
     full = torch.cat([cache["conv"], xBC], 1)                 # (B, d_conv-1+T, C_ch)
     x, dt, A, Bm, C = _ssd_inputs(cfg, _conv(full, p["conv_w"], p["conv_b"], T), dt_raw,
                                   p["A_log"], p["dt_bias"])

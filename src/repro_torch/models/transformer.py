@@ -6,7 +6,8 @@ The JAX package stacks layer parameters and scans over them; here the stack
 is a Python list of per-layer parameter dicts and a loop.  Training
 (``scan_full``) runs every layer kind under the reference's three remat
 policies and carries the MoE router's two losses, summed over the MoE
-layers from zero.  A layer holds
+layers from zero; under FSDP each layer gathers its weights inside its
+remat, so "minimal" and "full" gather them again in the backward.  A layer holds
 ``attn`` or ``mamba`` (per ``cfg.layer_kinds()``), in a decoder layer of an
 encoder-decoder also ``cross`` (cross attention over the encoder's memory
 ``mem`` = (K, V[, mem_len, mem_pos]), after the self attention), and a MoE
@@ -23,7 +24,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.layers import apply_mlp, init_mlp, rms_norm
+from repro_torch.models.layers import apply_mlp, gather_weights, init_mlp, rms_norm
 
 
 def init_layer(gen, cfg, kind, is_moe, dtype, device, cross=False):
@@ -93,6 +94,7 @@ def block_full(layer, cfg, x, positions, aux, causal=True, cross_mem=None):
     attention or Mamba2, then the MoE or MLP half; returns (x, aux plus a MoE
     layer's router losses).  ``cross_mem``, the whole encoder output (B, M,
     d): the layer projects it through its own cross K/V weights."""
+    layer = gather_weights(layer)  # FSDP: whole for this layer only
     h = rms_norm(x, layer["norm1"], cfg.norm_eps)
     if "attn" in layer:
         x = x + attn.attention_full(layer["attn"], cfg, h, positions, causal)

@@ -12,6 +12,12 @@ arithmetic: ``update`` steps the state's tensors and returns them, and
 of the parameters or the state; adafloor also writes each update into its
 gradient's tensor (jamba's 11.9B parameters at two full-width layers hold
 23.8 GB of bf16 parameters and as much of gradients).
+
+Under a mesh each leaf is the rank's shard and ``layout`` gives, leaf for
+leaf, its whole shape and the mesh axes each dimension is split over
+(``Shard``): the global norm counts each distinct shard once, adafloor
+decides factoring on the whole shape and all-reduces its row and column
+means and its RMS clip over the dimensions a shard splits.
 """
 from __future__ import annotations
 
@@ -22,7 +28,14 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.distributed.collectives import all_sum
+from repro_torch.distributed.sharding import current_mesh, mesh_sizes
 from repro_torch.params import tree_items, tree_map
+
+
+class Shard(NamedTuple):
+    shape: tuple  # the whole leaf's
+    dims: tuple   # each dimension's mesh axes (``()``: whole)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +62,19 @@ def lr_schedule(cfg, step):
     return cfg.learning_rate * warm * frac
 
 
-def global_norm(tree):
-    return torch.sqrt(sum(x.float().square().sum() for _, x in tree_items(tree)))
+def _whole(tree, layout):
+    """``layout``, or without a mesh each leaf whole on no mesh axis."""
+    return layout or [Shard(x.shape, ((),) * x.ndim) for _, x in tree_items(tree)]
+
+
+def global_norm(tree, layout=None):
+    """The norm over every leaf; under a mesh each leaf's squares over the
+    ranks that hold it alike divided out, then summed over the mesh."""
+    sizes = mesh_sizes(current_mesh() or {})
+    sq = sum(x.float().square().sum() / math.prod(n for a, n in sizes.items()
+                                                  if all(a not in d for d in s.dims))
+             for (_, x), s in zip(tree_items(tree), _whole(tree, layout), strict=True))
+    return torch.sqrt(all_sum(sq, tuple(sizes)))
 
 
 def _clip_scale(norm, max_norm):
@@ -71,16 +95,16 @@ class AdamWState(NamedTuple):
 
 
 def adamw(cfg):
-    def init(params):
+    def init(params, layout=None):
         def zeros(p):
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
         return AdamWState(torch.zeros((), dtype=torch.int32), tree_map(zeros, params),
                           tree_map(zeros, params))
 
-    def update(grads, state, params):
+    def update(grads, state, params, layout=None):
         step = state.step + 1
-        norm = global_norm(grads)
+        norm = global_norm(grads, layout)
         scale = _clip_scale(norm, cfg.clip_norm)  # clip_by_global_norm, leaf by leaf
         lr = lr_schedule(cfg, step)
         b1, b2 = cfg.beta1, cfg.beta2
@@ -106,9 +130,17 @@ class AdafloorState(NamedTuple):
 
 
 def _factored(p):
-    """The reference's test.  It sees a layer's leaf stacked over the blocks,
-    which changes nothing while a stack has fewer than 128 blocks."""
-    return p.ndim >= 2 and p.shape[-1] >= 128 and p.shape[-2] >= 128
+    """The reference's test, on a shape or a leaf.  It sees a layer's leaf
+    stacked over the blocks, which changes nothing while a stack has fewer
+    than 128 blocks."""
+    shape = getattr(p, "shape", p)
+    return len(shape) >= 2 and shape[-1] >= 128 and shape[-2] >= 128
+
+
+def _mean(x, dim, axes, n):
+    """x's mean along ``dim`` of ``n`` whole entries, its shard's sum
+    all-reduced over ``axes`` where that dimension is split."""
+    return x.mean(dim) if not axes else all_sum(x.sum(dim), axes) / n
 
 
 def _stacks(params, scan_block):
@@ -127,11 +159,12 @@ def _stacks(params, scan_block):
 PIECE = 1 << 28  # elements of a leaf that adafloor takes at once (1 GiB in float32)
 
 
-def _slices(p, g, vr, vc):
-    """(parameter, gradient, vr, vc or None if the leaf is not factored) cut
-    along the first axis into slices of at most PIECE elements, a leaf of
-    fewer than 3 axes whole: a slice's statistics depend on it alone."""
-    vc = vc if _factored(p) else None
+def _slices(p, g, vr, vc, whole):
+    """(parameter, gradient, vr, vc or None if the ``whole`` leaf is not
+    factored) cut along the first axis into slices of at most PIECE
+    elements, a leaf of fewer than 3 axes whole: a slice's statistics depend
+    on it alone."""
+    vc = vc if _factored(whole) else None
     if p.ndim < 3:
         return [(p, g, vr, vc)]
     n = max(1, PIECE * p.shape[0] // p.numel())
@@ -145,45 +178,53 @@ def adafloor(cfg, scan_block=1):
     leaf together with the same leaf of every layer ``scan_block`` apart.
     Two passes over each stack, slice by slice (``_slices``): the statistics
     and the sum of u², then the clipped update."""
-    def init(params):
-        def zeros(p, factored, whole):
-            return torch.zeros(factored if _factored(p) else whole, dtype=torch.float32,
-                               device=p.device)
+    def init(params, layout=None):
+        shapes = [s.shape for s in _whole(params, layout)]
+
+        def zeros(factored, whole):  # each leaf's state, factored by its whole shape
+            it = iter(shapes)
+            return tree_map(lambda p: torch.zeros(factored(p) if _factored(next(it)) else whole(p),
+                                                  dtype=torch.float32, device=p.device), params)
 
         return AdafloorState(torch.zeros((), dtype=torch.int32),
-                             tree_map(lambda p: zeros(p, p.shape[:-1], p.shape), params),
-                             tree_map(lambda p: zeros(p, p.shape[:-2] + p.shape[-1:], (1,)),
-                                      params))
+                             zeros(lambda p: p.shape[:-1], lambda p: p.shape),
+                             zeros(lambda p: p.shape[:-2] + p.shape[-1:], lambda p: (1,)))
 
-    def update(grads, state, params):
+    def update(grads, state, params, layout=None):
         step = state.step + 1
-        norm = global_norm(grads)
+        norm = global_norm(grads, layout)
         scale = _clip_scale(norm, cfg.clip_norm)  # clip_by_global_norm, leaf by leaf
         lr = lr_schedule(cfg, step)
         decay = 1.0 - (step.float() + 1.0) ** -0.8
 
-        def direction(g, vr, vc, first):
+        def direction(g, vr, vc, first, shard):
             """u of a slice; ``first`` steps its statistics in place first."""
             g = g.float() * scale
+            (rows, cols), (m, n) = ((), ()), (0, 0)
+            if vc is not None:  # factored: its rows and columns may be split
+                (rows, cols), (m, n) = shard.dims[-2:], shard.shape[-2:]
             if first:
                 g2 = g.square().add_(1e-30)
-                vr.mul_(decay).add_((1 - decay) * (g2 if vc is None else g2.mean(-1)))
+                vr.mul_(decay).add_((1 - decay) * (g2 if vc is None else _mean(g2, -1, cols, n)))
                 if vc is not None:
-                    vc.mul_(decay).add_((1 - decay) * g2.mean(-2))
+                    vc.mul_(decay).add_((1 - decay) * _mean(g2, -2, rows, m))
             if vc is None:
                 return g.mul_(torch.rsqrt(vr + 1e-30))
             denom = (vr[..., None] * vc[..., None, :]).div_(
-                vr.mean(-1).clamp(min=1e-30)[..., None, None])
+                _mean(vr, -1, rows, m).clamp(min=1e-30)[..., None, None])
             return g.mul_(denom.add_(1e-30).rsqrt_())
 
         leaves = [[x for _, x in tree_items(t)] for t in (params, grads, state.vr, state.vc)]
+        layout = _whole(params, layout)
         for stack in _stacks(params, scan_block):
-            parts = [s for i in stack for s in _slices(*(t[i] for t in leaves))]
-            sq = sum(direction(*s[1:], first=True).square().sum() for s in parts)
-            n = sum(s[0].numel() for s in parts)
+            shard = layout[stack[0]]
+            parts = [s for i in stack for s in _slices(*(t[i] for t in leaves), shard.shape)]
+            sq = sum(direction(*s[1:], True, shard).square().sum() for s in parts)
+            n = len(stack) * math.prod(shard.shape)
+            sq = all_sum(sq, sorted({a for d in shard.dims for a in d}))
             div = torch.clamp(torch.sqrt(sq / n + 1e-30) / cfg.clip_rms, min=1.0)
             for p, g, vr, vc in parts:
-                u = direction(g, vr, vc, False).div_(div).add_(cfg.weight_decay * p.float())
+                u = direction(g, vr, vc, False, shard).div_(div).add_(cfg.weight_decay * p.float())
                 g.copy_(u.mul_(-lr))
         return grads, AdafloorState(step, state.vr, state.vc), {"grad_norm": norm, "lr": lr}
 

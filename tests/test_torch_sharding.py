@@ -89,9 +89,9 @@ def test_health_tracking_matches_the_reference(seed):
 @pytest.mark.parametrize("what", ["batch", "cache capacity", "experts", "training"])
 def test_what_the_reference_leaves_to_gspmd_raises(what):
     """Where the reference falls back to GSPMD's layout (a cache capacity
-    that does not split, experts that split neither way) or has no mesh path
-    (MoE training), the port refuses by name.  A batch that does not split
-    is held whole on every data shard, as the reference's spec holds it."""
+    that does not split, experts that split neither way, in serving and in
+    training), the port refuses by name.  A batch that does not split is
+    held whole on every data shard, as the reference's spec holds it."""
     cfg = configs.reduced_config("mixtral-8x7b")
     model = build_model(cfg, "cpu")
     p, x = model.init(0)["layers"][0]["moe"], torch.zeros(2, 4, cfg.d_model)
@@ -99,10 +99,11 @@ def test_what_the_reference_leaves_to_gspmd_raises(what):
         with sharding.use_mesh({"data": 2, "model": 4}):
             assert model.init_cache(3, 32)["k"].shape[1:3] == (3, 8)
         return
-    with sharding.use_mesh({"data": 2, "model": 4}), pytest.raises(ValueError, match=what):
+    with sharding.use_mesh({"data": 2, "model": 4}), pytest.raises(
+            ValueError, match="experts" if what == "training" else what):
         if what == "cache capacity":
             model.init_cache(4, 30)
-        bad = dataclasses.replace(cfg, moe=configs.MoEConfig(6, 2, 6)) if what == "experts" else cfg
+        bad = dataclasses.replace(cfg, moe=configs.MoEConfig(6, 2, 6)) if what != "batch" else cfg
         moe.apply_moe(p, bad, x, losses=what == "training")
 
 
