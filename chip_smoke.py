@@ -212,6 +212,19 @@ Phases, each fatal on failure:
      same layer in fp32, within 1.25x the no-mesh layer's largest and mean
      error), in prefill and a verify, timed with their all-reduces; in phase 16 (a), the same layers
      on one NCCL rank bit-equal to the layer without a mesh;
+     resilient training under a mesh, in phase 16 (b)'s two ranks after
+     its training steps: (i) a compressed AdamW step of full-width
+     qwen3-1.7b at 2 layers (S = 2048) under ZeRO-1 at data = 2 and at
+     model = 2, and (iv) of one mamba2-2.7b layer at model = 2, each against
+     the compressed step without a mesh (fp32 with the CPU test's limits of
+     compressed steps; bf16 the gradients and the dequantised gradients by
+     their mean and largest errors against the fp32 step),
+     K2's or K4's forward and backward counted; (ii) two compressed steps at
+     data = 2, a checkpoint of whole arrays, restored at model = 2 and
+     without a mesh (on each rank, and in this process without a process
+     group), each continued two steps and held to the run without a mesh;
+     (iii) its restore at data = 2, bit-equal to the uninterrupted run;
+     save and restore seconds, the checkpoint's bytes, ms a step;
  18. print the kernel table as one JSON line, then the result line.
 Every serve of phases 4-8, and phase 9's qwen2.5-14b serve, runs twice on
 the same weights (phase 9 profiles only graphed serves and runs its other
@@ -4640,13 +4653,16 @@ def distributed_phase(report: dict) -> None:
                                    os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
              for r in range(2)]
     try:
-        codes = [proc.wait(timeout=300) for proc in procs]
+        codes = [proc.wait(timeout=600) for proc in procs]
     finally:
         for proc in procs:
             proc.kill()
     if codes != [0, 0]:
         fail(f"distributed (b): the two ranks exited {codes}")
     res.update(json.loads((Path(run) / "rank0.json").read_text()))
+    t = time.perf_counter()
+    elastic_parent(run, res)
+    res["(b) resilient training"]["parent_s"] = time.perf_counter() - t
     for name, r in res.items():
         if name.startswith("(b)"):
             if "all_reduce_ms" in r:
@@ -4666,8 +4682,11 @@ def distributed_rank(rank: int, run: str) -> None:
     under the mesh against the layer without one (K1 inside); the qwen3-moe
     layer with 64 experts a rank against the one-rank layer (bf16 2e-2);
     M12's tensor-parallel layers (``tp_layer``: fp32 within TP_TOL, bf16 by
-    ``bf16_error``).  Each timed beside K1 or the one-rank layer (rank 0
-    alone, the other waiting).  Rank 0 writes rank0.json."""
+    ``bf16_error``); the training steps under a mesh (``MESH_TRAIN``);
+    resilient training: compressed steps (``MESH_COMPRESSED``) and a
+    checkpoint saved at data = 2 and restored (``elastic_mesh_case``).  Each
+    timed beside K1 or the one-rank layer (rank 0 alone, the other waiting).
+    Rank 0 writes rank0.json."""
     import datetime
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -4763,6 +4782,17 @@ def distributed_rank(rank: int, run: str) -> None:
             res[f"(b) train {name} {dt}"] = train_mesh_case(
                 meshes[shape], name, arch, n_layers, dt, fsdp, B, rank == 0 and dt == "bfloat16")
             release()
+    t = time.perf_counter()
+    for name, (arch, n_layers, shape, B) in MESH_COMPRESSED.items():  # resilient training
+        for dt in ("float32", "bfloat16"):
+            res[f"(b) compressed {name} {dt}"] = compressed_mesh_case(
+                meshes[shape], name, arch, n_layers, dt, B, dt == "bfloat16")
+            release()
+            if rank == 0:
+                print(f"[{time.perf_counter() - t:.1f} s] distributed (b) compressed {name} {dt} "
+                      "passed", flush=True)
+    res["(b) checkpoint"], res["no-mesh continuation"] = elastic_mesh_case(meshes, run)
+    res["(b) resilient training"] = {"rank_s": time.perf_counter() - t}
     if rank == 0:
         (Path(run) / "rank0.json").write_text(json.dumps(res))
     dist.destroy_process_group()
@@ -4909,6 +4939,309 @@ def train_mesh_case(mesh, name: str, arch: str, n_layers: int, dt: str, fsdp: bo
             r["no_mesh_ms"] = wall_ms(timer(tree_map(torch.clone, params), {"tokens": tokens}), 1)
         dist.barrier()
     return r
+
+
+# (b)'s compressed steps under a mesh: name -> (arch, layers, (data, model), rows), at S = 2048
+MESH_COMPRESSED = {"qwen3 ZeRO-1 data=2": ("qwen3-1.7b", 2, (2, 1), 2),
+                   "qwen3 model=2": ("qwen3-1.7b", 2, (1, 2), 4),
+                   "mamba2 model=2": ("mamba2-2.7b", 1, (1, 2), 4)}
+
+
+def _at(t, starts, shape):
+    """t's piece at ``starts`` of ``shape`` (a dimension of 1 broadcast)."""
+    for d, (a, n) in enumerate(zip(starts, shape, strict=True)):
+        t = t.narrow(d, a, n) if t.shape[d] > 1 else t
+    return t
+
+
+def compressed_mesh_case(mesh, name: str, arch: str, n_layers: int, dt: str, B: int,
+                         timed_rank: bool, S: int = 2048, seed: int = 47) -> dict:
+    """One AdamW step of ``arch`` (full width, ``n_layers`` layers, in dtype
+    dt) with int8 gradient compression on this rank's shards under ``mesh``
+    (ZeRO-1), against the compressed step without a mesh on the whole
+    weights and batch.  fp32 with the limits of the CPU test of compressed
+    steps: the loss within 1e-5 (relative); the parameter shards within 1e-4
+    and the error tree's within 1e-6 of their place, but at the entries a
+    rounding flip moved (at most 1e-3 of them), where within 2 lr + 1e-4 and
+    one quantum of the row (max |g| / 127) + 1e-6; away from the flips the
+    change the step makes to the rank's optimizer piece within ``STEP_TOL``
+    of the change without a mesh, in norm.  bf16, against the fp32 step
+    without a mesh: the gradients the round trip takes (reduced over the
+    batch axes) and the dequantised ones (the optimizer's input), each by
+    its mean error within 1.25x the bf16 step's without a mesh, and the
+    gradients' largest error within 1.25x its largest plus one bf16 ulp of
+    the largest gradient (a largest error is one entry's rounding: the two
+    sides differ by an ulp there; a dequantised one is a flipped entry's
+    quantum, printed).  K2's and K4's launches under the mesh counted; with
+    ``timed_rank``, wall ms a step under the mesh (both ranks) and on rank 0
+    without one."""
+    import dataclasses
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.compression import GradientCompressor
+    from repro_torch.models.model import Model
+    from repro_torch.params import tree_items, tree_map
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype=dt)
+    params = Model(cfg, "cuda").init(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda",
+                           dtype=torch.int32)
+
+    def step(p, batch, c=cfg):
+        """(loss, lr, on the host: the dequantised gradients, the error tree,
+        the parameters after the step and their change, each row's quantum;
+        the places of the rank's leaves; the gradients before the round trip)."""
+        init_opt, ts = make_train_step(Model(c, "cuda"), compression=GradientCompressor())
+        opt = init_opt(p)
+        _, m, grads = ts.grads(p, batch)
+        before = [x.float().cpu() for _, x in tree_items(grads)]
+        quanta = [x.float().abs().amax(-1, keepdim=True).div_(127.0).cpu() if x.dim() else x.cpu()
+                  for _, x in tree_items(grads)]
+        was = [x.cpu() for _, x in tree_items(p)]
+        p, opt, m = ts.update(p, opt, grads, m)
+        out = (float(m["loss"]), float(m["lr"]), [x.float().cpu() for _, x in tree_items(grads)],
+               [x.cpu() for _, x in tree_items(opt[1])],
+               [(x.float().cpu(), (x.cpu() - w).float()) for (_, x), w in zip(
+                   tree_items(p), was, strict=True)], quanta, ts.places(p), before)
+        del opt, grads
+        return out
+
+    want = step(tree_map(torch.clone, params), {"tokens": tokens})
+    sizes = sharding.mesh_sizes(mesh)
+    i = sharding.mesh_coord(mesh)["data"]
+    rows = {"tokens": tokens[i * B // sizes["data"]:(i + 1) * B // sizes["data"]]}
+    rules = sharding.ZERO1_PARAM_RULES
+    with sharding.use_mesh(mesh), sharding.use_rules(rules):
+        local = sharding.shard_params(params, sharding.param_axes(params), mesh, rules, cfg)
+        before = mesh_train_counts()
+        got = step(local, rows)
+        r = {f"{k}_launches": v - before[k] for k, v in mesh_train_counts().items()}
+    tag, places = f"distributed (b) compressed {name} {dt}", got[6]
+    n, pieces = len(places["params"]), places["opt"][-len(places["params"]):]
+    if not r["flash_attention_launches" if arch.startswith("qwen3") else "ssd_scan_launches"] \
+            or not r["flash_attention_bwd_launches" if arch.startswith("qwen3")
+                     else "ssd_scan_bwd_launches"]:
+        fail(f"{tag}: launches {r}")
+    r["loss"], r["no_mesh_loss"] = got[0], want[0]
+    if dt == "float32":
+        if abs(got[0] - want[0]) > 1e-5 * max(1.0, abs(want[0])):
+            fail(f"{tag}: loss {got[0]} against {want[0]} without a mesh")
+        lr, past, size, step_err = want[1], 0, 0, 0.0
+        for (x, dx), (y, dy), a, e, we, q, piece in zip(got[4], want[4], places["params"], got[3],
+                                                       want[3], want[5], pieces, strict=True):
+            d, de = (x - _at(y, a, x.shape)).abs(), (e - _at(we, piece, e.shape)).abs()
+            quantum = _at(q, piece, e.shape)
+            if not bool((d <= 2 * lr + 1e-4).all()) or not bool((de <= quantum + 1e-6).all()):
+                fail(f"{tag}: a parameter or error shard beyond a flip's reach")
+            past += int((d > 1e-4).sum()) + int((de > 1e-6).sum())
+            size += d.numel() + de.numel()
+            keep = de <= 1e-6  # the rank's optimizer piece away from the flips
+            mine = _at(dx, [b - c for b, c in zip(piece, a, strict=True)], e.shape) * keep
+            theirs = _at(dy, piece, e.shape) * keep
+            step_err = max(step_err, float((mine - theirs).norm() / theirs.norm().clamp(min=1e-30)))
+        r["flips"], r["step_err"] = past, step_err
+        if past > 1e-3 * size or step_err > STEP_TOL:
+            fail(f"{tag}: {past} entries past the limits of {size}, a step's change "
+                 f"{step_err:.3g} (in norm) from the step without a mesh")
+    else:
+        exact = step(tree_map(lambda t: t.float(), params), {"tokens": tokens},
+                     dataclasses.replace(cfg, dtype="float32"))
+        flat = {i: [torch.cat([(x if v is got else _at(x, piece, mine.shape)).flatten()
+                               for x, piece, mine in zip(v[i], pieces, got[i], strict=True)])
+                    for v in (got, want, exact)] for i in (2, 7)}
+        for i, k in ((7, "grad"), (2, "deq")):
+            errs = [(x - flat[i][2]).abs() for x in flat[i][:2]]
+            r[f"{k}_max_err"], r[f"{k}_no_mesh_max_err"] = (float(e.max()) for e in errs)
+            r[f"{k}_mean_err"], r[f"{k}_no_mesh_mean_err"] = (float(e.mean()) for e in errs)
+        ulp = 2.0 ** (math.floor(math.log2(float(flat[7][2].abs().max()))) - 7)
+        if r["grad_max_err"] > 1.25 * r["grad_no_mesh_max_err"] + ulp or any(
+                r[f"{k}_mean_err"] > 1.25 * r[f"{k}_no_mesh_mean_err"] for k in ("grad", "deq")):
+            fail(f"{tag}: bf16 errors against the fp32 step without a mesh {r} (one bf16 ulp "
+                 f"of the largest gradient {ulp:.3g})")
+        del exact, flat
+    if timed_rank:  # ms a step under the mesh on both ranks, then without one on rank 0
+        def timer(p, batch):
+            init_opt, ts = make_train_step(Model(cfg, "cuda"), compression=GradientCompressor())
+            opt = init_opt(p)
+            return lambda: ts(p, opt, batch)
+
+        with sharding.use_mesh(mesh), sharding.use_rules(rules):
+            r["ms"] = wall_ms(timer(local, rows), 1)
+        release()
+        dist.barrier()
+        if sharding.mesh_coord(mesh) == {a: 0 for a in sizes}:
+            r["no_mesh_ms"] = wall_ms(timer(tree_map(torch.clone, params), {"tokens": tokens}), 1)
+        dist.barrier()
+    return r
+
+
+ELASTIC_BATCH = (2, 2048, 48)  # (ii)-(iii): rows, tokens a row, seed
+
+
+def elastic_mesh_case(meshes, run: str) -> dict:
+    """Full-width qwen3-1.7b at 2 layers, fp32, compressed, under ZeRO-1 at
+    data = 2: two steps, a checkpoint (whole arrays from the two ranks'
+    shards), two more steps (the uninterrupted run).  The checkpoint then
+    restores at data = 2 (the restart: two steps, bit-equal to the
+    uninterrupted run's losses and shards), without a mesh on each rank (two
+    steps: the run the others are held to, its losses and grad norms kept
+    for the parent's restore) and at model = 2 (two steps, held to the run
+    without a mesh: loss 1e-5, grad norm 1e-4 relative, parameters within 2
+    lr for each step, as a held compressed step: a rounding flip moves an
+    entry by up to its step's lr and AdamW carries it); each restored shard
+    bit-equal to its slice of the whole arrays.  Deterministic algorithms
+    on, as launch.train sets them.  Save and restore seconds, the
+    checkpoint's bytes, ms a step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.compression import GradientCompressor
+    from repro_torch.models.model import Model
+    from repro_torch.params import tree_items
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.train_loop import make_train_step
+
+    from repro_torch.training.optimizer import OptConfig, lr_schedule
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=2, dtype="float32")
+    B, S, seed = ELASTIC_BATCH
+    tokens = elastic_tokens(cfg)
+    ck, res = CheckpointManager(f"{run}/ckpt", keep=1), {}
+    rules = sharding.ZERO1_PARAM_RULES
+
+    def go(mesh, state, first, n):
+        """n steps from step ``first``: (state, losses, grad norms, ms a step)."""
+        i, k = (sharding.mesh_coord(mesh)["data"], mesh.shape[0]) if mesh else (0, 1)
+        init_opt, ts = make_train_step(Model(cfg, "cuda"), compression=GradientCompressor())
+        p, opt = state[:2] if isinstance(state, tuple) else (state, init_opt(state))
+        losses, norms = [], []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for s in range(first, first + n):
+            p, opt, m = ts(p, opt, {"tokens": tokens[s][i * B // k:(i + 1) * B // k]})
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        return (p, opt), losses, norms, (time.perf_counter() - t) / n * 1e3, ts
+
+    def restored(mesh, key):
+        """The checkpoint restored under ``mesh`` (None: whole), timed:
+        (parameters, optimizer state, places)."""
+        model = Model(cfg, "cuda")
+        init_opt, ts = make_train_step(model, compression=GradientCompressor())
+        p = model.init(0)
+        if mesh is not None:
+            p = sharding.shard_params(p, sharding.param_axes(p), mesh, rules, cfg)
+        places = ts.places(p)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, back = ck.restore({"params": p, "opt": init_opt(p)}, places=places)
+        torch.cuda.synchronize()
+        res[f"{key}_restore_s"] = time.perf_counter() - t
+        return back["params"], back["opt"], places
+
+    mesh = meshes[(2, 1)]
+    with sharding.use_mesh(mesh), sharding.use_rules(rules):
+        whole = Model(cfg, "cuda").init(seed)
+        state, losses, _, ms, ts = go(mesh, sharding.shard_params(
+            whole, sharding.param_axes(whole), mesh, rules, cfg), 0, 2)
+        del whole
+        t = time.perf_counter()
+        ck.save(2, {"params": state[0], "opt": state[1], "meta": {"step": 2}},
+                places=ts.places(state[0]))
+        res["save_s"] = time.perf_counter() - t
+        res["checkpoint_bytes"] = sum(f.stat().st_size for f in Path(
+            f"{run}/ckpt/step_00000002").iterdir())
+        state, more, _, res["data2_ms"], _ = go(mesh, state, 2, 2)
+        again, again_losses, _, _, _ = go(mesh, restored(mesh, "data2"), 2, 2)
+        res["restart_bit_equal"] = again_losses == more and all(torch.equal(a, b) for (_, a), (
+            _, b) in zip(tree_items(state), tree_items(again), strict=True))
+        if not res["restart_bit_equal"]:
+            fail(f"distributed (b) restart at data = 2: losses {again_losses} against {more}")
+        del state, again
+    release()
+    whole, want, want_norms, res["no_mesh_ms"], _ = go(None, restored(None, "no_mesh"), 2, 2)
+    mesh = meshes[(1, 2)]
+    with sharding.use_mesh(mesh), sharding.use_rules(rules):
+        *state, places = restored(mesh, "model2")
+        leaves = CheckpointManager(f"{run}/ckpt").read()[1]
+        res["restored_bit_equal"] = all(torch.equal(x.cpu(), _at(leaves[f"{g}/{k}"], a, x.shape))
+                                        for g, t in zip(("params", "opt"), state)
+                                        for (k, x), a in zip(tree_items(t), places[g], strict=True))
+        del leaves
+        state, losses, norms, res["model2_ms"], _ = go(mesh, tuple(state), 2, 2)
+    lr = 2 * sum(float(lr_schedule(OptConfig(), s)) for s in (3, 4))  # 2 lr a step
+    res["model2_param_err"] = max(float((x - _at(w, a, x.shape)).abs().max()) for (_, x), (
+        _, w), a in zip(tree_items(state[0]), tree_items(whole[0]), places["params"], strict=True))
+    if not res["restored_bit_equal"] or any(abs(a - b) > 1e-5 * abs(b) for a, b in zip(
+            losses, want, strict=True)) or any(abs(a - b) > 1e-4 * b for a, b in zip(
+                norms, want_norms, strict=True)) or res["model2_param_err"] > lr:
+        fail(f"distributed (b) restore at model = 2: shards bit-equal "
+             f"{res['restored_bit_equal']}, losses {losses} against {want}, grad norms {norms} "
+             f"against {want_norms}, parameters {res['model2_param_err']:.3g} (2 lr a step: "
+             f"{lr:.3g})")
+    torch.use_deterministic_algorithms(False)
+    return res, {"losses": want, "grad_norms": want_norms}
+
+
+def elastic_parent(run: str, res: dict) -> None:
+    """(ii)'s restore in this process, without a mesh or a process group:
+    two steps from the ranks' checkpoint, held to the ranks' run without a
+    mesh from it (loss 1e-5, grad norm 1e-4 relative; whether the losses are
+    the same bits is printed: this process is not in deterministic mode)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import GradientCompressor
+    from repro_torch.models.model import Model
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=2, dtype="float32")
+    tokens, model = elastic_tokens(cfg), Model(cfg, "cuda")
+    init_opt, ts = make_train_step(model, compression=GradientCompressor())
+    p = model.init(0)
+    t = time.perf_counter()
+    _, back = CheckpointManager(f"{run}/ckpt").restore({"params": p, "opt": init_opt(p)})
+    torch.cuda.synchronize()
+    r, want = {"restore_s": time.perf_counter() - t}, res.pop("no-mesh continuation")
+    p, opt, got = back["params"], back["opt"], []
+    for s in (2, 3):
+        p, opt, m = ts(p, opt, {"tokens": tokens[s]})
+        got.append((float(m["loss"]), float(m["grad_norm"])))
+    r["loss_rel_err"] = max(abs(a - b) / b for (a, _), b in zip(got, want["losses"], strict=True))
+    r["grad_norm_rel_err"] = max(abs(a - b) / b for (_, a), b in zip(got, want["grad_norms"],
+                                                                      strict=True))
+    r["losses_bit_equal"] = [a for a, _ in got] == want["losses"]
+    res["(b) checkpoint restored in the parent, no mesh"] = r
+    shutil.rmtree(Path(run) / "ckpt", ignore_errors=True)
+    if r["loss_rel_err"] > 1e-5 or r["grad_norm_rel_err"] > 1e-4:
+        fail(f"distributed (b) restore in the parent: {r}")
+
+
+def elastic_tokens(cfg):
+    """The four steps' tokens of ``elastic_mesh_case`` (the same in every process)."""
+    import torch
+
+    B, S, seed = ELASTIC_BATCH
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (4, B, S), generator=g, device="cuda",
+                         dtype=torch.int32)
 
 
 TP_ARCHS = ("qwen3-1.7b", "mamba2-2.7b")
@@ -5481,6 +5814,24 @@ def main() -> None:
         kernels.append(entry(name, kernel, dryrun_timing[name.replace("training ", "")
                                                          if name.startswith("ssd_scan (")
                                                          else name], n))
+    # resilient training under a mesh: K2 and K4 at a rank's heads from (b)'s
+    # compressed steps at model = 2 (rank 0, fp32 and bf16), at the shapes of
+    # the rows above
+    ct = {arch: {k: sum(report["distributed"][f"(b) compressed {arch} model=2 {dt}"][
+        k + "_launches"] for dt in ("bfloat16", "float32")) for k in MESH_TRAIN_KERNELS}
+          for arch in ("qwen3", "mamba2")}
+    for name, kernel, n, timed_as in (
+            ("flash_attention (compressed TP training rank, H = 8, lse)", "flash_wgmma_kernel",
+             ct["qwen3"]["flash_attention"], "flash_attention (TP training rank, H = 8, lse)"),
+            ("flash_attention_bwd (compressed TP training rank, H = 8)",
+             "dkdv_wgmma_kernel, dq_wgmma_kernel", ct["qwen3"]["flash_attention_bwd"],
+             "flash_attention_bwd (TP training rank, H = 8)"),
+            ("ssd_scan (compressed TP training rank, H = 40)", "ssd_wgmma_kernel",
+             ct["mamba2"]["ssd_scan"], "ssd_scan (TP rank, H = 40)"),
+            ("ssd_scan_bwd (compressed TP training rank, H = 40)", "ssd_bwd_wgmma_kernel, "
+             "ssd_bwd_reduce4_kernel", ct["mamba2"]["ssd_scan_bwd"],
+             "ssd_scan_bwd (TP training rank, H = 40)")):
+        kernels.append(entry(name, kernel, dryrun_timing[timed_as], n))
     report["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -138,11 +138,11 @@ def model_sum(x, sharded):
     return all_sum(x, ("model",)) if sharded else x
 
 
-def model_max(x, sharded):
-    """The elementwise max of x over "model", in place (no gradient), where
-    x is a shard's; x as it is otherwise."""
-    if sharded:
-        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_group("model"))
+def all_max(x, axes):
+    """The elementwise max of x over the mesh axes ``axes`` (those larger
+    than 1), in place, no gradient: exact in any order."""
+    for axis in _spanned(axes):
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_group(axis))
     return x
 
 

@@ -7,7 +7,7 @@
 * :class:`StragglerDetector`: each worker's step time as an EWMA against the
   fleet's median; a worker slower than ``threshold`` x the median is flagged.
 * :class:`TrainSupervisor`: crash-restart training from the latest
-  checkpoint.
+  checkpoint, under a mesh too.
 """
 from __future__ import annotations
 
@@ -77,7 +77,11 @@ class TrainSupervisor:
     """``run_step(step)`` runs one training step and may raise; ``save(step)``
     and ``restore() -> step`` talk to the checkpoint manager.  A failure
     rolls back to the latest checkpoint and replays: the data are seeded per
-    step, so a replay is bit for bit the run it replaces."""
+    step, so a replay is bit for bit the run it replaces.  Under a mesh
+    every rank runs the loop: ``save`` and ``restore`` are collective
+    (``CheckpointManager`` with the train step's ``places``), a failure is
+    raised on every rank at the same step, and the checkpoint restores onto
+    any mesh (the reference's elastic restart onto a smaller pool)."""
 
     def __init__(self, run_step, save, restore, checkpoint_every=50, max_restarts=10):
         self.run_step, self.save, self.restore = run_step, save, restore

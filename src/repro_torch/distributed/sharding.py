@@ -221,32 +221,47 @@ def param_specs(axes_tree, params, mesh, rules=None, cfg=None):
     return specs
 
 
+def mesh_coord(mesh):
+    """{axis: this rank's index on it} of a DeviceMesh; rank 0's (all 0)
+    for a mapping of sizes."""
+    sizes = mesh_sizes(mesh)
+    return dict(zip(sizes, [0] * len(sizes) if isinstance(mesh, dict) else mesh.get_coordinate(),
+                    strict=True))
+
+
+def piece_bounds(params, axes_tree, mesh, rules=None, cfg=None):
+    """Where this rank's piece of each leaf lies in the whole leaf, as
+    :func:`shard_params` cuts it, in leaf order: (starts, shape) a leaf.
+    With ``cfg``, the query heads of a config whose heads the reference pads
+    follow :func:`head_range`."""
+    sizes, coord = mesh_sizes(mesh), mesh_coord(mesh)
+    leaves, spec = pytree.tree_flatten(params)
+    out = [(starts, list(shape)) for shape, starts in (
+        local_shape(v.shape, s, sizes, coord) for v, s in zip(
+            leaves, axes_leaves(param_specs(axes_tree, params, mesh, rules, cfg)), strict=True))]
+    if cfg is not None and cfg.padded_heads != cfg.n_heads:  # the padded slots' real heads
+        h0, h1 = head_range(cfg, sizes.get("model", 1), coord.get("model", 0))
+        for (idx,), name, d in _head_leaves(cfg, pytree.tree_unflatten(list(range(len(leaves))),
+                                                                        spec)):
+            out[idx[name]][0][d], out[idx[name]][1][d] = h0, h1 - h0
+    return out
+
+
 def shard_params(params, axes_tree, mesh, rules=None, cfg=None):
     """This rank's shard of every leaf under ``rules`` (the active rules by
     default): each leaf, whole on every rank, narrowed on each sharded
     dimension to the piece of the rank's mesh coordinate (rank 0's for a
-    mapping of sizes; a copy where it is smaller, no collective); meta
-    tensors give meta shards.  With ``cfg``, the query heads of a config
-    whose heads the reference pads follow :func:`head_range`."""
-    sizes = mesh_sizes(mesh)
-    coord = dict(zip(sizes, [0] * len(sizes) if isinstance(mesh, dict)
-                     else mesh.get_coordinate(), strict=True))
-
-    def narrow(v, dims):
-        for d, (size, start) in enumerate(zip(*dims, strict=True)):
-            v = v.narrow(d, start, size)
-        return v
-
-    def piece(v, spec):
-        return narrow(v, local_shape(v.shape, spec, sizes, coord))
-
-    out = pytree.tree_map(piece, params, param_specs(axes_tree, params, mesh, rules, cfg))
-    if cfg is not None and cfg.padded_heads != cfg.n_heads:  # the padded slots' real heads
-        h0, h1 = head_range(cfg, sizes.get("model", 1), coord.get("model", 0))
-        for (mine, whole), name, d in _head_leaves(cfg, out, params):
-            mine[name] = whole[name].narrow(d, h0, h1 - h0)
-    return pytree.tree_map(lambda v, w: v.clone() if v.numel() < w.numel() else v, out,
-                           params)
+    mapping of sizes; a copy where it is smaller, no collective;
+    :func:`piece_bounds`); meta tensors give meta shards."""
+    leaves, spec = pytree.tree_flatten(params)
+    out = []
+    for v, (starts, shape) in zip(leaves, piece_bounds(params, axes_tree, mesh, rules, cfg),
+                                  strict=True):
+        piece = v
+        for d, (a, n) in enumerate(zip(starts, shape, strict=True)):
+            piece = piece.narrow(d, a, n)
+        out.append(piece.clone() if piece.numel() < v.numel() else piece)
+    return pytree.tree_unflatten(out, spec)
 
 
 _ATTN = {"wq": "embed heads -", "wk": "embed kv -", "wv": "embed kv -", "wo": "heads - embed",

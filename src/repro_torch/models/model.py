@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.collectives import (all_sum, model_gather, model_max, model_split,
+from repro_torch.distributed.collectives import (all_max, all_sum, model_gather, model_split,
                                                  model_sum)
 from repro_torch.distributed.sharding import (CACHE_AXES, DEFAULT_RULES, current_mesh,
                                               data_shards, local_shape, logical_to_spec,
@@ -229,7 +229,7 @@ class Model:
         "model"."""
         V = logits.shape[-1]
         _, j, sharded = model_split(V, self.cfg.padded_vocab)
-        m = model_max(logits.detach().amax(-1), sharded)
+        m = all_max(logits.detach().amax(-1), ("model",) if sharded else ())
         lse = torch.log(model_sum(torch.exp(logits - m[..., None]).sum(-1), sharded)) + m
         idx = targets - j * V
         held = (idx >= 0) & (idx < V)  # the target's column on this rank
